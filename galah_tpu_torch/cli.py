@@ -1,0 +1,198 @@
+"""``python -m galah_tpu_torch cluster``: the port's command line.
+
+The slice's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
+-x), the thresholds, the skani precluster with the skani or fastani
+clusterer, the cluster definition TSV, and the device. Defaults and
+percentage parsing are those of ``galah_tpu/config.py``. A flag of the
+``galah-tpu cluster`` command line that this slice does not support is
+an error that names it; no flag is silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+from typing import List, Optional, Sequence
+
+from galah_tpu_torch import __version__
+from galah_tpu_torch.config import Defaults, parse_percentage
+
+logger = logging.getLogger("galah_tpu_torch")
+
+# flags of `galah-tpu cluster` that this port does not support yet
+UNSUPPORTED_FLAGS = (
+    "--genome-fasta-list", "--quality-formula", "--hash-algorithm",
+    "--ani-subsample", "--rep-scan-window", "--rep-rounds",
+    "--checkm-tab-table", "--checkm2-quality-report", "--genome-info",
+    "--min-completeness", "--max-contamination", "--threads", "-t",
+    "--on-bad-genome", "--sketch-cache", "--profile-trace-dir",
+    "--trace-events", "--run-report", "--checkpoint-dir", "--resume",
+    "--output-representative-fasta-directory",
+    "--output-representative-fasta-directory-copy",
+    "--output-representative-list", "--platform", "--full-help",
+    "--full-help-roff", "-v", "--verbose", "-q", "--quiet",
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="galah_tpu_torch",
+        description="Genome dereplication by ANI on an NVIDIA GPU "
+                    "(the PyTorch/CUDA port of galah-tpu)")
+    parser.add_argument("--version", action="version",
+                        version=__version__)
+    sub = parser.add_subparsers(dest="subcommand")
+    c = sub.add_parser(
+        "cluster",
+        help="Cluster genomes by ANI, choosing representatives",
+        description="Cluster genomes by average nucleotide identity, "
+                    "choosing one representative per cluster")
+    c.add_argument("-f", "--genome-fasta-files", nargs="+",
+                   help="Path(s) to FASTA files of each genome")
+    c.add_argument("-d", "--genome-fasta-directory",
+                   help="Directory containing FASTA files of each genome")
+    c.add_argument("-x", "--genome-fasta-extension", default="fna",
+                   help="File extension of genomes in the directory "
+                        "(default: fna)")
+    c.add_argument("--ani", type=float, default=Defaults.ANI,
+                   help="ANI threshold for clustering (default: 95)")
+    c.add_argument("--precluster-ani", type=float,
+                   default=Defaults.PRETHRESHOLD_ANI,
+                   help="Precluster ANI threshold (default: 90; equal to "
+                        "--ani for skani+skani)")
+    c.add_argument("--min-aligned-fraction", type=float,
+                   default=Defaults.ALIGNED_FRACTION * 100,
+                   help="Min aligned fraction of two genomes for "
+                        "clustering (default: 15)")
+    c.add_argument("--fragment-length", type=int,
+                   default=Defaults.FRAGMENT_LENGTH,
+                   help="Fragment length of the fastANI-style "
+                        "calculation (default: 3000)")
+    c.add_argument("--precluster-method", default=Defaults.PRECLUSTER_METHOD,
+                   choices=("skani",),
+                   help="Precluster method (default: skani)")
+    c.add_argument("--cluster-method", default=Defaults.CLUSTER_METHOD,
+                   choices=("skani", "fastani"),
+                   help="Exact ANI method (default: skani)")
+    c.add_argument("--output-cluster-definition",
+                   help="Output file of rep<TAB>member lines")
+    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="Device to run on (default: cuda; asking for "
+                        "cuda without a GPU is an error)")
+    return parser
+
+
+def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    parser = build_parser()
+    args, unknown = parser.parse_known_args(argv)
+    for tok in unknown:
+        flag = tok.split("=", 1)[0]
+        if flag in UNSUPPORTED_FLAGS:
+            parser.error(f"{flag}: this flag of `galah-tpu cluster` is "
+                         "not supported by galah_tpu_torch yet")
+    if unknown:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    return args
+
+
+def genome_paths(args: argparse.Namespace) -> List[str]:
+    """-f files, then the -d directory's entries with the extension,
+    sorted (the order ``galah_tpu/genome_inputs.py`` gives)."""
+    out: List[str] = list(args.genome_fasta_files or [])
+    if args.genome_fasta_directory:
+        suffix = "." + args.genome_fasta_extension.lstrip(".")
+        out.extend(os.path.join(args.genome_fasta_directory, e)
+                   for e in sorted(os.listdir(args.genome_fasta_directory))
+                   if e.endswith(suffix))
+    if not out:
+        raise ValueError("No genome input specified: use "
+                         "--genome-fasta-files or --genome-fasta-directory")
+    missing = [p for p in out if not os.path.isfile(p)]
+    if missing:
+        raise FileNotFoundError(
+            f"Genome FASTA file(s) not found: {missing[:5]}")
+    return out
+
+
+@dataclasses.dataclass
+class RunResult:
+    genomes: List[str]
+    clusters: List[List[int]]
+    clock: object  # timing.StageClock
+    store: object  # backends.ProfileStore holding the run's profiles
+
+
+def run_cluster(args: argparse.Namespace) -> RunResult:
+    """Build the backends from parsed `cluster` arguments, cluster, and
+    write the requested outputs."""
+    from galah_tpu_torch.backends import (
+        FastANIEquivalentClusterer,
+        ProfileStore,
+        SkaniEquivalentClusterer,
+        SkaniPreclusterer,
+    )
+    from galah_tpu_torch.cluster.engine import cluster
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.outputs import write_cluster_definition
+    from galah_tpu_torch.timing import StageClock
+
+    device = resolve_device(args.device)
+    genomes = genome_paths(args)
+    ani = parse_percentage(args.ani, "--ani")
+    precluster_ani = parse_percentage(args.precluster_ani,
+                                      "--precluster-ani")
+    min_af = parse_percentage(args.min_aligned_fraction,
+                              "--min-aligned-fraction")
+    # skani+skani: precluster at the final threshold (reference:
+    # src/cluster_argument_parsing.rs:983-1030)
+    if args.precluster_method == "skani" and args.cluster_method == "skani":
+        precluster_ani = ani
+    # opened before any compute, so a bad output path fails fast
+    out = (open(args.output_cluster_definition, "w")
+           if args.output_cluster_definition else None)
+    clock = StageClock(device)
+    store = ProfileStore(device, fraglen=args.fragment_length, clock=clock)
+    pre = SkaniPreclusterer(threshold=precluster_ani,
+                            min_aligned_fraction=min_af, store=store)
+    if args.cluster_method == "fastani":
+        cl = FastANIEquivalentClusterer(threshold=ani,
+                                        min_aligned_fraction=min_af,
+                                        store=store)
+    else:
+        cl = SkaniEquivalentClusterer(threshold=ani,
+                                      min_aligned_fraction=min_af,
+                                      store=store)
+    try:
+        logger.info("Clustering %d genomes on %s ..", len(genomes), device)
+        clusters = cluster(genomes, pre, cl, device, clock=clock)
+        logger.info("Found %d genome clusters", len(clusters))
+        if out is not None:
+            write_cluster_definition(out, clusters, genomes)
+    finally:
+        if out is not None:
+            out.close()
+    return RunResult(genomes=genomes, clusters=clusters, clock=clock,
+                     store=store)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="[%(asctime)s %(levelname)s] %(message)s")
+    args = parse_args(argv)
+    if args.subcommand != "cluster":
+        build_parser().print_help()
+        return 1
+    try:
+        run_cluster(args)
+    except (ValueError, OSError) as e:
+        logger.error("%s", e)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

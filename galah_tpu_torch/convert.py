@@ -1,0 +1,40 @@
+"""Carry per-genome state across from ``galah_tpu``.
+
+The system has no weights: its state is the per-genome profile (the
+positional hashes, the distinct set and the markers). ``galah_tpu``
+keeps them as uint64 numpy arrays, the port as biased int64 tensors
+(``ops/u64.py``). These two functions convert between the two without
+importing ``galah_tpu``: the source is any object with the profile's
+attributes (a ``galah_tpu`` ``GenomeProfile`` qualifies), the result of
+the inverse is a dict of its constructor fields.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from galah_tpu_torch.ops.fragment_ani import GenomeProfile
+from galah_tpu_torch.ops.u64 import from_biased, to_biased
+
+FIELDS = ("path", "k", "fraglen", "flat_hashes", "ref_set", "markers",
+          "subsample_c")
+
+
+def profile_from_galah(src, device="cpu") -> GenomeProfile:
+    """A port profile on `device` from a galah_tpu profile's arrays."""
+    return GenomeProfile(
+        path=src.path, k=int(src.k), fraglen=int(src.fraglen),
+        flat_hashes=to_biased(src.flat_hashes, device),
+        ref_set=to_biased(src.ref_set, device),
+        markers=to_biased(src.markers, device),
+        subsample_c=int(src.subsample_c))
+
+
+def profile_to_galah_fields(prof: GenomeProfile) -> Dict:
+    """The constructor fields of a galah_tpu GenomeProfile (uint64
+    numpy arrays) for a port profile."""
+    return dict(path=prof.path, k=prof.k, fraglen=prof.fraglen,
+                flat_hashes=from_biased(prof.flat_hashes),
+                ref_set=from_biased(prof.ref_set),
+                markers=from_biased(prof.markers),
+                subsample_c=prof.subsample_c)

@@ -1,0 +1,106 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+Each ``<name>.cu`` beside this file compiles on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds, not minutes), for ``sm_90a``, into ``galah_tpu_torch/_build/``.
+The library's file name carries the source's content hash, so an
+unchanged source is built once per checkout and an edited one anew.
+All requested sources compile in parallel, one ``nvcc`` each.
+
+A build failure raises with nvcc's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C signature of each library's launch function: (name, argtypes)
+SIGNATURES = {
+    "window_hits": ("window_hits_launch", [_P] * 8 + [_L, _P]),
+    "tile_stats": ("tile_stats_launch", [_P, _P, _I, _I, _I, _I, _I,
+                                         _P, _P, _P]),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the kernels")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(_HERE, f"{name}.cu"), "rb") as fh:
+        digest = hashlib.sha256(
+            fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
+    """Compile every named kernel whose library is not built yet, all
+    at once; returns the seconds spent."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if os.path.isfile(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(_HERE, f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of kernel `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_lib_path(name))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch function."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: cudaError_t {err}")

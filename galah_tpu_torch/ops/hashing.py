@@ -1,0 +1,156 @@
+"""Canonical k-mer positional hashes in torch.
+
+The port of ``galah_tpu/ops/hashing.py``'s window hashing: for every
+position of a genome, the canonical (lexicographic min of forward and
+reverse complement) k-mer is hashed with murmur3 x64_128 h1 over its
+ASCII bytes (seed 0, the reference's finch contract, reference:
+src/finch.rs:33-47) or with the multiply-free ``tpufast`` mixer over
+its 2-bit packing. Windows holding an ambiguous base or crossing a
+contig boundary give the sentinel. The output is bit-identical to
+``galah_tpu.ops.fragment_ani.positional_hashes``, in the biased-int64
+form of ``ops/u64.py``.
+
+Positions are processed in chunks of ``chunk`` windows so device
+memory stays bounded for any genome length; every op is elementwise
+over shifted slices of the chunk's codes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io.fasta import Genome
+from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+from galah_tpu_torch.ops.u64 import as_int64, bias, lsr, rotl
+
+# windows hashed per chunk: ~10 int64 temporaries of this length are
+# live at once, under 1 GB on the card
+DEFAULT_CHUNK = 1 << 23
+
+_C1 = as_int64(0x87C37B91114253D5)
+_C2 = as_int64(0x4CF5AD432745937F)
+_F1 = as_int64(0xFF51AFD7ED558CCD)
+_F2 = as_int64(0xC4CEB9FE1A85EC53)
+_ASCII = (65, 67, 71, 84)  # A C G T
+
+
+def _fmix64(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ lsr(x, 33)
+    x = x * _F1
+    x = x ^ lsr(x, 33)
+    x = x * _F2
+    return x ^ lsr(x, 33)
+
+
+def murmur3_h1(byte_at, length: int, n: int, device,
+               seed: int = 0) -> torch.Tensor:
+    """h1 of murmur3 x64_128 over `length`-byte keys: ``byte_at(j)``
+    gives byte j of every key as an int64 (n,) tensor. Wrap-around
+    int64 ``*``/``+`` equal the u64 ops bit for bit."""
+    def word(lo: int, hi: int) -> torch.Tensor:
+        w = torch.zeros(n, dtype=torch.int64, device=device)
+        for b in range(lo, hi):
+            w = w | (byte_at(b) << (8 * (b - lo)))
+        return w
+
+    h1 = torch.full((n,), as_int64(seed), dtype=torch.int64, device=device)
+    h2 = h1.clone()
+    nblocks = length // 16
+    for blk in range(nblocks):
+        base = blk * 16
+        k1 = rotl(word(base, base + 8) * _C1, 31) * _C2
+        h1 = rotl(h1 ^ k1, 27) + h2
+        h1 = h1 * 5 + 0x52DCE729
+        k2 = rotl(word(base + 8, base + 16) * _C2, 33) * _C1
+        h2 = rotl(h2 ^ k2, 31) + h1
+        h2 = h2 * 5 + 0x38495AB5
+    rem = length & 15
+    base = nblocks * 16
+    if rem > 8:
+        k2 = rotl(word(base + 8, base + rem) * _C2, 33) * _C1
+        h2 = h2 ^ k2
+    if rem > 0:
+        k1 = rotl(word(base, base + min(rem, 8)) * _C1, 31) * _C2
+        h1 = h1 ^ k1
+    h1 = h1 ^ length
+    h2 = h2 ^ length
+    h1 = h1 + h2
+    h2 = h2 + h1
+    return _fmix64(h1) + _fmix64(h2)
+
+
+def tpufast_mix(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """The multiply-free shift-add mixer (``hashing._tpufast_mix``)."""
+    x = x ^ as_int64((seed * 0x9E3779B97F4A7C15 + 0x1B873593) % (1 << 64))
+    for sh_a, sh_b, sh_x in ((21, 37, 29), (13, 47, 31), (17, 41, 33)):
+        x = x + (x << sh_a) + (x << sh_b)
+        x = x ^ lsr(x, sh_x)
+    x = x + (x << 26)
+    return x ^ lsr(x, 32)
+
+
+def _hash_chunk(cs: torch.Tensor, valid: torch.Tensor, k: int,
+                algo: str) -> torch.Tensor:
+    """Biased hashes of the ``len(cs) - k + 1`` windows of `cs`
+    (sanitized codes, int64 0-3); `valid` masks the windows."""
+    m = cs.shape[0] - k + 1
+    fwd = torch.zeros(m, dtype=torch.int64, device=cs.device)
+    rev = torch.zeros_like(fwd)
+    for j in range(k):
+        c = cs[j:j + m]
+        fwd = fwd | (c << (2 * (k - 1 - j)))
+        rev = rev | ((3 - c) << (2 * j))
+    # A<C<G<T in both code and ASCII order, so the packed-integer
+    # compare is the lexicographic string compare
+    use_fwd = fwd <= rev
+    if algo == "tpufast":
+        h = tpufast_mix(torch.where(use_fwd, fwd, rev))
+    elif algo == "murmur3":
+        lut = torch.tensor(_ASCII, dtype=torch.int64, device=cs.device)
+        af = lut[cs]
+        ar = lut[3 - cs]
+
+        def byte_at(j: int) -> torch.Tensor:
+            return torch.where(use_fwd, af[j:j + m],
+                               ar[k - 1 - j:k - 1 - j + m])
+
+        h = murmur3_h1(byte_at, k, m, cs.device)
+    else:
+        raise ValueError(f"unknown hash algorithm {algo!r}")
+    return torch.where(valid, bias(h),
+                       torch.full_like(h, SENTINEL_BIASED))
+
+
+def positional_hashes(genome: Genome, k: int, device="cuda",
+                      algo: str = "murmur3",
+                      chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """All canonical k-mer hashes of `genome` in genome order: a biased
+    int64 (n - k + 1,) tensor on `device`, the sentinel where the window
+    holds an ambiguous base or crosses a contig boundary."""
+    if not 1 <= k <= 31:
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    device = resolve_device(device)
+    n = genome.codes.shape[0]
+    if n < k:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    codes = torch.from_numpy(genome.codes).to(device)
+    amb = codes == 255
+    cs = torch.where(amb, torch.zeros_like(codes), codes).to(torch.int64)
+    inv = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    inv[1:] = torch.cumsum(amb.to(torch.int32), 0)
+    offs = np.asarray(genome.contig_offsets[1:-1], dtype=np.int64)
+    offs = offs[(offs > 0) & (offs < n)]
+    start = torch.zeros(n, dtype=torch.int32, device=device)
+    start[torch.from_numpy(offs).to(device)] = 1
+    contig = torch.cumsum(start, 0)
+
+    n_win = n - k + 1
+    out = torch.empty(n_win, dtype=torch.int64, device=device)
+    for s in range(0, n_win, chunk):
+        e = min(s + chunk, n_win)
+        valid = ((inv[s + k:e + k] == inv[s:e])
+                 & (contig[s:e] == contig[s + k - 1:e + k - 1]))
+        out[s:e] = _hash_chunk(cs[s:e + k - 1], valid, k, algo)
+    return out

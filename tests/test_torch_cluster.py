@@ -1,0 +1,203 @@
+"""Port end to end: clusters and the CLI TSV against galah_tpu, plus
+the package boundary (no jax, nothing of galah_tpu).
+
+Tolerance: none — cluster lists equal, TSV bytes equal.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from galah_tpu.backends import (FastANIEquivalentClusterer,
+                                ProfileStore as JStore,
+                                SkaniEquivalentClusterer,
+                                SkaniPreclusterer)
+from galah_tpu.cli import main as jmain
+from galah_tpu.cluster import cluster as jcluster
+from galah_tpu.ops import collision
+from galah_tpu_torch import cli as tcli
+from galah_tpu_torch.backends import ProfileStore as TStore
+from galah_tpu_torch.backends import (
+    FastANIEquivalentClusterer as TFastANI,
+    SkaniEquivalentClusterer as TSkani,
+    SkaniPreclusterer as TSkaniPre,
+)
+from galah_tpu_torch.cluster.engine import cluster as tcluster
+from galah_tpu_torch.device import resolve_device
+
+CPU = torch.device("cpu")
+ACGT = np.array(list("ACGT"))
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _families(root, seed, n_fam, size, length, rate):
+    rng = np.random.default_rng(seed)
+    paths, labels = [], []
+    for fam in range(n_fam):
+        base = rng.integers(0, 4, size=length)
+        for m in range(size):
+            codes = base.copy()
+            if m:  # member 0 is the unmutated base
+                sites = rng.random(length) < rate
+                codes[sites] = (codes[sites] + rng.integers(
+                    1, 4, size=int(sites.sum()))) % 4
+            seq = "".join(ACGT[codes])
+            p = root / f"fam{fam}_m{m}.fna"
+            with open(p, "w") as f:
+                f.write(">contig1\n")
+                for i in range(0, len(seq), 70):
+                    f.write(seq[i:i + 70] + "\n")
+            paths.append(str(p))
+            labels.append(fam)
+    return paths, labels
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    """3 families x 4 members, 60 kb, ~0.5% divergence (as in
+    tests/test_synthetic_families.py)."""
+    return _families(tmp_path_factory.mktemp("fam"), 42, 3, 4, 60_000,
+                     0.005)
+
+
+@pytest.fixture(scope="module")
+def families24(tmp_path_factory):
+    """24 genomes: 8 families x 3 members, 30 kb, ~2% divergence."""
+    return _families(tmp_path_factory.mktemp("fam24"), 7, 8, 3, 30_000,
+                     0.02)
+
+
+@pytest.fixture
+def no_dense_mesh(monkeypatch):
+    """galah_tpu's screen on conftest's 8-device CPU mesh costs seconds
+    per call; its exact collision screen gives the same pair list."""
+    monkeypatch.setattr(collision, "SPARSE_SCREEN_MIN_N", 0)
+
+
+def _jax_run(paths, method, ani):
+    store = JStore(k=15)
+    pre = SkaniPreclusterer(threshold=ani if method == "skani" else 0.9,
+                            min_aligned_fraction=0.15, store=store)
+    cl = (SkaniEquivalentClusterer(ani, 0.15, store=store)
+          if method == "skani" else
+          FastANIEquivalentClusterer(ani, 0.15, store=store))
+    return jcluster(paths, pre, cl)
+
+
+def _port_run(paths, method, ani):
+    store = TStore(CPU)
+    pre = TSkaniPre(threshold=ani if method == "skani" else 0.9,
+                    min_aligned_fraction=0.15, store=store)
+    cl = (TSkani(ani, 0.15, store) if method == "skani"
+          else TFastANI(ani, 0.15, store))
+    return tcluster(paths, pre, cl, CPU)
+
+
+@pytest.mark.parametrize("method", ["skani", "fastani"])
+@pytest.mark.parametrize("corpus", ["families", "families24"])
+def test_clusters_match_galah_tpu(request, no_dense_mesh, corpus, method):
+    paths, labels = request.getfixturevalue(corpus)
+    for ani in (0.95, 0.99):
+        want = _jax_run(paths, method, ani)
+        got = _port_run(paths, method, ani)
+        assert got == want, (ani, got, want)
+    # at 95% the clusters are the planted families
+    fams = sorted(sorted(labels[i] for i in c)
+                  for c in _port_run(paths, method, 0.95))
+    assert fams == sorted([[f] * labels.count(f) for f in set(labels)])
+
+
+@pytest.mark.parametrize("method", ["skani", "fastani"])
+def test_cli_tsv_byte_identical(families24, no_dense_mesh, tmp_path,
+                                method):
+    paths, _ = families24
+    want, got = tmp_path / "jax.tsv", tmp_path / "port.tsv"
+    common = ["cluster", "-f", *paths, "--ani", "97",
+              "--precluster-ani", "90", "--min-aligned-fraction", "20",
+              "--cluster-method", method]
+    assert jmain([*common, "--output-cluster-definition", str(want)]) == 0
+    assert tcli.main([*common, "--device", "cpu",
+                      "--output-cluster-definition", str(got)]) == 0
+    assert got.read_bytes() == want.read_bytes()
+
+
+def test_cli_directory_input(families, tmp_path):
+    paths, _ = families
+    out = tmp_path / "dir.tsv"
+    root = os.path.dirname(paths[0])
+    assert tcli.main(["cluster", "-d", root, "--device", "cpu",
+                      "--output-cluster-definition", str(out)]) == 0
+    lines = out.read_text().splitlines()
+    assert len(lines) == len(paths)
+    assert {ln.split("\t")[1] for ln in lines} == set(paths)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--checkm-tab-table", "x.tsv"], ["--threads", "4"],
+    ["--ani-subsample", "125"], ["--rep-rounds=8"], ["--resume"]])
+def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        tcli.parse_args(["cluster", "-f", "a.fna", *flag])
+    assert e.value.code == 2
+    assert flag[0].split("=")[0] in capsys.readouterr().err
+
+
+def test_cli_rejects_unsupported_precluster_method(capsys):
+    with pytest.raises(SystemExit):
+        tcli.parse_args(["cluster", "-f", "a.fna", "--precluster-method",
+                         "finch"])
+    assert "--precluster-method" in capsys.readouterr().err
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    assert resolve_device("cpu") == CPU
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_galah_tpu():
+    files = sorted((REPO / "galah_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(ast.parse(f.read_text())):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "galah_tpu"), (f, mod)
+
+
+def test_port_run_loads_no_jax(families, tmp_path):
+    """A CPU cluster run of the port in a fresh interpreter leaves jax
+    and galah_tpu out of sys.modules."""
+    paths, _ = families
+    out = tmp_path / "o.tsv"
+    code = (
+        "import sys\n"
+        "from galah_tpu_torch.cli import main\n"
+        f"rc = main(['cluster', '-f', *{paths[:4]!r}, '--device', 'cpu',"
+        f" '--output-cluster-definition', {str(out)!r}])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'galah_tpu')]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(rc or (1 if bad else 0))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+    assert len(out.read_text().splitlines()) == 4
