@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Drive galah_tpu_torch's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--genomes 512]
+    python3 chip_smoke.py [--seed 0] [--genomes 512] [--finch-genomes 1024]
 
 Phases, each of which exits nonzero when it fails:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel of the path with nvcc for sm_90a;
+2. build: compile every kernel with nvcc for sm_90a, in parallel;
 3. kernel parity: each kernel against its plain torch version on the
    card, exact integer equality, on edge-case inputs;
-4. end to end: a MAG-like corpus made from the seed (512 genomes of
-   ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family base)
-   through the ``cluster`` entry point on cuda; the clusters must equal
-   the planted families, and every kernel must have been launched;
-5. the kernels timed at the shapes the end-to-end run gave them, beside
-   their plain versions and their bound on this card;
-6. kernel path against plain torch path on the card for 16 genomes of
-   the corpus: identical bidirectional ANI floats.
+4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
+   of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
+   base) through the ``cluster`` entry point on cuda; the clusters must
+   equal the planted families, and the path's kernels must have been
+   launched;
+4b. end to end, finch at scale: 1024 genomes (256 families, the first
+   512 are phase 4's) through ``cluster --precluster-method finch
+   --cluster-method skani``, above the sparse-screen crossover, so the
+   fused sketch and pairlist kernels carry the precluster;
+4c. end to end, finch dense: the first 256 genomes through the same
+   command, below the crossover, so the full form of tile_stats runs;
+5. the kernels timed at the shapes the end-to-end runs gave them,
+   beside their plain versions and their bound on this card;
+6. kernel path against plain torch path on the card: identical
+   bidirectional ANI floats for 16 genomes, and identical finch
+   sketches and pair-dict ANI floats for 64 genomes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the line before that the
@@ -40,6 +48,15 @@ import numpy as np
 # operations/s outside the tensor cores (the float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# 32-bit operations per valid window of the fused sketch kernel: the
+# hash (a 64-bit multiply is ~3, a 64-bit add, xor or rotate ~2) and
+# the register compare
+FUSED_OPS_PER_WINDOW = {"murmur3": 100, "tpufast": 45}
+
+# the sparse-screen crossover of galah_tpu_torch.ops.collision, which
+# phase 4b must reach and phase 4c must stay below
+FINCH_MIN_GENOMES = 1024
 
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -162,6 +179,69 @@ def tile_stats_cases(rng, torch, device):
     return cases
 
 
+def _genome(name, codes, contig_starts=()):
+    from galah_tpu_torch.io.fasta import Genome, GenomeStats
+
+    n = codes.shape[0]
+    offsets = np.array([0, *contig_starts, n], dtype=np.int64)
+    return Genome(path=name, codes=codes, contig_offsets=offsets,
+                  stats=GenomeStats(len(offsets) - 1,
+                                    int((codes == 255).sum()), n))
+
+
+def fused_sketch_genomes(rng):
+    """Seven jobs (not a power of two): 2 Mbp in contigs with N runs
+    (31 spans of 65,536 windows), all-ambiguous, shorter than k, far
+    fewer distinct k-mers than 8 per class, a repeated 50 kb unit, a
+    genome just over one span, and 3 Mbp."""
+    def rand(n):
+        return rng.integers(0, 4, size=n).astype(np.uint8)
+
+    big = rand(2_000_000)
+    for s in rng.integers(0, 2_000_000 - 200, size=20):
+        big[s:s + int(rng.integers(1, 200))] = 255
+    return [
+        _genome("contigs", big, np.unique(rng.integers(1, 2_000_000, 60))),
+        _genome("all-n", np.full(5000, 255, dtype=np.uint8)),
+        _genome("short", rand(10)),
+        _genome("sparse", rand(3000)),
+        _genome("repeat", np.tile(rand(50_000), 20)),
+        _genome("one-span", rand(65_600)),
+        _genome("long", rand(3_000_000), [1_000_000]),
+    ]
+
+
+def pairlist_cases(rng, torch, device, k=1000, n=400):
+    """A family-structured (n, k) sketch matrix with empty, identical,
+    disjoint and ragged rows, and pair lists of 1, 7, 8192 and 8193
+    pairs (the special rows paired first)."""
+    from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+
+    base = np.unique(_rand_hashes(rng, 40 * k)).reshape(-1)
+    mat = np.full((n, k), SENTINEL_BIASED, dtype=np.int64)
+    for i in range(n):
+        fam = base[(i % 40) * k:(i % 40 + 1) * k].copy()
+        swap = rng.random(k) < rng.random() * 0.5
+        fam[swap] = _rand_hashes(rng, int(swap.sum()))
+        row = np.unique(fam)[:k if i % 3 else int(rng.integers(0, k + 1))]
+        mat[i, :row.shape[0]] = row
+    mat[1] = SENTINEL_BIASED                    # empty
+    mat[2] = mat[3]                             # identical
+    mat[4] = np.sort(_rand_hashes(rng, k))      # disjoint
+    special = [(1, 5), (2, 3), (4, 6), (1, 1), (6, 6), (7, 4), (3, 2)]
+    tmat = torch.from_numpy(mat).to(device)
+    lists = []
+    for b in (1, 7, 8192, 8193):
+        pairs = np.array(special[:b] + [
+            tuple(rng.integers(0, n, size=2))
+            for _ in range(max(b - len(special), 0))], dtype=np.int64)
+        lists.append((torch.from_numpy(np.ascontiguousarray(pairs[:, 0]))
+                      .to(device),
+                      torch.from_numpy(np.ascontiguousarray(pairs[:, 1]))
+                      .to(device)))
+    return tmat, lists
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -186,16 +266,53 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def run_path(torch, cli, reset_launches, launches_now, argv):
+    """One `cluster` run through the CLI entry point, with every launch
+    count set to 0 just before it and read just after."""
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli.run_cluster(cli.parse_args(argv))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(launches_now)
+
+
+def check_families(res, label_of, n_genomes, family, tsv, what):
+    got = sorted(sorted(label_of[res.genomes[i]] for i in c)
+                 for c in res.clusters)
+    fams = sorted({label_of[p] for p in res.genomes})
+    if got != sorted([f] * family for f in fams):
+        raise PhaseError(f"{what}: clusters differ from the planted "
+                         f"families: {len(res.clusters)} clusters")
+    with open(tsv) as fh:
+        n_lines = sum(1 for _ in fh)
+    if n_lines != n_genomes:
+        raise PhaseError(f"{what}: cluster TSV has {n_lines} lines")
+    return len(fams)
+
+
+def require_launched(launches, names, what):
+    for name in names:
+        if launches[name] == 0:
+            raise PhaseError(f"kernel {name} was never launched on the "
+                             f"{what} path")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genomes", type=int, default=512,
-                    help="corpus size, a multiple of 4 (default 512)")
+                    help="skani corpus size, a multiple of 4 (default 512)")
+    ap.add_argument("--finch-genomes", type=int, default=FINCH_MIN_GENOMES,
+                    help="finch corpus size, a multiple of 4, at least "
+                         "--genomes (default 1024)")
     ap.add_argument("--genome-length", type=int, default=2_000_000)
     args = ap.parse_args(argv)
     family = 4
     if args.genomes % family or args.genomes < 16:
         ap.error("--genomes must be a multiple of 4, at least 16")
+    if args.finch_genomes % family or args.finch_genomes < args.genomes:
+        ap.error("--finch-genomes must be a multiple of 4, at least "
+                 "--genomes")
 
     # -- phase 1: device --------------------------------------------------
     try:
@@ -217,6 +334,7 @@ def main(argv=None) -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} {tag}")
+    t_script = time.perf_counter()
 
     # -- phase 2: build ---------------------------------------------------
     from galah_tpu_torch.kernels import build
@@ -226,6 +344,15 @@ def main(argv=None) -> int:
           f"sm_90a) {tag}")
 
     # -- phase 3: kernel parity ------------------------------------------
+    from galah_tpu_torch.io.fasta import read_genome
+    from galah_tpu_torch.ops import sketch_stream
+    from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
+                                                  fused_sketch_candidates)
+    from galah_tpu_torch.ops.hashing import canonical_key_words
+    from galah_tpu_torch.ops.minhash import (sketch_genome_device,
+                                             sketch_matrix)
+    from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
+                                              pair_stats_pairs_plain)
     from galah_tpu_torch.ops.tile_stats import (tile_intersect_plain,
                                                 tile_stats, tile_stats_plain)
     from galah_tpu_torch.ops.window_hits import (window_element_hits,
@@ -254,45 +381,79 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"parity tile_stats: K={k} Br={rows.shape[0]} "
               f"Bc={cols.shape[0]} intersect+full exact {tag}")
+    genomes = fused_sketch_genomes(rng)
+    codes, offsets, jobs = sketch_stream._concat(genomes, 21)
+    for algo in ("murmur3", "tpufast"):
+        words, valid = canonical_key_words(codes, offsets, 21, device, algo)
+        got = fused_sketch_candidates(words, valid, jobs, 21, algo)
+        want = fused_candidates_plain(words, valid, jobs, 21, algo)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise PhaseError(f"fused_sketch ({algo}) disagrees with its "
+                             f"plain version at {int((got != want).sum())}"
+                             " candidates")
+        fused = sketch_stream.sketch_genomes_fused(genomes, 1000, 21, algo,
+                                                   device)
+        for g, f in zip(genomes, fused):
+            e = sketch_genome_device(g, 1000, 21, algo, device)
+            if not np.array_equal(f.hashes, e.hashes):
+                raise PhaseError(f"fused sketch of {g.path} ({algo}) "
+                                 "differs from the exact sketch")
+        print(f"parity fused_sketch: {algo}, {len(jobs)} jobs, "
+              f"{valid.numel()} windows, candidates and certified "
+              f"sketches exact {tag}")
+    tmat, lists = pairlist_cases(rng, torch, device)
+    k = tmat.shape[1]
+    for pi, pj in lists:
+        for sketch_size in (k, k // 3):
+            c, t = pair_stats_pairs(tmat, pi, pj, sketch_size)
+            pc, pt = pair_stats_pairs_plain(tmat, pi, pj, sketch_size)
+            if not (torch.equal(c, pc) and torch.equal(t, pt)):
+                raise PhaseError(f"pairlist disagrees at B={pi.numel()} "
+                                 f"S={sketch_size}")
+        torch.cuda.synchronize()
+        print(f"parity pairlist: K={k} B={pi.numel()} S={k},{k // 3} "
+              f"exact {tag}")
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
 
-    # -- phase 4: end to end ---------------------------------------------
     with tempfile.TemporaryDirectory(prefix="galah_smoke_") as root:
+        # -- corpus: the skani corpus is the finch corpus's first part ----
         t0 = time.perf_counter()
-        paths, labels = make_corpus(root, args.genomes, args.genome_length,
-                                    family, args.seed)
-        gbp = args.genomes * args.genome_length / 1e9
-        print(f"corpus: {args.genomes} genomes x {args.genome_length} bp "
-              f"({gbp:.3f} Gbp), {args.genomes // family} families, "
-              f"written in {time.perf_counter() - t0:.1f} s {tag}")
-        if args.genomes != 512:
-            print(f"corpus cut: {args.genomes} genomes instead of 512 "
-                  f"(genome length {args.genome_length}) {tag}")
-        out_tsv = os.path.join(root, "clusters.tsv")
-        reset_launches()
-        t0 = time.perf_counter()
-        res = cli.run_cluster(cli.parse_args(
-            ["cluster", "-d", root, "--ani", "95", "--device", "cuda",
-             "--output-cluster-definition", out_tsv]))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
+        all_dir = os.path.join(root, "all")
+        skani_dir = os.path.join(root, "skani")
+        os.makedirs(all_dir)
+        os.makedirs(skani_dir)
+        paths, labels = make_corpus(all_dir, args.finch_genomes,
+                                    args.genome_length, family, args.seed)
+        for p in paths[:args.genomes]:
+            os.symlink(p, os.path.join(skani_dir, os.path.basename(p)))
         label_of = dict(zip(paths, labels))
-        got = sorted(sorted(label_of[res.genomes[i]] for i in c)
-                     for c in res.clusters)
-        want = sorted([f] * family for f in range(args.genomes // family))
-        if got != want:
-            raise PhaseError(f"clusters differ from the planted families: "
-                             f"{len(res.clusters)} clusters")
-        with open(out_tsv) as fh:
-            n_lines = sum(1 for _ in fh)
-        if n_lines != args.genomes:
-            raise PhaseError(f"cluster TSV has {n_lines} lines")
-        print(f"end to end: {len(res.clusters)} clusters == "
-              f"{args.genomes // family} planted families, wall "
-              f"{wall:.2f} s {tag}")
+        label_of.update((os.path.join(skani_dir, os.path.basename(p)), f)
+                        for p, f in zip(paths, labels))
+        gbp = args.finch_genomes * args.genome_length / 1e9
+        print(f"corpus: {args.finch_genomes} genomes x "
+              f"{args.genome_length} bp ({gbp:.3f} Gbp), "
+              f"{args.finch_genomes // family} families, written in "
+              f"{time.perf_counter() - t0:.1f} s {tag}")
+        if (args.genomes, args.finch_genomes, args.genome_length) != \
+                (512, FINCH_MIN_GENOMES, 2_000_000):
+            print(f"corpus cut: {args.genomes} skani and "
+                  f"{args.finch_genomes} finch genomes of "
+                  f"{args.genome_length} bp instead of 512 and "
+                  f"{FINCH_MIN_GENOMES} of 2000000 {tag}")
+
+        # -- phase 4: end to end, skani ----------------------------------
+        out_tsv = os.path.join(root, "clusters.tsv")
+        res, wall, launches = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            ["cluster", "-d", skani_dir, "--ani", "95", "--device", "cuda",
+             "--output-cluster-definition", out_tsv])
+        n_fam = check_families(res, label_of, args.genomes, family,
+                               out_tsv, "skani")
+        print(f"end to end: {len(res.clusters)} clusters == {n_fam} "
+              f"planted families, wall {wall:.2f} s {tag}")
         for stage in ("read", "profile", "screen", "exact-ani", "greedy"):
             print(f"stage {stage}: {res.clock.seconds.get(stage, 0.0):.3f} "
                   f"s {tag}")
@@ -300,11 +461,62 @@ def main(argv=None) -> int:
             print(f"count {name}: {n} {tag}")
         for name in KERNELS:
             print(f"launches {name}: {launches[name]} {tag}")
-            if launches[name] == 0:
-                raise PhaseError(f"kernel {name} was never launched on "
-                                 "the main path")
+        require_launched(launches, ("window_hits", "tile_stats"), "skani")
 
-        # -- phase 5: timing at the main path's shapes ---------------------
+        # -- phase 4b: end to end, finch at scale -------------------------
+        finch = ["--precluster-method", "finch", "--cluster-method",
+                 "skani", "--ani", "95", "--device", "cuda",
+                 "--output-cluster-definition", out_tsv]
+        res_f, wall_f, launches_f = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            ["cluster", "-f", *paths, *finch])
+        n_fam = check_families(res_f, label_of, args.finch_genomes,
+                               family, out_tsv, "finch")
+        print(f"finch end to end: {args.finch_genomes} genomes, "
+              f"{len(res_f.clusters)} clusters == {n_fam} planted "
+              f"families, wall {wall_f:.2f} s {tag}")
+        for stage in ("read", "sketch", "collision-screen", "pair-stats",
+                      "profile", "exact-ani", "greedy"):
+            print(f"finch stage {stage}: "
+                  f"{res_f.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        for name, n in sorted(res_f.clock.counts.items()):
+            print(f"finch count {name}: {n} {tag}")
+        for name in KERNELS:
+            print(f"finch launches {name}: {launches_f[name]} {tag}")
+        print(f"finch device state: sketch matrix "
+              f"{args.finch_genomes} x 1000 x 8 B = "
+              f"{args.finch_genomes * 8000 / 1e6:.1f} MB; key words "
+              f"25 B a window, {25 * sketch_stream.FUSED_BUDGET / 1e6:.0f}"
+              f" MB per launch group at most {tag}")
+        need = ["fused_sketch", "window_hits"]
+        if args.finch_genomes >= FINCH_MIN_GENOMES:
+            need.append("pairlist")
+        else:
+            print(f"finch cut: {args.finch_genomes} genomes stay below "
+                  f"the {FINCH_MIN_GENOMES}-genome crossover, so the "
+                  f"pairlist kernel is not on this path {tag}")
+        require_launched(launches_f, need, "finch")
+
+        # -- phase 4c: end to end, finch dense ----------------------------
+        n_dense = min(256, args.finch_genomes)
+        res_d, wall_d, launches_d = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            ["cluster", "-f", *paths[:n_dense], *finch])
+        n_fam = check_families(res_d, label_of, n_dense, family, out_tsv,
+                               "finch dense")
+        print(f"finch dense end to end: {n_dense} genomes, "
+              f"{len(res_d.clusters)} clusters == {n_fam} planted "
+              f"families, wall {wall_d:.2f} s {tag}")
+        for stage in ("read", "sketch", "pair-stats", "profile",
+                      "exact-ani", "greedy"):
+            print(f"finch dense stage {stage}: "
+                  f"{res_d.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        for name in KERNELS:
+            print(f"finch dense launches {name}: {launches_d[name]} {tag}")
+        require_launched(launches_d, ("fused_sketch", "tile_stats"),
+                         "finch dense")
+
+        # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
 
         # the run's profiles (the store's LRU may have evicted some; they
@@ -361,9 +573,107 @@ def main(argv=None) -> int:
         print(f"timing tile_stats: {rows.shape[0]}x{mat.shape[0]} pairs, "
               f"K={k}: kernel {ts_ms:.3f} ms, plain {ts_plain:.3f} ms, "
               f"bound {ts_bound:.4f} ms ({ts_by}) {tag}")
+        del profiles, mat, directed, wh_items, rows, c_k
+
+        # tile_stats' full form: the first row block of phase 4c's pass
+        d_store = res_d.preclusterer.store
+        dmat = sketch_matrix([d_store.get_cached(p) for p in res_d.genomes],
+                             1000, device)
+        drows = dmat[:64].contiguous()
+        tf_ms = time_ms(torch, lambda: tile_stats(drows, dmat, 1000), 20)
+        tf_plain = time_ms(torch, lambda: tile_stats_plain(drows, dmat,
+                                                           1000), 3)
+        if not all(torch.equal(a, b) for a, b in zip(
+                tile_stats(drows, dmat, 1000),
+                tile_stats_plain(drows, dmat, 1000))):
+            raise PhaseError("tile_stats full form disagrees with its "
+                             "plain version at phase 4c's shapes")
+        from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+
+        dn = (dmat != SENTINEL_BIASED).sum(dim=1).cpu().numpy().astype(
+            np.float64)
+        tf_bytes = (drows.numel() + dmat.numel()) * 8 \
+            + 2 * 4 * drows.shape[0] * dmat.shape[0]
+        # two walks of both valid prefixes per pair
+        tf_ops = 4 * float((dn[:64, None] + dn[None, :]).sum())
+        tf_bound, tf_by = bound(tf_bytes, tf_ops)
+        print(f"timing tile_stats full form: {drows.shape[0]}x"
+              f"{dmat.shape[0]} pairs, K=1000 (phase 4c's first row "
+              f"block): kernel {tf_ms:.3f} ms, plain {tf_plain:.3f} ms, "
+              f"bound {tf_bound:.4f} ms ({tf_by}) {tag}")
+        del dmat, drows
+
+        # fused_sketch: the finch run's first launch group, its largest
+        group, size = [], 0
+        for p in res_f.genomes:
+            g = read_genome(p)
+            if group and size + g.codes.shape[0] > sketch_stream.FUSED_BUDGET:
+                break
+            group.append(g)
+            size += g.codes.shape[0]
+        codes, offsets, jobs = sketch_stream._concat(group, 21)
+        words, valid = canonical_key_words(codes, offsets, 21, device,
+                                           "murmur3")
+        fs_ms = time_ms(torch, lambda: fused_sketch_candidates(
+            words, valid, jobs, 21, "murmur3"), 10)
+        fs_plain = time_ms(torch, lambda: fused_candidates_plain(
+            words, valid, jobs, 21, "murmur3"), 2)
+        if not torch.equal(
+                fused_sketch_candidates(words, valid, jobs, 21, "murmur3"),
+                fused_candidates_plain(words, valid, jobs, 21, "murmur3")):
+            raise PhaseError("fused_sketch disagrees with its plain "
+                             "version at the finch run's launch")
+        fs_err = 0.0
+        n_win, n_valid = valid.numel(), int(valid.sum())
+        fs_bytes = n_win * (3 * 8 + 1) + len(jobs) * (8 * 2048 * 8 + 16)
+        fs_ops = n_valid * FUSED_OPS_PER_WINDOW["murmur3"]
+        fs_bound, fs_by = bound(fs_bytes, fs_ops)
+        t0 = time.perf_counter()
+        sketch_stream.sketch_genomes_fused(group, 1000, 21, "murmur3",
+                                           device)
+        torch.cuda.synchronize()
+        group_ms = (time.perf_counter() - t0) * 1e3
+        print(f"timing fused_sketch: {len(jobs)} jobs, {n_win} windows "
+              f"({n_valid} valid), murmur3: kernel {fs_ms:.3f} ms, plain "
+              f"{fs_plain:.3f} ms, bound {fs_bound:.3f} ms ({fs_by}); the "
+              f"group's whole sketch (key words, kernel, certificate) "
+              f"{group_ms:.1f} ms {tag}")
+        del words, valid, group
+
+        # pairlist: the finch run's collision survivors
+        from galah_tpu_torch.ops.collision import candidate_pairs_minhash
+        from galah_tpu_torch.ops.constants import SENTINEL_U64
+        from galah_tpu_torch.ops.pairwise import (ani_to_jaccard,
+                                                  stats_to_ani_f64)
+        from galah_tpu_torch.ops.u64 import from_biased
+
+        sk_store = res_f.preclusterer.store
+        fmat = sketch_matrix([sk_store.get_cached(p) for p in res_f.genomes],
+                             1000, device)
+        host = from_biased(fmat)
+        lens = (host != SENTINEL_U64).sum(axis=1)
+        pi, pj = candidate_pairs_minhash(host, lens,
+                                         ani_to_jaccard(0.90, 21), 1000)
+        tpi = torch.from_numpy(pi).to(device)
+        tpj = torch.from_numpy(pj).to(device)
+        pl_ms = time_ms(torch, lambda: pair_stats_pairs(fmat, tpi, tpj,
+                                                        1000), 20)
+        pl_plain = time_ms(torch, lambda: pair_stats_pairs_plain(
+            fmat, tpi, tpj, 1000), 3)
+        c_k, t_k = pair_stats_pairs(fmat, tpi, tpj, 1000)
+        c_p, t_p = pair_stats_pairs_plain(fmat, tpi, tpj, 1000)
+        pl_err = float(max((c_k - c_p).abs().max(), (t_k - t_p).abs().max()))
+        rows_used = np.union1d(pi, pj).shape[0]
+        pl_bytes = 8 * 1000 * rows_used + pi.shape[0] * (16 + 8)
+        pl_ops = 2 * float(sum(int(lens[a]) * math.ceil(
+            math.log2(int(lens[b]) + 1)) for a, b in zip(pi, pj)))
+        pl_bound, pl_by = bound(pl_bytes, pl_ops)
+        print(f"timing pairlist: {pi.shape[0]} survivor pairs of "
+              f"{rows_used} rows, K=1000: kernel {pl_ms:.4f} ms, plain "
+              f"{pl_plain:.3f} ms, bound {pl_bound:.5f} ms ({pl_by}) {tag}")
 
         # -- phase 6: kernel path vs plain path on the card ---------------
-        sub = profiles[:16]
+        sub = [p for p in store.get_many(res.genomes[:16])]
         pairs = [(sub[i], sub[j]) for i in range(16)
                  for j in range(i + 1, 16)]
         a_k = fragment_ani.bidirectional_ani_values(pairs, 0.15)
@@ -376,6 +686,38 @@ def main(argv=None) -> int:
         print(f"kernel vs plain path: {len(pairs)} pairs of 16 genomes, "
               f"{n_val} gated values, identical floats {tag}")
 
+        from galah_tpu_torch.ops.pairwise import threshold_pairs
+        from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
+
+        sub_paths = res_f.genomes[:64]
+        n_sub = len(sub_paths)
+        kern = [sk_store.get_cached(p) for p in sub_paths]
+        for p, s in zip(sub_paths, kern):
+            e = sketch_genome_device(read_genome(p), 1000, 21, "murmur3",
+                                     device)
+            if not np.array_equal(s.hashes, e.hashes):
+                raise PhaseError(f"finch sketch of {p} differs between "
+                                 "the kernel and plain paths")
+        m64 = sketch_matrix(kern, 1000, device)
+        dense = threshold_pairs(m64, 21, 0.90)
+        sparse = threshold_pairs_sparse(m64, 21, 0.90)
+        ii, jj = np.triu_indices(n_sub, 1)
+        c, t = pair_stats_pairs_plain(m64, torch.from_numpy(ii).to(device),
+                                      torch.from_numpy(jj).to(device), 1000)
+        c = c.cpu().numpy().astype(np.int64)
+        t = t.cpu().numpy().astype(np.int64)
+        keep = c.astype(np.float64) >= ani_to_jaccard(0.90, 21) * t
+        plain = dict(zip(zip(ii[keep].tolist(), jj[keep].tolist()),
+                         stats_to_ani_f64(c[keep], t[keep], 21).tolist()))
+        if not (dense == plain and sparse == plain and plain):
+            raise PhaseError("finch pair dict differs between the kernel "
+                             "and plain paths")
+        print(f"finch kernel vs plain path: {n_sub} genomes, sketches "
+              f"equal, "
+              f"{len(plain)} pairs, identical ANI floats (tile_stats and "
+              f"pairlist passes) {tag}")
+
+    no_library = ("no single PyTorch call computes this function")
     record = {"kernels": [
         {"name": "window_hits", "route": "cuda",
          "source": "galah_tpu_torch/kernels/window_hits.cu",
@@ -389,7 +731,21 @@ def main(argv=None) -> int:
          "launches": launches["tile_stats"], "max_abs_err": ts_err,
          "ms": ts_ms, "plain_ms": ts_plain, "bound_ms": ts_bound,
          "bound_by": ts_by, "library_ms": None},
-    ], "card": card}
+        {"name": "fused_sketch", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/fused_sketch.cu",
+         "replaces": "galah_tpu/ops/pallas_sketch.py:400",
+         "launches": launches_f["fused_sketch"], "max_abs_err": fs_err,
+         "ms": fs_ms, "plain_ms": fs_plain, "bound_ms": fs_bound,
+         "bound_by": fs_by, "library_ms": None},
+        {"name": "pairlist", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/pairlist.cu",
+         "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
+         "launches": launches_f["pairlist"], "max_abs_err": pl_err,
+         "ms": pl_ms, "plain_ms": pl_plain, "bound_ms": pl_bound,
+         "bound_by": pl_by, "library_ms": None},
+    ], "library_ms_null_because": no_library, "card": card}
+    print(f"script: {time.perf_counter() - t_script:.1f} s after the "
+          f"device check {tag}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

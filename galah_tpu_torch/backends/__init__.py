@@ -1,8 +1,12 @@
-"""Exact-ANI backends and the skani-style preclusterer."""
+"""Exact-ANI backends and the skani-style and finch preclusterers."""
 
 from galah_tpu_torch.backends.fragment_backend import (  # noqa: F401
     FastANIEquivalentClusterer,
     ProfileStore,
     SkaniEquivalentClusterer,
     SkaniPreclusterer,
+)
+from galah_tpu_torch.backends.minhash_backend import (  # noqa: F401
+    MinHashPreclusterer,
+    SketchStore,
 )

@@ -44,10 +44,12 @@ class ProfileStore:
     def __init__(self, device="cuda", k: int = ANI_KMER,
                  fraglen: int = Defaults.FRAGMENT_LENGTH,
                  maxsize: int = 128,
-                 clock: Optional[StageClock] = None) -> None:
+                 clock: Optional[StageClock] = None,
+                 hash_algorithm: str = Defaults.HASH_ALGO) -> None:
         self.device = resolve_device(device)
         self.k = k
         self.fraglen = fraglen
+        self.hash_algorithm = hash_algorithm
         self.maxsize = maxsize
         self.clock = clock or StageClock(self.device)
         self._cache: "collections.OrderedDict[str, GenomeProfile]" = (
@@ -80,10 +82,12 @@ class ProfileStore:
             else:
                 with self.clock.stage("read"):
                     genome = read_genome(p)
+                self.clock.count("genomes-read", 1)
                 with self.clock.stage("profile"):
                     prof = fragment_ani.build_profile(
                         genome, k=self.k, fraglen=self.fraglen,
-                        device=self.device)
+                        device=self.device,
+                        hash_algorithm=self.hash_algorithm)
                 self._insert(p, prof)
             by_path[p] = prof
         return [by_path[p] for p in paths]

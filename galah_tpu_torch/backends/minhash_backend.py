@@ -1,0 +1,76 @@
+"""The finch precluster on the device: the port of
+``galah_tpu/backends/minhash_backend.py``.
+
+Semantics of the reference's FinchPreclusterer (reference:
+src/finch.rs:4-73): sketch every genome (bottom-k 1000, k=21, seed 0),
+all-pairs Mash ANI, keep the pairs at or above the threshold. Sketches
+come from the streaming fused sketcher (``ops/sketch_stream``) and are
+held in memory by a ``SketchStore``; the all-pairs pass is
+``ops/pairwise.threshold_pairs`` (dense tiles below the sparse
+crossover, the collision screen plus the pairlist kernel from it up).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional, Sequence
+
+from galah_tpu_torch.cluster.cache import PairDistanceCache
+from galah_tpu_torch.config import Defaults
+from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.ops.minhash import sketch_matrix
+from galah_tpu_torch.ops.minhash_np import MinHashSketch
+from galah_tpu_torch.ops.pairwise import threshold_pairs
+from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
+from galah_tpu_torch.timing import StageClock
+
+logger = logging.getLogger(__name__)
+
+
+class SketchStore:
+    """Per-run cache: genome path -> MinHash sketch, held in memory."""
+
+    def __init__(self, device="cuda",
+                 sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
+                 k: int = Defaults.MINHASH_KMER,
+                 algo: str = Defaults.HASH_ALGO,
+                 clock: Optional[StageClock] = None) -> None:
+        self.device = resolve_device(device)
+        self.sketch_size = sketch_size
+        self.k = k
+        self.algo = algo
+        self.clock = clock or StageClock(self.device)
+        self._sketches: Dict[str, MinHashSketch] = {}
+
+    def get_cached(self, path: str) -> Optional[MinHashSketch]:
+        return self._sketches.get(path)
+
+    def insert(self, path: str, s: MinHashSketch) -> MinHashSketch:
+        self._sketches[path] = s
+        return s
+
+
+class MinHashPreclusterer:
+    def __init__(self, min_ani: float, store: SketchStore) -> None:
+        self.min_ani = float(min_ani)
+        self.store = store
+
+    def method_name(self) -> str:
+        return "finch"
+
+    def distances(self, genome_paths: Sequence[str]) -> PairDistanceCache:
+        store = self.store
+        logger.info("Sketching MinHash representations of %d genomes "
+                    "on %s ..", len(genome_paths), store.device)
+        by_path = dict(iter_path_sketches(genome_paths, store))
+        mat = sketch_matrix([by_path[p] for p in genome_paths],
+                            store.sketch_size, store.device)
+        logger.info("Computing all-pairs Mash ANI ..")
+        pairs = threshold_pairs(mat, store.k, self.min_ani,
+                                store.sketch_size, store.clock)
+        cache = PairDistanceCache()
+        for (i, j), ani in pairs.items():
+            cache.insert((i, j), ani)
+        logger.info("Found %d pairs passing precluster threshold %.4f",
+                    len(cache), self.min_ani)
+        return cache

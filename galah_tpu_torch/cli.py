@@ -1,8 +1,9 @@
 """``python -m galah_tpu_torch cluster``: the port's command line.
 
-The slice's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
--x), the thresholds, the skani precluster with the skani or fastani
-clusterer, the cluster definition TSV, and the device. Defaults and
+The port's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
+-x), the thresholds, the skani or finch precluster with the skani or
+fastani clusterer, the hash algorithm, the cluster definition TSV, and
+the device. Defaults and
 percentage parsing are those of ``galah_tpu/config.py``. A flag of the
 ``galah-tpu cluster`` command line that this slice does not support is
 an error that names it; no flag is silently ignored.
@@ -18,13 +19,15 @@ import sys
 from typing import List, Optional, Sequence
 
 from galah_tpu_torch import __version__
-from galah_tpu_torch.config import Defaults, parse_percentage
+from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
+                                    PRECLUSTER_METHODS, Defaults,
+                                    parse_percentage)
 
 logger = logging.getLogger("galah_tpu_torch")
 
 # flags of `galah-tpu cluster` that this port does not support yet
 UNSUPPORTED_FLAGS = (
-    "--genome-fasta-list", "--quality-formula", "--hash-algorithm",
+    "--genome-fasta-list", "--quality-formula",
     "--ani-subsample", "--rep-scan-window", "--rep-rounds",
     "--checkm-tab-table", "--checkm2-quality-report", "--genome-info",
     "--min-completeness", "--max-contamination", "--threads", "-t",
@@ -72,11 +75,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Fragment length of the fastANI-style "
                         "calculation (default: 3000)")
     c.add_argument("--precluster-method", default=Defaults.PRECLUSTER_METHOD,
-                   choices=("skani",),
-                   help="Precluster method (default: skani)")
+                   choices=PRECLUSTER_METHODS,
+                   help="Precluster method: skani or finch (default: "
+                        "skani; dashing is not supported yet)")
     c.add_argument("--cluster-method", default=Defaults.CLUSTER_METHOD,
-                   choices=("skani", "fastani"),
+                   choices=CLUSTER_METHODS,
                    help="Exact ANI method (default: skani)")
+    c.add_argument("--hash-algorithm", default=Defaults.HASH_ALGO,
+                   choices=HASH_ALGORITHMS,
+                   help="k-mer hash of the sketches and profiles: murmur3 "
+                        "(the finch contract) or tpufast (default: "
+                        "murmur3)")
     c.add_argument("--output-cluster-definition",
                    help="Output file of rep<TAB>member lines")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -95,6 +104,9 @@ def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                          "not supported by galah_tpu_torch yet")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if getattr(args, "precluster_method", None) == "dashing":
+        parser.error("--precluster-method dashing is not supported by "
+                     "galah_tpu_torch yet")
     return args
 
 
@@ -123,6 +135,7 @@ class RunResult:
     clusters: List[List[int]]
     clock: object  # timing.StageClock
     store: object  # backends.ProfileStore holding the run's profiles
+    preclusterer: object  # its SketchStore holds a finch run's sketches
 
 
 def run_cluster(args: argparse.Namespace) -> RunResult:
@@ -130,9 +143,11 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     write the requested outputs."""
     from galah_tpu_torch.backends import (
         FastANIEquivalentClusterer,
+        MinHashPreclusterer,
         ProfileStore,
         SkaniEquivalentClusterer,
         SkaniPreclusterer,
+        SketchStore,
     )
     from galah_tpu_torch.cluster.engine import cluster
     from galah_tpu_torch.device import resolve_device
@@ -154,9 +169,16 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     out = (open(args.output_cluster_definition, "w")
            if args.output_cluster_definition else None)
     clock = StageClock(device)
-    store = ProfileStore(device, fraglen=args.fragment_length, clock=clock)
-    pre = SkaniPreclusterer(threshold=precluster_ani,
-                            min_aligned_fraction=min_af, store=store)
+    store = ProfileStore(device, fraglen=args.fragment_length, clock=clock,
+                         hash_algorithm=args.hash_algorithm)
+    if args.precluster_method == "finch":
+        pre = MinHashPreclusterer(
+            min_ani=precluster_ani,
+            store=SketchStore(device, algo=args.hash_algorithm,
+                              clock=clock))
+    else:
+        pre = SkaniPreclusterer(threshold=precluster_ani,
+                                min_aligned_fraction=min_af, store=store)
     if args.cluster_method == "fastani":
         cl = FastANIEquivalentClusterer(threshold=ani,
                                         min_aligned_fraction=min_af,
@@ -175,7 +197,7 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
         if out is not None:
             out.close()
     return RunResult(genomes=genomes, clusters=clusters, clock=clock,
-                     store=store)
+                     store=store, preclusterer=pre)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -11,8 +11,17 @@ class Defaults:
     FRAGMENT_LENGTH = 3000           # --fragment-length
     ANI = 95.0                       # --ani (percent)
     PRETHRESHOLD_ANI = 90.0          # --precluster-ani (percent)
+    MINHASH_KMER = 21                # finch k (reference: src/finch.rs:33)
+    MINHASH_SKETCH_SIZE = 1000       # finch bottom-k sketch size
+    MINHASH_SEED = 0                 # murmur3 seed of the finch contract
+    HASH_ALGO = "murmur3"            # --hash-algorithm
     PRECLUSTER_METHOD = "skani"
     CLUSTER_METHOD = "skani"         # choices: skani, fastani
+
+
+PRECLUSTER_METHODS = ("skani", "finch", "dashing")
+HASH_ALGORITHMS = ("murmur3", "tpufast")
+CLUSTER_METHODS = ("skani", "fastani")
 
 
 def parse_percentage(value: float, name: str = "value") -> float:

@@ -1,17 +1,21 @@
 """Carry per-genome state across from ``galah_tpu``.
 
 The system has no weights: its state is the per-genome profile (the
-positional hashes, the distinct set and the markers). ``galah_tpu``
-keeps them as uint64 numpy arrays, the port as biased int64 tensors
-(``ops/u64.py``). These two functions convert between the two without
-importing ``galah_tpu``: the source is any object with the profile's
-attributes (a ``galah_tpu`` ``GenomeProfile`` qualifies), the result of
-the inverse is a dict of its constructor fields.
+positional hashes, the distinct set and the markers) and, for finch,
+the (N, K) sketch matrix. ``galah_tpu`` keeps them as uint64 numpy
+arrays, the port as biased int64 tensors (``ops/u64.py``). These
+functions convert between the two without importing ``galah_tpu``: a
+profile's source is any object with the profile's attributes (a
+``galah_tpu`` ``GenomeProfile`` qualifies), the result of the inverse
+is a dict of its constructor fields.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import numpy as np
+import torch
 
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
 from galah_tpu_torch.ops.u64 import from_biased, to_biased
@@ -38,3 +42,20 @@ def profile_to_galah_fields(prof: GenomeProfile) -> Dict:
                 ref_set=from_biased(prof.ref_set),
                 markers=from_biased(prof.markers),
                 subsample_c=prof.subsample_c)
+
+
+def sketch_matrix_from_galah(mat: np.ndarray, device="cpu") -> torch.Tensor:
+    """galah_tpu's sentinel-padded (N, K) uint64 sketch matrix
+    (``ops/minhash.sketch_matrix``) as the port's biased int64 tensor."""
+    if mat.dtype != np.uint64 or mat.ndim != 2:
+        raise ValueError("a galah_tpu sketch matrix is 2-D uint64; got "
+                         f"{mat.dtype} {mat.shape}")
+    return to_biased(mat, device)
+
+
+def sketch_matrix_to_galah(mat: torch.Tensor) -> np.ndarray:
+    """The port's (N, K) biased sketch matrix as galah_tpu's uint64."""
+    if mat.dtype != torch.int64 or mat.dim() != 2:
+        raise ValueError("a port sketch matrix is 2-D int64; got "
+                         f"{mat.dtype} {tuple(mat.shape)}")
+    return from_biased(mat)

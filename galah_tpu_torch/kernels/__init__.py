@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("window_hits", "tile_stats")
+KERNELS = ("window_hits", "tile_stats", "fused_sketch", "pairlist")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

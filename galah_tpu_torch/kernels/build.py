@@ -35,6 +35,8 @@ SIGNATURES = {
     "window_hits": ("window_hits_launch", [_P] * 8 + [_L, _P]),
     "tile_stats": ("tile_stats_launch", [_P, _P, _I, _I, _I, _I, _I,
                                          _P, _P, _P]),
+    "fused_sketch": ("fused_sketch_launch", [_P] * 6 + [_I, _I, _P, _P]),
+    "pairlist": ("pairlist_launch", [_P, _I, _P, _P, _I, _I, _P, _P, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

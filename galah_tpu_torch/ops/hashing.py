@@ -13,6 +13,10 @@ form of ``ops/u64.py``.
 Positions are processed in chunks of ``chunk`` windows so device
 memory stays bounded for any genome length; every op is elementwise
 over shifted slices of the chunk's codes.
+
+``canonical_key_words`` stops before the hash: it gives each window's
+canonical key as the words the hash reads (``galah_tpu``'s
+``canonical_kmer_words``), which the fused sketch kernel hashes itself.
 """
 
 from __future__ import annotations
@@ -44,36 +48,26 @@ def _fmix64(x: torch.Tensor) -> torch.Tensor:
     return x ^ lsr(x, 33)
 
 
-def murmur3_h1(byte_at, length: int, n: int, device,
-               seed: int = 0) -> torch.Tensor:
-    """h1 of murmur3 x64_128 over `length`-byte keys: ``byte_at(j)``
-    gives byte j of every key as an int64 (n,) tensor. Wrap-around
-    int64 ``*``/``+`` equal the u64 ops bit for bit."""
-    def word(lo: int, hi: int) -> torch.Tensor:
-        w = torch.zeros(n, dtype=torch.int64, device=device)
-        for b in range(lo, hi):
-            w = w | (byte_at(b) << (8 * (b - lo)))
-        return w
-
-    h1 = torch.full((n,), as_int64(seed), dtype=torch.int64, device=device)
+def murmur3_h1_words(words, length: int, seed: int = 0) -> torch.Tensor:
+    """h1 of murmur3 x64_128 over `length`-byte keys given as their
+    little-endian 8-byte words: ``ceil(length / 8)`` int64 tensors, the
+    last one holding the partial tail. Wrap-around int64 ``*``/``+``
+    equal the u64 ops bit for bit."""
+    h1 = torch.full_like(words[0], as_int64(seed))
     h2 = h1.clone()
     nblocks = length // 16
     for blk in range(nblocks):
-        base = blk * 16
-        k1 = rotl(word(base, base + 8) * _C1, 31) * _C2
+        k1 = rotl(words[2 * blk] * _C1, 31) * _C2
         h1 = rotl(h1 ^ k1, 27) + h2
         h1 = h1 * 5 + 0x52DCE729
-        k2 = rotl(word(base + 8, base + 16) * _C2, 33) * _C1
+        k2 = rotl(words[2 * blk + 1] * _C2, 33) * _C1
         h2 = rotl(h2 ^ k2, 31) + h1
         h2 = h2 * 5 + 0x38495AB5
     rem = length & 15
-    base = nblocks * 16
     if rem > 8:
-        k2 = rotl(word(base + 8, base + rem) * _C2, 33) * _C1
-        h2 = h2 ^ k2
+        h2 = h2 ^ (rotl(words[2 * nblocks + 1] * _C2, 33) * _C1)
     if rem > 0:
-        k1 = rotl(word(base, base + min(rem, 8)) * _C1, 31) * _C2
-        h1 = h1 ^ k1
+        h1 = h1 ^ (rotl(words[2 * nblocks] * _C1, 31) * _C2)
     h1 = h1 ^ length
     h2 = h2 ^ length
     h1 = h1 + h2
@@ -91,10 +85,11 @@ def tpufast_mix(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
     return x ^ lsr(x, 32)
 
 
-def _hash_chunk(cs: torch.Tensor, valid: torch.Tensor, k: int,
-                algo: str) -> torch.Tensor:
-    """Biased hashes of the ``len(cs) - k + 1`` windows of `cs`
-    (sanitized codes, int64 0-3); `valid` masks the windows."""
+def _key_words(cs: torch.Tensor, k: int, algo: str):
+    """The canonical key of each of the ``len(cs) - k + 1`` windows of
+    `cs` (sanitized codes, int64 0-3), as the words its hash reads:
+    for murmur3 the little-endian 8-byte words of its ASCII string
+    (``ceil(k / 8)`` of them), for tpufast its one 2-bit packing."""
     m = cs.shape[0] - k + 1
     fwd = torch.zeros(m, dtype=torch.int64, device=cs.device)
     rev = torch.zeros_like(fwd)
@@ -106,21 +101,63 @@ def _hash_chunk(cs: torch.Tensor, valid: torch.Tensor, k: int,
     # compare is the lexicographic string compare
     use_fwd = fwd <= rev
     if algo == "tpufast":
-        h = tpufast_mix(torch.where(use_fwd, fwd, rev))
-    elif algo == "murmur3":
-        lut = torch.tensor(_ASCII, dtype=torch.int64, device=cs.device)
-        af = lut[cs]
-        ar = lut[3 - cs]
-
-        def byte_at(j: int) -> torch.Tensor:
-            return torch.where(use_fwd, af[j:j + m],
-                               ar[k - 1 - j:k - 1 - j + m])
-
-        h = murmur3_h1(byte_at, k, m, cs.device)
-    else:
+        return (torch.where(use_fwd, fwd, rev),)
+    if algo != "murmur3":
         raise ValueError(f"unknown hash algorithm {algo!r}")
+    lut = torch.tensor(_ASCII, dtype=torch.int64, device=cs.device)
+    af = lut[cs]
+    ar = lut[3 - cs]
+    words = []
+    for lo in range(0, k, 8):
+        wf = torch.zeros_like(fwd)
+        wr = torch.zeros_like(fwd)
+        for b in range(lo, min(lo + 8, k)):
+            # byte b of the forward string, and of the reverse
+            # complement (the complement of base k-1-b)
+            wf = wf | (af[b:b + m] << (8 * (b - lo)))
+            wr = wr | (ar[k - 1 - b:k - 1 - b + m] << (8 * (b - lo)))
+        words.append(torch.where(use_fwd, wf, wr))
+    return tuple(words)
+
+
+def hash_key_words(words, k: int, algo: str) -> torch.Tensor:
+    """Unbiased int64 hashes (u64 bits) of canonical key words."""
+    if algo == "tpufast":
+        return tpufast_mix(words[0])
+    return murmur3_h1_words(words, k)
+
+
+def _hash_chunk(cs: torch.Tensor, valid: torch.Tensor, k: int,
+                algo: str) -> torch.Tensor:
+    """Biased hashes of the ``len(cs) - k + 1`` windows of `cs`
+    (sanitized codes, int64 0-3); `valid` masks the windows."""
+    h = hash_key_words(_key_words(cs, k, algo), k, algo)
     return torch.where(valid, bias(h),
                        torch.full_like(h, SENTINEL_BIASED))
+
+
+def _window_chunks(codes_np: np.ndarray, contig_offsets: np.ndarray,
+                   k: int, device: torch.device, chunk: int):
+    """(s, e, cs, valid) for each chunk [s, e) of a sequence's windows:
+    the sanitized int64 codes the chunk's windows read, and the mask of
+    windows holding no ambiguous base and crossing no contig
+    boundary."""
+    n = codes_np.shape[0]
+    codes = torch.from_numpy(codes_np).to(device)
+    amb = codes == 255
+    cs = torch.where(amb, torch.zeros_like(codes), codes).to(torch.int64)
+    inv = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    inv[1:] = torch.cumsum(amb.to(torch.int32), 0)
+    offs = np.asarray(contig_offsets[1:-1], dtype=np.int64)
+    offs = offs[(offs > 0) & (offs < n)]
+    start = torch.zeros(n, dtype=torch.int32, device=device)
+    start[torch.from_numpy(offs).to(device)] = 1
+    contig = torch.cumsum(start, 0)
+    for s in range(0, n - k + 1, chunk):
+        e = min(s + chunk, n - k + 1)
+        valid = ((inv[s + k:e + k] == inv[s:e])
+                 & (contig[s:e] == contig[s + k - 1:e + k - 1]))
+        yield s, e, cs[s:e + k - 1], valid
 
 
 def positional_hashes(genome: Genome, k: int, device="cuda",
@@ -135,22 +172,37 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
     n = genome.codes.shape[0]
     if n < k:
         return torch.zeros(0, dtype=torch.int64, device=device)
-    codes = torch.from_numpy(genome.codes).to(device)
-    amb = codes == 255
-    cs = torch.where(amb, torch.zeros_like(codes), codes).to(torch.int64)
-    inv = torch.zeros(n + 1, dtype=torch.int32, device=device)
-    inv[1:] = torch.cumsum(amb.to(torch.int32), 0)
-    offs = np.asarray(genome.contig_offsets[1:-1], dtype=np.int64)
-    offs = offs[(offs > 0) & (offs < n)]
-    start = torch.zeros(n, dtype=torch.int32, device=device)
-    start[torch.from_numpy(offs).to(device)] = 1
-    contig = torch.cumsum(start, 0)
-
-    n_win = n - k + 1
-    out = torch.empty(n_win, dtype=torch.int64, device=device)
-    for s in range(0, n_win, chunk):
-        e = min(s + chunk, n_win)
-        valid = ((inv[s + k:e + k] == inv[s:e])
-                 & (contig[s:e] == contig[s + k - 1:e + k - 1]))
-        out[s:e] = _hash_chunk(cs[s:e + k - 1], valid, k, algo)
+    out = torch.empty(n - k + 1, dtype=torch.int64, device=device)
+    for s, e, cs, valid in _window_chunks(genome.codes,
+                                          genome.contig_offsets, k,
+                                          device, chunk):
+        out[s:e] = _hash_chunk(cs, valid, k, algo)
     return out
+
+
+def canonical_key_words(codes: np.ndarray, contig_offsets: np.ndarray,
+                        k: int, device="cuda", algo: str = "murmur3",
+                        chunk: int = DEFAULT_CHUNK):
+    """(words, valid) over the ``n - k + 1`` windows of a sequence given
+    as a genome's codes and contig offsets (a launch group's genomes,
+    concatenated, each start a contig boundary): the
+    canonical key words each window's hash reads (``_key_words``; for
+    murmur3 k must be 21, the fused sketch kernel's key length) and the
+    window mask of ``positional_hashes``. The input of the fused sketch
+    kernel (``ops/fused_sketch.py``)."""
+    if algo == "murmur3" and k != 21:
+        raise ValueError(f"fused murmur3 sketching requires k=21, got {k}")
+    if algo not in ("murmur3", "tpufast"):
+        raise ValueError(f"unknown hash algorithm {algo!r}")
+    device = resolve_device(device)
+    n_win = max(codes.shape[0] - k + 1, 0)
+    n_words = 3 if algo == "murmur3" else 1
+    words = tuple(torch.empty(n_win, dtype=torch.int64, device=device)
+                  for _ in range(n_words))
+    valid = torch.zeros(n_win, dtype=torch.bool, device=device)
+    for s, e, cs, v in _window_chunks(codes, contig_offsets, k, device,
+                                      chunk):
+        for w, piece in zip(words, _key_words(cs, k, algo)):
+            w[s:e] = piece
+        valid[s:e] = v
+    return words, valid

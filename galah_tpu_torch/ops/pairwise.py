@@ -1,33 +1,45 @@
-"""The marker-containment screen: the port of the dense row-block path
-of ``galah_tpu/ops/pairwise.py`` (``screen_pairs`` ->
-``_screen_pairs_single`` -> ``_rowblock_screen``).
+"""All-pairs passes over sorted, sentinel-padded hash rows: the port of
+``galah_tpu/ops/pairwise.py``'s ``screen_pairs`` and ``threshold_pairs``.
 
-For N genomes with sorted, sentinel-padded marker rows, the i<j pairs
-whose containment ``|M_i ∩ M_j| / min(|M_i|, |M_j|)`` reaches the
-floor (the skani-equivalent candidate screen, reference:
-src/skani.rs:54-70). Per row block, the intersection stripe comes from
-``tile_stats`` in its intersect form (the CUDA kernel on the card), a
-conservative float64 mask and the compaction run on the device, and
-the host applies the exact float64 check. The port runs this dense
-screen at every N; ``galah_tpu``'s sparse collision screen above 1024
-genomes gives the same pair list and is not ported yet.
+``screen_pairs`` is the marker-containment screen: the i<j pairs whose
+containment ``|M_i ∩ M_j| / min(|M_i|, |M_j|)`` reaches the floor (the
+skani-equivalent candidate screen, reference: src/skani.rs:54-70).
+``threshold_pairs`` is the finch pass: the i<j pairs whose merged-bottom-k
+Mash ANI reaches the threshold, with that ANI (reference:
+src/finch.rs:69-71).
+
+Below ``collision.SPARSE_SCREEN_MIN_N`` genomes each runs the dense
+row-block pass: per block of rows, the stripe against every column at
+or right of the block's diagonal tile comes from ``tile_stats`` (the
+CUDA kernel on the card; the intersect form for the screen, the full
+form for finch), a conservative float64 mask and the compaction run on
+the device, and the host applies the exact float64 check. From the
+crossover up, both take the host collision screen
+(``ops/collision.py``) instead: the screen's counts are its exact
+containment numerators, and finch evaluates the collision survivors
+with the pairlist kernel (``ops/sparse_device.py``). Either way the
+result is the same.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from galah_tpu_torch.ops import collision
 from galah_tpu_torch.ops.compact import iter_blocks
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.tile_stats import tile_stats
+from galah_tpu_torch.ops.u64 import from_biased
+from galah_tpu_torch.timing import StageClock
 
 ROW_TILE = 64
 COL_TILE = 256
 CAP_PER_ROW = 256
+CANDIDATES_PER_ROW = 64  # finch pairs a row block copies back at first
 
 
 def ani_to_jaccard(min_ani: float, k: int) -> float:
@@ -43,6 +55,15 @@ def stats_to_ani_f64(common: np.ndarray, total: np.ndarray,
     with np.errstate(divide="ignore"):
         d = -np.log(2.0 * j / (1.0 + j)) / float(k)
     return np.where(common > 0, 1.0 - d, 0.0)
+
+
+def _pad_rows(mat: torch.Tensor, quantum: int) -> torch.Tensor:
+    """`mat` with sentinel rows appended up to a multiple of `quantum`."""
+    n_pad = -(-mat.shape[0] // quantum) * quantum
+    out = torch.full((n_pad, mat.shape[1]), SENTINEL_BIASED,
+                     dtype=torch.int64, device=mat.device)
+    out[:mat.shape[0]] = mat
+    return out
 
 
 def _rowblock_screen(mat: torch.Tensor, counts: torch.Tensor, r0: int,
@@ -83,13 +104,18 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
     order. `marker_mat` is (N, M) biased int64 on the device, sorted
     and sentinel-padded; `counts` the per-genome marker counts."""
     n = marker_mat.shape[0]
-    device = marker_mat.device
-    quantum = math.lcm(row_tile, col_tile)
-    n_pad = -(-n // quantum) * quantum
-    mat = torch.full((n_pad, marker_mat.shape[1]), SENTINEL_BIASED,
-                     dtype=torch.int64, device=device)
-    mat[:n] = marker_mat
     counts64 = np.asarray(counts, dtype=np.int64)
+    if n >= collision.SPARSE_SCREEN_MIN_N:
+        # the collision counts ARE the containment numerators (marker
+        # sets are distinct), so the exact check needs no second pass
+        pi, pj, inter = collision.collision_pair_counts(
+            from_biased(marker_mat), counts64)
+        denom = np.minimum(counts64[pi], counts64[pj]).astype(np.float64)
+        keep = (denom > 0) & (inter.astype(np.float64) >= c_floor * denom)
+        return list(zip(pi[keep].tolist(), pj[keep].tolist()))
+    device = marker_mat.device
+    mat = _pad_rows(marker_mat, math.lcm(row_tile, col_tile))
+    n_pad = mat.shape[0]
     cnt = torch.zeros(n_pad, dtype=torch.int32, device=device)
     cnt[:n] = torch.from_numpy(counts64).to(device=device,
                                             dtype=torch.int32)
@@ -110,3 +136,82 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
         keep = (denom > 0) & (inter.astype(np.float64) >= c_floor * denom)
         out.extend(zip(gi[keep].tolist(), gj[keep].tolist()))
     return out
+
+
+def _rowblock_candidates(mat: torch.Tensor, r0: int, j_thr_lo: float,
+                         sketch_size: int, n: int, row_tile: int,
+                         col_tile: int, cap: int):
+    """One row block of the finch pass: the (row_tile, n_pad) stats
+    stripe, Jaccard-thresholded and compacted on the device.
+
+    Returns (flat_idx, common, total, count): up to `cap` flat indices
+    into the stripe with their (common, total), and the true number of
+    passing entries. Column tiles wholly below the block's diagonal
+    hold no i<j pair and are not computed.
+    """
+    n_pad = mat.shape[0]
+    c0 = (r0 // col_tile) * col_tile
+    common = torch.zeros(row_tile, n_pad, dtype=torch.int32,
+                         device=mat.device)
+    total = torch.zeros_like(common)
+    common[:, c0:], total[:, c0:] = tile_stats(
+        mat[r0:r0 + row_tile], mat[c0:], sketch_size)
+    gi = r0 + torch.arange(row_tile, device=mat.device)[:, None]
+    gj = torch.arange(n_pad, device=mat.device)[None, :]
+    mask = common.to(torch.float64) >= j_thr_lo * total.to(torch.float64)
+    mask &= (common > 0) & (gi < gj) & (gj < n)
+    flat_idx = torch.nonzero(mask.reshape(-1))[:, 0]
+    count = int(flat_idx.shape[0])
+    flat_idx = flat_idx[:cap]
+    return (flat_idx, common.reshape(-1)[flat_idx],
+            total.reshape(-1)[flat_idx], count)
+
+
+def _threshold_pairs_dense(sketch_mat: torch.Tensor, k: int,
+                           min_ani: float, sketch_size: int
+                           ) -> Dict[Tuple[int, int], float]:
+    n = sketch_mat.shape[0]
+    mat = _pad_rows(sketch_mat, math.lcm(ROW_TILE, COL_TILE))
+    n_pad = mat.shape[0]
+    j_thr = ani_to_jaccard(min_ani, k)
+    # conservative device mask; the exact float64 check runs on the host
+    j_thr_lo = j_thr * (1.0 - 1e-12) - 1e-300
+
+    out: Dict[Tuple[int, int], float] = {}
+    for r0, (flat_idx, common, total, count) in iter_blocks(
+            n, ROW_TILE, CANDIDATES_PER_ROW,
+            lambda r0, cap: _rowblock_candidates(
+                mat, r0, j_thr_lo, sketch_size, n, ROW_TILE, COL_TILE,
+                cap)):
+        flat_idx = flat_idx[:count].cpu().numpy()
+        common = common[:count].cpu().numpy().astype(np.int64)
+        total = total[:count].cpu().numpy().astype(np.int64)
+        keep = common.astype(np.float64) >= j_thr * total
+        ani = stats_to_ani_f64(common[keep], total[keep], k)
+        gi = r0 + flat_idx[keep] // n_pad
+        gj = flat_idx[keep] % n_pad
+        for a, b, v in zip(gi.tolist(), gj.tolist(), ani.tolist()):
+            out[(a, b)] = v
+    return out
+
+
+def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
+                    sketch_size: Optional[int] = None,
+                    clock: Optional[StageClock] = None
+                    ) -> Dict[Tuple[int, int], float]:
+    """Sparse {(i, j): ani} for i<j pairs whose float64 Mash ANI reaches
+    `min_ani`, over an (N, K) biased sketch matrix on the device: the
+    dense row-block pass below the sparse crossover, the collision
+    screen and pairlist pass (``sparse_device``) from it up. `clock`
+    gets the stages (`pair-stats`, and `collision-screen` when
+    sparse)."""
+    clock = clock or StageClock(sketch_mat.device)
+    if sketch_size is None:
+        sketch_size = sketch_mat.shape[1]
+    if sketch_mat.shape[0] >= collision.SPARSE_SCREEN_MIN_N:
+        from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
+
+        return threshold_pairs_sparse(sketch_mat, k, min_ani, sketch_size,
+                                      clock)
+    with clock.stage("pair-stats"):
+        return _threshold_pairs_dense(sketch_mat, k, min_ani, sketch_size)

@@ -1,0 +1,206 @@
+"""The finch sketch stage: the port of ``galah_tpu/ops/sketch_stream.py``'s
+fused strategy and its streaming stage.
+
+``sketch_genomes_fused`` sketches a group of genomes with one fused
+launch: the genomes' codes are concatenated (each genome start a contig
+boundary), their canonical key words built by torch ops on the device
+(``ops/hashing.canonical_key_words``, the reference's XLA preamble),
+and the fused kernel (``ops/fused_sketch``) hashes every window and
+keeps the 8 smallest distinct hashes of each of the 2048 position
+classes of each genome. The post-pass sorts a genome's 16,384
+candidates, drops repeats and keeps the first ``sketch_size``. Its
+certificate: with ``T`` the ``sketch_size``-th distinct candidate, a
+genome is *suspect* when some class's eighth register is below ``T``
+(that class filled up below ``T`` and may have dropped a value the true
+bottom-k needs). Suspect genomes are re-sketched exactly
+(``ops/minhash.sketch_genome_device``), so fused sketches equal exact
+ones bit for bit, always. Genomes longer than ``DEFAULT_CHUNK`` and
+sketch sizes beyond a quarter of the candidate file take the exact path
+outright, as in ``galah_tpu``.
+
+``galah_tpu`` pads launch groups to power-of-two job counts and spans to
+bound XLA's compile variants; a genome's candidates depend only on its
+own windows, so the port groups genomes by a window budget alone.
+
+``iter_path_sketches`` yields each unique path's sketch in path order,
+reading FASTA files ahead on a small thread pool and sketching them in
+budget-sized groups; sketches enter the store on the consumer thread.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from galah_tpu_torch.config import Defaults
+from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io.fasta import Genome, read_genome
+from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
+from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
+                                              fused_sketch_candidates)
+from galah_tpu_torch.ops.hashing import DEFAULT_CHUNK, canonical_key_words
+from galah_tpu_torch.ops.minhash import (sketch_genome_device,
+                                         sketch_genomes_device_batch)
+from galah_tpu_torch.ops.minhash_np import MinHashSketch
+from galah_tpu_torch.ops.u64 import from_biased
+from galah_tpu_torch.timing import StageClock
+
+#: windows per fused launch group: the key words (25 B a window for
+#: murmur3) and the preamble's int64 temporaries stay a few GB
+FUSED_BUDGET = 1 << 25
+
+#: candidates per genome in the fused file
+CANDIDATES = REGS * CLASSES
+
+#: FASTA reads in flight ahead of the consumer (``galah_tpu``'s
+#: ``ingest_depth`` at one thread)
+INGEST_DEPTH = 2
+
+
+
+def _concat(genomes: Sequence[Genome], k: int):
+    """(codes, contig offsets, jobs) of the genomes laid end to end;
+    job j is genome j's (first window, window count)."""
+    lengths = [g.codes.shape[0] for g in genomes]
+    starts = np.concatenate(([0], np.cumsum(lengths)))
+    codes = np.concatenate([g.codes for g in genomes])
+    offsets = np.concatenate(
+        [np.asarray(g.contig_offsets[:-1], dtype=np.int64) + s
+         for g, s in zip(genomes, starts)] + [starts[-1:]])
+    jobs = [(int(s), max(n - k + 1, 0)) for s, n in zip(starts, lengths)]
+    return codes, offsets, jobs
+
+
+def certify(cand: torch.Tensor, sketch_size: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sketches (G, sketch_size) biased, ascending, sentinel-padded;
+    suspect (G,) bool) from (G, REGS, CLASSES) candidate files."""
+    g = cand.shape[0]
+    flat = torch.sort(cand.reshape(g, -1), dim=1).values
+    dup = torch.zeros_like(flat, dtype=torch.bool)
+    dup[:, 1:] = flat[:, 1:] == flat[:, :-1]
+    distinct = torch.sort(torch.where(dup, SENTINEL_BIASED, flat),
+                          dim=1).values
+    t = distinct[:, sketch_size - 1]
+    suspect = (cand[:, REGS - 1, :] < t[:, None]).any(dim=1)
+    return distinct[:, :sketch_size], suspect
+
+
+def sketch_genomes_fused(genomes: Sequence[Genome],
+                         sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
+                         k: int = Defaults.MINHASH_KMER,
+                         algo: str = Defaults.HASH_ALGO,
+                         device="cuda",
+                         clock: Optional[StageClock] = None
+                         ) -> List[MinHashSketch]:
+    """Fused-kernel sketches, bit-identical per genome to
+    ``sketch_genome_device``."""
+    device = resolve_device(device)
+    if sketch_size > CANDIDATES // 4:
+        # the candidate file cannot certify this many; not a
+        # production shape (1000 against 16,384 candidates)
+        return sketch_genomes_device_batch(genomes, sketch_size, k, algo,
+                                           device)
+    out: List[Optional[MinHashSketch]] = [None] * len(genomes)
+    groups: List[List[int]] = []
+    size = 0
+    for i, g in enumerate(genomes):
+        n = g.codes.shape[0]
+        if n > DEFAULT_CHUNK:
+            out[i] = sketch_genome_device(g, sketch_size, k, algo, device)
+            continue
+        if not groups or size + n > FUSED_BUDGET:
+            groups.append([])
+            size = 0
+        groups[-1].append(i)
+        size += n
+    suspects = 0
+    for group in groups:
+        codes, offsets, jobs = _concat([genomes[i] for i in group], k)
+        words, valid = canonical_key_words(codes, offsets, k, device, algo)
+        cand = fused_sketch_candidates(words, valid, jobs, k, algo)
+        sketch, suspect = certify(cand, sketch_size)
+        suspect_host = suspect.cpu().tolist()
+        rows = from_biased(sketch)
+        for row, gi in enumerate(group):
+            if suspect_host[row]:
+                suspects += 1
+                out[gi] = sketch_genome_device(genomes[gi], sketch_size, k,
+                                               algo, device)
+            else:
+                hs = rows[row]
+                out[gi] = MinHashSketch(hashes=hs[hs != SENTINEL_U64],
+                                        sketch_size=sketch_size, kmer=k)
+    if clock is not None:
+        clock.count("sketch-fused-launches", len(groups))
+        clock.count("sketch-fused-jobs", sum(len(g) for g in groups))
+        clock.count("sketch-fused-suspect", suspects)
+    return out  # type: ignore[return-value]
+
+
+def _read_ahead(paths: Sequence[str], clock: StageClock
+                ) -> Iterator[Tuple[str, Genome]]:
+    """(path, genome) in order, INGEST_DEPTH reads in flight; the
+    consumer's wait for a read is the `read` stage."""
+    with ThreadPoolExecutor(max_workers=INGEST_DEPTH) as pool:
+        it = iter(paths)
+        pending = collections.deque(
+            (p, pool.submit(read_genome, p))
+            for p in itertools.islice(it, INGEST_DEPTH))
+        while pending:
+            p, fut = pending.popleft()
+            with clock.stage("read"):
+                genome = fut.result()
+            clock.count("genomes-read", 1)
+            for nxt in itertools.islice(it, 1):
+                pending.append((nxt, pool.submit(read_genome, nxt)))
+            yield p, genome
+
+
+def _iter_computed(paths: Sequence[str], store
+                   ) -> Iterator[Tuple[str, MinHashSketch]]:
+    """(path, sketch) for `paths` in order, sketched in groups of at
+    most FUSED_BUDGET windows."""
+    batch: List[Tuple[str, Genome]] = []
+    size = 0
+
+    def flush():
+        with store.clock.stage("sketch"):
+            sketches = sketch_genomes_fused(
+                [g for _, g in batch], store.sketch_size, store.k,
+                store.algo, store.device, store.clock)
+        done = [(p, s) for (p, _), s in zip(batch, sketches)]
+        batch.clear()
+        return done
+
+    for p, g in _read_ahead(paths, store.clock):
+        if batch and size + g.codes.shape[0] > FUSED_BUDGET:
+            yield from flush()
+            size = 0
+        batch.append((p, g))
+        size += g.codes.shape[0]
+    if batch:
+        yield from flush()
+
+
+def iter_path_sketches(paths: Sequence[str], store
+                       ) -> Iterator[Tuple[str, MinHashSketch]]:
+    """(path, sketch) for the UNIQUE paths, in path order. Sketches the
+    store does not hold are computed and inserted on this thread."""
+    unique = list(dict.fromkeys(paths))
+    computed = _iter_computed(
+        [p for p in unique if store.get_cached(p) is None], store)
+    for p in unique:
+        s = store.get_cached(p)
+        if s is None:
+            cp, s = next(computed)
+            if cp != p:
+                raise RuntimeError(f"sketch stream out of order: {cp} "
+                                   f"!= {p}")
+            s = store.insert(p, s)
+        yield p, s

@@ -1,9 +1,12 @@
 """Per-stage wall times and counts of one run.
 
 A :class:`StageClock` is created by the caller (the CLI creates one per
-run) and handed to the store, the backends and the engine. Each stage
+run) and handed to the stores, the backends and the engine. Each stage
 ends with a device synchronize, so its host-clock time covers the
-device work it queued, not only the enqueue.
+device work it queued, not only the enqueue. Stages may nest (the
+greedy stage reads and profiles the genomes its exact ANIs need); a
+stage's seconds exclude the stages run inside it, so the stages of a
+run add up to at most its wall.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -23,15 +26,21 @@ class StageClock:
         self.device = torch.device(device)
         self.seconds: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        # per open stage, the seconds of the stages nested in it so far
+        self._inner: List[float] = []
 
     @contextlib.contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
+        self._inner.append(0.0)
         try:
             yield
         finally:
             synchronize(self.device)
-            self.seconds[name] += time.perf_counter() - t0
+            elapsed = time.perf_counter() - t0
+            self.seconds[name] += elapsed - self._inner.pop()
+            if self._inner:
+                self._inner[-1] += elapsed
 
     def count(self, name: str, n: int) -> None:
         self.counts[name] += int(n)

@@ -149,10 +149,13 @@ def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
 
 
 def test_cli_rejects_unsupported_precluster_method(capsys):
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", "--precluster-method",
-                         "finch"])
-    assert "--precluster-method" in capsys.readouterr().err
+                         "dashing"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "--precluster-method dashing" in err
+    assert "not supported" in err
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -183,15 +186,18 @@ def test_port_imports_neither_jax_nor_galah_tpu():
 
 
 def test_port_run_loads_no_jax(families, tmp_path):
-    """A CPU cluster run of the port in a fresh interpreter leaves jax
-    and galah_tpu out of sys.modules."""
+    """CPU cluster runs of the port (skani and finch preclusters) in a
+    fresh interpreter leave jax and galah_tpu out of sys.modules."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     code = (
         "import sys\n"
         "from galah_tpu_torch.cli import main\n"
         f"rc = main(['cluster', '-f', *{paths[:4]!r}, '--device', 'cpu',"
+        f" '--precluster-method', 'finch',"
         f" '--output-cluster-definition', {str(out)!r}])\n"
+        f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
+        f" 'cpu', '--output-cluster-definition', {str(out)!r}])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
         "print('LOADED', bad)\n"
