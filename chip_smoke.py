@@ -2,6 +2,9 @@
 """Drive galah_tpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 0] [--genomes 512] [--finch-genomes 1024]
+                          [--genome-length 2000000]
+
+(--finch-genomes also sizes the dashing run of phase 4d.)
 
 Phases, each of which exits nonzero when it fails:
 
@@ -20,11 +23,19 @@ Phases, each of which exits nonzero when it fails:
    fused sketch and pairlist kernels carry the precluster;
 4c. end to end, finch dense: the first 256 genomes through the same
    command, below the crossover, so the full form of tile_stats runs;
+4d. end to end, dashing with quality ranking: all genomes through
+   ``cluster --precluster-method dashing --cluster-method skani
+   --checkm2-quality-report <report>``, the report made from the seed;
+   the clusters must be the planted families, each represented by the
+   member that this script itself ranks first under Parks2020_reduced,
+   and the hll_union, murmur3_k21 and window_hits kernels must have
+   been launched;
 5. the kernels timed at the shapes the end-to-end runs gave them,
    beside their plain versions and their bound on this card;
 6. kernel path against plain torch path on the card: identical
-   bidirectional ANI floats for 16 genomes, and identical finch
-   sketches and pair-dict ANI floats for 64 genomes.
+   bidirectional ANI floats for 16 genomes, identical finch sketches
+   and pair-dict ANI floats for 64 genomes, and identical HLL
+   registers and dashing pair dicts for 64 genomes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the line before that the
@@ -54,6 +65,12 @@ PEAK_OPS_PER_S = 67e12
 # the register compare
 FUSED_OPS_PER_WINDOW = {"murmur3": 100, "tpufast": 45}
 
+# 32-bit operations of the murmur3 hash of one k=21 window
+# (kernels/murmur3_k21.cu's source note), and of one register pair of
+# the HLL union statistics (kernels/hll_union.cu's)
+MURMUR3_OPS_PER_WINDOW = 100
+HLL_UNION_OPS_PER_REGISTER = 4
+
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
 # phase 4b must reach and phase 4c must stay below
 FINCH_MIN_GENOMES = 1024
@@ -78,9 +95,9 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _fasta_bytes(name: str, seq: np.ndarray, rng) -> bytes:
-    """A genome as FASTA: contigs of 5-50 kb at random cut points,
-    80-column lines."""
+def _fasta_bytes(name: str, seq: np.ndarray, rng):
+    """(FASTA bytes, contig count) of a genome: contigs of 5-50 kb at
+    random cut points, 80-column lines."""
     cuts = [0]
     while cuts[-1] < seq.shape[0]:
         cuts.append(cuts[-1] + int(rng.integers(5_000, 50_001)))
@@ -98,16 +115,17 @@ def _fasta_bytes(name: str, seq: np.ndarray, rng) -> bytes:
         if body.shape[0] > full * 80:
             parts.append(body[full * 80:])
             parts.append(np.array([ord("\n")], dtype=np.uint8))
-    return np.concatenate(parts).tobytes()
+    return np.concatenate(parts).tobytes(), len(cuts) - 1
 
 
 def make_corpus(root: str, n_genomes: int, length: int, family: int,
                 seed: int):
     """Planted families: each member is its family base with 1% of
     sites substituted; families are independent random sequences;
-    each genome gets a few short N runs. Returns (paths, labels)."""
+    each genome gets a few short N runs. Returns (paths, labels,
+    stats), stats[path] the genome's (contig count, N count)."""
     rng = np.random.default_rng(seed)
-    paths, labels = [], []
+    paths, labels, stats = [], [], {}
     for fam in range(n_genomes // family):
         base = rng.integers(0, 4, size=length).astype(np.uint8)
         for m in range(family):
@@ -120,11 +138,48 @@ def make_corpus(root: str, n_genomes: int, length: int, family: int,
                 s = int(rng.integers(0, length - 100))
                 seq[s:s + int(rng.integers(5, 100))] = ord("N")
             p = os.path.join(root, f"fam{fam:03d}_m{m}.fna")
+            body, n_contigs = _fasta_bytes(f"fam{fam}_m{m}", seq, rng)
             with open(p, "wb") as fh:
-                fh.write(_fasta_bytes(f"fam{fam}_m{m}", seq, rng))
+                fh.write(body)
             paths.append(p)
             labels.append(fam)
-    return paths, labels
+            stats[p] = (n_contigs, int((seq == ord("N")).sum()))
+    return paths, labels, stats
+
+
+def write_quality_report(path: str, paths, labels, seed: int):
+    """A CheckM2 quality report for the corpus, made from the seed:
+    within a family every member's completeness is distinct and at
+    least 5 points from the others', contamination 0-2%. Returns
+    {genome path: (completeness, contamination)} as written."""
+    rng = np.random.default_rng(seed + 1)
+    quality = {}
+    for fam in sorted(set(labels)):
+        members = [p for p, f in zip(paths, labels) if f == fam]
+        grid = rng.choice(np.arange(50.0, 96.0, 5.0), size=len(members),
+                          replace=False) + rng.uniform(0.0, 4.0)
+        for p, c in zip(members, grid):
+            quality[p] = (f"{c:.2f}", f"{rng.uniform(0.0, 2.0):.2f}")
+    with open(path, "w") as fh:
+        fh.write("Name\tCompleteness\tContamination\n")
+        for p in paths:
+            c, x = quality[p]
+            fh.write(f"{os.path.basename(p)[:-4]}\t{c}\t{x}\n")
+    return quality
+
+
+def parks2020_best(members, quality, stats, order):
+    """The member a Parks2020_reduced ranking puts first (the formula of
+    galah's quality ranking, computed here from the report and the
+    corpus' own contig and N counts; ties to the earlier input)."""
+    def score(p):
+        comp = float(quality[p][0]) / 100.0
+        cont = float(quality[p][1]) / 100.0
+        contigs, n_amb = stats[p]
+        return (comp * 100.0 - 5.0 * cont * 100.0 - 5.0 * contigs / 100.0
+                - 5.0 * n_amb / 100000.0)
+
+    return min(members, key=lambda p: (-score(p), order[p]))
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +404,14 @@ def main(argv=None) -> int:
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
                                                   fused_sketch_candidates)
     from galah_tpu_torch.ops.hashing import canonical_key_words
+    from galah_tpu_torch.ops.hll import (hll_sketch_genomes,
+                                         hll_threshold_pairs)
+    from galah_tpu_torch.ops.hll_union import (hll_union_stats,
+                                               hll_union_stats_plain)
     from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                              sketch_matrix)
+    from galah_tpu_torch.ops.murmur3_k21 import (murmur3_k21,
+                                                 murmur3_k21_plain)
     from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
                                               pair_stats_pairs_plain)
     from galah_tpu_torch.ops.tile_stats import (tile_intersect_plain,
@@ -395,7 +456,8 @@ def main(argv=None) -> int:
         fused = sketch_stream.sketch_genomes_fused(genomes, 1000, 21, algo,
                                                    device)
         for g, f in zip(genomes, fused):
-            e = sketch_genome_device(g, 1000, 21, algo, device)
+            e = sketch_genome_device(g, 1000, 21, algo, device,
+                                     k21_hash=murmur3_k21_plain)
             if not np.array_equal(f.hashes, e.hashes):
                 raise PhaseError(f"fused sketch of {g.path} ({algo}) "
                                  "differs from the exact sketch")
@@ -414,6 +476,48 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"parity pairlist: K={k} B={pi.numel()} S={k},{k // 3} "
               f"exact {tag}")
+    for br, bc, m, hi in ((64, 1000, 4096, 41), (13, 77, 1024, 41),
+                          (64, 1000, 4096, 53), (9, 3, 16, 53)):
+        rr = torch.from_numpy(rng.integers(0, hi + 1, size=(br, m))
+                              .astype(np.uint8)).to(device)
+        cc = torch.from_numpy(rng.integers(0, hi + 1, size=(bc, m))
+                              .astype(np.uint8)).to(device)
+        rr[0] = 0              # all-zero rows
+        cc[min(1, bc - 1)] = 0
+        rr[-1] = 53            # all-max rows (64 - p + 1 at p = 12)
+        cc[-1] = 53
+        ps, z = hll_union_stats(rr, cc)
+        pps, pz = hll_union_stats_plain(rr, cc)
+        torch.cuda.synchronize()
+        ulps = int((ps.view(torch.int32) - pps.view(torch.int32)).abs()
+                   .max())
+        if not torch.equal(z, pz) or ulps > (0 if hi <= 41 else 1):
+            raise PhaseError(f"hll_union disagrees with its plain version "
+                             f"at Br={br} Bc={bc} m={m} registers <= {hi}:"
+                             f" {ulps} ulps")
+        print(f"parity hll_union: Br={br} Bc={bc} m={m} registers <= "
+              f"{hi}, zero and max rows: zeros exact, powsum within "
+              f"{ulps} f32 ulp {tag}")
+    words, valid = canonical_key_words(codes, offsets, 21, device,
+                                       "murmur3")
+    valid[::97] = False        # sentinel windows among valid ones
+    cases = [(words, valid)]
+    for n in (0, 1, 1000, 3 * 2 ** 20 + 5):
+        w = [torch.from_numpy(_rand_hashes(rng, n)).to(device)
+             for _ in range(3)]
+        for t in w:
+            t[: n // 4] = -1   # all-ones keys
+        cases.append((w, torch.from_numpy(rng.random(n) < 0.9).to(device)))
+    for w, v in cases:
+        got = murmur3_k21(w, v)
+        if not torch.equal(got, murmur3_k21_plain(w, v)):
+            raise PhaseError(f"murmur3_k21 disagrees with its plain "
+                             f"version at {v.numel()} windows")
+    torch.cuda.synchronize()
+    print(f"parity murmur3_k21: {len(cases)} cases up to "
+          f"{max(v.numel() for _, v in cases)} windows, sentinel windows "
+          f"and all-ones keys, exact {tag}")
+    del words, valid, cases
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -425,8 +529,9 @@ def main(argv=None) -> int:
         skani_dir = os.path.join(root, "skani")
         os.makedirs(all_dir)
         os.makedirs(skani_dir)
-        paths, labels = make_corpus(all_dir, args.finch_genomes,
-                                    args.genome_length, family, args.seed)
+        paths, labels, gstats = make_corpus(
+            all_dir, args.finch_genomes, args.genome_length, family,
+            args.seed)
         for p in paths[:args.genomes]:
             os.symlink(p, os.path.join(skani_dir, os.path.basename(p)))
         label_of = dict(zip(paths, labels))
@@ -515,6 +620,50 @@ def main(argv=None) -> int:
             print(f"finch dense launches {name}: {launches_d[name]} {tag}")
         require_launched(launches_d, ("fused_sketch", "tile_stats"),
                          "finch dense")
+
+        # -- phase 4d: end to end, dashing with quality ranking ------------
+        report = os.path.join(root, "quality_report.tsv")
+        quality = write_quality_report(report, paths, labels, args.seed)
+        res_h, wall_h, launches_h = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            ["cluster", "-f", *paths, "--precluster-method", "dashing",
+             "--cluster-method", "skani", "--ani", "95",
+             "--checkm2-quality-report", report, "--device", "cuda",
+             "--output-cluster-definition", out_tsv])
+        n_fam = check_families(res_h, label_of, args.finch_genomes,
+                               family, out_tsv, "dashing")
+        order = {p: i for i, p in enumerate(paths)}
+        for c in res_h.clusters:
+            members = [res_h.genomes[i] for i in c]
+            best = parks2020_best(members, quality, gstats, order)
+            if members[0] != best:
+                raise PhaseError(
+                    f"dashing: cluster of {best} is represented by "
+                    f"{members[0]}, not its Parks2020_reduced best")
+        print(f"dashing end to end: {args.finch_genomes} genomes, "
+              f"{len(res_h.clusters)} clusters == {n_fam} planted "
+              f"families, each represented by its Parks2020_reduced "
+              f"best member, wall {wall_h:.2f} s {tag}")
+        for stage in ("quality", "read", "sketch", "pair-stats",
+                      "profile", "exact-ani", "greedy"):
+            print(f"dashing stage {stage}: "
+                  f"{res_h.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        for name, n in sorted(res_h.clock.counts.items()):
+            print(f"dashing count {name}: {n} {tag}")
+        within = (family * (family - 1) // 2) * n_fam
+        print(f"dashing precluster pairs: "
+              f"{res_h.clock.counts['precluster-pairs']} ({within} within "
+              f"families) {tag}")
+        for name in KERNELS:
+            print(f"dashing launches {name}: {launches_h[name]} {tag}")
+        print(f"dashing device state: register matrix "
+              f"{args.finch_genomes} x 4096 x 1 B = "
+              f"{args.finch_genomes * 4096 / 1e6:.1f} MB; key words and "
+              f"hashes 33 B a window, "
+              f"{33 * sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
+              f"group at most {tag}")
+        require_launched(launches_h, ("hll_union", "murmur3_k21",
+                                      "window_hits"), "dashing")
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -672,6 +821,69 @@ def main(argv=None) -> int:
               f"{rows_used} rows, K=1000: kernel {pl_ms:.4f} ms, plain "
               f"{pl_plain:.3f} ms, bound {pl_bound:.5f} ms ({pl_by}) {tag}")
 
+        # hll_union: the first row block of phase 4d's pair pass
+        h_store = res_h.preclusterer.store
+        n_h = len(res_h.genomes)
+        n_hpad = -(-n_h // 256) * 256  # lcm of its row and column tiles
+        hmat = torch.zeros(n_hpad, 4096, dtype=torch.uint8, device=device)
+        hmat[:n_h] = torch.stack([h_store.get_cached(p)
+                                  for p in res_h.genomes])
+        hrows = hmat[:64].contiguous()
+        hu_ms = time_ms(torch, lambda: hll_union_stats(hrows, hmat), 20)
+        hu_plain = time_ms(torch, lambda: hll_union_stats_plain(hrows,
+                                                                hmat), 3)
+        ps, z = hll_union_stats(hrows, hmat)
+        pps, pz = hll_union_stats_plain(hrows, hmat)
+        if not (torch.equal(ps, pps) and torch.equal(z, pz)):
+            raise PhaseError("hll_union disagrees with its plain version "
+                             "at phase 4d's shapes")
+        hu_err = float(max((ps - pps).abs().max(), (z - pz).abs().max()))
+        hu_bytes = (hrows.numel() + hmat.numel()) \
+            + 2 * 4 * hrows.shape[0] * hmat.shape[0]
+        hu_ops = HLL_UNION_OPS_PER_REGISTER * float(
+            hrows.shape[0] * hmat.shape[0] * 4096)
+        hu_bound, hu_by = bound(hu_bytes, hu_ops)
+        print(f"timing hll_union: {hrows.shape[0]}x{hmat.shape[0]} pairs, "
+              f"m=4096 (phase 4d's first row block; registers <= "
+              f"{int(hmat.max())}): kernel {hu_ms:.4f} ms, plain "
+              f"{hu_plain:.3f} ms, bound {hu_bound:.4f} ms ({hu_by}) "
+              f"{tag}")
+        del hmat, hrows, ps, z, pps, pz
+
+        # murmur3_k21: phase 4d's first launch group, its largest
+        group, size = [], 0
+        for p in res_h.genomes:
+            g = read_genome(p)
+            if group and size + g.codes.shape[0] > sketch_stream.FUSED_BUDGET:
+                break
+            group.append(g)
+            size += g.codes.shape[0]
+        codes, offsets, jobs = sketch_stream._concat(group, 21)
+        words, valid = canonical_key_words(codes, offsets, 21, device,
+                                           "murmur3")
+        mm_ms = time_ms(torch, lambda: murmur3_k21(words, valid), 10)
+        mm_plain = time_ms(torch, lambda: murmur3_k21_plain(words, valid),
+                           2)
+        if not torch.equal(murmur3_k21(words, valid),
+                           murmur3_k21_plain(words, valid)):
+            raise PhaseError("murmur3_k21 disagrees with its plain "
+                             "version at phase 4d's launch")
+        mm_err = 0.0
+        n_win, n_valid = valid.numel(), int(valid.sum())
+        mm_bytes = n_win * (3 * 8 + 1 + 8)
+        mm_ops = n_valid * MURMUR3_OPS_PER_WINDOW
+        mm_bound, mm_by = bound(mm_bytes, mm_ops)
+        t0 = time.perf_counter()
+        hll_sketch_genomes(group, device=device)
+        torch.cuda.synchronize()
+        hgroup_ms = (time.perf_counter() - t0) * 1e3
+        print(f"timing murmur3_k21: {len(group)} genomes, {n_win} windows "
+              f"({n_valid} valid): kernel {mm_ms:.3f} ms, plain "
+              f"{mm_plain:.3f} ms, bound {mm_bound:.3f} ms ({mm_by}); the "
+              f"group's whole HLL sketch (key words, kernel, fold) "
+              f"{hgroup_ms:.1f} ms {tag}")
+        del words, valid, codes
+
         # -- phase 6: kernel path vs plain path on the card ---------------
         sub = [p for p in store.get_many(res.genomes[:16])]
         pairs = [(sub[i], sub[j]) for i in range(16)
@@ -694,7 +906,7 @@ def main(argv=None) -> int:
         kern = [sk_store.get_cached(p) for p in sub_paths]
         for p, s in zip(sub_paths, kern):
             e = sketch_genome_device(read_genome(p), 1000, 21, "murmur3",
-                                     device)
+                                     device, k21_hash=murmur3_k21_plain)
             if not np.array_equal(s.hashes, e.hashes):
                 raise PhaseError(f"finch sketch of {p} differs between "
                                  "the kernel and plain paths")
@@ -716,6 +928,33 @@ def main(argv=None) -> int:
               f"equal, "
               f"{len(plain)} pairs, identical ANI floats (tile_stats and "
               f"pairlist passes) {tag}")
+
+        # whole families: the corpus' first 64 genomes in input order
+        sub_h = [read_genome(p) for p in paths[:64]]
+        regs_k = hll_sketch_genomes(sub_h, device=device)
+        regs_p = hll_sketch_genomes(sub_h, device=device,
+                                    k21_hash=murmur3_k21_plain)
+        stored = torch.stack([h_store.get_cached(p) for p in paths[:64]])
+        if not (torch.equal(regs_k, regs_p) and torch.equal(regs_k,
+                                                             stored)):
+            raise PhaseError("HLL registers differ between the kernel "
+                             "and plain paths")
+        pairs_k = hll_threshold_pairs(regs_k, 21, 0.90)
+        pairs_p = hll_threshold_pairs(regs_p, 21, 0.90,
+                                      union_stats=hll_union_stats_plain)
+        if pairs_k != pairs_p:
+            raise PhaseError("dashing pair dict differs between the kernel "
+                             "and plain paths")
+        within_h = {(i, j) for i in range(len(sub_h))
+                    for j in range(i + 1, len(sub_h))
+                    if labels[i] == labels[j]}
+        if not within_h <= set(pairs_k):
+            raise PhaseError(f"dashing pair dict of {len(sub_h)} genomes "
+                             f"misses {len(within_h - set(pairs_k))} of its "
+                             f"{len(within_h)} within-family pairs")
+        print(f"dashing kernel vs plain path: {len(sub_h)} genomes, "
+              f"registers equal, {len(pairs_k)} pairs ({len(within_h)} "
+              f"within families, all found), identical ANI floats {tag}")
 
     no_library = ("no single PyTorch call computes this function")
     record = {"kernels": [
@@ -743,6 +982,18 @@ def main(argv=None) -> int:
          "launches": launches_f["pairlist"], "max_abs_err": pl_err,
          "ms": pl_ms, "plain_ms": pl_plain, "bound_ms": pl_bound,
          "bound_by": pl_by, "library_ms": None},
+        {"name": "hll_union", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/hll_union.cu",
+         "replaces": "galah_tpu/ops/pallas_hll.py:72",
+         "launches": launches_h["hll_union"], "max_abs_err": hu_err,
+         "ms": hu_ms, "plain_ms": hu_plain, "bound_ms": hu_bound,
+         "bound_by": hu_by, "library_ms": None},
+        {"name": "murmur3_k21", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/murmur3_k21.cu",
+         "replaces": "galah_tpu/ops/pallas_sketch.py:235",
+         "launches": launches_h["murmur3_k21"], "max_abs_err": mm_err,
+         "ms": mm_ms, "plain_ms": mm_plain, "bound_ms": mm_bound,
+         "bound_by": mm_by, "library_ms": None},
     ], "library_ms_null_because": no_library, "card": card}
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")

@@ -1,10 +1,11 @@
 """galah_tpu_torch: the PyTorch/CUDA port of galah-tpu.
 
 Clusters genomes by average nucleotide identity (ANI) with the same
-two-stage pipeline as ``galah_tpu`` (marker-containment screen, exact
-fragment ANI on the screened pairs, quality-ordered greedy selection),
-on an NVIDIA H100. The two kernels on the default skani+skani path are
-hand-written CUDA C++ (``kernels/``); everything else is plain torch.
+two-stage pipeline as ``galah_tpu`` (a skani-style, finch or dashing
+precluster, exact fragment ANI on the precluster's pairs,
+quality-ordered greedy selection), on an NVIDIA H100. The six kernels
+that ``galah_tpu`` wrote in Pallas are hand-written CUDA C++ here
+(``kernels/``); everything else is plain torch.
 
 This package imports neither ``jax`` nor anything of ``galah_tpu``:
 what it needs from there it keeps as its own copy. Every entry point

@@ -1,10 +1,15 @@
-"""Exact-ANI backends and the skani-style and finch preclusterers."""
+"""Exact-ANI backends and the skani-style, finch and dashing
+preclusterers."""
 
 from galah_tpu_torch.backends.fragment_backend import (  # noqa: F401
     FastANIEquivalentClusterer,
     ProfileStore,
     SkaniEquivalentClusterer,
     SkaniPreclusterer,
+)
+from galah_tpu_torch.backends.hll_backend import (  # noqa: F401
+    HLLPreclusterer,
+    HLLStore,
 )
 from galah_tpu_torch.backends.minhash_backend import (  # noqa: F401
     MinHashPreclusterer,

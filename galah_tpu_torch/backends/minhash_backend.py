@@ -13,15 +13,17 @@ crossover, the collision screen plus the pairlist kernel from it up).
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops.minhash import sketch_matrix
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.pairwise import threshold_pairs
-from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
+from galah_tpu_torch.ops.sketch_stream import (iter_path_sketches,
+                                               sketch_genomes_fused)
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -48,6 +50,12 @@ class SketchStore:
     def insert(self, path: str, s: MinHashSketch) -> MinHashSketch:
         self._sketches[path] = s
         return s
+
+    def sketch_group(self, genomes: Sequence[Genome]
+                     ) -> List[MinHashSketch]:
+        """Fused-kernel sketches of a launch group's genomes."""
+        return sketch_genomes_fused(genomes, self.sketch_size, self.k,
+                                    self.algo, self.device, self.clock)
 
 
 class MinHashPreclusterer:

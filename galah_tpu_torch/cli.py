@@ -1,10 +1,12 @@
 """``python -m galah_tpu_torch cluster``: the port's command line.
 
 The port's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
--x), the thresholds, the skani or finch precluster with the skani or
-fastani clusterer, the hash algorithm, the cluster definition TSV, and
-the device. Defaults and
-percentage parsing are those of ``galah_tpu/config.py``. A flag of the
+-x), the thresholds, the skani, finch or dashing precluster with the
+skani or fastani clusterer, the hash algorithm, quality ordering (a
+CheckM1 table, a CheckM2 report or a genomeInfo CSV, the formula and
+the completeness and contamination filters), the cluster definition
+TSV, and the device. Defaults and help are those of
+``galah-tpu cluster``, and percentages parse as there. A flag of the
 ``galah-tpu cluster`` command line that this slice does not support is
 an error that names it; no flag is silently ignored.
 """
@@ -20,17 +22,16 @@ from typing import List, Optional, Sequence
 
 from galah_tpu_torch import __version__
 from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
-                                    PRECLUSTER_METHODS, Defaults,
-                                    parse_percentage)
+                                    PRECLUSTER_METHODS, QUALITY_FORMULAS,
+                                    Defaults, parse_percentage)
 
 logger = logging.getLogger("galah_tpu_torch")
 
 # flags of `galah-tpu cluster` that this port does not support yet
 UNSUPPORTED_FLAGS = (
-    "--genome-fasta-list", "--quality-formula",
+    "--genome-fasta-list",
     "--ani-subsample", "--rep-scan-window", "--rep-rounds",
-    "--checkm-tab-table", "--checkm2-quality-report", "--genome-info",
-    "--min-completeness", "--max-contamination", "--threads", "-t",
+    "--threads", "-t",
     "--on-bad-genome", "--sketch-cache", "--profile-trace-dir",
     "--trace-events", "--run-report", "--checkpoint-dir", "--resume",
     "--output-representative-fasta-directory",
@@ -76,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "calculation (default: 3000)")
     c.add_argument("--precluster-method", default=Defaults.PRECLUSTER_METHOD,
                    choices=PRECLUSTER_METHODS,
-                   help="Precluster method: skani or finch (default: "
-                        "skani; dashing is not supported yet)")
+                   help="Precluster method: skani, finch or dashing "
+                        "(default: skani)")
     c.add_argument("--cluster-method", default=Defaults.CLUSTER_METHOD,
                    choices=CLUSTER_METHODS,
                    help="Exact ANI method (default: skani)")
@@ -86,6 +87,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="k-mer hash of the sketches and profiles: murmur3 "
                         "(the finch contract) or tpufast (default: "
                         "murmur3)")
+    c.add_argument("--checkm-tab-table",
+                   help="Output of `checkm qa .. --tab_table`")
+    c.add_argument("--checkm2-quality-report",
+                   help="CheckM2 quality_report.tsv output")
+    c.add_argument("--genome-info",
+                   help="dRep-style genome info CSV "
+                        "(genome,completeness,contamination)")
+    c.add_argument("--min-completeness", type=float,
+                   help="Ignore genomes with less completeness than "
+                        "this percentage")
+    c.add_argument("--max-contamination", type=float,
+                   help="Ignore genomes with more contamination than "
+                        "this percentage")
+    c.add_argument("--quality-formula", default=Defaults.QUALITY_FORMULA,
+                   choices=QUALITY_FORMULAS,
+                   help="Quality formula for ranking genomes "
+                        "(default: Parks2020_reduced)")
     c.add_argument("--output-cluster-definition",
                    help="Output file of rep<TAB>member lines")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -104,9 +122,6 @@ def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                          "not supported by galah_tpu_torch yet")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if getattr(args, "precluster_method", None) == "dashing":
-        parser.error("--precluster-method dashing is not supported by "
-                     "galah_tpu_torch yet")
     return args
 
 
@@ -135,7 +150,8 @@ class RunResult:
     clusters: List[List[int]]
     clock: object  # timing.StageClock
     store: object  # backends.ProfileStore holding the run's profiles
-    preclusterer: object  # its SketchStore holds a finch run's sketches
+    # its store holds a finch run's sketches or a dashing run's registers
+    preclusterer: object
 
 
 def run_cluster(args: argparse.Namespace) -> RunResult:
@@ -143,6 +159,8 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     write the requested outputs."""
     from galah_tpu_torch.backends import (
         FastANIEquivalentClusterer,
+        HLLPreclusterer,
+        HLLStore,
         MinHashPreclusterer,
         ProfileStore,
         SkaniEquivalentClusterer,
@@ -152,10 +170,18 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     from galah_tpu_torch.cluster.engine import cluster
     from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.outputs import write_cluster_definition
+    from galah_tpu_torch.quality import quality_order_genomes
     from galah_tpu_torch.timing import StageClock
 
     device = resolve_device(args.device)
-    genomes = genome_paths(args)
+    clock = StageClock(device)
+    with clock.stage("quality"):
+        genomes, _ = quality_order_genomes(
+            genome_paths(args), checkm_tab_table=args.checkm_tab_table,
+            checkm2_quality_report=args.checkm2_quality_report,
+            genome_info=args.genome_info, formula=args.quality_formula,
+            min_completeness=args.min_completeness,
+            max_contamination=args.max_contamination)
     ani = parse_percentage(args.ani, "--ani")
     precluster_ani = parse_percentage(args.precluster_ani,
                                       "--precluster-ani")
@@ -168,7 +194,6 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     # opened before any compute, so a bad output path fails fast
     out = (open(args.output_cluster_definition, "w")
            if args.output_cluster_definition else None)
-    clock = StageClock(device)
     store = ProfileStore(device, fraglen=args.fragment_length, clock=clock,
                          hash_algorithm=args.hash_algorithm)
     if args.precluster_method == "finch":
@@ -176,6 +201,10 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
             min_ani=precluster_ani,
             store=SketchStore(device, algo=args.hash_algorithm,
                               clock=clock))
+    elif args.precluster_method == "dashing":
+        pre = HLLPreclusterer(
+            min_ani=precluster_ani,
+            store=HLLStore(device, algo=args.hash_algorithm, clock=clock))
     else:
         pre = SkaniPreclusterer(threshold=precluster_ani,
                                 min_aligned_fraction=min_af, store=store)

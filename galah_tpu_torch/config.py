@@ -17,11 +17,18 @@ class Defaults:
     HASH_ALGO = "murmur3"            # --hash-algorithm
     PRECLUSTER_METHOD = "skani"
     CLUSTER_METHOD = "skani"         # choices: skani, fastani
+    QUALITY_FORMULA = "Parks2020_reduced"
 
 
 PRECLUSTER_METHODS = ("skani", "finch", "dashing")
 HASH_ALGORITHMS = ("murmur3", "tpufast")
 CLUSTER_METHODS = ("skani", "fastani")
+QUALITY_FORMULAS = (
+    "Parks2020_reduced",
+    "completeness-4contamination",
+    "completeness-5contamination",
+    "dRep",
+)
 
 
 def parse_percentage(value: float, name: str = "value") -> float:

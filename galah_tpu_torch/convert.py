@@ -1,9 +1,10 @@
 """Carry per-genome state across from ``galah_tpu``.
 
 The system has no weights: its state is the per-genome profile (the
-positional hashes, the distinct set and the markers) and, for finch,
-the (N, K) sketch matrix. ``galah_tpu`` keeps them as uint64 numpy
-arrays, the port as biased int64 tensors (``ops/u64.py``). These
+positional hashes, the distinct set and the markers), for finch the
+(N, K) sketch matrix, and for dashing the (N, 2^p) HLL register matrix.
+``galah_tpu`` keeps hashes as uint64 numpy arrays, the port as biased
+int64 tensors (``ops/u64.py``); registers are uint8 in both. These
 functions convert between the two without importing ``galah_tpu``: a
 profile's source is any object with the profile's attributes (a
 ``galah_tpu`` ``GenomeProfile`` qualifies), the result of the inverse
@@ -59,3 +60,20 @@ def sketch_matrix_to_galah(mat: torch.Tensor) -> np.ndarray:
         raise ValueError("a port sketch matrix is 2-D int64; got "
                          f"{mat.dtype} {tuple(mat.shape)}")
     return from_biased(mat)
+
+
+def hll_registers_from_galah(regs: np.ndarray, device="cpu") -> torch.Tensor:
+    """galah_tpu's (N, 2^p) uint8 HLL register matrix (the rows of
+    ``ops/hll.hll_sketch_genome``) as the port's uint8 tensor."""
+    if regs.dtype != np.uint8 or regs.ndim != 2:
+        raise ValueError("a galah_tpu register matrix is 2-D uint8; got "
+                         f"{regs.dtype} {regs.shape}")
+    return torch.from_numpy(np.ascontiguousarray(regs)).to(device)
+
+
+def hll_registers_to_galah(regs: torch.Tensor) -> np.ndarray:
+    """The port's (N, 2^p) uint8 register matrix as galah_tpu's."""
+    if regs.dtype != torch.uint8 or regs.dim() != 2:
+        raise ValueError("a port register matrix is 2-D uint8; got "
+                         f"{regs.dtype} {tuple(regs.shape)}")
+    return regs.detach().cpu().numpy()

@@ -8,7 +8,8 @@ instead of a Python loop per line, which keeps a 1 Gbp corpus read in
 seconds; the semantics stay line by line: each line is stripped of
 ASCII whitespace at both ends, empty lines are skipped, a line starting
 with ``>`` opens a record, and sequence lines before the first record
-belong to none.
+belong to none. ``read_genome_stats`` gives the same stats without
+building the codes (the quality formulas' read).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ _CODE_LUT = np.full(256, 255, dtype=np.uint8)
 for _i, _b in enumerate(b"ACGT"):
     _CODE_LUT[_b] = _i
     _CODE_LUT[_b + 32] = _i  # lowercase
+
+_ACGT_LUT = _CODE_LUT != 255
 
 # the bytes Python's bytes.strip() removes
 _WS_LUT = np.zeros(256, dtype=bool)
@@ -74,20 +77,37 @@ def _compute_n50(lengths: np.ndarray) -> int:
     return int(s[idx])
 
 
-def read_genome(path: str) -> Genome:
-    """Parse a (possibly gzipped) FASTA into codes + offsets + stats."""
+def _parse(path: str):
+    """(bytes, first and one-past-last non-whitespace byte of each
+    sequence line, the contig of each, contig lengths) of a FASTA file:
+    the line walk both readers share. It touches every byte only
+    through two table lookups and one scan for whitespace; the rest
+    works on the whitespace positions and the lines."""
     a = np.frombuffer(_read_bytes(path), dtype=np.uint8)
-    # per line: first and one-past-last non-whitespace byte; lines with
-    # none are empty and drop out here. A non-newline byte's line is the
-    # count of newlines before it.
-    solid = np.flatnonzero(~_WS_LUT[a])
-    line_of = np.cumsum(a == ord("\n"), dtype=np.int64)[solid]
-    if solid.size:
-        brk = np.flatnonzero(np.diff(line_of)) + 1
-        first = solid[np.concatenate(([0], brk))]
-        last = solid[np.concatenate((brk - 1, [solid.size - 1]))] + 1
-    else:
-        first = last = np.zeros(0, dtype=np.int64)
+    n = a.shape[0]
+    ws = _WS_LUT[a]
+    pos = np.flatnonzero(ws)  # whitespace bytes, newlines among them
+    nl = pos[a[pos] == ord("\n")]
+    first = np.concatenate(([0], nl + 1))
+    last = np.concatenate((nl, [n]))
+    # runs of consecutive whitespace: a line's leading run ends before
+    # its first non-whitespace byte, its trailing run starts after its
+    # last. A run that spans the whole line leaves first > last.
+    if pos.size:
+        brk = np.flatnonzero(np.diff(pos) != 1) + 1
+        run_first = pos[np.concatenate(([0], brk))]
+        run_last = pos[np.concatenate((brk - 1, [pos.size - 1]))]
+        lead = last > first
+        lead[lead] = ws[first[lead]]
+        r = np.searchsorted(run_first, first[lead], side="right") - 1
+        first[lead] = run_last[r] + 1
+        trail = last > first
+        trail[trail] = ws[last[trail] - 1]
+        r = np.searchsorted(run_first, last[trail] - 1, side="right") - 1
+        last[trail] = run_first[r]
+    solid = first < last
+    first, last = first[solid], last[solid]
+
     is_header = a[first] == ord(">")
     n_contigs = int(is_header.sum())
     if n_contigs == 0:
@@ -95,23 +115,43 @@ def read_genome(path: str) -> Genome:
     contig = np.cumsum(is_header) - 1   # record each line belongs to
     seq = ~is_header & (contig >= 0)
     starts, ends, owner = first[seq], last[seq], contig[seq]
-
-    # +1 at each sequence line's start, -1 past its end (each array holds
-    # distinct positions, so plain fancy-index updates are exact)
-    mark = np.zeros(a.shape[0] + 1, dtype=np.int32)
-    mark[starts] += 1
-    mark[ends] -= 1
-    keep = np.cumsum(mark[:-1]) > 0
-    codes = _CODE_LUT[a[keep]]
-
     lengths = np.bincount(owner, weights=(ends - starts),
                           minlength=n_contigs).astype(np.int64)
-    offsets = np.zeros(n_contigs + 1, dtype=np.int64)
+    return a, starts, ends, lengths
+
+
+def read_genome(path: str) -> Genome:
+    """Parse a (possibly gzipped) FASTA into codes + offsets + stats."""
+    a, starts, ends, lengths = _parse(path)
+    # +1 at each sequence line's start, -1 past its end: the lines are
+    # disjoint and ordered, so the running sum is 1 inside a line and 0
+    # outside, and int8 holds it
+    mark = np.zeros(a.shape[0] + 1, dtype=np.int8)
+    mark[starts] = 1
+    mark[ends] -= 1
+    codes = _CODE_LUT[a[np.cumsum(mark[:-1], dtype=np.int8).view(bool)]]
+    offsets = np.zeros(lengths.shape[0] + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
     stats = GenomeStats(
-        num_contigs=n_contigs,
+        num_contigs=int(lengths.shape[0]),
         num_ambiguous_bases=int((codes == 255).sum()),
         n50=_compute_n50(lengths),
     )
     return Genome(path=path, codes=codes, contig_offsets=offsets,
                   stats=stats)
+
+
+def read_genome_stats(path: str) -> GenomeStats:
+    """The stats of ``read_genome`` without building the codes (the
+    quality formulas' read; ``galah_tpu``'s ``calculate_genome_stats``)."""
+    a, starts, ends, lengths = _parse(path)
+    # the bytes of the sequence lines that are not ACGT (few), counted
+    # per line by their positions
+    odd = np.flatnonzero(~_ACGT_LUT[a])
+    n_amb = int((np.searchsorted(odd, ends)
+                 - np.searchsorted(odd, starts)).sum())
+    return GenomeStats(
+        num_contigs=int(lengths.shape[0]),
+        num_ambiguous_bases=n_amb,
+        n50=_compute_n50(lengths),
+    )

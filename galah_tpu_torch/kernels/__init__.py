@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("window_hits", "tile_stats", "fused_sketch", "pairlist")
+KERNELS = ("window_hits", "tile_stats", "fused_sketch", "pairlist",
+           "hll_union", "murmur3_k21")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

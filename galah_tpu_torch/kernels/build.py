@@ -3,8 +3,9 @@
 Each ``<name>.cu`` beside this file compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes), for ``sm_90a``, into ``galah_tpu_torch/_build/``.
-The library's file name carries the source's content hash, so an
-unchanged source is built once per checkout and an edited one anew.
+The library's file name carries the content hash of the source and of
+every header (``*.cuh``) beside it, so an unchanged source is built
+once per checkout and an edited source or header anew.
 All requested sources compile in parallel, one ``nvcc`` each.
 
 A build failure raises with nvcc's output; nothing falls back.
@@ -37,6 +38,8 @@ SIGNATURES = {
                                          _P, _P, _P]),
     "fused_sketch": ("fused_sketch_launch", [_P] * 6 + [_I, _I, _P, _P]),
     "pairlist": ("pairlist_launch", [_P, _I, _P, _P, _I, _I, _P, _P, _P]),
+    "hll_union": ("hll_union_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),
+    "murmur3_k21": ("murmur3_k21_launch", [_P] * 4 + [_L, _P, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -54,10 +57,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_HERE, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(
-            fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_HERE) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(_HERE, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:

@@ -18,7 +18,8 @@
 // decrease, so what is left is that set.
 //
 // Hashing uses native 64-bit integer arithmetic (murmur3 x64_128 h1,
-// seed 0, length 21; or the multiply-free tpufast mixer). The TPU
+// seed 0, length 21, from murmur3.cuh; or the multiply-free tpufast
+// mixer). The TPU
 // kernel's 16-bit-limb schoolbook multiply existed only because the
 // TPU vector unit has no u64 multiply.
 //
@@ -41,9 +42,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur3.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using galah::u64;
 
 constexpr int kClasses = 2048;
 constexpr int kRegs = 8;
@@ -51,37 +54,6 @@ constexpr int kLanes = 128;  // classes per block
 constexpr int kSplit = 4;    // threads per class
 constexpr u64 kSent = ~0ull;
 constexpr u64 kBias = 1ull << 63;
-
-__device__ __forceinline__ u64 rotl(u64 x, int r) {
-  return (x << r) | (x >> (64 - r));
-}
-
-__device__ __forceinline__ u64 fmix(u64 x) {
-  x ^= x >> 33;
-  x *= 0xFF51AFD7ED558CCDull;
-  x ^= x >> 33;
-  x *= 0xC4CEB9FE1A85EC53ull;
-  return x ^ (x >> 33);
-}
-
-// murmur3 x64_128 h1 of a 21-byte key given as its little-endian words
-// (bytes 0-7, 8-15, 16-20; the tail word's top 3 bytes are zero): one
-// 16-byte block and a 5-byte k1 tail.
-__device__ __forceinline__ u64 murmur3_k21(u64 k1, u64 k2, u64 tail) {
-  constexpr u64 c1 = 0x87C37B91114253D5ull;
-  constexpr u64 c2 = 0x4CF5AD432745937Full;
-  u64 h1 = 0, h2 = 0;
-  h1 ^= rotl(k1 * c1, 31) * c2;
-  h1 = (rotl(h1, 27) + h2) * 5 + 0x52DCE729ull;
-  h2 ^= rotl(k2 * c2, 33) * c1;
-  h2 = (rotl(h2, 31) + h1) * 5 + 0x38495AB5ull;
-  h1 ^= rotl(tail * c1, 31) * c2;
-  h1 ^= 21;
-  h2 ^= 21;
-  h1 += h2;
-  h2 += h1;
-  return fmix(h1) + fmix(h2);
-}
 
 // the multiply-free shift-add mixer (galah_tpu ops/hashing._tpufast_mix)
 // at seed 0
@@ -135,7 +107,8 @@ fused_sketch_kernel(const u64* __restrict__ w0, const u64* __restrict__ w1,
        p += static_cast<long long>(kClasses) * kSplit) {
     const long long q = off + p;
     if (!valid[q]) continue;
-    insert(r, tpufast_algo ? tpufast(w0[q]) : murmur3_k21(w0[q], w1[q], w2[q]));
+    insert(r, tpufast_algo ? tpufast(w0[q])
+                           : galah::murmur3_k21(w0[q], w1[q], w2[q]));
   }
   if (split > 0) {
 #pragma unroll

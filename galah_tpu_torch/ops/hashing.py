@@ -17,6 +17,8 @@ over shifted slices of the chunk's codes.
 ``canonical_key_words`` stops before the hash: it gives each window's
 canonical key as the words the hash reads (``galah_tpu``'s
 ``canonical_kmer_words``), which the fused sketch kernel hashes itself.
+``window_hashes`` hashes key words; at k=21 with murmur3 it hands them
+to the murmur3_k21 kernel (``ops/murmur3_k21.py``) on the card.
 """
 
 from __future__ import annotations
@@ -127,11 +129,18 @@ def hash_key_words(words, k: int, algo: str) -> torch.Tensor:
     return murmur3_h1_words(words, k)
 
 
-def _hash_chunk(cs: torch.Tensor, valid: torch.Tensor, k: int,
-                algo: str) -> torch.Tensor:
-    """Biased hashes of the ``len(cs) - k + 1`` windows of `cs`
-    (sanitized codes, int64 0-3); `valid` masks the windows."""
-    h = hash_key_words(_key_words(cs, k, algo), k, algo)
+def window_hashes(words, valid: torch.Tensor, k: int, algo: str,
+                  k21_hash=None) -> torch.Tensor:
+    """Biased hashes of windows given as their canonical key words and
+    mask, the sentinel where the mask is false. k=21 murmur3 windows go
+    to `k21_hash`, by default ``ops/murmur3_k21.murmur3_k21`` (its
+    kernel on cuda); ``murmur3_k21_plain`` keeps them in torch."""
+    if algo == "murmur3" and k == 21:
+        if k21_hash is None:
+            from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
+            k21_hash = murmur3_k21
+        return k21_hash(words, valid)
+    h = hash_key_words(words, k, algo)
     return torch.where(valid, bias(h),
                        torch.full_like(h, SENTINEL_BIASED))
 
@@ -162,10 +171,12 @@ def _window_chunks(codes_np: np.ndarray, contig_offsets: np.ndarray,
 
 def positional_hashes(genome: Genome, k: int, device="cuda",
                       algo: str = "murmur3",
-                      chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+                      chunk: int = DEFAULT_CHUNK,
+                      k21_hash=None) -> torch.Tensor:
     """All canonical k-mer hashes of `genome` in genome order: a biased
     int64 (n - k + 1,) tensor on `device`, the sentinel where the window
-    holds an ambiguous base or crosses a contig boundary."""
+    holds an ambiguous base or crosses a contig boundary. `k21_hash` as
+    in ``window_hashes``."""
     if not 1 <= k <= 31:
         raise ValueError(f"k must be in [1, 31], got {k}")
     device = resolve_device(device)
@@ -176,7 +187,8 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
     for s, e, cs, valid in _window_chunks(genome.codes,
                                           genome.contig_offsets, k,
                                           device, chunk):
-        out[s:e] = _hash_chunk(cs, valid, k, algo)
+        out[s:e] = window_hashes(_key_words(cs, k, algo), valid, k, algo,
+                                 k21_hash)
     return out
 
 

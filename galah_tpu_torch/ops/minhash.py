@@ -32,9 +32,11 @@ def sketch_genome_device(genome: Genome,
                          sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
                          k: int = Defaults.MINHASH_KMER,
                          algo: str = Defaults.HASH_ALGO,
-                         device="cuda") -> MinHashSketch:
-    """Bottom-k distinct canonical k-mer sketch, computed on `device`."""
-    flat = positional_hashes(genome, k, resolve_device(device), algo=algo)
+                         device="cuda", k21_hash=None) -> MinHashSketch:
+    """Bottom-k distinct canonical k-mer sketch, computed on `device`
+    (`k21_hash` as in ``ops/hashing.window_hashes``)."""
+    flat = positional_hashes(genome, k, resolve_device(device), algo=algo,
+                             k21_hash=k21_hash)
     distinct = torch.unique(flat[flat != SENTINEL_BIASED], sorted=True)
     return MinHashSketch(hashes=from_biased(distinct[:sketch_size]),
                          sketch_size=sketch_size, kmer=k)

@@ -25,6 +25,8 @@ own windows, so the port groups genomes by a window budget alone.
 ``iter_path_sketches`` yields each unique path's sketch in path order,
 reading FASTA files ahead on a small thread pool and sketching them in
 budget-sized groups; sketches enter the store on the consumer thread.
+The store decides what a sketch is: the finch ``SketchStore`` makes
+MinHash sketches, the dashing ``HLLStore`` HLL registers.
 """
 
 from __future__ import annotations
@@ -163,17 +165,15 @@ def _read_ahead(paths: Sequence[str], clock: StageClock
 
 
 def _iter_computed(paths: Sequence[str], store
-                   ) -> Iterator[Tuple[str, MinHashSketch]]:
-    """(path, sketch) for `paths` in order, sketched in groups of at
-    most FUSED_BUDGET windows."""
+                   ) -> Iterator[Tuple[str, object]]:
+    """(path, sketch) for `paths` in order, sketched by
+    ``store.sketch_group`` in groups of at most FUSED_BUDGET windows."""
     batch: List[Tuple[str, Genome]] = []
     size = 0
 
     def flush():
         with store.clock.stage("sketch"):
-            sketches = sketch_genomes_fused(
-                [g for _, g in batch], store.sketch_size, store.k,
-                store.algo, store.device, store.clock)
+            sketches = store.sketch_group([g for _, g in batch])
         done = [(p, s) for (p, _), s in zip(batch, sketches)]
         batch.clear()
         return done
@@ -189,9 +189,11 @@ def _iter_computed(paths: Sequence[str], store
 
 
 def iter_path_sketches(paths: Sequence[str], store
-                       ) -> Iterator[Tuple[str, MinHashSketch]]:
+                       ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for the UNIQUE paths, in path order. Sketches the
-    store does not hold are computed and inserted on this thread."""
+    store does not hold are computed (``store.sketch_group``: MinHash
+    sketches for a ``SketchStore``, HLL registers for an ``HLLStore``)
+    and inserted on this thread."""
     unique = list(dict.fromkeys(paths))
     computed = _iter_computed(
         [p for p in unique if store.get_cached(p) is None], store)

@@ -139,7 +139,7 @@ def test_cli_directory_input(families, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkm-tab-table", "x.tsv"], ["--threads", "4"],
+    ["--sketch-cache", "cache"], ["--threads", "4"],
     ["--ani-subsample", "125"], ["--rep-rounds=8"], ["--resume"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -149,13 +149,17 @@ def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
 
 
 def test_cli_rejects_unsupported_precluster_method(capsys):
+    """All three of galah-tpu's precluster methods parse; any other is
+    refused by name."""
+    for method in ("skani", "finch", "dashing"):
+        args = tcli.parse_args(["cluster", "-f", "a.fna",
+                                "--precluster-method", method])
+        assert args.precluster_method == method
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", "--precluster-method",
-                         "dashing"])
+                         "mash"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--precluster-method dashing" in err
-    assert "not supported" in err
+    assert "'mash'" in capsys.readouterr().err
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -186,8 +190,9 @@ def test_port_imports_neither_jax_nor_galah_tpu():
 
 
 def test_port_run_loads_no_jax(families, tmp_path):
-    """CPU cluster runs of the port (skani and finch preclusters) in a
-    fresh interpreter leave jax and galah_tpu out of sys.modules."""
+    """CPU cluster runs of the port (skani, finch and dashing
+    preclusters) in a fresh interpreter leave jax and galah_tpu out of
+    sys.modules."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     code = (
@@ -198,6 +203,9 @@ def test_port_run_loads_no_jax(families, tmp_path):
         f" '--output-cluster-definition', {str(out)!r}])\n"
         f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
         f" 'cpu', '--output-cluster-definition', {str(out)!r}])\n"
+        f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
+        f" 'cpu', '--precluster-method', 'dashing',"
+        f" '--output-cluster-definition', {str(out)!r}])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
         "print('LOADED', bad)\n"
