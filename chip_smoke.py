@@ -31,7 +31,11 @@ Phases, each of which exits nonzero when it fails:
    and the hll_union, murmur3_k21 and window_hits kernels must have
    been launched;
 5. the kernels timed at the shapes the end-to-end runs gave them,
-   beside their plain versions and their bound on this card;
+   beside their plain versions and their bound on this card (for
+   window_hits and tile_stats the whole call and the kernel alone, and
+   for window_hits one torch.isin call a pair, summed), and tile_stats'
+   intersect form on synthetic rows at the widths that corpora of 6
+   and 10 Mbp genomes give (K = 6080, 10048);
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, identical finch sketches
    and pair-dict ANI floats for 64 genomes, and identical HLL
@@ -212,7 +216,38 @@ def window_hits_cases(rng, torch, device):
         if n_q:
             q = np.concatenate([q, np.full(3, SENTINEL_BIASED)])
         items.append((t(q), t(ref)))
-    return items
+    return items + [(t(q), t(r)) for q, r in window_hits_edges(rng)]
+
+
+def window_hits_edges(rng):
+    """(query, reference) pairs aimed at the kernel's merge-path split
+    into segments of SEGMENT merged items (r first on equal values)."""
+    from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+    from galah_tpu_torch.ops.window_hits import SEGMENT
+
+    seg = SEGMENT
+    ref = np.unique(_rand_hashes(rng, 2 * seg))
+    run = 2 * seg + 100
+    # r[0..m] merge first, then the run: it covers merged items
+    # [m + 1, m + 1 + run), across the boundaries at seg and 2 seg
+    m = seg - 200
+    hit_run = np.full(run, ref[m])
+    edges = [(hit_run, ref), (hit_run, np.delete(ref, m))]
+    for n_ref, n_q in ((5, 5_000), (5_000, 5)):  # 1000x either way
+        r = np.unique(_rand_hashes(rng, n_ref))
+        q = np.sort(np.concatenate([
+            r[rng.integers(0, r.shape[0], size=n_q // 2)],
+            _rand_hashes(rng, n_q - n_q // 2)]))
+        edges.append((q, r))
+    one = _rand_hashes(rng, 1)
+    edges.append((one, one))                    # a single-item pair
+    edges.append((np.full(1000, SENTINEL_BIASED), ref))  # all sentinel
+    # nq + nr an exact multiple of the segment
+    r = np.unique(_rand_hashes(rng, seg + 16))[:seg]
+    q = np.sort(np.concatenate([r[rng.integers(0, seg, size=seg // 2)],
+                                _rand_hashes(rng, seg - seg // 2)]))
+    edges.append((q, r))
+    return edges
 
 
 def tile_stats_cases(rng, torch, device):
@@ -231,6 +266,37 @@ def tile_stats_cases(rng, torch, device):
             return torch.from_numpy(m).to(device)
 
         cases.append((rows(br), rows(bc), k))
+    return cases + tile_stats_edges(rng, torch, device)
+
+
+def tile_stats_edges(rng, torch, device):
+    """(rows, cols, K) with empty, full, identical, disjoint and tiny
+    (na << nb) rows at the screen's width K = 2176, at K = 1, at the
+    widest K the kernel stages on an H100 (2419, odd, so copied by
+    cp.async) and at widths it reads in place (2420, 16000)."""
+    from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+
+    cases = []
+    for k, br, bc in ((2176, 64, 512), (1, 9, 13), (2419, 6, 11),
+                      (2420, 6, 11), (16000, 5, 7)):
+        pool = np.unique(_rand_hashes(rng, 3 * k))
+        other = np.setdiff1d(np.unique(_rand_hashes(rng, k)), pool)
+
+        def rows(n):
+            m = np.full((n, k), SENTINEL_BIASED, dtype=np.int64)
+            for i in range(n):
+                cnt = (k, 0, int(rng.integers(0, k + 1)), min(k, 3))[i % 4]
+                m[i, :cnt] = np.sort(rng.choice(pool, size=cnt,
+                                                replace=False))
+            return m
+
+        r, c = rows(br), rows(bc)
+        c[0] = r[0]                              # identical full rows
+        c[1] = r[2]                              # identical ragged rows
+        c[2] = SENTINEL_BIASED                   # disjoint from all
+        c[2, :other.shape[0]] = other
+        cases.append((torch.from_numpy(r).to(device),
+                      torch.from_numpy(c).to(device), k))
     return cases
 
 
@@ -401,6 +467,7 @@ def main(argv=None) -> int:
     # -- phase 3: kernel parity ------------------------------------------
     from galah_tpu_torch.io.fasta import read_genome
     from galah_tpu_torch.ops import sketch_stream
+    from galah_tpu_torch.ops.constants import SENTINEL_BIASED
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
                                                   fused_sketch_candidates)
     from galah_tpu_torch.ops.hashing import canonical_key_words
@@ -414,8 +481,11 @@ def main(argv=None) -> int:
                                                  murmur3_k21_plain)
     from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
                                               pair_stats_pairs_plain)
+    from galah_tpu_torch.ops.tile_stats import run_launch as run_tile_stats
     from galah_tpu_torch.ops.tile_stats import (tile_intersect_plain,
                                                 tile_stats, tile_stats_plain)
+    from galah_tpu_torch.ops.window_hits import plan_launch as plan_window_hits
+    from galah_tpu_torch.ops.window_hits import run_launch as run_window_hits
     from galah_tpu_torch.ops.window_hits import (window_element_hits,
                                                  window_element_hits_plain)
 
@@ -427,13 +497,25 @@ def main(argv=None) -> int:
     if not torch.equal(got, want):
         raise PhaseError("window_hits disagrees with its plain version "
                          f"at {int((got != want).sum())} elements")
-    print(f"parity window_hits: {len(items)} pairs, {got.numel()} "
-          f"elements, {int(want.sum())} hits, exact {tag}")
+    for n, item in enumerate(items):
+        if not torch.equal(window_element_hits([item], device),
+                           window_element_hits_plain([item], device)):
+            raise PhaseError(f"window_hits disagrees with its plain "
+                             f"version on pair {n} alone")
+    torch.cuda.synchronize()
+    print(f"parity window_hits: {len(items)} pairs in one launch and "
+          f"each alone, {got.numel()} elements, {int(want.sum())} hits "
+          f"(segment-straddling runs, 1000x ratios, single item, all "
+          f"sentinel, exact segment multiple), exact {tag}")
     for rows, cols, k in tile_stats_cases(rng, torch, device):
         c, t = tile_stats(rows, cols, k, intersect=True)
         if not torch.equal(c, tile_intersect_plain(rows, cols)):
             raise PhaseError(f"tile_stats intersect disagrees at K={k}")
-        for sketch_size in (k, k // 3):
+        if not torch.equal(t, (rows != SENTINEL_BIASED).sum(
+                dim=1, dtype=torch.int32)[:, None].expand_as(t)):
+            raise PhaseError(f"tile_stats intersect totals disagree at "
+                             f"K={k}")
+        for sketch_size in (k, max(k // 3, 1)):
             c, t = tile_stats(rows, cols, sketch_size)
             pc, pt = tile_stats_plain(rows, cols, sketch_size)
             if not (torch.equal(c, pc) and torch.equal(t, pt)):
@@ -684,6 +766,12 @@ def main(argv=None) -> int:
         k = mat.shape[1]
         ts_ms = time_ms(torch, lambda: tile_stats(rows, mat, k,
                                                   intersect=True), 20)
+        ts_out = (torch.empty(64, mat.shape[0], dtype=torch.int32,
+                              device=device),
+                  torch.empty(64, mat.shape[0], dtype=torch.int32,
+                              device=device))
+        ts_kernel = time_ms(torch, lambda: run_tile_stats(
+            rows, mat, k, True, *ts_out), 20)
         ts_plain = time_ms(torch, lambda: tile_intersect_plain(rows, mat), 3)
         c_k, _ = tile_stats(rows, mat, k, intersect=True)
         ts_err = float((c_k - tile_intersect_plain(rows, mat)).abs().max())
@@ -704,6 +792,17 @@ def main(argv=None) -> int:
                     for i in chunk]
         wh_ms = time_ms(
             torch, lambda: window_element_hits(wh_items, device), 5)
+        planned = plan_window_hits(wh_items, device)
+        wh_kernel = time_ms(torch, lambda: run_window_hits(planned), 5)
+        del planned
+        # the library yardstick: one torch.isin call a pair, summed
+        wh_lib = time_ms(torch, lambda: [torch.isin(q, r)
+                                         for q, r in wh_items], 2)
+        if not torch.equal(window_element_hits(wh_items, device).bool(),
+                           torch.cat([torch.isin(q, r) & (q != SENTINEL_BIASED)
+                                      for q, r in wh_items])):
+            raise PhaseError("window_hits disagrees with torch.isin at "
+                             "the exact-ANI stage's shapes")
         wh_plain = time_ms(
             torch, lambda: window_element_hits_plain(wh_items, device), 2)
         wh_err = float(
@@ -716,13 +815,49 @@ def main(argv=None) -> int:
         wh_ops = 2 * sum(q.numel() * math.ceil(math.log2(r.numel() + 1))
                          for q, r in wh_items)
         wh_bound, wh_by = bound(wh_bytes, wh_ops)
+        n_ref = sum(r.numel() for _, r in wh_items)
+        wh_pair_bound = (8 * (n_elem + n_ref) + 4 * n_elem) \
+            / PEAK_BYTES_PER_S * 1e3
         print(f"timing window_hits: {len(wh_items)} directed pairs, "
-              f"{n_elem} elements: kernel {wh_ms:.3f} ms, plain "
-              f"{wh_plain:.3f} ms, bound {wh_bound:.3f} ms ({wh_by}) {tag}")
+              f"{n_elem} elements against {n_ref} reference values: "
+              f"whole call {wh_ms:.3f} ms, kernel only {wh_kernel:.3f} ms,"
+              f" plain {wh_plain:.3f} ms, torch.isin a pair summed "
+              f"{wh_lib:.3f} ms, bound {wh_bound:.3f} ms ({wh_by}; each "
+              f"pair's q and r read once: {wh_pair_bound:.3f} ms) {tag}")
         print(f"timing tile_stats: {rows.shape[0]}x{mat.shape[0]} pairs, "
-              f"K={k}: kernel {ts_ms:.3f} ms, plain {ts_plain:.3f} ms, "
-              f"bound {ts_bound:.4f} ms ({ts_by}) {tag}")
-        del profiles, mat, directed, wh_items, rows, c_k
+              f"K={k}: whole call {ts_ms:.4f} ms, kernel only "
+              f"{ts_kernel:.4f} ms, plain {ts_plain:.3f} ms, bound "
+              f"{ts_bound:.4f} ms ({ts_by}) {tag}")
+        del profiles, mat, directed, wh_items, rows, c_k, ts_out
+
+        # the intersect form at the screen's widths for corpora whose
+        # largest genome is about 6 and 10 Mbp (synthetic rows, 64 x 512
+        # pairs), past the staged tile, where the kernel reads in place
+        from galah_tpu_torch.kernels.rehearse_tile_stats import stripe
+
+        ts_wide = []
+        for wk in (6080, 10048):
+            wr, wc = (torch.from_numpy(m).to(device) for m in
+                      stripe(wk, np.random.default_rng(args.seed)))
+            w_ms = time_ms(torch, lambda: tile_stats(
+                wr, wc, wk, intersect=True), 10)
+            w_plain = time_ms(torch, lambda: tile_intersect_plain(wr, wc), 2)
+            if not torch.equal(tile_stats(wr, wc, wk, intersect=True)[0],
+                               tile_intersect_plain(wr, wc)):
+                raise PhaseError(f"tile_stats intersect disagrees at "
+                                 f"K={wk} (64 x 512 pairs)")
+            wn = (wc != SENTINEL_BIASED).sum(dim=1).cpu().numpy().astype(
+                np.float64)
+            w_bound, w_by = bound(
+                (wr.numel() + wc.numel()) * 8 + 2 * 4 * 64 * wc.shape[0],
+                2 * float((wn[:64, None] + wn[None, :]).sum()))
+            ts_wide.append({"k": wk, "ms": w_ms, "plain_ms": w_plain,
+                            "bound_ms": w_bound, "bound_by": w_by})
+            print(f"timing tile_stats at K={wk}: 64x{wc.shape[0]} "
+                  f"synthetic pairs, valid counts 0.97-1 K: whole call "
+                  f"{w_ms:.4f} ms, plain {w_plain:.3f} ms, bound "
+                  f"{w_bound:.4f} ms ({w_by}) {tag}")
+            del wr, wc
 
         # tile_stats' full form: the first row block of phase 4c's pass
         d_store = res_d.preclusterer.store
@@ -730,6 +865,12 @@ def main(argv=None) -> int:
                              1000, device)
         drows = dmat[:64].contiguous()
         tf_ms = time_ms(torch, lambda: tile_stats(drows, dmat, 1000), 20)
+        tf_out = (torch.empty(64, dmat.shape[0], dtype=torch.int32,
+                              device=device),
+                  torch.empty(64, dmat.shape[0], dtype=torch.int32,
+                              device=device))
+        tf_kernel = time_ms(torch, lambda: run_tile_stats(
+            drows, dmat, 1000, False, *tf_out), 20)
         tf_plain = time_ms(torch, lambda: tile_stats_plain(drows, dmat,
                                                            1000), 3)
         if not all(torch.equal(a, b) for a, b in zip(
@@ -737,8 +878,6 @@ def main(argv=None) -> int:
                 tile_stats_plain(drows, dmat, 1000))):
             raise PhaseError("tile_stats full form disagrees with its "
                              "plain version at phase 4c's shapes")
-        from galah_tpu_torch.ops.constants import SENTINEL_BIASED
-
         dn = (dmat != SENTINEL_BIASED).sum(dim=1).cpu().numpy().astype(
             np.float64)
         tf_bytes = (drows.numel() + dmat.numel()) * 8 \
@@ -748,9 +887,10 @@ def main(argv=None) -> int:
         tf_bound, tf_by = bound(tf_bytes, tf_ops)
         print(f"timing tile_stats full form: {drows.shape[0]}x"
               f"{dmat.shape[0]} pairs, K=1000 (phase 4c's first row "
-              f"block): kernel {tf_ms:.3f} ms, plain {tf_plain:.3f} ms, "
-              f"bound {tf_bound:.4f} ms ({tf_by}) {tag}")
-        del dmat, drows
+              f"block): whole call {tf_ms:.4f} ms, kernel only "
+              f"{tf_kernel:.4f} ms, plain {tf_plain:.3f} ms, bound "
+              f"{tf_bound:.4f} ms ({tf_by}) {tag}")
+        del dmat, drows, tf_out
 
         # fused_sketch: the finch run's first launch group, its largest
         group, size = [], 0
@@ -956,20 +1096,30 @@ def main(argv=None) -> int:
               f"registers equal, {len(pairs_k)} pairs ({len(within_h)} "
               f"within families, all found), identical ANI floats {tag}")
 
-    no_library = ("no single PyTorch call computes this function")
+    no_library = ("no single PyTorch call computes this function (for "
+                  "window_hits, torch.isin does for one pair: its "
+                  "library_ms is one call a pair, summed)")
     record = {"kernels": [
         {"name": "window_hits", "route": "cuda",
          "source": "galah_tpu_torch/kernels/window_hits.cu",
          "replaces": "galah_tpu/ops/pallas_fragment.py:170",
          "launches": launches["window_hits"], "max_abs_err": wh_err,
          "ms": wh_ms, "plain_ms": wh_plain, "bound_ms": wh_bound,
-         "bound_by": wh_by, "library_ms": None},
+         "bound_by": wh_by, "library_ms": wh_lib,
+         "kernel_only_ms": wh_kernel,
+         "library_call": "torch.isin(q, r), one call a pair, summed"},
         {"name": "tile_stats", "route": "cuda",
          "source": "galah_tpu_torch/kernels/tile_stats.cu",
          "replaces": "galah_tpu/ops/pallas_pairwise.py:308",
          "launches": launches["tile_stats"], "max_abs_err": ts_err,
          "ms": ts_ms, "plain_ms": ts_plain, "bound_ms": ts_bound,
-         "bound_by": ts_by, "library_ms": None},
+         "bound_by": ts_by, "library_ms": None,
+         "kernel_only_ms": ts_kernel,
+         "full_form": {"launches": launches_d["tile_stats"],
+                       "ms": tf_ms, "kernel_only_ms": tf_kernel,
+                       "plain_ms": tf_plain, "bound_ms": tf_bound,
+                       "bound_by": tf_by},
+         "intersect_wide_k": ts_wide},
         {"name": "fused_sketch", "route": "cuda",
          "source": "galah_tpu_torch/kernels/fused_sketch.cu",
          "replaces": "galah_tpu/ops/pallas_sketch.py:400",

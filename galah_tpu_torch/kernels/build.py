@@ -33,7 +33,7 @@ _L = ctypes.c_longlong
 
 # C signature of each library's launch function: (name, argtypes)
 SIGNATURES = {
-    "window_hits": ("window_hits_launch", [_P] * 8 + [_L, _P]),
+    "window_hits": ("window_hits_launch", [_P, _I, _L, _I, _P, _P]),
     "tile_stats": ("tile_stats_launch", [_P, _P, _I, _I, _I, _I, _I,
                                          _P, _P, _P]),
     "fused_sketch": ("fused_sketch_launch", [_P] * 6 + [_I, _I, _P, _P]),

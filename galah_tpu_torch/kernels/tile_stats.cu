@@ -1,9 +1,11 @@
-// Pairwise merged-bottom-k statistics: one thread per (row, col) pair.
+// Pairwise merged-bottom-k statistics: a warp per (row, col) pair, both
+// operands in shared memory.
 //
 // Replaces the TPU kernel galah_tpu/ops/pallas_pairwise.py
 // (tile_stats_pallas / _make_kernel; tile_intersect_pallas is its
-// intersect form). For sorted, sentinel-padded rows a and b of width K
-// it computes what ops/pairwise._pair_stats computes:
+// intersect form, and its range_skip variant computes the same
+// function). For sorted, sentinel-padded rows a and b of width K it
+// computes what ops/pairwise._pair_stats computes:
 //   pos_b(i)  = #(b < a_i)            (searchsorted, left)
 //   match(i)  = a_i valid and b[pos_b(i)] == a_i
 //   cexcl(i)  = #(match before i)
@@ -12,99 +14,257 @@
 //   common    = #(match & urank < total)
 // With `intersect` it reports common = #match (|a ∩ b|, the marker
 // screen's count) and total = na. The TPU kernel compared whole blocks
-// densely because Mosaic has no dynamic indexing; here each thread
-// walks its column's b with a pointer that only moves forward, so a
-// pair costs O(K) compares instead of O(K^2).
+// densely because Mosaic has no dynamic indexing.
 //
-// Layout: block (x, y) takes row y and 128 consecutive columns. The
-// row is staged through shared memory in tiles of kTile values, which
-// every thread of the block then reads as a broadcast; each thread's
-// b pointer persists across tiles. Hashes are biased int64 (u64 ^
-// 2^63); INT64_MAX is the sentinel, so a row's valid values are its
-// prefix before the first INT64_MAX.
+// Tiles. A block takes a tile of 4 rows and 8 columns and gives each
+// of its 32 pairs one warp. Where the tile's 12 sketches fit in shared
+// memory (K <= 2419 on an H100) it stages them; past that it reads its
+// operands in place from device memory, through L1 and L2. Smaller
+// staged tiles for wider K were slower than reading in place (2.50 ms
+// against 0.96 ms at K = 6080 and 7.39 against 2.09 at K = 10048 for
+// 64 x 512 pairs, kernels/rehearse_tile_stats.py on an H100): they
+// leave an SM one block of 2 or 1 warps. Blocks run along a row of
+// tiles (a 1-D grid, no row limit), so a row tile is read from L2 by
+// consecutive blocks.
+// Staging: each sketch lands in shared memory once, followed by the
+// sentinel at an even stride. Where K is even and the matrices 16-byte
+// aligned, thread 0 has the bulk copy engine (TMA, cp.async.bulk) move
+// the rows and the first half of the columns on one mbarrier and the
+// other half on a second, so the first half's warps start while the
+// rest is in flight; otherwise every thread copies with cp.async
+// (stage.cuh). Each warp finds its two sketches' valid prefixes (the
+// values before the first INT64_MAX) itself.
 //
-// Bound: bytes moved are (Br + Bc) * K * 8 in and 8 per pair out; the
-// walks do O(K) dependent compares per pair, so at the screen's shapes
-// the kernel is bound by those compares, not by memory.
+// Merge path within a pair. The 32 lanes split the merge of the valid
+// prefixes (na + nb items) along merge diagonals, (na + nb) / 32 items
+// a lane, so ragged rows stay balanced. Tie rule: on equal values the a
+// element merges first, so a lane's co-rank in b at each a_i is
+// pos_b(i), and a_i matches iff the next b value equals it. Each step
+// loads one value, of the side that moved. The intersect form sums the
+// lanes' match counts (warp reduction). The full form takes #match that
+// way, hence total; if the union holds at most sketch_size values every
+// match counts, else an exclusive warp scan of the lanes' match counts
+// gives cexcl at each lane's start and a second walk counts matches
+// with urank < total (urank never falls along a walk, so a lane stops
+// once it reaches total).
+//
+// Bound: bytes moved are (Br + Bc) K 8 in and 8 a pair out, and the
+// walks na + nb compares a pair (twice in the full form): at the
+// screen's shapes (64 x 512 pairs, K = 2176) both bounds are a few
+// microseconds, below one launch. What the kernel takes there
+// (rehearse_tile_stats.py, intersect form): 0.180 ms, of which 0.056
+// ms is the launch, the staging and the prefix searches (all-sentinel
+// rows, no item to merge) and the rest the walks, ~1,100 merged items
+// a ns; each step is a data-dependent shared load inside two-word
+// 64-bit compares and selects.
+// nvcc -Xptxas -v (sm_90a): 32 registers and 16 bytes of static shared
+// memory, no spills, for the staged kernel, one block of 1024 threads
+// an SM with (12 x 2178 x 8 =) 209,088 bytes of dynamic shared memory
+// at K = 2176; 32 registers and an 8-byte spill for the in-place one,
+// two blocks an SM.
+//
+// Hashes are biased int64 (u64 ^ 2^63); INT64_MAX is the sentinel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;
+constexpr long long kSentinel = INT64_MAX;
+
+// Staged tiles (tr, tc) in order of preference; the first whose
+// sketches fit in shared memory is taken. Where none fits, a 4 x 8
+// tile reads its operands in place.
+constexpr int kTiles[][2] = {{4, 8}};
+constexpr int kInPlace[2] = {4, 8};
 
 __device__ int valid_prefix(const long long* v, int k) {
   int lo = 0, hi = k;  // first index holding the sentinel
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (v[mid] < INT64_MAX) lo = mid + 1; else hi = mid;
+    if (v[mid] < kSentinel) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
-// One forward walk of b against the row's valid prefix. With
-// total < 0 it counts matches; otherwise it counts matches whose union
-// rank is below total.
-__device__ int walk(const long long* __restrict__ a,
-                    const long long* __restrict__ b, int k, int na,
-                    bool live, int total, long long* tile) {
-  int j = 0, count = 0, cexcl = 0;
-  for (int t0 = 0; t0 < na; t0 += kTile) {
-    const int tn = min(kTile, na - t0);
-    __syncthreads();
-    for (int s = threadIdx.x; s < tn; s += blockDim.x) tile[s] = a[t0 + s];
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < tn; ++s) {
-      const long long x = tile[s];
-      while (j < k && b[j] < x) ++j;
-      if (j < k && b[j] == x) {
-        if (total < 0) {
-          ++count;
-        } else {
-          const int urank = (t0 + s) + j - cexcl;
-          if (urank < total) ++count;
-          ++cexcl;
-        }
+// v[i], or the sentinel past the valid prefix: staged sketches are
+// padded with it, sketches read in place are guarded.
+template <bool kStaged>
+__device__ __forceinline__ long long at(const long long* v, int i, int n) {
+  if (kStaged) return v[i];
+  return i < n ? v[i] : kSentinel;
+}
+
+// The lane's walk over merged items [d0, d1) from co-rank (ai, bj).
+// With total < 0 it counts matches; otherwise matches whose union rank
+// is below total, cexcl being the matches before the lane's start.
+template <bool kStaged>
+__device__ int walk(const long long* a, int na, const long long* b, int nb,
+                    int ai, int bj, int steps, int total, int cexcl) {
+  int count = 0;
+  long long x = at<kStaged>(a, ai, na);
+  long long y = at<kStaged>(b, bj, nb);
+  for (int s = 0; s < steps; ++s) {
+    const bool take_a = x <= y;  // a first on ties; sentinels sort last
+    if (take_a && x == y) {
+      if (total < 0) {
+        ++count;
+      } else {
+        if (ai + bj - cexcl >= total) break;
+        ++count;
+        ++cexcl;
       }
     }
+    // one load a step, of the side that moved
+    if (take_a) ++ai; else ++bj;
+    const long long w = at<kStaged>(take_a ? a : b, take_a ? ai : bj,
+                                    take_a ? na : nb);
+    if (take_a) x = w; else y = w;
   }
   return count;
 }
 
-__global__ void tile_stats_kernel(const long long* __restrict__ rows,
-                                  const long long* __restrict__ cols,
-                                  int br, int bc, int k, int sketch_size,
-                                  int intersect, int* __restrict__ common,
-                                  int* __restrict__ total) {
-  __shared__ long long tile[kTile];
-  __shared__ int na_s;
-  const int row = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = col < bc;
-  const long long* a = rows + static_cast<size_t>(row) * k;
-  const long long* b = cols + static_cast<size_t>(live ? col : 0) * k;
-  if (threadIdx.x == 0) na_s = valid_prefix(a, k);
-  __syncthreads();
-  const int na = na_s;
-  const int n_match = walk(a, b, k, na, live, -1, tile);
-  if (intersect) {
-    if (live) {
-      common[static_cast<size_t>(row) * bc + col] = n_match;
-      total[static_cast<size_t>(row) * bc + col] = na;
+// mbarrier and 1-D bulk copy (TMA) helpers
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.b32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(long long* dst,
+                                          const long long* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(1024)
+tile_stats_kernel(const long long* __restrict__ rows,
+                  const long long* __restrict__ cols, int br, int bc,
+                  int k, int sketch_size, int intersect, int tr, int tc,
+                  int* __restrict__ common, int* __restrict__ total) {
+  extern __shared__ __align__(16) long long smem[];
+  __shared__ __align__(8) unsigned long long bars[2];
+  const int col_tiles = (bc + tc - 1) / tc;
+  const int r0 = static_cast<int>(blockIdx.x / col_tiles) * tr;
+  const int c0 = static_cast<int>(blockIdx.x % col_tiles) * tc;
+  const int nr = min(tr, br - r0), nc = min(tc, bc - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pr = warp / tc, pc = warp % tc;
+  const long long* a = rows + static_cast<size_t>(r0 + pr) * k;
+  const long long* b = cols + static_cast<size_t>(c0 + pc) * k;
+  if (kStaged) {
+    // The tile's sketches, each followed by the sentinel, at an even
+    // stride. Where K is even and the matrices 16-byte aligned, thread 0
+    // has the bulk copy engine (TMA) move the rows and the first half of
+    // the columns on one barrier and the other half on another, so the
+    // warps of the first half start while the rest is in flight;
+    // otherwise every thread copies with cp.async.
+    const int stride = (k + 2) & ~1;
+    const int half = (nc + 1) / 2;
+    const bool bulk = (k & 1) == 0 &&
+        ((reinterpret_cast<uintptr_t>(rows) |
+          reinterpret_cast<uintptr_t>(cols)) & 15) == 0;
+    if (bulk && threadIdx.x == 0) {
+      bar_init(&bars[0]);
+      bar_init(&bars[1]);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
+    __syncthreads();
+    for (int s = 0; s < nr + nc; ++s) {
+      const long long* src = s < nr
+          ? rows + static_cast<size_t>(r0 + s) * k
+          : cols + static_cast<size_t>(c0 + s - nr) * k;
+      long long* dst = smem + static_cast<size_t>(s) * stride;
+      if (!bulk) {
+        stage_async(dst, src, k);
+      } else if (threadIdx.x == 0) {
+        if (s == 0) {
+          bar_expect(&bars[0], static_cast<unsigned>((nr + half) * k * 8));
+          bar_expect(&bars[1], static_cast<unsigned>((nc - half) * k * 8));
+        }
+        bulk_copy(dst, src, static_cast<unsigned>(k) * 8,
+                  &bars[s < nr + half ? 0 : 1]);
+      }
+      for (int e = k + threadIdx.x; e < stride; e += blockDim.x) {
+        dst[e] = kSentinel;
+      }
+    }
+    if (!bulk) stage_wait();
+    __syncthreads();
+    if (pr >= nr || pc >= nc) return;
+    if (bulk) {
+      bar_wait(&bars[0]);
+      if (pc >= half) bar_wait(&bars[1]);
+    }
+    a = smem + static_cast<size_t>(pr) * stride;
+    b = smem + static_cast<size_t>(nr + pc) * stride;
+  } else if (pr >= nr || pc >= nc) {
     return;
   }
-  const int nb = live ? valid_prefix(b, k) : 0;
-  const int tot = min(sketch_size, na + nb - n_match);
-  const int c = walk(a, b, k, na, live, tot, tile);
-  if (live) {
-    common[static_cast<size_t>(row) * bc + col] = c;
-    total[static_cast<size_t>(row) * bc + col] = tot;
+  const int na = valid_prefix(a, k), nb = valid_prefix(b, k);
+  const int n = na + nb;
+  const int d0 = static_cast<int>(static_cast<long long>(lane) * n / 32);
+  const int d1 = static_cast<int>(static_cast<long long>(lane + 1) * n / 32);
+  // co-rank of d0: the a values among the first d0 merged items
+  int lo = max(0, d0 - nb), hi = min(d0, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[d0 - mid - 1]) lo = mid + 1; else hi = mid;
+  }
+  const int ai = lo, bj = d0 - lo;
+  const int m = walk<kStaged>(a, na, b, nb, ai, bj, d1 - d0, -1, 0);
+  const int n_match = __reduce_add_sync(~0u, m);
+  int c = n_match, tot = na;
+  if (!intersect) {
+    tot = min(sketch_size, n - n_match);
+    if (n - n_match > sketch_size) {
+      int incl = m;  // inclusive scan of the lanes' match counts
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(~0u, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int cexcl = incl - m;
+      const int mine = ai + bj - cexcl < tot
+          ? walk<kStaged>(a, na, b, nb, ai, bj, d1 - d0, tot, cexcl) : 0;
+      c = __reduce_add_sync(~0u, mine);
+    }
+  }
+  if (lane == 0) {
+    const size_t o = static_cast<size_t>(r0 + pr) * bc + (c0 + pc);
+    common[o] = c;
+    total[o] = tot;
   }
 }
+
+int g_max_smem = -1;  // the card's opt-in shared memory a block
 
 }  // namespace
 
@@ -112,13 +272,59 @@ extern "C" int tile_stats_launch(const void* rows, const void* cols,
                                  int br, int bc, int k, int sketch_size,
                                  int intersect, void* common, void* total,
                                  void* stream) {
-  if (br <= 0 || bc <= 0) return 0;
-  if (br > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((bc + kThreads - 1) / kThreads, br);
-  tile_stats_kernel<<<grid, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(rows),
-      static_cast<const long long*>(cols), br, bc, k, sketch_size,
-      intersect, static_cast<int*>(common), static_cast<int*>(total));
+  if (br <= 0 || bc <= 0 || k < 0) return 0;
+  if (g_max_smem < 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    int optin = 0;
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncGetAttributes(&attr, tile_stats_kernel<true>);
+    }
+    if (err == cudaSuccess) {
+      // dynamic and static shared memory together stay within opt-in
+      g_max_smem = optin - static_cast<int>(attr.sharedSizeBytes);
+      err = cudaFuncSetAttribute(tile_stats_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 g_max_smem);
+    }
+    if (err != cudaSuccess) {
+      g_max_smem = -1;
+      return static_cast<int>(err);
+    }
+  }
+  const long long stride = (static_cast<long long>(k) + 2) & ~1LL;
+  int tr = kInPlace[0], tc = kInPlace[1];
+  long long smem = 0;
+  for (const auto& tile : kTiles) {
+    const long long bytes = (tile[0] + tile[1]) * stride * 8;
+    if (bytes <= g_max_smem) {
+      tr = tile[0];
+      tc = tile[1];
+      smem = bytes;
+      break;
+    }
+  }
+  const long long blocks = static_cast<long long>((br + tr - 1) / tr) *
+                           ((bc + tc - 1) / tc);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(blocks));
+  const dim3 block(32 * tr * tc);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const long long*>(rows);
+  const auto* c = static_cast<const long long*>(cols);
+  if (smem > 0) {
+    tile_stats_kernel<true><<<grid, block, smem, s>>>(
+        r, c, br, bc, k, sketch_size, intersect, tr, tc,
+        static_cast<int*>(common), static_cast<int*>(total));
+  } else {
+    tile_stats_kernel<false><<<grid, block, 0, s>>>(
+        r, c, br, bc, k, sketch_size, intersect, tr, tc,
+        static_cast<int*>(common), static_cast<int*>(total));
+  }
   return static_cast<int>(cudaGetLastError());
 }

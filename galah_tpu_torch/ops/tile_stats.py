@@ -19,8 +19,6 @@ import torch
 from galah_tpu_torch.kernels import LAUNCHES
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
-_MAX_GRID_Y = 65535  # rows per kernel launch (CUDA grid y limit)
-
 
 def _check(rows: torch.Tensor, cols: torch.Tensor) -> None:
     for t in (rows, cols):
@@ -99,22 +97,28 @@ def tile_stats_plain(rows: torch.Tensor, cols: torch.Tensor,
 
 def _launch(rows: torch.Tensor, cols: torch.Tensor, sketch_size: int,
             intersect: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    common = torch.empty(rows.shape[0], cols.shape[0], dtype=torch.int32,
+                         device=rows.device)
+    total = torch.empty_like(common)
+    return run_launch(rows, cols, sketch_size, intersect, common, total)
+
+
+def run_launch(rows: torch.Tensor, cols: torch.Tensor, sketch_size: int,
+               intersect: bool, common: torch.Tensor, total: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel alone: one launch that fills every entry of the
+    contiguous int32 (Br, Bc) ``common`` and ``total``."""
     from galah_tpu_torch.kernels import build
 
     br, k = rows.shape
     bc = cols.shape[0]
-    common = torch.zeros(br, bc, dtype=torch.int32, device=rows.device)
-    total = torch.zeros_like(common)
     if br == 0 or bc == 0:
         return common, total
     lib = build.load("tile_stats")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    for r0 in range(0, br, _MAX_GRID_Y):
-        n = min(_MAX_GRID_Y, br - r0)
-        err = lib.tile_stats_launch(
-            rows[r0:].data_ptr(), cols.data_ptr(), n, bc, k,
-            int(sketch_size), int(bool(intersect)),
-            common[r0:].data_ptr(), total[r0:].data_ptr(), stream)
-        build.check("tile_stats", err)
-        LAUNCHES["tile_stats"] += 1
+    err = lib.tile_stats_launch(
+        rows.data_ptr(), cols.data_ptr(), br, bc, k, int(sketch_size),
+        int(bool(intersect)), common.data_ptr(), total.data_ptr(), stream)
+    build.check("tile_stats", err)
+    LAUNCHES["tile_stats"] += 1
     return common, total

@@ -12,7 +12,7 @@ nothing falls back.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,9 @@ from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
 Pair = Tuple[torch.Tensor, torch.Tensor]  # (sorted query, sorted ref set)
 
-_THREADS = 256  # elements per block of the kernel
+# merged items (query and reference values) a block of the kernel
+# takes: 256 threads x 15 (kernels/window_hits.cu's kSegment)
+SEGMENT = 256 * 15
 
 
 def _check(items: Sequence[Pair], device: torch.device) -> None:
@@ -40,8 +42,11 @@ def window_element_hits(items: Sequence[Pair],
                         device="cuda") -> torch.Tensor:
     """Concatenated int32 flags, item by item in query order: flag e of
     item i is 1 iff ``q_i[e]`` is in ``r_i``. Queries are biased int64
-    hashes (the sentinel never hits); reference sets are sorted and
-    distinct. One kernel launch covers all items."""
+    hashes (the sentinel never hits), each sorted ascending (duplicates
+    allowed); reference sets are sorted and distinct. The CUDA kernel
+    merges each query with its reference set, so an unsorted query gives
+    wrong flags there (the plain version does not need the order). One
+    kernel launch covers all items."""
     device = torch.device(device)
     _check(items, device)
     if device.type == "cpu":
@@ -67,38 +72,64 @@ def window_element_hits_plain(items: Sequence[Pair],
     return torch.cat(outs)
 
 
-def _launch(items: Sequence[Pair], device: torch.device) -> torch.Tensor:
-    from galah_tpu_torch.kernels import build
+class Launch(NamedTuple):
+    """One planned launch: the (6, pairs) int64 plan on the card, the
+    flags it fills and its block count."""
 
-    lib = build.load("window_hits")
+    plan: torch.Tensor
+    hits: torch.Tensor
+    n_blocks: int
+
+
+def block_plan(q_len: np.ndarray, r_len: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(blk_end, out_off) int64 per pair: the running end of the pairs'
+    blocks (pair p owns blocks [blk_end[p-1], blk_end[p]), each
+    ``SEGMENT`` merged items of its q and r along the merge, the last
+    one ragged; a pair with no query value owns none) and the offset of
+    its first flag."""
+    q_len = np.asarray(q_len, dtype=np.int64)
+    r_len = np.asarray(r_len, dtype=np.int64)
+    blocks = np.where(q_len > 0, -(-(q_len + r_len) // SEGMENT), 0)
+    out_off = np.zeros_like(q_len)
+    np.cumsum(q_len[:-1], out=out_off[1:])
+    return np.cumsum(blocks), out_off
+
+
+def plan_launch(items: Sequence[Pair], device: torch.device) -> Launch:
+    """The host side of one kernel launch: the O(pairs) plan, copied to
+    the card once, and the flags to fill."""
     q_len = np.array([q.numel() for q, _ in items], dtype=np.int64)
     r_len = np.array([r.numel() for _, r in items], dtype=np.int64)
-    q_addr = np.array([q.data_ptr() for q, _ in items], dtype=np.uint64)
-    r_addr = np.array([r.data_ptr() for _, r in items], dtype=np.uint64)
-    out_off = np.zeros(len(items), dtype=np.int64)
-    np.cumsum(q_len[:-1], out=out_off[1:])
-    n_total = int(q_len.sum())
-    hits = torch.empty(n_total, dtype=torch.int32, device=device)
-    if n_total == 0:
-        return hits
-    per = -(-q_len // _THREADS)
-    blk_pair = np.repeat(np.arange(len(items), dtype=np.int32), per)
-    first = np.zeros(len(items), dtype=np.int64)
-    np.cumsum(per[:-1], out=first[1:])
-    blk_start = (np.arange(blk_pair.shape[0], dtype=np.int64)
-                 - np.repeat(first, per)) * _THREADS
+    blk_end, out_off = block_plan(q_len, r_len)
+    plan = torch.empty((6, len(items)), dtype=torch.int64, pin_memory=True)
+    host = plan.numpy()
+    host[0] = [q.data_ptr() for q, _ in items]
+    host[1] = q_len
+    host[2] = [r.data_ptr() for _, r in items]
+    host[3] = r_len
+    host[4] = out_off
+    host[5] = blk_end
+    hits = torch.empty(int(q_len.sum()), dtype=torch.int32, device=device)
+    n_blocks = int(blk_end[-1]) if len(items) else 0
+    return Launch(plan.to(device, non_blocking=True), hits, n_blocks)
 
-    def dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    meta = [dev(q_addr.view(np.int64)), dev(q_len),
-            dev(r_addr.view(np.int64)), dev(r_len), dev(out_off),
-            dev(blk_pair), dev(blk_start)]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.window_hits_launch(*[t.data_ptr() for t in meta],
-                                 hits.data_ptr(), int(blk_pair.shape[0]),
-                                 stream)
+def run_launch(launch: Launch) -> torch.Tensor:
+    """The kernel alone, on a planned launch; returns its flags."""
+    from galah_tpu_torch.kernels import build
+
+    if launch.n_blocks == 0:
+        return launch.hits
+    lib = build.load("window_hits")
+    stream = torch.cuda.current_stream(launch.hits.device).cuda_stream
+    err = lib.window_hits_launch(
+        launch.plan.data_ptr(), launch.plan.shape[1], launch.n_blocks,
+        SEGMENT, launch.hits.data_ptr(), stream)
     build.check("window_hits", err)
     LAUNCHES["window_hits"] += 1
-    return hits
+    return launch.hits
 
+
+def _launch(items: Sequence[Pair], device: torch.device) -> torch.Tensor:
+    return run_launch(plan_launch(items, device))
