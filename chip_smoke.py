@@ -10,8 +10,9 @@ Phases, each of which exits nonzero when it fails:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel with nvcc for sm_90a, in parallel;
-3. kernel parity: each kernel against its plain torch version on the
-   card, exact integer equality, on edge-case inputs;
+3. kernel parity: each kernel against its plain torch version, exact
+   integer equality, on edge-case inputs (the two sketch kernels read
+   codes on the card, their plain versions the same codes on the host);
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -33,9 +34,11 @@ Phases, each of which exits nonzero when it fails:
 5. the kernels timed at the shapes the end-to-end runs gave them,
    beside their plain versions and their bound on this card (for
    window_hits and tile_stats the whole call and the kernel alone, and
-   for window_hits one torch.isin call a pair, summed), and tile_stats'
+   for window_hits one torch.isin call a pair, summed), tile_stats'
    intersect form on synthetic rows at the widths that corpora of 6
-   and 10 Mbp genomes give (K = 6080, 10048);
+   and 10 Mbp genomes give (K = 6080, 10048), and the whole sketch of
+   the first finch and dashing launch groups split into host concat,
+   copies, kernel and certificate or HLL fold;
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, identical finch sketches
    and pair-dict ANI floats for 64 genomes, and identical HLL
@@ -64,15 +67,17 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-# 32-bit operations per valid window of the fused sketch kernel: the
-# hash (a 64-bit multiply is ~3, a 64-bit add, xor or rotate ~2) and
-# the register compare
-FUSED_OPS_PER_WINDOW = {"murmur3": 100, "tpufast": 45}
+# 32-bit operations per valid window of the fused sketch kernel, from
+# the codes (kernels/fused_sketch.cu's source note): the roll of the
+# canonical packs, the canonical select and ASCII key words, the hash
+# (a 64-bit multiply is ~3, a 64-bit add, xor or rotate ~2) and the
+# register compare
+FUSED_OPS_PER_WINDOW = {"murmur3": 180, "tpufast": 70}
 
-# 32-bit operations of the murmur3 hash of one k=21 window
-# (kernels/murmur3_k21.cu's source note), and of one register pair of
-# the HLL union statistics (kernels/hll_union.cu's)
-MURMUR3_OPS_PER_WINDOW = 100
+# 32-bit operations of one k=21 window of the murmur3_k21 kernel, from
+# the codes (kernels/murmur3_k21.cu's source note), and of one register
+# pair of the HLL union statistics (kernels/hll_union.cu's)
+MURMUR3_OPS_PER_WINDOW = 170
 HLL_UNION_OPS_PER_REGISTER = 4
 
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
@@ -332,6 +337,41 @@ def fused_sketch_genomes(rng):
     ]
 
 
+def sketch_edge_groups(rng):
+    """Launch groups aimed at the sketch kernels' codes input: runs of
+    16 windows, 128-class slices of 2048-window rows (fused_sketch),
+    4096-window tiles (murmur3_k21) and the 20-base halo; the same
+    cases as tests/test_torch_sketch_codes.py."""
+    def rand(n):
+        return rng.integers(0, 4, size=n).astype(np.uint8)
+
+    k = 21
+    edge = rand(3 * 2048 + 700)
+    for s, e in ((2040, 2075), (127, 131), (15, 17), (4076, 4077)):
+        edge[s:e] = 255
+    return [
+        [_genome("tile-edge", edge)],
+        [_genome("starts", rand(9000), [2048, 4097, 6143, 9000 - k]),
+         _genome("last-base", rand(5000), [4999])],
+        [_genome("short-contigs", rand(7000), [3000, 3010, 5000, 5000 + k])],
+        [_genome("k", rand(k)), _genome("all-n", np.full(3000, 255, np.uint8)),
+         _genome("mid", rand(2500), [1200]), _genome("k-1", rand(k - 1))],
+        [_genome("a", rand(2048 + k)), _genome("b", rand(4095)),
+         _genome("long", rand(25_000), [11_111]),
+         _genome("repeat", np.tile(rand(300), 40)), _genome("c", rand(31))],
+    ]
+
+
+def plain_k21_hook(murmur3_k21_plain):
+    """The k21_hash hook of the plain path on the card: the plain
+    version takes CPU tensors, so the codes go to the host and the
+    hashes back."""
+    def hook(codes, starts, win0, n_win):
+        return murmur3_k21_plain(codes.cpu(), starts.cpu(), win0,
+                                 n_win).to(codes.device)
+    return hook
+
+
 def pairlist_cases(rng, torch, device, k=1000, n=400):
     """A family-structured (n, k) sketch matrix with empty, identical,
     disjoint and ragged rows, and pair lists of 1, 7, 8192 and 8193
@@ -385,6 +425,33 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def first_group(paths, read_genome, budget):
+    """The genomes of a run's first launch group, its largest."""
+    group, size = [], 0
+    for p in paths:
+        g = read_genome(p)
+        if group and size + g.codes.shape[0] > budget:
+            break
+        group.append(g)
+        size += g.codes.shape[0]
+    return group
+
+
+def time_group(torch, device, concat, group):
+    """Host clock of a launch group's concat and of the copies of its
+    codes and contig starts to the card; the tensors (host codes,
+    host starts, device codes, device starts, jobs)."""
+    t0 = time.perf_counter()
+    codes, offsets, jobs = concat(group, 21)
+    t1 = time.perf_counter()
+    hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
+    dc, ds = hc.to(device), hs.to(device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"concat_ms": (t1 - t0) * 1e3, "copy_ms": (t2 - t1) * 1e3,
+            "tensors": (hc, hs, dc, ds, jobs)}
 
 
 def run_path(torch, cli, reset_launches, launches_now, argv):
@@ -470,8 +537,8 @@ def main(argv=None) -> int:
     from galah_tpu_torch.ops.constants import SENTINEL_BIASED
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
                                                   fused_sketch_candidates)
-    from galah_tpu_torch.ops.hashing import canonical_key_words
-    from galah_tpu_torch.ops.hll import (hll_sketch_genomes,
+    from galah_tpu_torch.ops.hashing import positional_hashes
+    from galah_tpu_torch.ops.hll import (fold_group, hll_sketch_genomes,
                                          hll_threshold_pairs)
     from galah_tpu_torch.ops.hll_union import (hll_union_stats,
                                                hll_union_stats_plain)
@@ -524,28 +591,39 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"parity tile_stats: K={k} Br={rows.shape[0]} "
               f"Bc={cols.shape[0]} intersect+full exact {tag}")
+    plain_hook = plain_k21_hook(murmur3_k21_plain)
     genomes = fused_sketch_genomes(rng)
-    codes, offsets, jobs = sketch_stream._concat(genomes, 21)
+    sketch_groups = [genomes, *sketch_edge_groups(rng)]
+    n_windows = 0
+    for group in sketch_groups:
+        codes, offsets, jobs = sketch_stream._concat(group, 21)
+        hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
+        dc, ds = hc.to(device), hs.to(device)
+        n_windows += max(codes.shape[0] - 20, 0)
+        for algo in ("murmur3", "tpufast"):
+            got = fused_sketch_candidates(dc, ds, jobs, 21, algo).cpu()
+            want = fused_candidates_plain(hc, hs, jobs, 21, algo)
+            if not torch.equal(got, want):
+                raise PhaseError(
+                    f"fused_sketch ({algo}) disagrees with its plain "
+                    f"version at {int((got != want).sum())} candidates "
+                    f"of the group of {group[0].path}")
     for algo in ("murmur3", "tpufast"):
-        words, valid = canonical_key_words(codes, offsets, 21, device, algo)
-        got = fused_sketch_candidates(words, valid, jobs, 21, algo)
-        want = fused_candidates_plain(words, valid, jobs, 21, algo)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise PhaseError(f"fused_sketch ({algo}) disagrees with its "
-                             f"plain version at {int((got != want).sum())}"
-                             " candidates")
         fused = sketch_stream.sketch_genomes_fused(genomes, 1000, 21, algo,
                                                    device)
         for g, f in zip(genomes, fused):
-            e = sketch_genome_device(g, 1000, 21, algo, device,
-                                     k21_hash=murmur3_k21_plain)
+            e = sketch_genome_device(g, 1000, 21, algo, "cpu")
             if not np.array_equal(f.hashes, e.hashes):
                 raise PhaseError(f"fused sketch of {g.path} ({algo}) "
                                  "differs from the exact sketch")
-        print(f"parity fused_sketch: {algo}, {len(jobs)} jobs, "
-              f"{valid.numel()} windows, candidates and certified "
-              f"sketches exact {tag}")
+    torch.cuda.synchronize()
+    print(f"parity fused_sketch: murmur3 and tpufast, "
+          f"{len(sketch_groups)} groups ({len(genomes)} jobs of up to 3 "
+          f"Mbp; ambiguous runs across run, slice, row and halo edges; "
+          f"contig starts at 0, 1, 2047 mod 2048 and the last window; "
+          f"short contigs; k, k-1 and all-ambiguous genomes; ragged "
+          f"jobs), {n_windows} windows, candidates and certified "
+          f"sketches exact {tag}")
     tmat, lists = pairlist_cases(rng, torch, device)
     k = tmat.shape[1]
     for pi, pj in lists:
@@ -580,26 +658,31 @@ def main(argv=None) -> int:
         print(f"parity hll_union: Br={br} Bc={bc} m={m} registers <= "
               f"{hi}, zero and max rows: zeros exact, powsum within "
               f"{ulps} f32 ulp {tag}")
-    words, valid = canonical_key_words(codes, offsets, 21, device,
-                                       "murmur3")
-    valid[::97] = False        # sentinel windows among valid ones
-    cases = [(words, valid)]
-    for n in (0, 1, 1000, 3 * 2 ** 20 + 5):
-        w = [torch.from_numpy(_rand_hashes(rng, n)).to(device)
-             for _ in range(3)]
-        for t in w:
-            t[: n // 4] = -1   # all-ones keys
-        cases.append((w, torch.from_numpy(rng.random(n) < 0.9).to(device)))
-    for w, v in cases:
-        got = murmur3_k21(w, v)
-        if not torch.equal(got, murmur3_k21_plain(w, v)):
-            raise PhaseError(f"murmur3_k21 disagrees with its plain "
-                             f"version at {v.numel()} windows")
+    mm_cases = 0
+    for group in sketch_groups + [[_genome("random", rng.integers(
+            0, 4, size=3 * 2 ** 20 + 25).astype(np.uint8))]]:
+        codes, offsets, _ = sketch_stream._concat(group, 21)
+        hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
+        dc, ds = hc.to(device), hs.to(device)
+        n_win = max(codes.shape[0] - 20, 0)
+        ranges = [(0, n_win), (min(1, n_win), max(n_win - 1, 0)),
+                  (min(4095, n_win), max(min(8193, n_win - 4095), 0))]
+        for w0, n in ranges:
+            got = murmur3_k21(dc, ds, w0, n).cpu()
+            if not torch.equal(got, murmur3_k21_plain(hc, hs, w0, n)):
+                raise PhaseError(f"murmur3_k21 disagrees with its plain "
+                                 f"version at windows [{w0}, {w0 + n}) of "
+                                 f"the group of {group[0].path}")
+            mm_cases += 1
+    long_g = genomes[-1]
+    got = positional_hashes(long_g, 21, device, chunk=1 << 20).cpu()
+    if not torch.equal(got, positional_hashes(long_g, 21, "cpu")):
+        raise PhaseError("murmur3_k21 in 1 Mi-window chunks of a 3 Mbp "
+                         "genome disagrees with the plain version")
     torch.cuda.synchronize()
-    print(f"parity murmur3_k21: {len(cases)} cases up to "
-          f"{max(v.numel() for _, v in cases)} windows, sentinel windows "
-          f"and all-ones keys, exact {tag}")
-    del words, valid, cases
+    print(f"parity murmur3_k21: {mm_cases} window ranges of the fused "
+          f"groups and a random 3 Mi-window sequence, and a 3 Mbp genome "
+          f"in 1 Mi-window chunks, exact {tag}")
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -672,9 +755,9 @@ def main(argv=None) -> int:
             print(f"finch launches {name}: {launches_f[name]} {tag}")
         print(f"finch device state: sketch matrix "
               f"{args.finch_genomes} x 1000 x 8 B = "
-              f"{args.finch_genomes * 8000 / 1e6:.1f} MB; key words "
-              f"25 B a window, {25 * sketch_stream.FUSED_BUDGET / 1e6:.0f}"
-              f" MB per launch group at most {tag}")
+              f"{args.finch_genomes * 8000 / 1e6:.1f} MB; codes 1 B a "
+              f"base, {sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
+              f"group at most {tag}")
         need = ["fused_sketch", "window_hits"]
         if args.finch_genomes >= FINCH_MIN_GENOMES:
             need.append("pairlist")
@@ -740,9 +823,9 @@ def main(argv=None) -> int:
             print(f"dashing launches {name}: {launches_h[name]} {tag}")
         print(f"dashing device state: register matrix "
               f"{args.finch_genomes} x 4096 x 1 B = "
-              f"{args.finch_genomes * 4096 / 1e6:.1f} MB; key words and "
-              f"hashes 33 B a window, "
-              f"{33 * sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
+              f"{args.finch_genomes * 4096 / 1e6:.1f} MB; codes and "
+              f"hashes 9 B a window, "
+              f"{9 * sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
               f"group at most {tag}")
         require_launched(launches_h, ("hll_union", "murmur3_k21",
                                       "window_hits"), "dashing")
@@ -892,42 +975,58 @@ def main(argv=None) -> int:
               f"{tf_bound:.4f} ms ({tf_by}) {tag}")
         del dmat, drows, tf_out
 
-        # fused_sketch: the finch run's first launch group, its largest
-        group, size = [], 0
-        for p in res_f.genomes:
-            g = read_genome(p)
-            if group and size + g.codes.shape[0] > sketch_stream.FUSED_BUDGET:
-                break
-            group.append(g)
-            size += g.codes.shape[0]
-        codes, offsets, jobs = sketch_stream._concat(group, 21)
-        words, valid = canonical_key_words(codes, offsets, 21, device,
-                                           "murmur3")
+        # fused_sketch: the finch run's first launch group, its largest,
+        # and the group's whole sketch split into its parts
+        group = first_group(res_f.genomes, read_genome,
+                            sketch_stream.FUSED_BUDGET)
+        fs = time_group(torch, device, sketch_stream._concat, group)
+        hc, hs, dc, ds, jobs = fs["tensors"]
         fs_ms = time_ms(torch, lambda: fused_sketch_candidates(
-            words, valid, jobs, 21, "murmur3"), 10)
-        fs_plain = time_ms(torch, lambda: fused_candidates_plain(
-            words, valid, jobs, 21, "murmur3"), 2)
-        if not torch.equal(
-                fused_sketch_candidates(words, valid, jobs, 21, "murmur3"),
-                fused_candidates_plain(words, valid, jobs, 21, "murmur3")):
+            dc, ds, jobs, 21, "murmur3"), 10)
+        cand = fused_sketch_candidates(dc, ds, jobs, 21, "murmur3")
+        t0 = time.perf_counter()
+        want = fused_candidates_plain(hc, hs, jobs, 21, "murmur3")
+        fs_plain = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(cand.cpu(), want):
             raise PhaseError("fused_sketch disagrees with its plain "
                              "version at the finch run's launch")
         fs_err = 0.0
-        n_win, n_valid = valid.numel(), int(valid.sum())
-        fs_bytes = n_win * (3 * 8 + 1) + len(jobs) * (8 * 2048 * 8 + 16)
+        cert_ms = time_ms(torch, lambda: [
+            t.cpu() for t in sketch_stream.certify(cand, 1000)], 5)
+        n_win = max(hc.numel() - 20, 0)
+        n_valid = int((murmur3_k21(dc, ds) != SENTINEL_BIASED).sum())
+        fs_bytes = hc.numel() + 8 * hs.numel() + len(jobs) * (
+            16 + 8 * 2048 * 8)
         fs_ops = n_valid * FUSED_OPS_PER_WINDOW["murmur3"]
         fs_bound, fs_by = bound(fs_bytes, fs_ops)
+        # the same launch with the multiply-free mixer: what the murmur3
+        # hash and its ASCII key words cost beside the rest
+        tf_ms = time_ms(torch, lambda: fused_sketch_candidates(
+            dc, ds, jobs, 21, "tpufast"), 10)
+        tf_bound, tf_by = bound(fs_bytes,
+                                n_valid * FUSED_OPS_PER_WINDOW["tpufast"])
         t0 = time.perf_counter()
         sketch_stream.sketch_genomes_fused(group, 1000, 21, "murmur3",
                                            device)
         torch.cuda.synchronize()
         group_ms = (time.perf_counter() - t0) * 1e3
+        fs_split = {"host concat": fs["concat_ms"],
+                    "codes and starts copy": fs["copy_ms"],
+                    "kernel": fs_ms, "certificate": cert_ms}
+        stage_group = 1e3 * res_f.clock.seconds.get("sketch", 0.0) \
+            / max(launches_f["fused_sketch"], 1)
         print(f"timing fused_sketch: {len(jobs)} jobs, {n_win} windows "
-              f"({n_valid} valid), murmur3: kernel {fs_ms:.3f} ms, plain "
-              f"{fs_plain:.3f} ms, bound {fs_bound:.3f} ms ({fs_by}); the "
-              f"group's whole sketch (key words, kernel, certificate) "
-              f"{group_ms:.1f} ms {tag}")
-        del words, valid, group
+              f"({n_valid} valid) from {hc.numel()} codes, murmur3: kernel "
+              f"{fs_ms:.4f} ms, plain (CPU tensors, host clock) "
+              f"{fs_plain:.1f} ms, bound {fs_bound:.4f} ms ({fs_by}); "
+              f"tpufast: kernel {tf_ms:.4f} ms, bound {tf_bound:.4f} ms "
+              f"({tf_by}) {tag}")
+        print(f"timing finch group sketch: whole {group_ms:.2f} ms = "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in fs_split.items())
+              + f" + the rest; largest part: {max(fs_split, key=fs_split.get)}"
+              f"; finch 1024 sketch stage per launch group "
+              f"{stage_group:.2f} ms {tag}")
+        del cand, want, group, fs, hc, hs, dc, ds
 
         # pairlist: the finch run's collision survivors
         from galah_tpu_torch.ops.collision import candidate_pairs_minhash
@@ -990,39 +1089,49 @@ def main(argv=None) -> int:
               f"{tag}")
         del hmat, hrows, ps, z, pps, pz
 
-        # murmur3_k21: phase 4d's first launch group, its largest
-        group, size = [], 0
-        for p in res_h.genomes:
-            g = read_genome(p)
-            if group and size + g.codes.shape[0] > sketch_stream.FUSED_BUDGET:
-                break
-            group.append(g)
-            size += g.codes.shape[0]
-        codes, offsets, jobs = sketch_stream._concat(group, 21)
-        words, valid = canonical_key_words(codes, offsets, 21, device,
-                                           "murmur3")
-        mm_ms = time_ms(torch, lambda: murmur3_k21(words, valid), 10)
-        mm_plain = time_ms(torch, lambda: murmur3_k21_plain(words, valid),
-                           2)
-        if not torch.equal(murmur3_k21(words, valid),
-                           murmur3_k21_plain(words, valid)):
+        # murmur3_k21: phase 4d's first launch group, its largest, and
+        # the group's whole HLL sketch split into its parts
+        group = first_group(res_h.genomes, read_genome,
+                            sketch_stream.FUSED_BUDGET)
+        hh = time_group(torch, device, sketch_stream._concat, group)
+        hc, hs, dc, ds, jobs = hh["tensors"]
+        mm_ms = time_ms(torch, lambda: murmur3_k21(dc, ds), 10)
+        hashes = murmur3_k21(dc, ds)
+        t0 = time.perf_counter()
+        want = murmur3_k21_plain(hc, hs)
+        mm_plain = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(hashes.cpu(), want):
             raise PhaseError("murmur3_k21 disagrees with its plain "
                              "version at phase 4d's launch")
         mm_err = 0.0
-        n_win, n_valid = valid.numel(), int(valid.sum())
-        mm_bytes = n_win * (3 * 8 + 1 + 8)
+        hregs = torch.zeros(len(group), 4096, dtype=torch.int32,
+                            device=device)
+        fold_ms = time_ms(torch, lambda: fold_group(
+            hregs, hashes, jobs, range(len(group)), 12), 3)
+        n_win = hashes.numel()
+        n_valid = int((hashes != SENTINEL_BIASED).sum())
+        mm_bytes = hc.numel() + 8 * hs.numel() + 8 * n_win
         mm_ops = n_valid * MURMUR3_OPS_PER_WINDOW
         mm_bound, mm_by = bound(mm_bytes, mm_ops)
         t0 = time.perf_counter()
         hll_sketch_genomes(group, device=device)
         torch.cuda.synchronize()
         hgroup_ms = (time.perf_counter() - t0) * 1e3
+        mm_split = {"host concat": hh["concat_ms"],
+                    "codes and starts copy": hh["copy_ms"],
+                    "kernel": mm_ms, "HLL fold": fold_ms}
+        hstage_group = 1e3 * res_h.clock.seconds.get("sketch", 0.0) \
+            / max(launches_h["murmur3_k21"], 1)
         print(f"timing murmur3_k21: {len(group)} genomes, {n_win} windows "
-              f"({n_valid} valid): kernel {mm_ms:.3f} ms, plain "
-              f"{mm_plain:.3f} ms, bound {mm_bound:.3f} ms ({mm_by}); the "
-              f"group's whole HLL sketch (key words, kernel, fold) "
-              f"{hgroup_ms:.1f} ms {tag}")
-        del words, valid, codes
+              f"({n_valid} valid) from {hc.numel()} codes: kernel "
+              f"{mm_ms:.4f} ms, plain (CPU tensors, host clock) "
+              f"{mm_plain:.1f} ms, bound {mm_bound:.4f} ms ({mm_by}) {tag}")
+        print(f"timing dashing group sketch: whole {hgroup_ms:.2f} ms = "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in mm_split.items())
+              + f" + the rest; largest part: {max(mm_split, key=mm_split.get)}"
+              f"; dashing 1024 sketch stage per launch group "
+              f"{hstage_group:.2f} ms {tag}")
+        del hashes, want, hregs, group, hh, hc, hs, dc, ds
 
         # -- phase 6: kernel path vs plain path on the card ---------------
         sub = [p for p in store.get_many(res.genomes[:16])]
@@ -1046,7 +1155,7 @@ def main(argv=None) -> int:
         kern = [sk_store.get_cached(p) for p in sub_paths]
         for p, s in zip(sub_paths, kern):
             e = sketch_genome_device(read_genome(p), 1000, 21, "murmur3",
-                                     device, k21_hash=murmur3_k21_plain)
+                                     device, k21_hash=plain_hook)
             if not np.array_equal(s.hashes, e.hashes):
                 raise PhaseError(f"finch sketch of {p} differs between "
                                  "the kernel and plain paths")
@@ -1073,7 +1182,7 @@ def main(argv=None) -> int:
         sub_h = [read_genome(p) for p in paths[:64]]
         regs_k = hll_sketch_genomes(sub_h, device=device)
         regs_p = hll_sketch_genomes(sub_h, device=device,
-                                    k21_hash=murmur3_k21_plain)
+                                    k21_hash=plain_hook)
         stored = torch.stack([h_store.get_cached(p) for p in paths[:64]])
         if not (torch.equal(regs_k, regs_p) and torch.equal(regs_k,
                                                              stored)):
@@ -1125,7 +1234,10 @@ def main(argv=None) -> int:
          "replaces": "galah_tpu/ops/pallas_sketch.py:400",
          "launches": launches_f["fused_sketch"], "max_abs_err": fs_err,
          "ms": fs_ms, "plain_ms": fs_plain, "bound_ms": fs_bound,
-         "bound_by": fs_by, "library_ms": None},
+         "bound_by": fs_by, "library_ms": None,
+         "plain_on": "CPU tensors, host clock", "group_ms": group_ms,
+         "group_split_ms": fs_split,
+         "tpufast": {"ms": tf_ms, "bound_ms": tf_bound, "bound_by": tf_by}},
         {"name": "pairlist", "route": "cuda",
          "source": "galah_tpu_torch/kernels/pairlist.cu",
          "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
@@ -1143,7 +1255,9 @@ def main(argv=None) -> int:
          "replaces": "galah_tpu/ops/pallas_sketch.py:235",
          "launches": launches_h["murmur3_k21"], "max_abs_err": mm_err,
          "ms": mm_ms, "plain_ms": mm_plain, "bound_ms": mm_bound,
-         "bound_by": mm_by, "library_ms": None},
+         "bound_by": mm_by, "library_ms": None,
+         "plain_on": "CPU tensors, host clock", "group_ms": hgroup_ms,
+         "group_split_ms": mm_split},
     ], "library_ms_null_because": no_library, "card": card}
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")

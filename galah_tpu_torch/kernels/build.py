@@ -9,6 +9,10 @@ once per checkout and an edited source or header anew.
 All requested sources compile in parallel, one ``nvcc`` each.
 
 A build failure raises with nvcc's output; nothing falls back.
+
+``python -m galah_tpu_torch.kernels.build --ptxas [names]`` compiles
+the named kernels (default: all) once more with ``-Xptxas -v`` and
+prints each kernel's registers, shared memory and spills.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from typing import Dict, Iterable
 
@@ -36,10 +41,11 @@ SIGNATURES = {
     "window_hits": ("window_hits_launch", [_P, _I, _L, _I, _P, _P]),
     "tile_stats": ("tile_stats_launch", [_P, _P, _I, _I, _I, _I, _I,
                                          _P, _P, _P]),
-    "fused_sketch": ("fused_sketch_launch", [_P] * 6 + [_I, _I, _P, _P]),
+    "fused_sketch": ("fused_sketch_launch", [_P, _P, _L, _P, _P, _I, _I, _I,
+                                             _P, _P]),
     "pairlist": ("pairlist_launch", [_P, _I, _P, _P, _I, _I, _P, _P, _P]),
     "hll_union": ("hll_union_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),
-    "murmur3_k21": ("murmur3_k21_launch", [_P] * 4 + [_L, _P, _P]),
+    "murmur3_k21": ("murmur3_k21_launch", [_P, _P, _L, _L, _L, _P, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -111,3 +117,30 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def ptxas(name: str) -> str:
+    """ptxas's report (registers, shared memory, spills) of kernel
+    `name`, from a compile to a throwaway object."""
+    out = os.path.join(BUILD_DIR, f"ptxas-{name}.o")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+         os.path.join(_HERE, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, check=False)
+    if os.path.exists(out):
+        os.remove(out)
+    log = proc.stdout.decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    return log
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    if not args or args[0] != "--ptxas":
+        sys.exit("usage: python -m galah_tpu_torch.kernels.build --ptxas "
+                 "[kernel ...]")
+    for kernel in args[1:] or SIGNATURES:
+        print(f"== {kernel}.cu (sm_90a)")
+        print(ptxas(kernel).strip())

@@ -1,10 +1,10 @@
 // murmur3 x64_128 h1 (seed 0, length 21) of a canonical k=21 key given
 // as its little-endian words: bytes 0-7, 8-15 and 16-20 (the tail
-// word's top 3 bytes are zero, as ops/hashing.canonical_key_words
-// builds it). One 16-byte block and a 5-byte k1 tail, on native 64-bit
-// integers. Shared by fused_sketch.cu and murmur3_k21.cu; kernels/build.py
-// hashes every .cuh beside the sources into each library's name, so an
-// edited header rebuilds them.
+// word's top 3 bytes are zero, as canonical.cuh and
+// ops/hashing._key_words build it). One 16-byte block and a 5-byte k1
+// tail, on native 64-bit integers. Shared by fused_sketch.cu and
+// murmur3_k21.cu; kernels/build.py hashes every .cuh beside the sources
+// into each library's name, so an edited header rebuilds them.
 
 #pragma once
 

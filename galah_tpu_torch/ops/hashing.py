@@ -16,9 +16,11 @@ over shifted slices of the chunk's codes.
 
 ``canonical_key_words`` stops before the hash: it gives each window's
 canonical key as the words the hash reads (``galah_tpu``'s
-``canonical_kmer_words``), which the fused sketch kernel hashes itself.
-``window_hashes`` hashes key words; at k=21 with murmur3 it hands them
-to the murmur3_k21 kernel (``ops/murmur3_k21.py``) on the card.
+``canonical_kmer_words``). It and ``_key_words`` are the plain preamble
+of the two sketch kernels' plain versions and the route of every other
+k and hash (the k=15 profiles). The kernels themselves read the codes:
+at k=21 with murmur3, ``positional_hashes`` hands the genome's codes to
+``ops/murmur3_k21`` (its kernel on the card).
 """
 
 from __future__ import annotations
@@ -129,17 +131,10 @@ def hash_key_words(words, k: int, algo: str) -> torch.Tensor:
     return murmur3_h1_words(words, k)
 
 
-def window_hashes(words, valid: torch.Tensor, k: int, algo: str,
-                  k21_hash=None) -> torch.Tensor:
+def masked_hashes(words, valid: torch.Tensor, k: int,
+                  algo: str) -> torch.Tensor:
     """Biased hashes of windows given as their canonical key words and
-    mask, the sentinel where the mask is false. k=21 murmur3 windows go
-    to `k21_hash`, by default ``ops/murmur3_k21.murmur3_k21`` (its
-    kernel on cuda); ``murmur3_k21_plain`` keeps them in torch."""
-    if algo == "murmur3" and k == 21:
-        if k21_hash is None:
-            from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
-            k21_hash = murmur3_k21
-        return k21_hash(words, valid)
+    mask, the sentinel where the mask is false."""
     h = hash_key_words(words, k, algo)
     return torch.where(valid, bias(h),
                        torch.full_like(h, SENTINEL_BIASED))
@@ -175,20 +170,32 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
                       k21_hash=None) -> torch.Tensor:
     """All canonical k-mer hashes of `genome` in genome order: a biased
     int64 (n - k + 1,) tensor on `device`, the sentinel where the window
-    holds an ambiguous base or crosses a contig boundary. `k21_hash` as
-    in ``window_hashes``."""
+    holds an ambiguous base or crosses a contig boundary. At k=21 with
+    murmur3 the genome's codes go to the device once and each chunk of
+    windows to `k21_hash(codes, starts, win0, n_win)`, by default
+    ``ops/murmur3_k21.murmur3_k21`` (its kernel on cuda)."""
     if not 1 <= k <= 31:
         raise ValueError(f"k must be in [1, 31], got {k}")
     device = resolve_device(device)
     n = genome.codes.shape[0]
     if n < k:
         return torch.zeros(0, dtype=torch.int64, device=device)
-    out = torch.empty(n - k + 1, dtype=torch.int64, device=device)
+    n_win = n - k + 1
+    if algo == "murmur3" and k == 21:
+        if k21_hash is None:
+            from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
+            k21_hash = murmur3_k21
+        codes = torch.from_numpy(genome.codes).to(device)
+        starts = torch.from_numpy(np.asarray(genome.contig_offsets,
+                                             dtype=np.int64)).to(device)
+        parts = [k21_hash(codes, starts, s, min(chunk, n_win - s))
+                 for s in range(0, n_win, chunk)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+    out = torch.empty(n_win, dtype=torch.int64, device=device)
     for s, e, cs, valid in _window_chunks(genome.codes,
                                           genome.contig_offsets, k,
                                           device, chunk):
-        out[s:e] = window_hashes(_key_words(cs, k, algo), valid, k, algo,
-                                 k21_hash)
+        out[s:e] = masked_hashes(_key_words(cs, k, algo), valid, k, algo)
     return out
 
 
@@ -200,8 +207,9 @@ def canonical_key_words(codes: np.ndarray, contig_offsets: np.ndarray,
     concatenated, each start a contig boundary): the
     canonical key words each window's hash reads (``_key_words``; for
     murmur3 k must be 21, the fused sketch kernel's key length) and the
-    window mask of ``positional_hashes``. The input of the fused sketch
-    kernel (``ops/fused_sketch.py``)."""
+    window mask of ``positional_hashes``. The preamble of the sketch
+    kernels' plain versions (``ops/fused_sketch.py``,
+    ``ops/murmur3_k21.py``)."""
     if algo == "murmur3" and k != 21:
         raise ValueError(f"fused murmur3 sketching requires k=21, got {k}")
     if algo not in ("murmur3", "tpufast"):

@@ -38,8 +38,9 @@ import torch
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops.compact import iter_blocks
-from galah_tpu_torch.ops.hashing import canonical_key_words, window_hashes
+from galah_tpu_torch.ops.hashing import canonical_key_words, masked_hashes
 from galah_tpu_torch.ops.hll_union import hll_union_stats, pow2_neg
+from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
 from galah_tpu_torch.ops.sketch_stream import FUSED_BUDGET, _concat
 from galah_tpu_torch.ops.u64 import bias, lsr
 from galah_tpu_torch.timing import StageClock
@@ -127,14 +128,35 @@ def hll_update(regs: torch.Tensor, hashes: torch.Tensor,
     return out[0].to(torch.uint8)
 
 
+def fold_group(regs: torch.Tensor, hashes: torch.Tensor, jobs,
+               rows_of_jobs: Sequence[int], p: int) -> None:
+    """Fold a launch group's window hashes (biased, over the genomes
+    laid end to end) into rows `rows_of_jobs` of `regs`, job j's
+    windows into row ``rows_of_jobs[j]``; windows across a genome start
+    are the sentinel and fold nothing."""
+    device = regs.device
+    starts = torch.tensor([off for off, _ in jobs[1:]],
+                          dtype=torch.int64, device=device)
+    row_of = torch.tensor(list(rows_of_jobs), dtype=torch.int64,
+                          device=device)
+    for s in range(0, hashes.shape[0], FOLD_CHUNK):
+        e = min(s + FOLD_CHUNK, hashes.shape[0])
+        pos = torch.arange(s, e, dtype=torch.int64, device=device)
+        rows = row_of[torch.bucketize(pos, starts, right=True)]
+        _fold(regs, rows, hashes[s:e], p)
+
+
 def hll_sketch_genomes(genomes: Sequence[Genome], p: int = DEFAULT_P,
                        k: int = 21, algo: str = "murmur3", device="cuda",
                        clock: Optional[StageClock] = None,
-                       k21_hash=None) -> torch.Tensor:
+                       k21_hash=murmur3_k21) -> torch.Tensor:
     """(G, 2^p) uint8 registers of `genomes` on `device`, bit-identical
     per genome to ``galah_tpu.ops.hll.hll_sketch_genome``. Genomes are
     hashed in groups of at most ``FUSED_BUDGET`` bases (a longer genome
-    alone); `k21_hash` as in ``ops/hashing.window_hashes``."""
+    alone). At k=21 with murmur3 a group's codes and contig starts go
+    to the device and to `k21_hash(codes, starts, win0, n_win)`
+    (``ops/murmur3_k21``: its kernel on cuda); other k and hashes build
+    key words in torch (``ops/hashing.canonical_key_words``)."""
     device = resolve_device(device)
     regs = torch.zeros(len(genomes), 1 << p, dtype=torch.int32,
                        device=device)
@@ -149,17 +171,16 @@ def hll_sketch_genomes(genomes: Sequence[Genome], p: int = DEFAULT_P,
         size += n
     for group in groups:
         codes, offsets, jobs = _concat([genomes[i] for i in group], k)
-        words, valid = canonical_key_words(codes, offsets, k, device, algo)
-        hashes = window_hashes(words, valid, k, algo, k21_hash)
-        del words
-        starts = torch.tensor([off for off, _ in jobs[1:]],
-                              dtype=torch.int64, device=device)
-        row_of = torch.tensor(group, dtype=torch.int64, device=device)
-        for s in range(0, hashes.shape[0], FOLD_CHUNK):
-            e = min(s + FOLD_CHUNK, hashes.shape[0])
-            pos = torch.arange(s, e, dtype=torch.int64, device=device)
-            rows = row_of[torch.bucketize(pos, starts, right=True)]
-            _fold(regs, rows, hashes[s:e], p)
+        if algo == "murmur3" and k == 21:
+            hashes = k21_hash(torch.from_numpy(codes).to(device),
+                              torch.from_numpy(offsets).to(device), 0,
+                              max(codes.shape[0] - k + 1, 0))
+        else:
+            words, valid = canonical_key_words(codes, offsets, k, device,
+                                               algo)
+            hashes = masked_hashes(words, valid, k, algo)
+            del words, valid
+        fold_group(regs, hashes, jobs, group, p)
     if clock is not None:
         clock.count("hll-launch-groups", len(groups))
     return regs.to(torch.uint8)

@@ -34,7 +34,7 @@ def sketch_genome_device(genome: Genome,
                          algo: str = Defaults.HASH_ALGO,
                          device="cuda", k21_hash=None) -> MinHashSketch:
     """Bottom-k distinct canonical k-mer sketch, computed on `device`
-    (`k21_hash` as in ``ops/hashing.window_hashes``)."""
+    (`k21_hash` as in ``ops/hashing.positional_hashes``)."""
     flat = positional_hashes(genome, k, resolve_device(device), algo=algo,
                              k21_hash=k21_hash)
     distinct = torch.unique(flat[flat != SENTINEL_BIASED], sorted=True)

@@ -2,10 +2,10 @@
 fused strategy and its streaming stage.
 
 ``sketch_genomes_fused`` sketches a group of genomes with one fused
-launch: the genomes' codes are concatenated (each genome start a contig
-boundary), their canonical key words built by torch ops on the device
-(``ops/hashing.canonical_key_words``, the reference's XLA preamble),
-and the fused kernel (``ops/fused_sketch``) hashes every window and
+launch: the genomes' codes are concatenated on the host (each genome
+start a contig boundary) and copied to the device with their contig
+starts, and the fused kernel (``ops/fused_sketch``) builds each
+window's canonical k-mer (the reference's XLA preamble), hashes it and
 keeps the 8 smallest distinct hashes of each of the 2048 position
 classes of each genome. The post-pass sorts a genome's 16,384
 candidates, drops repeats and keeps the first ``sketch_size``. Its
@@ -45,15 +45,17 @@ from galah_tpu_torch.io.fasta import Genome, read_genome
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
                                               fused_sketch_candidates)
-from galah_tpu_torch.ops.hashing import DEFAULT_CHUNK, canonical_key_words
+from galah_tpu_torch.ops.hashing import DEFAULT_CHUNK
 from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                          sketch_genomes_device_batch)
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.u64 import from_biased
 from galah_tpu_torch.timing import StageClock
 
-#: windows per fused launch group: the key words (25 B a window for
-#: murmur3) and the preamble's int64 temporaries stay a few GB
+#: bases per fused launch group: 32 MB of codes copied to the device a
+#: group; the HLL sketch's 8 B window hashes and its fold's int64
+#: temporaries (``ops/hll.FOLD_CHUNK`` windows at a time) stay under
+#: 1 GB
 FUSED_BUDGET = 1 << 25
 
 #: candidates per genome in the fused file
@@ -124,8 +126,9 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
     suspects = 0
     for group in groups:
         codes, offsets, jobs = _concat([genomes[i] for i in group], k)
-        words, valid = canonical_key_words(codes, offsets, k, device, algo)
-        cand = fused_sketch_candidates(words, valid, jobs, k, algo)
+        cand = fused_sketch_candidates(torch.from_numpy(codes).to(device),
+                                       torch.from_numpy(offsets).to(device),
+                                       jobs, k, algo)
         sketch, suspect = certify(cand, sketch_size)
         suspect_host = suspect.cpu().tolist()
         rows = from_biased(sketch)

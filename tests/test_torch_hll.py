@@ -248,10 +248,10 @@ def test_threshold_pairs_match(tiles):
 
 
 def test_murmur3_plain_matches_xla_hash_core():
-    """The k=21 murmur3 hash of the port's key words against
-    galah_tpu's XLA _hash_core (canonical_kmer_hashes_chunk), with N
-    runs and a contig break; the wrapper on the CPU is the plain
-    version, and positional_hashes gives the same."""
+    """The k=21 murmur3 hash of codes with N runs and a contig break
+    against galah_tpu's XLA _hash_core (canonical_kmer_hashes_chunk);
+    the wrapper on the CPU is the plain version, a window range gives
+    the same slice, and positional_hashes gives the same."""
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 4, size=70_000).astype(np.uint8)
     codes[1000:1010] = 255
@@ -260,24 +260,28 @@ def test_murmur3_plain_matches_xla_hash_core():
     want = np.asarray(jhash.canonical_kmer_hashes_chunk(
         jnp.asarray(codes), jnp.asarray(np.array([30_000], np.int32)),
         jnp.int32(0), k=21, seed=0, algo="murmur3"))
-    words, valid = thash.canonical_key_words(codes, offsets, 21, "cpu")
-    got = from_biased(murmur3_k21_plain(words, valid))
+    tc, ts = torch.from_numpy(codes), torch.from_numpy(offsets)
+    got = from_biased(murmur3_k21_plain(tc, ts))
     np.testing.assert_array_equal(got, want)
-    assert torch.equal(murmur3_k21(words, valid),
-                       murmur3_k21_plain(words, valid))
+    before = LAUNCHES["murmur3_k21"]
+    assert torch.equal(murmur3_k21(tc, ts), murmur3_k21_plain(tc, ts))
+    assert LAUNCHES["murmur3_k21"] == before  # no kernel on the CPU
+    np.testing.assert_array_equal(
+        from_biased(murmur3_k21(tc, ts, 29_990, 30)), want[29_990:30_020])
     from galah_tpu_torch.io.fasta import Genome, GenomeStats
 
     g = Genome("g", codes, offsets, GenomeStats(2, 11, 40_000))
     np.testing.assert_array_equal(
         from_biased(thash.positional_hashes(g, 21, "cpu")), want)
-    # all-ones key words hash like any other; masked windows are the
-    # sentinel
-    ones = tuple(torch.full((4,), -1, dtype=torch.int64) for _ in range(3))
-    mask = torch.tensor([True, False, True, False])
-    h = murmur3_k21(ones, mask)
-    assert h[1] == h[3] == (1 << 63) - 1 and h[0] == h[2] != h[1]
-    with pytest.raises(ValueError, match="3 key words"):
-        murmur3_k21(ones[:2], mask)
+    np.testing.assert_array_equal(
+        from_biased(thash.positional_hashes(g, 21, "cpu", chunk=4099)),
+        want)
+    with pytest.raises(ValueError, match="outside"):
+        murmur3_k21(tc, ts, 69_980, 2)
+    with pytest.raises(ValueError, match="uint8"):
+        murmur3_k21(tc.long(), ts)
+    with pytest.raises(ValueError, match="int64"):
+        murmur3_k21(tc, ts.int())
 
 
 def test_register_conversion_round_trip():

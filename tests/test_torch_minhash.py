@@ -6,7 +6,9 @@ galah_tpu on the same numpy-seeded inputs.
 Tolerance: none. Hashes and sketches are uint64 and must be equal bit
 for bit; ANIs are float64 and must be equal. The fused kernel itself
 needs the card and is held against ``fused_candidates_plain`` by
-chip_smoke.py; here, on the CPU, the wrapper runs that plain version.
+chip_smoke.py; here, on the CPU, the wrapper runs that plain version
+(tests/test_torch_sketch_codes.py holds it against galah_tpu on edge
+genomes).
 """
 
 import numpy as np
@@ -105,7 +107,9 @@ def test_fused_candidates_plain_match_pallas_interpret(edge_paths, algo):
     words, valid = thash.canonical_key_words(codes, offsets, 21, CPU, algo)
     n = valid.shape[0]
     before = LAUNCHES["fused_sketch"]
-    got = tfs.fused_sketch_candidates(words, valid, [(0, n)], 21, algo)
+    got = tfs.fused_sketch_candidates(torch.from_numpy(codes),
+                                      torch.from_numpy(offsets), [(0, n)],
+                                      21, algo)
     assert LAUNCHES["fused_sketch"] == before  # no kernel on the CPU
     width = 512 * 128
 
@@ -145,10 +149,10 @@ def test_fused_sketches_match_galah_tpu_fused_and_numpy(edge_paths):
         interpret=True)
     want_susp = np.asarray(jsusp)[:len(idxs)]
     codes, offsets, jobs = tss._concat(tg, 21)
-    words, valid = thash.canonical_key_words(codes, offsets, 21, CPU,
-                                             "murmur3")
     _, susp = tss.certify(
-        tfs.fused_sketch_candidates(words, valid, jobs, 21, "murmur3"),
+        tfs.fused_sketch_candidates(torch.from_numpy(codes),
+                                    torch.from_numpy(offsets), jobs, 21,
+                                    "murmur3"),
         4096)
     np.testing.assert_array_equal(susp.numpy()[idxs], want_susp)
     assert want_susp.sum() >= 1  # the input does force a re-sketch
@@ -229,16 +233,16 @@ def test_sketch_matrix_and_mash_ani_match_galah_tpu(edge_paths):
 
 
 def test_fused_sketch_rejects_bad_inputs():
-    w = torch.zeros(10, dtype=torch.int64)
-    v = torch.zeros(10, dtype=torch.bool)
-    with pytest.raises(ValueError):  # murmur3 needs three words
-        tfs.fused_sketch_candidates([w], v, [(0, 10)], 21, "murmur3")
+    c = torch.zeros(30, dtype=torch.uint8)
+    st = torch.tensor([0, 30])
+    with pytest.raises(ValueError):  # codes must be uint8
+        tfs.fused_sketch_candidates(c.long(), st, [(0, 10)], 21, "murmur3")
     with pytest.raises(ValueError):  # murmur3 needs k = 21
-        tfs.fused_sketch_candidates([w, w, w], v, [(0, 10)], 15, "murmur3")
+        tfs.fused_sketch_candidates(c, st, [(0, 10)], 15, "murmur3")
     with pytest.raises(ValueError):  # job outside the windows
-        tfs.fused_sketch_candidates([w], v, [(5, 6)], 21, "tpufast")
-    with pytest.raises(ValueError):  # mask of another length
-        tfs.fused_sketch_candidates([w], v[:9], [(0, 9)], 21, "tpufast")
+        tfs.fused_sketch_candidates(c, st, [(5, 6)], 21, "tpufast")
+    with pytest.raises(ValueError):  # starts must be int64
+        tfs.fused_sketch_candidates(c, st.int(), [(0, 9)], 21, "tpufast")
     with pytest.raises(ValueError):
         thash.canonical_key_words(np.zeros(30, np.uint8),
                                   np.array([0, 30]), 15, CPU, "murmur3")
