@@ -33,8 +33,10 @@ Phases, each of which exits nonzero when it fails:
    been launched;
 5. the kernels timed at the shapes the end-to-end runs gave them,
    beside their plain versions and their bound on this card (for
-   window_hits and tile_stats the whole call and the kernel alone, and
-   for window_hits one torch.isin call a pair, summed), tile_stats'
+   window_hits, tile_stats and hll_union the whole call and the kernel
+   alone, and for window_hits one torch.isin call a pair, summed),
+   hll_union at each of the 16 launches of phase 4d's pair pass with
+   its planned slices and blocks, tile_stats'
    intersect form on synthetic rows at the widths that corpora of 6
    and 10 Mbp genomes give (K = 6080, 10048), and the whole sketch of
    the first finch and dashing launch groups split into host concat,
@@ -538,10 +540,15 @@ def main(argv=None) -> int:
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
                                                   fused_sketch_candidates)
     from galah_tpu_torch.ops.hashing import positional_hashes
+    from galah_tpu_torch.ops.hll import COL_TILE as hll_col_tile
+    from galah_tpu_torch.ops.hll import ROW_TILE as hll_row_tile
     from galah_tpu_torch.ops.hll import (fold_group, hll_sketch_genomes,
                                          hll_threshold_pairs)
     from galah_tpu_torch.ops.hll_union import (hll_union_stats,
                                                hll_union_stats_plain)
+    from galah_tpu_torch.ops.hll_union import plan_launch as hll_union_plan
+    from galah_tpu_torch.ops.hll_union import prepare_launch as hll_prepare
+    from galah_tpu_torch.ops.hll_union import run_launch as hll_run
     from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                              sketch_matrix)
     from galah_tpu_torch.ops.murmur3_k21 import (murmur3_k21,
@@ -636,16 +643,24 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"parity pairlist: K={k} B={pi.numel()} S={k},{k // 3} "
               f"exact {tag}")
+    # the pair pass's tail launch (64 x 256), a ragged register axis cut
+    # into slices (m = 1040: 17 slices of 4 words, the last of 1), and
+    # registers up to 255, beside the first cases
     for br, bc, m, hi in ((64, 1000, 4096, 41), (13, 77, 1024, 41),
-                          (64, 1000, 4096, 53), (9, 3, 16, 53)):
+                          (64, 1000, 4096, 53), (9, 3, 16, 53),
+                          (64, 256, 4096, 41), (13, 77, 1040, 41),
+                          (13, 77, 1040, 53), (64, 256, 4096, 255),
+                          (13, 77, 1040, 255)):
         rr = torch.from_numpy(rng.integers(0, hi + 1, size=(br, m))
                               .astype(np.uint8)).to(device)
         cc = torch.from_numpy(rng.integers(0, hi + 1, size=(bc, m))
                               .astype(np.uint8)).to(device)
         rr[0] = 0              # all-zero rows
         cc[min(1, bc - 1)] = 0
-        rr[-1] = 53            # all-max rows (64 - p + 1 at p = 12)
-        cc[-1] = 53
+        top = max(hi, 53)      # all-max rows (64 - p + 1 at p = 12)
+        rr[-1] = top
+        cc[-1] = top
+        hplan = hll_union_plan(br, bc, m)
         ps, z = hll_union_stats(rr, cc)
         pps, pz = hll_union_stats_plain(rr, cc)
         torch.cuda.synchronize()
@@ -656,8 +671,9 @@ def main(argv=None) -> int:
                              f"at Br={br} Bc={bc} m={m} registers <= {hi}:"
                              f" {ulps} ulps")
         print(f"parity hll_union: Br={br} Bc={bc} m={m} registers <= "
-              f"{hi}, zero and max rows: zeros exact, powsum within "
-              f"{ulps} f32 ulp {tag}")
+              f"{hi}, zero and max rows, {hplan.slices} slices of "
+              f"{hplan.chunk} words: zeros exact, powsum within {ulps} "
+              f"f32 ulp {tag}")
     mm_cases = 0
     for group in sketch_groups + [[_genome("random", rng.integers(
             0, 4, size=3 * 2 ** 20 + 25).astype(np.uint8))]]:
@@ -1001,10 +1017,10 @@ def main(argv=None) -> int:
         fs_bound, fs_by = bound(fs_bytes, fs_ops)
         # the same launch with the multiply-free mixer: what the murmur3
         # hash and its ASCII key words cost beside the rest
-        tf_ms = time_ms(torch, lambda: fused_sketch_candidates(
+        fast_ms = time_ms(torch, lambda: fused_sketch_candidates(
             dc, ds, jobs, 21, "tpufast"), 10)
-        tf_bound, tf_by = bound(fs_bytes,
-                                n_valid * FUSED_OPS_PER_WINDOW["tpufast"])
+        fast_bound, fast_by = bound(fs_bytes,
+                                    n_valid * FUSED_OPS_PER_WINDOW["tpufast"])
         t0 = time.perf_counter()
         sketch_stream.sketch_genomes_fused(group, 1000, 21, "murmur3",
                                            device)
@@ -1019,8 +1035,8 @@ def main(argv=None) -> int:
               f"({n_valid} valid) from {hc.numel()} codes, murmur3: kernel "
               f"{fs_ms:.4f} ms, plain (CPU tensors, host clock) "
               f"{fs_plain:.1f} ms, bound {fs_bound:.4f} ms ({fs_by}); "
-              f"tpufast: kernel {tf_ms:.4f} ms, bound {tf_bound:.4f} ms "
-              f"({tf_by}) {tag}")
+              f"tpufast: kernel {fast_ms:.4f} ms, bound {fast_bound:.4f} "
+              f"ms ({fast_by}) {tag}")
         print(f"timing finch group sketch: whole {group_ms:.2f} ms = "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in fs_split.items())
               + f" + the rest; largest part: {max(fs_split, key=fs_split.get)}"
@@ -1069,6 +1085,8 @@ def main(argv=None) -> int:
                                   for p in res_h.genomes])
         hrows = hmat[:64].contiguous()
         hu_ms = time_ms(torch, lambda: hll_union_stats(hrows, hmat), 20)
+        hu_launch = hll_prepare(hrows, hmat)
+        hu_kernel = time_ms(torch, lambda: hll_run(hu_launch), 20)
         hu_plain = time_ms(torch, lambda: hll_union_stats_plain(hrows,
                                                                 hmat), 3)
         ps, z = hll_union_stats(hrows, hmat)
@@ -1084,10 +1102,41 @@ def main(argv=None) -> int:
         hu_bound, hu_by = bound(hu_bytes, hu_ops)
         print(f"timing hll_union: {hrows.shape[0]}x{hmat.shape[0]} pairs, "
               f"m=4096 (phase 4d's first row block; registers <= "
-              f"{int(hmat.max())}): kernel {hu_ms:.4f} ms, plain "
-              f"{hu_plain:.3f} ms, bound {hu_bound:.4f} ms ({hu_by}) "
-              f"{tag}")
-        del hmat, hrows, ps, z, pps, pz
+              f"{int(hmat.max())}): whole call {hu_ms:.4f} ms, kernel "
+              f"only {hu_kernel:.4f} ms, plain {hu_plain:.3f} ms, bound "
+              f"{hu_bound:.4f} ms ({hu_by}) {tag}")
+        # the whole pass: each of its row blocks against mat[c0:], as
+        # ops/hll.py launches them, with the planner's slices and blocks
+        hu_pass = []
+        for r0 in range(0, n_hpad, hll_row_tile):
+            c0 = (r0 // hll_col_tile) * hll_col_tile
+            rows_b = hmat[r0:r0 + hll_row_tile]
+            cols_b = hmat[c0:]
+            prepared = hll_prepare(rows_b, cols_b)
+            hu_pass.append({
+                "pairs": [rows_b.shape[0], cols_b.shape[0]],
+                "slices": prepared.plan.slices,
+                "blocks": prepared.plan.blocks,
+                "ms": time_ms(torch, lambda: hll_union_stats(rows_b,
+                                                             cols_b), 20),
+                "kernel_only_ms": time_ms(torch, lambda: hll_run(prepared),
+                                          20)})
+        hu_pass_ms = sum(b["ms"] for b in hu_pass)
+        hu_pass_kernel = sum(b["kernel_only_ms"] for b in hu_pass)
+        hu_pass_bound = sum(bound(
+            b["pairs"][0] * 4096 + b["pairs"][1] * 4096
+            + 8 * b["pairs"][0] * b["pairs"][1],
+            HLL_UNION_OPS_PER_REGISTER * 4096.0 * b["pairs"][0]
+            * b["pairs"][1])[0] for b in hu_pass)
+        shapes = sorted({(b["pairs"][1], b["slices"], b["blocks"])
+                         for b in hu_pass}, reverse=True)
+        print(f"timing hll_union pass: {len(hu_pass)} launches of phase "
+              f"4d's pair pass at their own shapes: whole calls "
+              f"{hu_pass_ms:.4f} ms in all, kernel only "
+              f"{hu_pass_kernel:.4f} ms, bound {hu_pass_bound:.4f} ms; "
+              f"(columns, slices, "
+              f"blocks) {shapes} {tag}")
+        del hmat, hrows, ps, z, pps, pz, rows_b, cols_b, prepared, hu_launch
 
         # murmur3_k21: phase 4d's first launch group, its largest, and
         # the group's whole HLL sketch split into its parts
@@ -1237,7 +1286,8 @@ def main(argv=None) -> int:
          "bound_by": fs_by, "library_ms": None,
          "plain_on": "CPU tensors, host clock", "group_ms": group_ms,
          "group_split_ms": fs_split,
-         "tpufast": {"ms": tf_ms, "bound_ms": tf_bound, "bound_by": tf_by}},
+         "tpufast": {"ms": fast_ms, "bound_ms": fast_bound,
+                     "bound_by": fast_by}},
         {"name": "pairlist", "route": "cuda",
          "source": "galah_tpu_torch/kernels/pairlist.cu",
          "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
@@ -1249,7 +1299,10 @@ def main(argv=None) -> int:
          "replaces": "galah_tpu/ops/pallas_hll.py:72",
          "launches": launches_h["hll_union"], "max_abs_err": hu_err,
          "ms": hu_ms, "plain_ms": hu_plain, "bound_ms": hu_bound,
-         "bound_by": hu_by, "library_ms": None},
+         "bound_by": hu_by, "library_ms": None,
+         "kernel_only_ms": hu_kernel,
+         "pass": {"ms": hu_pass_ms, "kernel_only_ms": hu_pass_kernel,
+                  "bound_ms": hu_pass_bound, "launches": hu_pass}},
         {"name": "murmur3_k21", "route": "cuda",
          "source": "galah_tpu_torch/kernels/murmur3_k21.cu",
          "replaces": "galah_tpu/ops/pallas_sketch.py:235",

@@ -15,15 +15,53 @@ On CUDA tensors ``hll_union_stats`` launches the hand-written kernel
 (``kernels/hll_union.cu``); on CPU tensors the plain torch version
 beside it, ``hll_union_stats_plain``. A CUDA failure raises; nothing
 falls back.
+
+The kernel splits the register axis into slices so that every launch
+fills the card (``plan_launch``): with more than one slice it writes
+float64 partial sums and int32 zero counts to scratch, and a second
+kernel adds them in slice order, so the result does not depend on
+scheduling.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from galah_tpu_torch.kernels import LAUNCHES
+
+# the kernel's block: ROWS rows x COLS columns, SPLIT threads a column
+ROWS = 8
+COLS = 64
+SPLIT = 4
+# blocks a launch should have where m allows: 4 per SM of an H100
+TARGET_BLOCKS = 4 * 132
+
+
+class LaunchPlan(NamedTuple):
+    """Slices of the register axis: `chunk` 16-register words each, the
+    last one ragged; `blocks` is the launch's grid size."""
+    slices: int
+    chunk: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(br: int, bc: int, m: int) -> LaunchPlan:
+    """The slice plan of one launch over (br, m) rows and (bc, m)
+    columns: all words in one slice where the tiles alone give
+    TARGET_BLOCKS blocks, else the largest chunk, a multiple of SPLIT
+    words, that does, or SPLIT words a slice where m is too short."""
+    words = m // 16
+    tiles = -(-bc // COLS) * -(-br // ROWS)
+    chunk = max(words, 1)
+    if tiles < TARGET_BLOCKS and words > SPLIT:
+        chunk = next((c for c in range(words // SPLIT * SPLIT, SPLIT, -SPLIT)
+                      if tiles * -(-words // c) >= TARGET_BLOCKS), SPLIT)
+    slices = -(-words // chunk) if words else 1
+    return LaunchPlan(slices, chunk, tiles * slices)
 
 
 def _check(rows: torch.Tensor, cols: torch.Tensor) -> None:
@@ -44,7 +82,7 @@ def hll_union_stats(rows: torch.Tensor, cols: torch.Tensor
     _check(rows, cols)
     if rows.device.type == "cpu":
         return hll_union_stats_plain(rows, cols)
-    return _launch(rows, cols)
+    return run_launch(prepare_launch(rows, cols))
 
 
 def pow2_neg(device: torch.device) -> torch.Tensor:
@@ -68,26 +106,63 @@ def hll_union_stats_plain(rows: torch.Tensor, cols: torch.Tensor
     return powsum, zeros
 
 
-def _launch(rows: torch.Tensor, cols: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    from galah_tpu_torch.kernels import build
+class Launch(NamedTuple):
+    """One planned launch: its operands, plan, outputs and scratch."""
+    rows: torch.Tensor
+    cols: torch.Tensor
+    plan: LaunchPlan
+    powsum: torch.Tensor
+    zeros: torch.Tensor
+    scratch: Optional[torch.Tensor]
 
+
+def prepare_launch(rows: torch.Tensor, cols: torch.Tensor) -> Launch:
+    """The host side of one kernel launch on checked CUDA registers:
+    the plan, the outputs and, with more than one slice, one scratch
+    buffer of S x Br x Bc float64 partial sums then int32 zero counts."""
     br, m = rows.shape
     bc = cols.shape[0]
-    powsum = torch.empty(br, bc, dtype=torch.float32, device=rows.device)
-    zeros = torch.empty_like(powsum)
-    if br == 0 or bc == 0:
-        return powsum, zeros
-    if m % 16 or rows.data_ptr() % 16 or cols.data_ptr() % 16:
+    if br and bc and (m % 16 or rows.data_ptr() % 16
+                      or cols.data_ptr() % 16):
         raise ValueError("the hll_union kernel reads 16 registers a load: "
                          "it needs m % 16 == 0 and 16-byte aligned rows; "
                          f"got m={m}")
-    lib = build.load("hll_union")
+    plan = plan_launch(br, bc, m)
+    powsum, zeros = torch.empty(2, br, bc, dtype=torch.float32,
+                                device=rows.device)
+    scratch = None
+    if plan.slices > 1 and br and bc:
+        scratch = torch.empty(plan.slices * br * bc * 3, dtype=torch.int32,
+                              device=rows.device)
+    return Launch(rows, cols, plan, powsum, zeros, scratch)
+
+
+def launch_args(launch: Launch) -> tuple:
+    """The arguments of the C launch function ``hll_union_launch`` for
+    a prepared launch, on the current stream."""
+    rows, cols = launch.rows, launch.cols
+    br, m = rows.shape
+    bc = cols.shape[0]
+    part_pow = part_zeros = None
+    if launch.scratch is not None:
+        part_pow = launch.scratch.data_ptr()
+        part_zeros = part_pow + 8 * launch.plan.slices * br * bc
+    return (rows.data_ptr(), cols.data_ptr(), br, bc, m, launch.plan.chunk,
+            part_pow, part_zeros, launch.powsum.data_ptr(),
+            launch.zeros.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+
+
+def run_launch(launch: Launch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel alone (and, with slices, its combine), on a prepared
+    launch; returns (powsum, zeros)."""
+    from galah_tpu_torch.kernels import build
+
+    if launch.powsum.numel() == 0:
+        return launch.powsum, launch.zeros
     # the kernel refuses more than 65535 * 8 rows (its grid's y limit);
     # the pair pass gives it one row block
-    err = lib.hll_union_launch(
-        rows.data_ptr(), cols.data_ptr(), br, bc, m, powsum.data_ptr(),
-        zeros.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream)
+    err = build.load("hll_union").hll_union_launch(*launch_args(launch))
     build.check("hll_union", err)
     LAUNCHES["hll_union"] += 1
-    return powsum, zeros
+    return launch.powsum, launch.zeros
