@@ -12,7 +12,10 @@ Phases, each of which exits nonzero when it fails:
 2. build: compile every kernel with nvcc for sm_90a, in parallel;
 3. kernel parity: each kernel against its plain torch version, exact
    integer equality, on edge-case inputs (the two sketch kernels read
-   codes on the card, their plain versions the same codes on the host);
+   codes on the card, their plain versions the same codes on the host),
+   and pairlist also on a dense-similarity list: one planted family of
+   2,048 sketches at ~98% ANI and all 2,096,128 pairs i < j, through the
+   survivor pass, at sketch sizes 1000 and 333;
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -33,8 +36,10 @@ Phases, each of which exits nonzero when it fails:
    been launched;
 5. the kernels timed at the shapes the end-to-end runs gave them,
    beside their plain versions and their bound on this card (for
-   window_hits, tile_stats and hll_union the whole call and the kernel
-   alone, and for window_hits one torch.isin call a pair, summed),
+   window_hits, tile_stats, pairlist and hll_union the whole call and
+   the kernel alone, and for window_hits one torch.isin call a pair,
+   summed), pairlist's whole survivor pass at the finch run's list and
+   at the dense-similarity list,
    hll_union at each of the 16 launches of phase 4d's pair pass with
    its planned slices and blocks, tile_stats'
    intersect form on synthetic rows at the widths that corpora of 6
@@ -374,10 +379,13 @@ def plain_k21_hook(murmur3_k21_plain):
     return hook
 
 
-def pairlist_cases(rng, torch, device, k=1000, n=400):
+def pairlist_cases(rng, torch, device, k=1000, n=400,
+                   sizes=(1, 7, 8192, 8193)):
     """A family-structured (n, k) sketch matrix with empty, identical,
-    disjoint and ragged rows, and pair lists of 1, 7, 8192 and 8193
-    pairs (the special rows paired first)."""
+    disjoint and ragged rows, pair lists of `sizes` pairs (the special
+    rows paired first), and two of 20,000 pairs, long enough for the
+    kernel's staged plan: one in random order, one sorted by (pi, pj)
+    as the collision screen emits pairs."""
     from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
     base = np.unique(_rand_hashes(rng, 40 * k)).reshape(-1)
@@ -394,10 +402,12 @@ def pairlist_cases(rng, torch, device, k=1000, n=400):
     special = [(1, 5), (2, 3), (4, 6), (1, 1), (6, 6), (7, 4), (3, 2)]
     tmat = torch.from_numpy(mat).to(device)
     lists = []
-    for b in (1, 7, 8192, 8193):
+    for b in (*sizes, 20_000, 20_000):
         pairs = np.array(special[:b] + [
             tuple(rng.integers(0, n, size=2))
             for _ in range(max(b - len(special), 0))], dtype=np.int64)
+        if len(lists) == len(sizes) + 1:
+            pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
         lists.append((torch.from_numpy(np.ascontiguousarray(pairs[:, 0]))
                       .to(device),
                       torch.from_numpy(np.ascontiguousarray(pairs[:, 1]))
@@ -421,6 +431,19 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock ms of `fn`, which ends synchronised with the
+    card (a pass that returns host arrays), after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def bound(bytes_moved: float, ops: float):
@@ -553,8 +576,13 @@ def main(argv=None) -> int:
                                              sketch_matrix)
     from galah_tpu_torch.ops.murmur3_k21 import (murmur3_k21,
                                                  murmur3_k21_plain)
+    from galah_tpu_torch.kernels.rehearse_pairlist import dense_list
+    from galah_tpu_torch.kernels.rehearse_pairlist import work as pl_work
     from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
-                                              pair_stats_pairs_plain)
+                                              pair_stats_pairs_plain,
+                                              valid_lengths)
+    from galah_tpu_torch.ops.pairlist import run_launch as run_pairlist
+    from galah_tpu_torch.ops.sparse_device import pair_stats_for_pairs
     from galah_tpu_torch.ops.tile_stats import run_launch as run_tile_stats
     from galah_tpu_torch.ops.tile_stats import (tile_intersect_plain,
                                                 tile_stats, tile_stats_plain)
@@ -631,18 +659,49 @@ def main(argv=None) -> int:
           f"short contigs; k, k-1 and all-ambiguous genomes; ragged "
           f"jobs), {n_windows} windows, candidates and certified "
           f"sketches exact {tag}")
-    tmat, lists = pairlist_cases(rng, torch, device)
-    k = tmat.shape[1]
-    for pi, pj in lists:
-        for sketch_size in (k, k // 3):
-            c, t = pair_stats_pairs(tmat, pi, pj, sketch_size)
-            pc, pt = pair_stats_pairs_plain(tmat, pi, pj, sketch_size)
-            if not (torch.equal(c, pc) and torch.equal(t, pt)):
-                raise PhaseError(f"pairlist disagrees at B={pi.numel()} "
+    # K = 1000, and the widest K the kernel stages (1536) and the next
+    # (read in place), and K = 1; the 20,000-pair lists take the staged
+    # plan where K allows
+    for k in (1000, 1, 1536, 1537):
+        tmat, lists = pairlist_cases(
+            rng, torch, device, k=k,
+            sizes=(1, 7, 8192, 8193) if k == 1000 else (7,))
+        sizes = (k, max(k // 3, 1))
+        for n_list, (pi, pj) in enumerate(lists):
+            for sketch_size in sizes:
+                c, t = pair_stats_pairs(tmat, pi, pj, sketch_size)
+                pc, pt = pair_stats_pairs_plain(tmat, pi, pj, sketch_size)
+                if not (torch.equal(c, pc) and torch.equal(t, pt)):
+                    raise PhaseError(f"pairlist disagrees at K={k} "
+                                     f"B={pi.numel()} S={sketch_size}")
+            torch.cuda.synchronize()
+            order = "sorted" if n_list == len(lists) - 1 else "random"
+            print(f"parity pairlist: K={k} B={pi.numel()} ({order}) "
+                  f"S={sizes[0]},{sizes[1]} exact {tag}")
+        del tmat, lists
+    # the dense-similarity list: one planted family of 2,048 rows at ~98%
+    # ANI, every pair i < j (nothing screens out), through the pass;
+    # the plain version gathers both rows, so it goes 65,536 pairs a call
+    dn_np, dn_pi, dn_pj = dense_list(np.random.default_rng(args.seed))
+    dn_mat = torch.from_numpy(dn_np).to(device)
+    dn_ti = torch.from_numpy(dn_pi).to(device)
+    dn_tj = torch.from_numpy(dn_pj).to(device)
+    for sketch_size in (1000, 333):
+        c, t = pair_stats_for_pairs(dn_mat, dn_pi, dn_pj, sketch_size)
+        c, t = torch.from_numpy(c).to(device), torch.from_numpy(t).to(device)
+        for s0 in range(0, dn_pi.shape[0], 1 << 16):
+            pc, pt = pair_stats_pairs_plain(dn_mat, dn_ti[s0:s0 + (1 << 16)],
+                                            dn_tj[s0:s0 + (1 << 16)],
+                                            sketch_size)
+            if not (torch.equal(c[s0:s0 + (1 << 16)], pc)
+                    and torch.equal(t[s0:s0 + (1 << 16)], pt)):
+                raise PhaseError(f"pairlist disagrees on the dense list at "
+                                 f"pairs [{s0}, {s0 + (1 << 16)}) "
                                  f"S={sketch_size}")
         torch.cuda.synchronize()
-        print(f"parity pairlist: K={k} B={pi.numel()} S={k},{k // 3} "
-              f"exact {tag}")
+        print(f"parity pairlist dense: {dn_np.shape[0]} rows, "
+              f"{dn_pi.shape[0]} pairs, K=1000 S={sketch_size}, "
+              f"{int((c > 0).sum())} pairs sharing values, exact {tag}")
     # the pair pass's tail launch (64 x 256), a ragged register axis cut
     # into slices (m = 1040: 17 slices of 4 words, the last of 1), and
     # registers up to 255, beside the first cases
@@ -1060,21 +1119,45 @@ def main(argv=None) -> int:
                                          ani_to_jaccard(0.90, 21), 1000)
         tpi = torch.from_numpy(pi).to(device)
         tpj = torch.from_numpy(pj).to(device)
+        flens = valid_lengths(fmat)
+        pl_out = (torch.empty(pi.shape[0], dtype=torch.int32, device=device),
+                  torch.empty(pi.shape[0], dtype=torch.int32, device=device))
         pl_ms = time_ms(torch, lambda: pair_stats_pairs(fmat, tpi, tpj,
                                                         1000), 20)
+        pl_kernel = time_ms(torch, lambda: run_pairlist(
+            fmat, flens, tpi, tpj, 1000, *pl_out), 50)
+        pl_pass = host_ms(torch, lambda: pair_stats_for_pairs(
+            fmat, pi, pj, 1000), 20)
         pl_plain = time_ms(torch, lambda: pair_stats_pairs_plain(
             fmat, tpi, tpj, 1000), 3)
         c_k, t_k = pair_stats_pairs(fmat, tpi, tpj, 1000)
         c_p, t_p = pair_stats_pairs_plain(fmat, tpi, tpj, 1000)
         pl_err = float(max((c_k - c_p).abs().max(), (t_k - t_p).abs().max()))
         rows_used = np.union1d(pi, pj).shape[0]
-        pl_bytes = 8 * 1000 * rows_used + pi.shape[0] * (16 + 8)
-        pl_ops = 2 * float(sum(int(lens[a]) * math.ceil(
-            math.log2(int(lens[b]) + 1)) for a, b in zip(pi, pj)))
-        pl_bound, pl_by = bound(pl_bytes, pl_ops)
+        pl_bound, pl_by = bound(*pl_work(lens, pi, pj, 1000))
         print(f"timing pairlist: {pi.shape[0]} survivor pairs of "
-              f"{rows_used} rows, K=1000: kernel {pl_ms:.4f} ms, plain "
-              f"{pl_plain:.3f} ms, bound {pl_bound:.5f} ms ({pl_by}) {tag}")
+              f"{rows_used} rows, K=1000: whole call {pl_ms:.4f} ms, kernel "
+              f"only {pl_kernel:.4f} ms, whole pass (host numpy in and out) "
+              f"{pl_pass:.4f} ms, plain {pl_plain:.3f} ms, bound "
+              f"{pl_bound:.5f} ms ({pl_by}) {tag}")
+        # the dense-similarity list of phase 3: the kernel alone in one
+        # launch, and the whole pass
+        dn_lens = valid_lengths(dn_mat)
+        dn_out = (torch.empty(dn_pi.shape[0], dtype=torch.int32,
+                              device=device),
+                  torch.empty(dn_pi.shape[0], dtype=torch.int32,
+                              device=device))
+        dn_kernel = time_ms(torch, lambda: run_pairlist(
+            dn_mat, dn_lens, dn_ti, dn_tj, 1000, *dn_out), 5)
+        dn_pass = host_ms(torch, lambda: pair_stats_for_pairs(
+            dn_mat, dn_pi, dn_pj, 1000), 3)
+        dn_bound, dn_by = bound(*pl_work(
+            dn_lens.cpu().numpy(), dn_pi, dn_pj, 1000))
+        print(f"timing pairlist dense: {dn_pi.shape[0]} pairs of "
+              f"{dn_np.shape[0]} rows, K=1000: kernel only {dn_kernel:.4f} "
+              f"ms, whole pass (host numpy in and out, one launch) "
+              f"{dn_pass:.4f} ms, bound {dn_bound:.4f} ms ({dn_by}) {tag}")
+        del dn_mat, dn_ti, dn_tj, dn_lens, dn_out, pl_out
 
         # hll_union: the first row block of phase 4d's pair pass
         h_store = res_h.preclusterer.store
@@ -1293,7 +1376,11 @@ def main(argv=None) -> int:
          "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
          "launches": launches_f["pairlist"], "max_abs_err": pl_err,
          "ms": pl_ms, "plain_ms": pl_plain, "bound_ms": pl_bound,
-         "bound_by": pl_by, "library_ms": None},
+         "bound_by": pl_by, "library_ms": None,
+         "kernel_only_ms": pl_kernel, "pass_ms": pl_pass,
+         "dense": {"pairs": int(dn_pi.shape[0]), "kernel_only_ms": dn_kernel,
+                   "pass_ms": dn_pass, "bound_ms": dn_bound,
+                   "bound_by": dn_by}},
         {"name": "hll_union", "route": "cuda",
          "source": "galah_tpu_torch/kernels/hll_union.cu",
          "replaces": "galah_tpu/ops/pallas_hll.py:72",

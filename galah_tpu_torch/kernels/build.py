@@ -43,7 +43,8 @@ SIGNATURES = {
                                          _P, _P, _P]),
     "fused_sketch": ("fused_sketch_launch", [_P, _P, _L, _P, _P, _I, _I, _I,
                                              _P, _P]),
-    "pairlist": ("pairlist_launch", [_P, _I, _P, _P, _I, _I, _P, _P, _P]),
+    "pairlist": ("pairlist_launch", [_P, _I, _P, _P, _P, _I, _I, _P, _P,
+                                     _P]),
     "hll_union": ("hll_union_launch", [_P, _P, _I, _I, _I, _I, _P, _P,
                                        _P, _P, _P]),
     "murmur3_k21": ("murmur3_k21_launch", [_P, _P, _L, _L, _L, _P, _P]),

@@ -1,11 +1,12 @@
-// Block-wide staging of an int64 run from device memory into shared
-// memory with cp.async, shared by window_hits.cu and tile_stats.cu.
+// Staging of an int64 run from device memory into shared memory with
+// cp.async, shared by window_hits.cu, tile_stats.cu and pairlist.cu.
 //
 // Where source and destination share their offset modulo 16 bytes the
 // run moves as 16-byte copies (one 8-byte copy at each ragged end);
-// otherwise as 8-byte copies. Every thread of the block calls it with
-// the same arguments; the copies land once the caller has run
-// stage_wait() and then __syncthreads().
+// otherwise as 8-byte copies. Threads t of nt (the whole block, or the
+// lanes of one warp) call it with the same arguments; the copies land
+// once the caller has run stage_wait() and then __syncthreads() (or,
+// for one warp's copies, __syncwarp()).
 
 #pragma once
 
@@ -14,9 +15,7 @@
 
 __device__ __forceinline__ void stage_async(long long* dst,
                                             const long long* src,
-                                            long long n) {
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
+                                            long long n, int t, int nt) {
   const uintptr_t s = reinterpret_cast<uintptr_t>(src);
   const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
   if (((s ^ d) & 15) != 0) {
@@ -35,6 +34,13 @@ __device__ __forceinline__ void stage_async(long long* dst,
   if (t == 0 && tail < n) {
     __pipeline_memcpy_async(dst + tail, src + tail, 8);
   }
+}
+
+// the whole block copies
+__device__ __forceinline__ void stage_async(long long* dst,
+                                            const long long* src,
+                                            long long n) {
+  stage_async(dst, src, n, threadIdx.x, blockDim.x);
 }
 
 __device__ __forceinline__ void stage_wait() {

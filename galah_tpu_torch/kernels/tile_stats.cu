@@ -35,96 +35,43 @@
 // (stage.cuh). Each warp finds its two sketches' valid prefixes (the
 // values before the first INT64_MAX) itself.
 //
-// Merge path within a pair. The 32 lanes split the merge of the valid
-// prefixes (na + nb items) along merge diagonals, (na + nb) / 32 items
-// a lane, so ragged rows stay balanced. Tie rule: on equal values the a
-// element merges first, so a lane's co-rank in b at each a_i is
-// pos_b(i), and a_i matches iff the next b value equals it. Each step
-// loads one value, of the side that moved. The intersect form sums the
-// lanes' match counts (warp reduction). The full form takes #match that
-// way, hence total; if the union holds at most sketch_size values every
-// match counts, else an exclusive warp scan of the lanes' match counts
-// gives cexcl at each lane's start and a second walk counts matches
-// with urank < total (urank never falls along a walk, so a lane stops
-// once it reaches total).
+// Merge path within a pair: merge_walk.cuh, shared with pairlist.cu.
+// The 32 lanes split the merge of the valid prefixes along merge
+// diagonals; the intersect form sums the lanes' match counts, and the
+// full form splits the segment that straddles the union rank `total`
+// across the warp again before one lane walks what is left of it.
 //
 // Bound: bytes moved are (Br + Bc) K 8 in and 8 a pair out, and the
-// walks na + nb compares a pair (twice in the full form): at the
-// screen's shapes (64 x 512 pairs, K = 2176) both bounds are a few
-// microseconds, below one launch. What the kernel takes there
-// (rehearse_tile_stats.py, intersect form): 0.180 ms, of which 0.056
-// ms is the launch, the staging and the prefix searches (all-sentinel
-// rows, no item to merge) and the rest the walks, ~1,100 merged items
-// a ns; each step is a data-dependent shared load inside two-word
-// 64-bit compares and selects.
+// walks na + nb compares a pair: at the screen's shapes (64 x 512
+// pairs, K = 2176) both bounds are a few microseconds, below one
+// launch. What the kernel takes there (rehearse_tile_stats.py,
+// intersect form, on an H100): 0.1765 ms, of which 0.057 ms is the
+// launch, the staging and the prefix searches (all-sentinel rows, no
+// item to merge) and the rest the walks, ~800 merged items a ns; each
+// step is a data-dependent shared load inside two-word 64-bit
+// compares and selects. In place, 0.742 ms at K = 6080.
 // nvcc -Xptxas -v (sm_90a): 32 registers and 16 bytes of static shared
 // memory, no spills, for the staged kernel, one block of 1024 threads
 // an SM with (12 x 2178 x 8 =) 209,088 bytes of dynamic shared memory
-// at K = 2176; 32 registers and an 8-byte spill for the in-place one,
-// two blocks an SM.
+// at K = 2176; 43 registers, no spills, for the in-place one.
 //
 // Hashes are biased int64 (u64 ^ 2^63); INT64_MAX is the sentinel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "merge_walk.cuh"
 #include "stage.cuh"
 
 namespace {
 
-constexpr long long kSentinel = INT64_MAX;
+using merge_walk::kSentinel;
 
 // Staged tiles (tr, tc) in order of preference; the first whose
 // sketches fit in shared memory is taken. Where none fits, a 4 x 8
 // tile reads its operands in place.
 constexpr int kTiles[][2] = {{4, 8}};
 constexpr int kInPlace[2] = {4, 8};
-
-__device__ int valid_prefix(const long long* v, int k) {
-  int lo = 0, hi = k;  // first index holding the sentinel
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (v[mid] < kSentinel) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// v[i], or the sentinel past the valid prefix: staged sketches are
-// padded with it, sketches read in place are guarded.
-template <bool kStaged>
-__device__ __forceinline__ long long at(const long long* v, int i, int n) {
-  if (kStaged) return v[i];
-  return i < n ? v[i] : kSentinel;
-}
-
-// The lane's walk over merged items [d0, d1) from co-rank (ai, bj).
-// With total < 0 it counts matches; otherwise matches whose union rank
-// is below total, cexcl being the matches before the lane's start.
-template <bool kStaged>
-__device__ int walk(const long long* a, int na, const long long* b, int nb,
-                    int ai, int bj, int steps, int total, int cexcl) {
-  int count = 0;
-  long long x = at<kStaged>(a, ai, na);
-  long long y = at<kStaged>(b, bj, nb);
-  for (int s = 0; s < steps; ++s) {
-    const bool take_a = x <= y;  // a first on ties; sentinels sort last
-    if (take_a && x == y) {
-      if (total < 0) {
-        ++count;
-      } else {
-        if (ai + bj - cexcl >= total) break;
-        ++count;
-        ++cexcl;
-      }
-    }
-    // one load a step, of the side that moved
-    if (take_a) ++ai; else ++bj;
-    const long long w = at<kStaged>(take_a ? a : b, take_a ? ai : bj,
-                                    take_a ? na : nb);
-    if (take_a) x = w; else y = w;
-  }
-  return count;
-}
 
 // mbarrier and 1-D bulk copy (TMA) helpers
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -229,38 +176,22 @@ tile_stats_kernel(const long long* __restrict__ rows,
   } else if (pr >= nr || pc >= nc) {
     return;
   }
-  const int na = valid_prefix(a, k), nb = valid_prefix(b, k);
-  const int n = na + nb;
-  const int d0 = static_cast<int>(static_cast<long long>(lane) * n / 32);
-  const int d1 = static_cast<int>(static_cast<long long>(lane + 1) * n / 32);
-  // co-rank of d0: the a values among the first d0 merged items
-  int lo = max(0, d0 - nb), hi = min(d0, na);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= b[d0 - mid - 1]) lo = mid + 1; else hi = mid;
-  }
-  const int ai = lo, bj = d0 - lo;
-  const int m = walk<kStaged>(a, na, b, nb, ai, bj, d1 - d0, -1, 0);
-  const int n_match = __reduce_add_sync(~0u, m);
-  int c = n_match, tot = na;
-  if (!intersect) {
-    tot = min(sketch_size, n - n_match);
-    if (n - n_match > sketch_size) {
-      int incl = m;  // inclusive scan of the lanes' match counts
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(~0u, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const int cexcl = incl - m;
-      const int mine = ai + bj - cexcl < tot
-          ? walk<kStaged>(a, na, b, nb, ai, bj, d1 - d0, tot, cexcl) : 0;
-      c = __reduce_add_sync(~0u, mine);
-    }
+  const int na = merge_walk::valid_prefix(a, k);
+  const int nb = merge_walk::valid_prefix(b, k);
+  int2 r;
+  if constexpr (kStaged) {
+    r = merge_walk::merge_stats(merge_walk::SharedRow(a), na,
+                                merge_walk::SharedRow(b), nb, sketch_size,
+                                intersect, lane);
+  } else {
+    r = merge_walk::merge_stats(merge_walk::DeviceRow(a), na,
+                                merge_walk::DeviceRow(b), nb, sketch_size,
+                                intersect, lane);
   }
   if (lane == 0) {
     const size_t o = static_cast<size_t>(r0 + pr) * bc + (c0 + pc);
-    common[o] = c;
-    total[o] = tot;
+    common[o] = r.x;
+    total[o] = r.y;
   }
 }
 

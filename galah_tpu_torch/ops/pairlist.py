@@ -7,7 +7,8 @@ integers ``tile_stats``' full form gives for that (row, col)
 (``galah_tpu/ops/pairwise._pair_stats``). The rows are read where they
 lie in the matrix; no gathered copies are made on the card. On CUDA
 tensors ``pair_stats_pairs`` launches the hand-written kernel
-(``kernels/pairlist.cu``); on CPU tensors it runs the plain torch
+(``kernels/pairlist.cu``, a warp per pair over the merge path of
+``kernels/merge_walk.cuh``); on CPU tensors it runs the plain torch
 version beside it. A CUDA failure raises; nothing falls back.
 """
 
@@ -20,8 +21,7 @@ import torch
 from galah_tpu_torch.kernels import LAUNCHES
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
-# widest row the kernel stages in shared memory (8 B a value, within
-# the 227 KB a block may use)
+# widest sketch a pair list may carry (galah_tpu's pairlist contract)
 MAX_K = 16384
 
 
@@ -41,10 +41,15 @@ def _check(mat: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor) -> None:
                 f"index lists on {mat.device}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     if pi.numel():
-        lo, hi = torch.stack((torch.minimum(pi.min(), pj.min()),
-                              torch.maximum(pi.max(), pj.max()))).tolist()
+        lo, hi = torch.stack(torch.aminmax(torch.cat((pi, pj)))).tolist()
         if lo < 0 or hi >= mat.shape[0]:
             raise ValueError(f"pair index outside [0, {mat.shape[0]})")
+
+
+def valid_lengths(mat: torch.Tensor) -> torch.Tensor:
+    """int32 (N,): each row's valid prefix, the values before the
+    sentinel padding."""
+    return (mat != SENTINEL_BIASED).sum(dim=1, dtype=torch.int32)
 
 
 def pair_stats_pairs(mat: torch.Tensor, pi: torch.Tensor,
@@ -52,9 +57,10 @@ def pair_stats_pairs(mat: torch.Tensor, pi: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(common, total) int32 (B,) for the pairs (mat[pi[p]], mat[pj[p]])."""
     _check(mat, pi, pj)
-    if mat.device.type == "cpu":
-        return pair_stats_pairs_plain(mat, pi, pj, sketch_size)
-    return _launch(mat, pi, pj, sketch_size)
+    common = torch.empty(pi.shape[0], dtype=torch.int32, device=mat.device)
+    total = torch.empty_like(common)
+    return run_launch(mat, valid_lengths(mat), pi, pj, sketch_size,
+                      common, total)
 
 
 def pair_stats_pairs_plain(mat: torch.Tensor, pi: torch.Tensor,
@@ -80,20 +86,29 @@ def pair_stats_pairs_plain(mat: torch.Tensor, pi: torch.Tensor,
     return common, total
 
 
-def _launch(mat: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
-            sketch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    from galah_tpu_torch.kernels import build
-
+def run_launch(mat: torch.Tensor, lens: torch.Tensor, pi: torch.Tensor,
+               pj: torch.Tensor, sketch_size: int, common: torch.Tensor,
+               total: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel alone, on checked tensors: one launch that fills the
+    contiguous int32 (B,) ``common`` and ``total`` for the in-range
+    int64 (B,) ``pi``, ``pj``, with ``lens = valid_lengths(mat)``. On
+    CPU tensors the plain version fills them."""
     b = pi.shape[0]
-    common = torch.empty(b, dtype=torch.int32, device=mat.device)
-    total = torch.empty_like(common)
     if b == 0:
         return common, total
+    if mat.device.type == "cpu":
+        c, t = pair_stats_pairs_plain(mat, pi, pj, sketch_size)
+        common.copy_(c)
+        total.copy_(t)
+        return common, total
+    from galah_tpu_torch.kernels import build
+
     lib = build.load("pairlist")
     stream = torch.cuda.current_stream(mat.device).cuda_stream
-    err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1], pi.data_ptr(),
-                              pj.data_ptr(), b, int(sketch_size),
-                              common.data_ptr(), total.data_ptr(), stream)
+    err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1], lens.data_ptr(),
+                              pi.data_ptr(), pj.data_ptr(), b,
+                              int(sketch_size), common.data_ptr(),
+                              total.data_ptr(), stream)
     build.check("pairlist", err)
     LAUNCHES["pairlist"] += 1
     return common, total
