@@ -9,13 +9,16 @@
 Phases, each of which exits nonzero when it fails:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel with nvcc for sm_90a, in parallel;
+2. build: compile every kernel with nvcc for sm_90a, in parallel, and
+   the native FASTA parser with gcc;
 3. kernel parity: each kernel against its plain torch version, exact
    integer equality, on edge-case inputs (the two sketch kernels read
    codes on the card, their plain versions the same codes on the host),
    and pairlist also on a dense-similarity list: one planted family of
    2,048 sketches at ~98% ANI and all 2,096,128 pairs i < j, through the
-   survivor pass, at sketch sizes 1000 and 333;
+   survivor pass, at sketch sizes 1000 and 333; and, once the corpus is
+   written, the C FASTA parser against its plain numpy version on 64
+   corpus files and one gzip file (codes, offsets and stats identical);
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -26,7 +29,8 @@ Phases, each of which exits nonzero when it fails:
    --cluster-method skani``, above the sparse-screen crossover, so the
    fused sketch and pairlist kernels carry the precluster;
 4c. end to end, finch dense: the first 256 genomes through the same
-   command, below the crossover, so the full form of tile_stats runs;
+   command, below the crossover, so the streamed pair pass runs (one
+   stripe of tile_stats' full form);
 4d. end to end, dashing with quality ranking: all genomes through
    ``cluster --precluster-method dashing --cluster-method skani
    --checkm2-quality-report <report>``, the report made from the seed;
@@ -34,6 +38,15 @@ Phases, each of which exits nonzero when it fails:
    member that this script itself ranks first under Parks2020_reduced,
    and the hll_union, murmur3_k21 and window_hits kernels must have
    been launched;
+4e. end to end, finch streamed: the first 1,000 genomes (250
+   families, just under the crossover) through ``cluster
+   --precluster-method finch``: the streamed pair pass in four stripes
+   of tile_stats' full form; the stripe count must show the route, and
+   the same command with --threads 4 must write the same TSV byte for
+   byte (its walls and stages are printed beside the 8-thread run's);
+(phases 4-4e run with --threads 8: reads go 8 ahead on 8 threads; each
+prints the consumer's wait for reads, stage `read`, and the reading
+seconds of the worker threads summed, `read work`)
 5. the kernels timed at the shapes the end-to-end runs gave them,
    beside their plain versions and their bound on this card (for
    window_hits, tile_stats, pairlist and hll_union the whole call and
@@ -41,14 +54,18 @@ Phases, each of which exits nonzero when it fails:
    summed), pairlist's whole survivor pass at the finch run's list and
    at the dense-similarity list,
    hll_union at each of the 16 launches of phase 4d's pair pass with
-   its planned slices and blocks, tile_stats'
+   its planned slices and blocks, tile_stats' full form at each stripe
+   of phase 4e's streamed pass, tile_stats'
    intersect form on synthetic rows at the widths that corpora of 6
    and 10 Mbp genomes give (K = 6080, 10048), and the whole sketch of
    the first finch and dashing launch groups split into host concat,
    copies, kernel and certificate or HLL fold;
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, identical finch sketches
-   and pair-dict ANI floats for 64 genomes, and identical HLL
+   and pair-dict ANI floats for 64 genomes (the streamed pass in blocks
+   of 256 and of 16 rows, and the pairlist pass), the streamed pass
+   over phase 4e's 1,000 sketches (last stripe 232 rows) against the
+   plain pair statistics of all 499,500 pairs, and identical HLL
    registers and dashing pair dicts for 64 genomes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -90,6 +107,15 @@ HLL_UNION_OPS_PER_REGISTER = 4
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
 # phase 4b must reach and phase 4c must stay below
 FINCH_MIN_GENOMES = 1024
+
+# phase 4e's corpus: just under the crossover, so the streamed pair pass
+# runs, in four stripes
+STREAM_GENOMES = 1000
+
+# host threads of every end-to-end run (--threads): the card's host has 8
+# cores; phase 4e also runs with TWIN_THREADS
+THREADS = 8
+TWIN_THREADS = 4
 
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -503,6 +529,99 @@ def check_families(res, label_of, n_genomes, family, tsv, what):
     return len(fams)
 
 
+def require_counts(counts, want, what):
+    for name, n in want.items():
+        if counts[name] != n:
+            raise PhaseError(f"{what}: count {name} is {counts[name]}, "
+                             f"not {n}")
+
+
+def stripe_shapes(n: int, block: int):
+    """(padded rows, (first column, end of columns)) of each stripe of
+    the streamed pair pass over n rows (ops/pairwise's padding: the rows
+    seen so far, to a power of two of at least 64)."""
+    out = []
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        rows = 64
+        while rows < r1:
+            rows <<= 1
+        out.append((rows, (r0, r1)))
+    return out
+
+
+def plain_pair_dict(torch, mat, k, min_ani, sketch_size, chunk=50_000):
+    """{(i, j): ani} of every pair i < j of the biased sketch matrix
+    `mat` through the plain pair statistics (``pair_stats_pairs_plain``,
+    in chunks of `chunk` pairs), thresholded in float64 as the passes
+    do: the reference for the finch pair passes."""
+    from galah_tpu_torch.ops.pairlist import pair_stats_pairs_plain
+    from galah_tpu_torch.ops.pairwise import ani_to_jaccard, stats_to_ani_f64
+
+    ii, jj = np.triu_indices(mat.shape[0], 1)
+    cs, ts = [], []
+    for a in range(0, ii.shape[0], chunk):
+        c, t = pair_stats_pairs_plain(
+            mat, torch.from_numpy(ii[a:a + chunk]).to(mat.device),
+            torch.from_numpy(jj[a:a + chunk]).to(mat.device), sketch_size)
+        cs.append(c.cpu().numpy().astype(np.int64))
+        ts.append(t.cpu().numpy().astype(np.int64))
+    c, t = np.concatenate(cs), np.concatenate(ts)
+    keep = (c > 0) & (c.astype(np.float64)
+                      >= ani_to_jaccard(min_ani, k) * t)
+    return dict(zip(zip(ii[keep].tolist(), jj[keep].tolist()),
+                    stats_to_ani_f64(c[keep], t[keep], k).tolist()))
+
+
+def row_blocks(mat, block):
+    """(r0, rows) blocks of `block` rows of `mat`, as the sketch stream
+    yields them."""
+    return ((r0, mat[r0:r0 + block]) for r0 in range(0, mat.shape[0], block))
+
+
+def print_run(what, r, launches, kernels, tag):
+    """Every stage, the summed read work, count and launch of a run."""
+    for stage, sec in sorted(r.clock.seconds.items()):
+        print(f"{what} stage {stage}: {sec:.3f} s {tag}")
+    for name, sec in sorted(r.clock.work_seconds.items()):
+        print(f"{what} {name} work (summed over threads): {sec:.3f} s {tag}")
+    for name, n in sorted(r.clock.counts.items()):
+        print(f"{what} count {name}: {n} {tag}")
+    for name in kernels:
+        print(f"{what} launches {name}: {launches[name]} {tag}")
+
+
+def check_parser(paths, root, read_genome, read_genome_plain,
+                 read_genome_stats, read_genome_stats_plain):
+    """The C parser against the numpy plain version on `paths` and on a
+    gzip copy of the first; raises PhaseError on any difference.
+    Returns the file count and the median ms a genome of each."""
+    import gzip
+    import shutil
+
+    gz = os.path.join(root, "first.fna.gz")
+    with open(paths[0], "rb") as src, gzip.open(gz, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    c_ms, plain_ms = [], []
+    for p in [*paths, gz]:
+        t0 = time.perf_counter()
+        got = read_genome(p)
+        t1 = time.perf_counter()
+        want = read_genome_plain(p)
+        t2 = time.perf_counter()
+        c_ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+        if not (np.array_equal(got.codes, want.codes)
+                and np.array_equal(got.contig_offsets, want.contig_offsets)
+                and got.stats == want.stats
+                and read_genome_stats(p) == read_genome_stats_plain(p)
+                == want.stats):
+            raise PhaseError(f"the C FASTA parser disagrees with the numpy "
+                             f"plain version on {p}")
+    return {"files": len(paths), "c_ms": float(np.median(c_ms)),
+            "plain_ms": float(np.median(plain_ms))}
+
+
 def require_launched(launches, names, what):
     for name in names:
         if launches[name] == 0:
@@ -555,9 +674,17 @@ def main(argv=None) -> int:
     build_s = build.build(KERNELS)
     print(f"build: {build_s:.2f} s for {len(KERNELS)} kernels (nvcc, "
           f"sm_90a) {tag}")
+    from galah_tpu_torch.io import _cingest
+
+    t0 = time.perf_counter()
+    _cingest.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s for the C FASTA "
+          f"parser (gcc) {tag}")
 
     # -- phase 3: kernel parity ------------------------------------------
-    from galah_tpu_torch.io.fasta import read_genome
+    from galah_tpu_torch.io.fasta import (read_genome, read_genome_plain,
+                                          read_genome_stats,
+                                          read_genome_stats_plain)
     from galah_tpu_torch.ops import sketch_stream
     from galah_tpu_torch.ops.constants import SENTINEL_BIASED
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
@@ -590,6 +717,7 @@ def main(argv=None) -> int:
     from galah_tpu_torch.ops.window_hits import run_launch as run_window_hits
     from galah_tpu_torch.ops.window_hits import (window_element_hits,
                                                  window_element_hits_plain)
+    from galah_tpu_torch.timing import StageClock
 
     rng = np.random.default_rng(args.seed)
     items = window_hits_cases(rng, torch, device)
@@ -789,12 +917,22 @@ def main(argv=None) -> int:
                   f"{args.genome_length} bp instead of 512 and "
                   f"{FINCH_MIN_GENOMES} of 2000000 {tag}")
 
+        # -- phase 3, continued: the C FASTA parser against numpy ---------
+        parser = check_parser(paths[:64], root, read_genome,
+                              read_genome_plain, read_genome_stats,
+                              read_genome_stats_plain)
+        print(f"parity fasta parser: {parser['files']} corpus files and 1 "
+              f"gzip file, codes, offsets and stats identical; a genome "
+              f"{parser['c_ms']:.2f} ms in C, {parser['plain_ms']:.2f} ms "
+              f"in numpy (median, host clock) {tag}")
+
         # -- phase 4: end to end, skani ----------------------------------
         out_tsv = os.path.join(root, "clusters.tsv")
+        threads = ["--threads", str(THREADS)]
         res, wall, launches = run_path(
             torch, cli, reset_launches, LAUNCHES,
             ["cluster", "-d", skani_dir, "--ani", "95", "--device", "cuda",
-             "--output-cluster-definition", out_tsv])
+             *threads, "--output-cluster-definition", out_tsv])
         n_fam = check_families(res, label_of, args.genomes, family,
                                out_tsv, "skani")
         print(f"end to end: {len(res.clusters)} clusters == {n_fam} "
@@ -802,6 +940,8 @@ def main(argv=None) -> int:
         for stage in ("read", "profile", "screen", "exact-ani", "greedy"):
             print(f"stage {stage}: {res.clock.seconds.get(stage, 0.0):.3f} "
                   f"s {tag}")
+        print(f"read work (summed over threads): "
+              f"{res.clock.work_seconds['read']:.3f} s {tag}")
         for name, n in sorted(res.clock.counts.items()):
             print(f"count {name}: {n} {tag}")
         for name in KERNELS:
@@ -810,7 +950,7 @@ def main(argv=None) -> int:
 
         # -- phase 4b: end to end, finch at scale -------------------------
         finch = ["--precluster-method", "finch", "--cluster-method",
-                 "skani", "--ani", "95", "--device", "cuda",
+                 "skani", "--ani", "95", "--device", "cuda", *threads,
                  "--output-cluster-definition", out_tsv]
         res_f, wall_f, launches_f = run_path(
             torch, cli, reset_launches, LAUNCHES,
@@ -824,6 +964,8 @@ def main(argv=None) -> int:
                       "profile", "exact-ani", "greedy"):
             print(f"finch stage {stage}: "
                   f"{res_f.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        print(f"finch read work (summed over threads): "
+              f"{res_f.clock.work_seconds['read']:.3f} s {tag}")
         for name, n in sorted(res_f.clock.counts.items()):
             print(f"finch count {name}: {n} {tag}")
         for name in KERNELS:
@@ -856,10 +998,17 @@ def main(argv=None) -> int:
                       "exact-ani", "greedy"):
             print(f"finch dense stage {stage}: "
                   f"{res_d.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        print(f"finch dense read work (summed over threads): "
+              f"{res_d.clock.work_seconds['read']:.3f} s {tag}")
+        for name, n in sorted(res_d.clock.counts.items()):
+            print(f"finch dense count {name}: {n} {tag}")
         for name in KERNELS:
             print(f"finch dense launches {name}: {launches_d[name]} {tag}")
         require_launched(launches_d, ("fused_sketch", "tile_stats"),
                          "finch dense")
+        require_counts(res_d.clock.counts, {
+            "pairs-streamed-stripes": -(-n_dense // sketch_stream.ROW_BLOCK)},
+            "finch dense")
 
         # -- phase 4d: end to end, dashing with quality ranking ------------
         report = os.path.join(root, "quality_report.tsv")
@@ -869,7 +1018,7 @@ def main(argv=None) -> int:
             ["cluster", "-f", *paths, "--precluster-method", "dashing",
              "--cluster-method", "skani", "--ani", "95",
              "--checkm2-quality-report", report, "--device", "cuda",
-             "--output-cluster-definition", out_tsv])
+             *threads, "--output-cluster-definition", out_tsv])
         n_fam = check_families(res_h, label_of, args.finch_genomes,
                                family, out_tsv, "dashing")
         order = {p: i for i, p in enumerate(paths)}
@@ -888,6 +1037,8 @@ def main(argv=None) -> int:
                       "profile", "exact-ani", "greedy"):
             print(f"dashing stage {stage}: "
                   f"{res_h.clock.seconds.get(stage, 0.0):.3f} s {tag}")
+        print(f"dashing read work (summed over threads): "
+              f"{res_h.clock.work_seconds['read']:.3f} s {tag}")
         for name, n in sorted(res_h.clock.counts.items()):
             print(f"dashing count {name}: {n} {tag}")
         within = (family * (family - 1) // 2) * n_fam
@@ -904,6 +1055,42 @@ def main(argv=None) -> int:
               f"group at most {tag}")
         require_launched(launches_h, ("hll_union", "murmur3_k21",
                                       "window_hits"), "dashing")
+
+        # -- phase 4e: end to end, finch streamed -------------------------
+        n_e = min(STREAM_GENOMES, args.finch_genomes)
+        stripes = -(-n_e // sketch_stream.ROW_BLOCK)
+        tsv_e = os.path.join(root, "clusters_streamed.tsv")
+        tsv_t = os.path.join(root, "clusters_twin.tsv")
+        finch_e = ["cluster", "-f", *paths[:n_e], "--precluster-method",
+                   "finch", "--cluster-method", "skani", "--ani", "95",
+                   "--device", "cuda"]
+        res_e, wall_e, launches_e = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            [*finch_e, *threads, "--output-cluster-definition", tsv_e])
+        n_fam = check_families(res_e, label_of, n_e, family, tsv_e,
+                               "finch streamed")
+        require_counts(res_e.clock.counts, {"pairs-streamed-stripes": stripes},
+                       "finch streamed")
+        require_launched(launches_e, ("fused_sketch", "tile_stats",
+                                      "window_hits"), "finch streamed")
+        res_t, wall_t, launches_t = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            [*finch_e, "--threads", str(TWIN_THREADS),
+             "--output-cluster-definition", tsv_t])
+        with open(tsv_e, "rb") as fa, open(tsv_t, "rb") as fb:
+            if fa.read() != fb.read():
+                raise PhaseError(f"finch streamed: the TSV differs from "
+                                 f"the --threads {TWIN_THREADS} run's")
+        print(f"finch streamed end to end: {n_e} genomes, "
+              f"{len(res_e.clusters)} clusters == {n_fam} planted "
+              f"families, {stripes} stripes, TSV byte-identical to "
+              f"--threads {TWIN_THREADS}; wall {wall_e:.2f} s at "
+              f"--threads {THREADS}, {wall_t:.2f} s at --threads "
+              f"{TWIN_THREADS} {tag}")
+        print_run(f"finch streamed t{THREADS}", res_e, launches_e, KERNELS,
+                  tag)
+        print_run(f"finch streamed t{TWIN_THREADS}", res_t, launches_t,
+                  KERNELS, tag)
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -1017,38 +1204,62 @@ def main(argv=None) -> int:
                   f"{w_bound:.4f} ms ({w_by}) {tag}")
             del wr, wc
 
-        # tile_stats' full form: the first row block of phase 4c's pass
-        d_store = res_d.preclusterer.store
-        dmat = sketch_matrix([d_store.get_cached(p) for p in res_d.genomes],
+        # tile_stats' full form: each stripe of phase 4e's streamed pass
+        # (every row seen so far, padded to a power of two, against a
+        # block of 256 columns); the last, all rows seen, is the headline
+        e_store = res_e.preclusterer.store
+        emat = sketch_matrix([e_store.get_cached(p) for p in res_e.genomes],
                              1000, device)
-        drows = dmat[:64].contiguous()
-        tf_ms = time_ms(torch, lambda: tile_stats(drows, dmat, 1000), 20)
-        tf_out = (torch.empty(64, dmat.shape[0], dtype=torch.int32,
-                              device=device),
-                  torch.empty(64, dmat.shape[0], dtype=torch.int32,
-                              device=device))
-        tf_kernel = time_ms(torch, lambda: run_tile_stats(
-            drows, dmat, 1000, False, *tf_out), 20)
-        tf_plain = time_ms(torch, lambda: tile_stats_plain(drows, dmat,
-                                                           1000), 3)
-        if not all(torch.equal(a, b) for a, b in zip(
-                tile_stats(drows, dmat, 1000),
-                tile_stats_plain(drows, dmat, 1000))):
-            raise PhaseError("tile_stats full form disagrees with its "
-                             "plain version at phase 4c's shapes")
-        dn = (dmat != SENTINEL_BIASED).sum(dim=1).cpu().numpy().astype(
-            np.float64)
-        tf_bytes = (drows.numel() + dmat.numel()) * 8 \
-            + 2 * 4 * drows.shape[0] * dmat.shape[0]
-        # two walks of both valid prefixes per pair
-        tf_ops = 4 * float((dn[:64, None] + dn[None, :]).sum())
-        tf_bound, tf_by = bound(tf_bytes, tf_ops)
-        print(f"timing tile_stats full form: {drows.shape[0]}x"
-              f"{dmat.shape[0]} pairs, K=1000 (phase 4c's first row "
-              f"block): whole call {tf_ms:.4f} ms, kernel only "
-              f"{tf_kernel:.4f} ms, plain {tf_plain:.3f} ms, bound "
-              f"{tf_bound:.4f} ms ({tf_by}) {tag}")
-        del dmat, drows, tf_out
+        tf_stripes = []
+        for st_rows, (c0, c1) in stripe_shapes(n_e,
+                                               sketch_stream.ROW_BLOCK):
+            done = torch.full((st_rows, 1000), SENTINEL_BIASED,
+                              dtype=torch.int64, device=device)
+            done[:c1] = emat[:c1]
+            cols = torch.full((sketch_stream.ROW_BLOCK, 1000),
+                              SENTINEL_BIASED, dtype=torch.int64,
+                              device=device)
+            cols[:c1 - c0] = emat[c0:c1]
+            st_out = (torch.empty(st_rows, cols.shape[0], dtype=torch.int32,
+                                  device=device),
+                      torch.empty(st_rows, cols.shape[0], dtype=torch.int32,
+                                  device=device))
+            st_ms = time_ms(torch, lambda: tile_stats(done, cols, 1000), 20)
+            st_kernel = time_ms(torch, lambda: run_tile_stats(
+                done, cols, 1000, False, *st_out), 20)
+            st_plain = time_ms(torch, lambda: tile_stats_plain(done, cols,
+                                                               1000), 2)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    tile_stats(done, cols, 1000),
+                    tile_stats_plain(done, cols, 1000))):
+                raise PhaseError(f"tile_stats full form disagrees with its "
+                                 f"plain version at the {st_rows} x "
+                                 f"{cols.shape[0]} stripe")
+            rn = (done != SENTINEL_BIASED).sum(dim=1).cpu().numpy() \
+                .astype(np.float64)
+            cn = (cols != SENTINEL_BIASED).sum(dim=1).cpu().numpy() \
+                .astype(np.float64)
+            # two walks of both valid prefixes per pair
+            st_bound, st_by = bound(
+                (done.numel() + cols.numel()) * 8
+                + 2 * 4 * st_rows * cols.shape[0],
+                4 * float((rn[:, None] + cn[None, :]).sum()))
+            tf_stripes.append({
+                "rows": st_rows, "cols": cols.shape[0], "rows_seen": c1,
+                "valid_cols": c1 - c0, "ms": st_ms,
+                "kernel_only_ms": st_kernel, "plain_ms": st_plain,
+                "bound_ms": st_bound, "bound_by": st_by})
+            print(f"timing tile_stats full form: {st_rows}x{cols.shape[0]}"
+                  f" stripe ({c1} rows seen, {c1 - c0} columns), K=1000 "
+                  f"(phase 4e): whole call {st_ms:.4f} ms, kernel only "
+                  f"{st_kernel:.4f} ms, plain {st_plain:.3f} ms, bound "
+                  f"{st_bound:.4f} ms ({st_by}) {tag}")
+            del done, cols, st_out
+        del emat
+        tf = tf_stripes[-1]
+        tf_ms, tf_kernel = tf["ms"], tf["kernel_only_ms"]
+        tf_plain, tf_bound, tf_by = tf["plain_ms"], tf["bound_ms"], \
+            tf["bound_by"]
 
         # fused_sketch: the finch run's first launch group, its largest,
         # and the group's whole sketch split into its parts
@@ -1279,7 +1490,8 @@ def main(argv=None) -> int:
         print(f"kernel vs plain path: {len(pairs)} pairs of 16 genomes, "
               f"{n_val} gated values, identical floats {tag}")
 
-        from galah_tpu_torch.ops.pairwise import threshold_pairs
+        from galah_tpu_torch.ops.pairwise import (threshold_pairs,
+                                                  threshold_pairs_streamed)
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
         sub_paths = res_f.genomes[:64]
@@ -1292,23 +1504,43 @@ def main(argv=None) -> int:
                 raise PhaseError(f"finch sketch of {p} differs between "
                                  "the kernel and plain paths")
         m64 = sketch_matrix(kern, 1000, device)
-        dense = threshold_pairs(m64, 21, 0.90)
-        sparse = threshold_pairs_sparse(m64, 21, 0.90)
-        ii, jj = np.triu_indices(n_sub, 1)
-        c, t = pair_stats_pairs_plain(m64, torch.from_numpy(ii).to(device),
-                                      torch.from_numpy(jj).to(device), 1000)
-        c = c.cpu().numpy().astype(np.int64)
-        t = t.cpu().numpy().astype(np.int64)
-        keep = c.astype(np.float64) >= ani_to_jaccard(0.90, 21) * t
-        plain = dict(zip(zip(ii[keep].tolist(), jj[keep].tolist()),
-                         stats_to_ani_f64(c[keep], t[keep], 21).tolist()))
-        if not (dense == plain and sparse == plain and plain):
-            raise PhaseError("finch pair dict differs between the kernel "
-                             "and plain paths")
+        plain = plain_pair_dict(torch, m64, 21, 0.90, 1000)
+        passes = {
+            "threshold_pairs": threshold_pairs(m64, 21, 0.90),
+            "streamed, blocks of 16": threshold_pairs_streamed(
+                row_blocks(m64, 16), n_sub, 21, 0.90, 1000, block=16),
+            "pairlist": threshold_pairs_sparse(m64, 21, 0.90)}
+        for name, got in passes.items():
+            if not (got == plain and plain):
+                raise PhaseError(f"finch pair dict of the {name} pass "
+                                 f"differs from the plain path's")
         print(f"finch kernel vs plain path: {n_sub} genomes, sketches "
               f"equal, "
-              f"{len(plain)} pairs, identical ANI floats (tile_stats and "
-              f"pairlist passes) {tag}")
+              f"{len(plain)} pairs, identical ANI floats (streamed "
+              f"tile_stats pass in blocks of 256 and 16, pairlist pass) "
+              f"{tag}")
+        # the streamed pass at phase 4e's shapes: four stripes, the last
+        # of 232 rows
+        e_store = res_e.preclusterer.store
+        emat = sketch_matrix([e_store.get_cached(p) for p in res_e.genomes],
+                             1000, device)
+        plain_e = plain_pair_dict(torch, emat, 21, 0.90, 1000)
+        clock_e = StageClock(device)
+        got_e = threshold_pairs_streamed(
+            row_blocks(emat, sketch_stream.ROW_BLOCK), n_e, 21, 0.90, 1000,
+            clock_e, block=sketch_stream.ROW_BLOCK)
+        if got_e != plain_e or not plain_e:
+            raise PhaseError(f"the streamed pass over phase 4e's {n_e} "
+                             f"sketches differs from the plain pair "
+                             f"statistics of all pairs")
+        require_counts(clock_e.counts, {"pairs-streamed-stripes": stripes},
+                       "phase 6 streamed")
+        del emat
+        print(f"finch streamed vs plain path: {n_e} sketches of phase 4e, "
+              f"{stripes} stripes (last "
+              f"{n_e - (stripes - 1) * sketch_stream.ROW_BLOCK} rows), "
+              f"{n_e * (n_e - 1) // 2} pairs, {len(plain_e)} "
+              f"passing, identical keys and ANI floats {tag}")
 
         # whole families: the corpus' first 64 genomes in input order
         sub_h = [read_genome(p) for p in paths[:64]]
@@ -1356,10 +1588,12 @@ def main(argv=None) -> int:
          "ms": ts_ms, "plain_ms": ts_plain, "bound_ms": ts_bound,
          "bound_by": ts_by, "library_ms": None,
          "kernel_only_ms": ts_kernel,
-         "full_form": {"launches": launches_d["tile_stats"],
+         "full_form": {"launches": launches_e["tile_stats"],
+                       "launches_finch_256": launches_d["tile_stats"],
+                       "shape": [tf["rows"], tf["cols"]],
                        "ms": tf_ms, "kernel_only_ms": tf_kernel,
                        "plain_ms": tf_plain, "bound_ms": tf_bound,
-                       "bound_by": tf_by},
+                       "bound_by": tf_by, "stripes": tf_stripes},
          "intersect_wide_k": ts_wide},
         {"name": "fused_sketch", "route": "cuda",
          "source": "galah_tpu_torch/kernels/fused_sketch.cu",
@@ -1398,7 +1632,11 @@ def main(argv=None) -> int:
          "bound_by": mm_by, "library_ms": None,
          "plain_on": "CPU tensors, host clock", "group_ms": hgroup_ms,
          "group_split_ms": mm_split},
-    ], "library_ms_null_because": no_library, "card": card}
+    ], "library_ms_null_because": no_library, "card": card,
+        "fasta_parser": {"route": "c",
+                         "source": "galah_tpu_torch/csrc/ingest.c",
+                         "files": parser["files"], "c_ms": parser["c_ms"],
+                         "plain_ms": parser["plain_ms"]}}
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")
     print(json.dumps(record))

@@ -10,7 +10,11 @@ fragment kernel: the port of ``galah_tpu/backends/fragment_backend.py``.
   src/fastani.rs:26-73).
 
 Profiles are built once per genome and held in an in-memory LRU
-``ProfileStore`` on the run's device.
+``ProfileStore`` on the run's device. Its misses are read ahead on
+``ingest_depth(threads)`` worker threads
+(``io/prefetch.iter_prefetched``); the profile builds stay on the
+calling thread, the only one that touches CUDA. ``galah_tpu``'s disk-cache probe and its batched profile
+build are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import read_genome
+from galah_tpu_torch.io.prefetch import ingest_depth, iter_prefetched
 from galah_tpu_torch.ops import fragment_ani
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
@@ -45,8 +50,10 @@ class ProfileStore:
                  fraglen: int = Defaults.FRAGMENT_LENGTH,
                  maxsize: int = 128,
                  clock: Optional[StageClock] = None,
-                 hash_algorithm: str = Defaults.HASH_ALGO) -> None:
+                 hash_algorithm: str = Defaults.HASH_ALGO,
+                 threads: int = 1) -> None:
         self.device = resolve_device(device)
+        self.threads = max(1, int(threads))
         self.k = k
         self.fraglen = fraglen
         self.hash_algorithm = hash_algorithm
@@ -74,21 +81,30 @@ class ProfileStore:
             self._cache.popitem(last=False)
 
     def get_many(self, paths: Sequence[str]) -> List[GenomeProfile]:
+        """Profiles of `paths`; misses are read ahead and profiled in
+        path order. The `read` stage is the consumer's wait for a read,
+        ``work_seconds["read"]`` the workers' reading time."""
         by_path = {}
+        misses = []
         for p in dict.fromkeys(paths):
             prof = self._cache.get(p)
             if prof is not None:
                 self._cache.move_to_end(p)
+                by_path[p] = prof
             else:
-                with self.clock.stage("read"):
-                    genome = read_genome(p)
-                self.clock.count("genomes-read", 1)
-                with self.clock.stage("profile"):
-                    prof = fragment_ani.build_profile(
-                        genome, k=self.k, fraglen=self.fraglen,
-                        device=self.device,
-                        hash_algorithm=self.hash_algorithm)
-                self._insert(p, prof)
+                misses.append(p)
+        reads = self.clock.waits(
+            iter_prefetched(misses, self.clock.timed(read_genome, "read"),
+                            depth=ingest_depth(self.threads)),
+            "read", "genomes-read")
+        # one profile build a genome, on this thread: galah_tpu's
+        # batched build waits for the k=15 hashing work (ROADMAP)
+        for p, genome in reads:
+            with self.clock.stage("profile"):
+                prof = fragment_ani.build_profile(
+                    genome, k=self.k, fraglen=self.fraglen,
+                    device=self.device, hash_algorithm=self.hash_algorithm)
+            self._insert(p, prof)
             by_path[p] = prof
         return [by_path[p] for p in paths]
 

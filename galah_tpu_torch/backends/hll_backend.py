@@ -8,9 +8,10 @@ murmur3_k21 kernel hashing on the card), held in memory by an
 ``HLLStore``, and the upper triangle is thresholded on the device
 (``ops/hll.hll_threshold_pairs``, the hll_union kernel); only the
 passing pairs reach the host. Reading goes through the streaming stage
-of the finch sketches (``ops/sketch_stream.iter_path_sketches``, two
-reads in flight). ``galah_tpu``'s disk cache, multi-host sketching and
-resilient dispatch are not ported (ROADMAP).
+of the finch sketches (``ops/sketch_stream.iter_path_sketches``,
+``ingest_depth(threads)`` reads in flight). ``galah_tpu``'s disk
+cache, multi-host sketching and resilient dispatch are not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -61,9 +62,11 @@ class HLLStore:
 
 
 class HLLPreclusterer:
-    def __init__(self, min_ani: float, store: HLLStore) -> None:
+    def __init__(self, min_ani: float, store: HLLStore,
+                 threads: int = 1) -> None:
         self.min_ani = float(min_ani)
         self.store = store
+        self.threads = max(1, int(threads))
 
     def method_name(self) -> str:
         return "dashing"
@@ -72,7 +75,8 @@ class HLLPreclusterer:
         store = self.store
         logger.info("Sketching HLL registers of %d genomes on %s ..",
                     len(genome_paths), store.device)
-        by_path = dict(iter_path_sketches(genome_paths, store))
+        by_path = dict(iter_path_sketches(genome_paths, store,
+                                          self.threads))
         regs = torch.stack([by_path[p] for p in genome_paths]) \
             if genome_paths else torch.zeros(
                 0, 1 << store.p, dtype=torch.uint8, device=store.device)

@@ -5,9 +5,12 @@ Semantics of the reference's FinchPreclusterer (reference:
 src/finch.rs:4-73): sketch every genome (bottom-k 1000, k=21, seed 0),
 all-pairs Mash ANI, keep the pairs at or above the threshold. Sketches
 come from the streaming fused sketcher (``ops/sketch_stream``) and are
-held in memory by a ``SketchStore``; the all-pairs pass is
-``ops/pairwise.threshold_pairs`` (dense tiles below the sparse
-crossover, the collision screen plus the pairlist kernel from it up).
+held in memory by a ``SketchStore``. Below the sparse crossover, with
+unique paths, the all-pairs pass is streamed: it takes the sketch rows
+in blocks, one stripe at a time, while later genomes are still read
+and sketched (``ops/pairwise.threshold_pairs_streamed``). Otherwise the
+whole sketch matrix goes through ``ops/pairwise.threshold_pairs`` (the
+collision screen plus the pairlist kernel from the crossover up).
 """
 
 from __future__ import annotations
@@ -19,10 +22,13 @@ from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome
+from galah_tpu_torch.ops import collision, sketch_stream
 from galah_tpu_torch.ops.minhash import sketch_matrix
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
-from galah_tpu_torch.ops.pairwise import threshold_pairs
+from galah_tpu_torch.ops.pairwise import (threshold_pairs,
+                                          threshold_pairs_streamed)
 from galah_tpu_torch.ops.sketch_stream import (iter_path_sketches,
+                                               iter_sketch_row_blocks,
                                                sketch_genomes_fused)
 from galah_tpu_torch.timing import StageClock
 
@@ -59,9 +65,11 @@ class SketchStore:
 
 
 class MinHashPreclusterer:
-    def __init__(self, min_ani: float, store: SketchStore) -> None:
+    def __init__(self, min_ani: float, store: SketchStore,
+                 threads: int = 1) -> None:
         self.min_ani = float(min_ani)
         self.store = store
+        self.threads = max(1, int(threads))
 
     def method_name(self) -> str:
         return "finch"
@@ -70,12 +78,26 @@ class MinHashPreclusterer:
         store = self.store
         logger.info("Sketching MinHash representations of %d genomes "
                     "on %s ..", len(genome_paths), store.device)
-        by_path = dict(iter_path_sketches(genome_paths, store))
-        mat = sketch_matrix([by_path[p] for p in genome_paths],
-                            store.sketch_size, store.device)
-        logger.info("Computing all-pairs Mash ANI ..")
-        pairs = threshold_pairs(mat, store.k, self.min_ani,
-                                store.sketch_size, store.clock)
+        n = len(genome_paths)
+        # the stream's rows are the unique paths, and the sparse pass
+        # from the crossover up needs the whole matrix
+        if (n < collision.SPARSE_SCREEN_MIN_N
+                and len(dict.fromkeys(genome_paths)) == n):
+            logger.info("Streaming all-pairs Mash ANI behind the reads ..")
+            blocks = iter_sketch_row_blocks(genome_paths, store,
+                                            self.threads)
+            pairs = threshold_pairs_streamed(
+                blocks, n, store.k, self.min_ani,
+                store.sketch_size, store.clock,
+                block=sketch_stream.ROW_BLOCK)
+        else:
+            by_path = dict(iter_path_sketches(genome_paths, store,
+                                              self.threads))
+            mat = sketch_matrix([by_path[p] for p in genome_paths],
+                                store.sketch_size, store.device)
+            logger.info("Computing all-pairs Mash ANI ..")
+            pairs = threshold_pairs(mat, store.k, self.min_ani,
+                                    store.sketch_size, store.clock)
         cache = PairDistanceCache()
         for (i, j), ani in pairs.items():
             cache.insert((i, j), ani)

@@ -5,7 +5,8 @@ The port's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
 skani or fastani clusterer, the hash algorithm, quality ordering (a
 CheckM1 table, a CheckM2 report or a genomeInfo CSV, the formula and
 the completeness and contamination filters), the cluster definition
-TSV, and the device. Defaults and help are those of
+TSV, the host threads that read genomes ahead (``--threads``), and the
+device. Defaults and help are those of
 ``galah-tpu cluster``, and percentages parse as there. A flag of the
 ``galah-tpu cluster`` command line that this slice does not support is
 an error that names it; no flag is silently ignored.
@@ -31,7 +32,6 @@ logger = logging.getLogger("galah_tpu_torch")
 UNSUPPORTED_FLAGS = (
     "--genome-fasta-list",
     "--ani-subsample", "--rep-scan-window", "--rep-rounds",
-    "--threads", "-t",
     "--on-bad-genome", "--sketch-cache", "--profile-trace-dir",
     "--trace-events", "--run-report", "--checkpoint-dir", "--resume",
     "--output-representative-fasta-directory",
@@ -104,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=QUALITY_FORMULAS,
                    help="Quality formula for ranking genomes "
                         "(default: Parks2020_reduced)")
+    c.add_argument("--threads", "-t", type=int, default=1,
+                   help="Host threads for FASTA stats/IO fan-out "
+                        "and CPU-backend native sketching/profiling; "
+                        "device parallelism is managed by the mesh")
     c.add_argument("--output-cluster-definition",
                    help="Output file of rep<TAB>member lines")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -181,7 +185,7 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
             checkm2_quality_report=args.checkm2_quality_report,
             genome_info=args.genome_info, formula=args.quality_formula,
             min_completeness=args.min_completeness,
-            max_contamination=args.max_contamination)
+            max_contamination=args.max_contamination, threads=args.threads)
     ani = parse_percentage(args.ani, "--ani")
     precluster_ani = parse_percentage(args.precluster_ani,
                                       "--precluster-ani")
@@ -195,16 +199,18 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     out = (open(args.output_cluster_definition, "w")
            if args.output_cluster_definition else None)
     store = ProfileStore(device, fraglen=args.fragment_length, clock=clock,
-                         hash_algorithm=args.hash_algorithm)
+                         hash_algorithm=args.hash_algorithm,
+                         threads=args.threads)
     if args.precluster_method == "finch":
         pre = MinHashPreclusterer(
             min_ani=precluster_ani,
             store=SketchStore(device, algo=args.hash_algorithm,
-                              clock=clock))
+                              clock=clock), threads=args.threads)
     elif args.precluster_method == "dashing":
         pre = HLLPreclusterer(
             min_ani=precluster_ani,
-            store=HLLStore(device, algo=args.hash_algorithm, clock=clock))
+            store=HLLStore(device, algo=args.hash_algorithm, clock=clock),
+            threads=args.threads)
     else:
         pre = SkaniPreclusterer(threshold=precluster_ani,
                                 min_aligned_fraction=min_af, store=store)

@@ -1,15 +1,20 @@
 """FASTA ingestion: file -> 2-bit codes + contig offsets + stats.
 
-The port's own copy of ``galah_tpu/io/fasta.py::read_genome_numpy``:
-the same codes (A=0 C=1 G=2 T=3, case-insensitive, 255 for any other
-byte), the same contig offsets and the same stats, from gzip or plain
-input. The line walk is vectorized over the whole file in numpy
-instead of a Python loop per line, which keeps a 1 Gbp corpus read in
-seconds; the semantics stay line by line: each line is stripped of
-ASCII whitespace at both ends, empty lines are skipped, a line starting
-with ``>`` opens a record, and sequence lines before the first record
-belong to none. ``read_genome_stats`` gives the same stats without
-building the codes (the quality formulas' read).
+``read_genome`` and ``read_genome_stats`` read the file in Python
+(gzip input is decompressed by the standard library, which releases
+the interpreter lock) and parse the bytes with the port's native C
+parser (``io/_cingest.py``, ``csrc/ingest.c``): the codes (A=0 C=1 G=2
+T=3, case-insensitive, 255 for any other byte), the contig offsets and
+the stats of ``galah_tpu/io/fasta.py``. A failed build of the parser
+raises; nothing falls back.
+
+``read_genome_plain`` and ``read_genome_stats_plain`` are the plain
+version the tests and ``chip_smoke.py`` hold the C parser against: the
+port's own copy of ``galah_tpu``'s ``read_genome_numpy``, with the line
+walk vectorized over the whole file in numpy. The semantics are line
+by line: each line is stripped of ASCII whitespace at both ends, empty
+lines are skipped, a line starting with ``>`` opens a record, and
+sequence lines before the first record belong to none.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import dataclasses
 import gzip
 
 import numpy as np
+
+from galah_tpu_torch.io import _cingest
 
 # ASCII -> 2-bit code; 255 marks ambiguous/non-ACGT.
 _CODE_LUT = np.full(256, 255, dtype=np.uint8)
@@ -121,7 +128,24 @@ def _parse(path: str):
 
 
 def read_genome(path: str) -> Genome:
-    """Parse a (possibly gzipped) FASTA into codes + offsets + stats."""
+    """Parse a (possibly gzipped) FASTA into codes + offsets + stats
+    with the C parser."""
+    codes, offsets, n_amb, n50 = _cingest.parse_fasta(_read_bytes(path),
+                                                      path)
+    stats = GenomeStats(num_contigs=int(offsets.shape[0]) - 1,
+                        num_ambiguous_bases=n_amb, n50=n50)
+    return Genome(path=path, codes=codes,
+                  contig_offsets=offsets.astype(np.int64), stats=stats)
+
+
+def read_genome_stats(path: str) -> GenomeStats:
+    """The stats of ``read_genome`` (the quality formulas' read;
+    ``galah_tpu``'s ``calculate_genome_stats``)."""
+    return read_genome(path).stats
+
+
+def read_genome_plain(path: str) -> Genome:
+    """``read_genome`` in numpy: the plain version."""
     a, starts, ends, lengths = _parse(path)
     # +1 at each sequence line's start, -1 past its end: the lines are
     # disjoint and ordered, so the running sum is 1 inside a line and 0
@@ -141,9 +165,9 @@ def read_genome(path: str) -> Genome:
                   stats=stats)
 
 
-def read_genome_stats(path: str) -> GenomeStats:
-    """The stats of ``read_genome`` without building the codes (the
-    quality formulas' read; ``galah_tpu``'s ``calculate_genome_stats``)."""
+def read_genome_stats_plain(path: str) -> GenomeStats:
+    """``read_genome_stats`` in numpy, without building the codes: the
+    plain version."""
     a, starts, ends, lengths = _parse(path)
     # the bytes of the sequence lines that are not ACGT (few), counted
     # per line by their positions

@@ -8,13 +8,17 @@ skani-equivalent candidate screen, reference: src/skani.rs:54-70).
 Mash ANI reaches the threshold, with that ANI (reference:
 src/finch.rs:69-71).
 
-Below ``collision.SPARSE_SCREEN_MIN_N`` genomes each runs the dense
-row-block pass: per block of rows, the stripe against every column at
-or right of the block's diagonal tile comes from ``tile_stats`` (the
-CUDA kernel on the card; the intersect form for the screen, the full
-form for finch), a conservative float64 mask and the compaction run on
-the device, and the host applies the exact float64 check. From the
-crossover up, both take the host collision screen
+Below ``collision.SPARSE_SCREEN_MIN_N`` genomes the screen runs the
+dense row-block pass: per block of rows, the stripe against every
+column at or right of the block's diagonal tile comes from
+``tile_stats``' intersect form (the CUDA kernel on the card), a
+conservative float64 mask and the compaction run on the device, and the
+host applies the exact float64 check. The finch pass runs
+``threshold_pairs_streamed``: per block of sketch rows, which may still
+be arriving (``ops/sketch_stream.iter_sketch_row_blocks``), one stripe
+of every row seen so far against the block's columns through
+``tile_stats``' full form, and the exact float64 check on the host.
+From the crossover up, both take the host collision screen
 (``ops/collision.py``) instead: the screen's counts are its exact
 containment numerators, and finch evaluates the collision survivors
 with the pairlist kernel (``ops/sparse_device.py``). Either way the
@@ -24,7 +28,7 @@ result is the same.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +43,6 @@ from galah_tpu_torch.timing import StageClock
 ROW_TILE = 64
 COL_TILE = 256
 CAP_PER_ROW = 256
-CANDIDATES_PER_ROW = 64  # finch pairs a row block copies back at first
 
 
 def ani_to_jaccard(min_ani: float, k: int) -> float:
@@ -138,80 +141,90 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
     return out
 
 
-def _rowblock_candidates(mat: torch.Tensor, r0: int, j_thr_lo: float,
-                         sketch_size: int, n: int, row_tile: int,
-                         col_tile: int, cap: int):
-    """One row block of the finch pass: the (row_tile, n_pad) stats
-    stripe, Jaccard-thresholded and compacted on the device.
-
-    Returns (flat_idx, common, total, count): up to `cap` flat indices
-    into the stripe with their (common, total), and the true number of
-    passing entries. Column tiles wholly below the block's diagonal
-    hold no i<j pair and are not computed.
-    """
-    n_pad = mat.shape[0]
-    c0 = (r0 // col_tile) * col_tile
-    common = torch.zeros(row_tile, n_pad, dtype=torch.int32,
-                         device=mat.device)
-    total = torch.zeros_like(common)
-    common[:, c0:], total[:, c0:] = tile_stats(
-        mat[r0:r0 + row_tile], mat[c0:], sketch_size)
-    gi = r0 + torch.arange(row_tile, device=mat.device)[:, None]
-    gj = torch.arange(n_pad, device=mat.device)[None, :]
-    mask = common.to(torch.float64) >= j_thr_lo * total.to(torch.float64)
-    mask &= (common > 0) & (gi < gj) & (gj < n)
-    flat_idx = torch.nonzero(mask.reshape(-1))[:, 0]
-    count = int(flat_idx.shape[0])
-    flat_idx = flat_idx[:cap]
-    return (flat_idx, common.reshape(-1)[flat_idx],
-            total.reshape(-1)[flat_idx], count)
-
-
-def _threshold_pairs_dense(sketch_mat: torch.Tensor, k: int,
-                           min_ani: float, sketch_size: int
-                           ) -> Dict[Tuple[int, int], float]:
-    n = sketch_mat.shape[0]
-    mat = _pad_rows(sketch_mat, math.lcm(ROW_TILE, COL_TILE))
-    n_pad = mat.shape[0]
-    j_thr = ani_to_jaccard(min_ani, k)
-    # conservative device mask; the exact float64 check runs on the host
-    j_thr_lo = j_thr * (1.0 - 1e-12) - 1e-300
-
-    out: Dict[Tuple[int, int], float] = {}
-    for r0, (flat_idx, common, total, count) in iter_blocks(
-            n, ROW_TILE, CANDIDATES_PER_ROW,
-            lambda r0, cap: _rowblock_candidates(
-                mat, r0, j_thr_lo, sketch_size, n, ROW_TILE, COL_TILE,
-                cap)):
-        flat_idx = flat_idx[:count].cpu().numpy()
-        common = common[:count].cpu().numpy().astype(np.int64)
-        total = total[:count].cpu().numpy().astype(np.int64)
-        keep = common.astype(np.float64) >= j_thr * total
-        ani = stats_to_ani_f64(common[keep], total[keep], k)
-        gi = r0 + flat_idx[keep] // n_pad
-        gj = flat_idx[keep] % n_pad
-        for a, b, v in zip(gi.tolist(), gj.tolist(), ani.tolist()):
-            out[(a, b)] = v
-    return out
-
-
 def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
                     sketch_size: Optional[int] = None,
                     clock: Optional[StageClock] = None
                     ) -> Dict[Tuple[int, int], float]:
     """Sparse {(i, j): ani} for i<j pairs whose float64 Mash ANI reaches
     `min_ani`, over an (N, K) biased sketch matrix on the device: the
-    dense row-block pass below the sparse crossover, the collision
-    screen and pairlist pass (``sparse_device``) from it up. `clock`
-    gets the stages (`pair-stats`, and `collision-screen` when
-    sparse)."""
+    streamed pass over its blocks of COL_TILE rows below the sparse
+    crossover, the collision screen and pairlist pass
+    (``sparse_device``) from it up. `clock` gets the stages
+    (`pair-stats`, and `collision-screen` when sparse)."""
     clock = clock or StageClock(sketch_mat.device)
     if sketch_size is None:
         sketch_size = sketch_mat.shape[1]
-    if sketch_mat.shape[0] >= collision.SPARSE_SCREEN_MIN_N:
+    n = sketch_mat.shape[0]
+    if n >= collision.SPARSE_SCREEN_MIN_N:
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
         return threshold_pairs_sparse(sketch_mat, k, min_ani, sketch_size,
                                       clock)
-    with clock.stage("pair-stats"):
-        return _threshold_pairs_dense(sketch_mat, k, min_ani, sketch_size)
+    blocks = ((r0, sketch_mat[r0:r0 + COL_TILE])
+              for r0 in range(0, n, COL_TILE))
+    return threshold_pairs_streamed(blocks, n, k, min_ani, sketch_size,
+                                    clock)
+
+
+def threshold_pairs_streamed(
+    blocks: Iterable[Tuple[int, torch.Tensor]],
+    n: int,
+    k: int,
+    min_ani: float,
+    sketch_size: int,
+    clock: Optional[StageClock] = None,
+    block: int = COL_TILE,
+) -> Dict[Tuple[int, int], float]:
+    """``threshold_pairs`` below the sparse crossover, over ``(r0,
+    rows)`` blocks of at most `block` biased sketch rows on the device
+    that may still be arriving (``ops/sketch_stream
+    .iter_sketch_row_blocks``): the rows come in order, r0 = 0, then
+    each block's end.
+
+    Per block, one stripe: every row seen so far, padded with sentinel
+    rows to a power of two (at least ``ROW_TILE``), against the block
+    padded to `block` columns, in one launch of ``tile_stats``' full
+    form. Every pair i < j is covered once (rows [0, r1) x columns
+    [r0, r1)), and the exact float64 check runs on the host over the
+    integers. ``common > 0`` drops the sentinel padding (a sentinel row
+    shares nothing). `clock` gets the `pair-stats` stage and the
+    `pairs-streamed-stripes` count."""
+    clock = clock or StageClock(torch.device("cpu"))
+    j_thr = ani_to_jaccard(min_ani, k)
+    r_cap = ROW_TILE
+    while r_cap < n:
+        r_cap <<= 1
+    done: Optional[torch.Tensor] = None
+    r1 = 0
+    out: Dict[Tuple[int, int], float] = {}
+    for r0, rows in blocks:
+        bsz = rows.shape[0]
+        if r0 != r1 or bsz > block or r0 + bsz > n:
+            raise ValueError(f"streamed sketch block of {bsz} rows at "
+                             f"{r0} does not follow row {r1} of {n}")
+        if done is None:
+            done = torch.full((r_cap, rows.shape[1]), SENTINEL_BIASED,
+                              dtype=torch.int64, device=rows.device)
+        done[r0:r0 + bsz] = rows
+        r1 = r0 + bsz
+        r_pad = ROW_TILE
+        while r_pad < r1:
+            r_pad <<= 1
+        with clock.stage("pair-stats"):
+            cols = torch.full((block, rows.shape[1]), SENTINEL_BIASED,
+                              dtype=torch.int64, device=rows.device)
+            cols[:bsz] = rows
+            common, total = tile_stats(done[:r_pad], cols, sketch_size)
+            common = common.cpu().numpy().astype(np.int64)
+            total = total.cpu().numpy().astype(np.int64)
+        clock.count("pairs-streamed-stripes", 1)
+        gi = np.arange(r_pad)[:, None]
+        gj = r0 + np.arange(block)[None, :]
+        keep = ((gi < gj) & (gj < r1) & (common > 0)
+                & (common.astype(np.float64) >= j_thr * total))
+        ki, kj = np.nonzero(keep)
+        ani = stats_to_ani_f64(common[keep], total[keep], k)
+        out.update(zip(zip(ki.tolist(), (r0 + kj).tolist()), ani.tolist()))
+    if r1 != n:
+        raise ValueError(f"streamed pair pass saw {r1} rows, expected {n}")
+    return out

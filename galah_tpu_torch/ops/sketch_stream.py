@@ -23,17 +23,17 @@ bound XLA's compile variants; a genome's candidates depend only on its
 own windows, so the port groups genomes by a window budget alone.
 
 ``iter_path_sketches`` yields each unique path's sketch in path order,
-reading FASTA files ahead on a small thread pool and sketching them in
-budget-sized groups; sketches enter the store on the consumer thread.
-The store decides what a sketch is: the finch ``SketchStore`` makes
-MinHash sketches, the dashing ``HLLStore`` HLL registers.
+reading FASTA files ahead on ``ingest_depth(threads)`` worker threads
+(``io/prefetch.iter_prefetched``) and sketching them in budget-sized
+groups; sketches enter the store on the consumer thread. The store
+decides what a sketch is: the finch ``SketchStore`` makes MinHash
+sketches, the dashing ``HLLStore`` HLL registers.
+``iter_sketch_row_blocks`` turns the finch stream into blocks of
+sketch rows on the device for the streamed pair pass.
 """
 
 from __future__ import annotations
 
-import collections
-import itertools
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,12 +42,14 @@ import torch
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome, read_genome
+from galah_tpu_torch.io.prefetch import ingest_depth, iter_prefetched
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
                                               fused_sketch_candidates)
 from galah_tpu_torch.ops.hashing import DEFAULT_CHUNK
 from galah_tpu_torch.ops.minhash import (sketch_genome_device,
-                                         sketch_genomes_device_batch)
+                                         sketch_genomes_device_batch,
+                                         sketch_matrix)
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.u64 import from_biased
 from galah_tpu_torch.timing import StageClock
@@ -61,9 +63,9 @@ FUSED_BUDGET = 1 << 25
 #: candidates per genome in the fused file
 CANDIDATES = REGS * CLASSES
 
-#: FASTA reads in flight ahead of the consumer (``galah_tpu``'s
-#: ``ingest_depth`` at one thread)
-INGEST_DEPTH = 2
+#: sketch rows a block of ``iter_sketch_row_blocks`` (the streamed pair
+#: pass's column block); tests may lower it
+ROW_BLOCK = 256
 
 
 
@@ -148,26 +150,7 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
     return out  # type: ignore[return-value]
 
 
-def _read_ahead(paths: Sequence[str], clock: StageClock
-                ) -> Iterator[Tuple[str, Genome]]:
-    """(path, genome) in order, INGEST_DEPTH reads in flight; the
-    consumer's wait for a read is the `read` stage."""
-    with ThreadPoolExecutor(max_workers=INGEST_DEPTH) as pool:
-        it = iter(paths)
-        pending = collections.deque(
-            (p, pool.submit(read_genome, p))
-            for p in itertools.islice(it, INGEST_DEPTH))
-        while pending:
-            p, fut = pending.popleft()
-            with clock.stage("read"):
-                genome = fut.result()
-            clock.count("genomes-read", 1)
-            for nxt in itertools.islice(it, 1):
-                pending.append((nxt, pool.submit(read_genome, nxt)))
-            yield p, genome
-
-
-def _iter_computed(paths: Sequence[str], store
+def _iter_computed(paths: Sequence[str], store, threads: int
                    ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for `paths` in order, sketched by
     ``store.sketch_group`` in groups of at most FUSED_BUDGET windows."""
@@ -181,7 +164,9 @@ def _iter_computed(paths: Sequence[str], store
         batch.clear()
         return done
 
-    for p, g in _read_ahead(paths, store.clock):
+    reads = iter_prefetched(paths, store.clock.timed(read_genome, "read"),
+                            depth=ingest_depth(threads))
+    for p, g in store.clock.waits(reads, "read", "genomes-read"):
         if batch and size + g.codes.shape[0] > FUSED_BUDGET:
             yield from flush()
             size = 0
@@ -191,7 +176,7 @@ def _iter_computed(paths: Sequence[str], store
         yield from flush()
 
 
-def iter_path_sketches(paths: Sequence[str], store
+def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
                        ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for the UNIQUE paths, in path order. Sketches the
     store does not hold are computed (``store.sketch_group``: MinHash
@@ -199,7 +184,7 @@ def iter_path_sketches(paths: Sequence[str], store
     and inserted on this thread."""
     unique = list(dict.fromkeys(paths))
     computed = _iter_computed(
-        [p for p in unique if store.get_cached(p) is None], store)
+        [p for p in unique if store.get_cached(p) is None], store, threads)
     for p in unique:
         s = store.get_cached(p)
         if s is None:
@@ -209,3 +194,21 @@ def iter_path_sketches(paths: Sequence[str], store
                                    f"!= {p}")
             s = store.insert(p, s)
         yield p, s
+
+
+def iter_sketch_row_blocks(paths: Sequence[str], store, threads: int = 1
+                           ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """(r0, rows) blocks of the finch stream: `rows` is a (b, sketch_size)
+    sorted, sentinel-padded biased int64 matrix on the store's device,
+    b = ``ROW_BLOCK`` but for the last block, over the unique paths in
+    order, while the reads go on ahead."""
+    buf: List[MinHashSketch] = []
+    r0 = 0
+    for _p, s in iter_path_sketches(paths, store, threads):
+        buf.append(s)
+        if len(buf) == ROW_BLOCK:
+            yield r0, sketch_matrix(buf, store.sketch_size, store.device)
+            r0 += len(buf)
+            buf = []
+    if buf:
+        yield r0, sketch_matrix(buf, store.sketch_size, store.device)

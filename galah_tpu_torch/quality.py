@@ -19,8 +19,9 @@ src/cluster_argument_parsing.rs:576-894, src/genome_info_file.rs:20-80):
 
 The sort is stable: ties keep input order. The formulas that need
 assembly stats read each genome once more, stats only
-(``io/fasta.read_genome_stats``). ``galah_tpu``'s multi-host stats pass
-and its ``--threads`` fan-out are not ported.
+(``io/fasta.read_genome_stats``), on `threads` worker threads (the C
+parser releases the interpreter lock).
+``galah_tpu``'s multi-host stats pass is not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ import dataclasses
 import logging
 import math
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch.config import Defaults, parse_percentage
-from galah_tpu_torch.io.fasta import read_genome_stats
+from galah_tpu_torch.io.fasta import GenomeStats, read_genome_stats
 
 logger = logging.getLogger(__name__)
 
@@ -149,10 +151,11 @@ def filter_and_order_genomes(
     formula: str = Defaults.QUALITY_FORMULA,
     min_completeness: Optional[float] = None,   # fraction
     max_contamination: Optional[float] = None,  # fraction
+    threads: int = 1,
 ) -> List[str]:
     """Filter by the quality thresholds, then order by descending
     score. The Parks2020_reduced and dRep formulas read each kept
-    genome's assembly stats."""
+    genome's assembly stats, on `threads` threads."""
     kept: List[str] = []
     for p in genome_paths:
         q = retrieve(table, p)
@@ -164,6 +167,11 @@ def filter_and_order_genomes(
             continue
         kept.append(p)
 
+    stats: Dict[str, GenomeStats] = {}
+    if formula in ("Parks2020_reduced", "dRep"):
+        with ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
+            stats = dict(zip(kept, pool.map(read_genome_stats, kept)))
+
     def score(p: str) -> float:
         q = retrieve(table, p)
         if formula == "completeness-4contamination":
@@ -171,7 +179,7 @@ def filter_and_order_genomes(
         if formula == "completeness-5contamination":
             return q.completeness - 5.0 * q.contamination
         if formula == "Parks2020_reduced":
-            s = read_genome_stats(p)
+            s = stats[p]
             return (q.completeness * 100.0
                     - 5.0 * q.contamination * 100.0
                     - 5.0 * s.num_contigs / 100.0
@@ -181,7 +189,7 @@ def filter_and_order_genomes(
                 raise ValueError(
                     "dRep quality formula only works with CheckM v1 "
                     "quality scoring since it includes strain heterogeneity")
-            s = read_genome_stats(p)
+            s = stats[p]
             return (q.completeness * 100.0
                     - 5.0 * q.contamination * 100.0
                     + q.contamination * q.strain_heterogeneity
@@ -204,6 +212,7 @@ def quality_order_genomes(
     formula: Optional[str] = None,
     min_completeness: Optional[float] = None,   # percent or fraction
     max_contamination: Optional[float] = None,  # percent or fraction
+    threads: int = 1,
 ) -> Tuple[List[str], bool]:
     """(ordered paths, whether a quality input was used). With no
     quality input the paths keep their input order. More than one
@@ -242,5 +251,6 @@ def quality_order_genomes(
             if min_completeness is not None else None),
         max_contamination=(parse_percentage(
             max_contamination, "--max-contamination")
-            if max_contamination is not None else None))
+            if max_contamination is not None else None),
+        threads=threads)
     return ordered, True

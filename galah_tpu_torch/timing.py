@@ -12,13 +12,16 @@ run add up to at most its wall.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Callable, Dict, Iterable, Iterator, List, TypeVar
 
 import torch
 
 from galah_tpu_torch.device import synchronize
+
+T = TypeVar("T")
 
 
 class StageClock:
@@ -26,6 +29,10 @@ class StageClock:
         self.device = torch.device(device)
         self.seconds: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        # seconds of work on worker threads, summed over the threads (so
+        # they may exceed the wall; they are no stage)
+        self.work_seconds: Dict[str, float] = defaultdict(float)
+        self._work_lock = threading.Lock()
         # per open stage, the seconds of the stages nested in it so far
         self._inner: List[float] = []
 
@@ -44,3 +51,31 @@ class StageClock:
 
     def count(self, name: str, n: int) -> None:
         self.counts[name] += int(n)
+
+    def waits(self, items: Iterable[T], name: str,
+              count: str) -> Iterator[T]:
+        """`items`, with each wait for the next one timed as stage
+        `name` (the consumer's wait on a read-ahead) and each item
+        counted under `count`."""
+        it = iter(items)
+        while True:
+            with self.stage(name):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+            self.count(count, 1)
+            yield item
+
+    def timed(self, fn: Callable[..., T], name: str) -> Callable[..., T]:
+        """`fn`, adding the seconds of each call, on whatever thread it
+        runs, to ``work_seconds[name]``."""
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                dt = time.perf_counter() - t0
+                with self._work_lock:
+                    self.work_seconds[name] += dt
+        return run

@@ -139,7 +139,7 @@ def test_cli_directory_input(families, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sketch-cache", "cache"], ["--threads", "4"],
+    ["--sketch-cache", "cache"], ["--checkpoint-dir", "d"],
     ["--ani-subsample", "125"], ["--rep-rounds=8"], ["--resume"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -183,6 +183,9 @@ def test_port_imports_neither_jax_nor_galah_tpu():
     files = sorted((REPO / "galah_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"galah_tpu_torch/io/_cingest.py",
+            "galah_tpu_torch/io/prefetch.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]
@@ -192,14 +195,14 @@ def test_port_imports_neither_jax_nor_galah_tpu():
 def test_port_run_loads_no_jax(families, tmp_path):
     """CPU cluster runs of the port (skani, finch and dashing
     preclusters) in a fresh interpreter leave jax and galah_tpu out of
-    sys.modules."""
+    sys.modules, and reach the C parser and the read-ahead."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     code = (
         "import sys\n"
         "from galah_tpu_torch.cli import main\n"
         f"rc = main(['cluster', '-f', *{paths[:4]!r}, '--device', 'cpu',"
-        f" '--precluster-method', 'finch',"
+        f" '--precluster-method', 'finch', '--threads', '2',"
         f" '--output-cluster-definition', {str(out)!r}])\n"
         f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
         f" 'cpu', '--output-cluster-definition', {str(out)!r}])\n"
@@ -208,10 +211,12 @@ def test_port_run_loads_no_jax(families, tmp_path):
         f" '--output-cluster-definition', {str(out)!r}])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
-        "print('LOADED', bad)\n"
-        "sys.exit(rc or (1 if bad else 0))\n")
+        "new = [m for m in ('io._cingest', 'io.prefetch') "
+        "if 'galah_tpu_torch.' + m not in sys.modules]\n"
+        "print('LOADED', bad, 'MISSING', new)\n"
+        "sys.exit(rc or (1 if bad or new else 0))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "LOADED []" in proc.stdout
+    assert "LOADED [] MISSING []" in proc.stdout
     assert len(out.read_text().splitlines()) == 4
