@@ -16,9 +16,15 @@ Phases, each of which exits nonzero when it fails:
    codes on the card, their plain versions the same codes on the host),
    and pairlist also on a dense-similarity list: one planted family of
    2,048 sketches at ~98% ANI and all 2,096,128 pairs i < j, through the
-   survivor pass, at sketch sizes 1000 and 333; and, once the corpus is
-   written, the C FASTA parser against its plain numpy version on 64
-   corpus files and one gzip file (codes, offsets and stats identical);
+   survivor pass, at sketch sizes 1000 and 333; positional_hashes (the
+   k=15 profile hash, murmur3 and tpufast) on edge groups (genome and
+   contig starts on its runs, tiles and 14-base halo, N runs, genomes
+   shorter than k and of exactly k, a 3 Mbp genome); and, once the
+   corpus is written, positional_hashes on phase 4's first profile
+   group (8 x 2 Mbp) and that group's profiles built on the card
+   against the CPU plain build, and the C FASTA parser against its
+   plain numpy version on 64 corpus files and one gzip file (codes,
+   offsets and stats identical);
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -44,7 +50,12 @@ Phases, each of which exits nonzero when it fails:
    of tile_stats' full form; the stripe count must show the route, and
    the same command with --threads 4 must write the same TSV byte for
    byte (its walls and stages are printed beside the 8-thread run's);
-(phases 4-4e run with --threads 8: reads go 8 ahead on 8 threads; each
+4f. end to end, the fastani clusterer: phase 4's genomes through
+   ``cluster --cluster-method fastani``; the clusters must be the
+   planted families, and window_hits and positional_hashes must have
+   been launched;
+(phases 4-4f build profiles, so each requires positional_hashes
+launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
 seconds of the worker threads summed, `read work`)
 5. the kernels timed at the shapes the end-to-end runs gave them,
@@ -58,8 +69,12 @@ seconds of the worker threads summed, `read work`)
    of phase 4e's streamed pass, tile_stats'
    intersect form on synthetic rows at the widths that corpora of 6
    and 10 Mbp genomes give (K = 6080, 10048), and the whole sketch of
-   the first finch and dashing launch groups split into host concat,
-   copies, kernel and certificate or HLL fold;
+   the first finch and dashing launch groups split into the group load
+   (pinned write and copy), kernel and certificate or HLL fold;
+   positional_hashes at phase 4's first profile group, and that group's
+   whole profile build split into load, kernel and distinct sets, with
+   the distinct sets also by a two-key sort over the group; the
+   sorted queries of phase 4's 512 profiles beside its exact-ANI stage;
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, identical finch sketches
    and pair-dict ANI floats for 64 genomes (the streamed pass in blocks
@@ -76,6 +91,7 @@ per-kernel JSON record. Every line holding a number names the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -102,6 +118,10 @@ FUSED_OPS_PER_WINDOW = {"murmur3": 180, "tpufast": 70}
 # the codes (kernels/murmur3_k21.cu's source note), and of one register
 # pair of the HLL union statistics (kernels/hll_union.cu's)
 MURMUR3_OPS_PER_WINDOW = 170
+
+# 32-bit operations of one k=15 window of the positional_hashes kernel
+# (kernels/positional_hashes.cu's source note)
+K15_OPS_PER_WINDOW = {"murmur3": 150, "tpufast": 45}
 HLL_UNION_OPS_PER_REGISTER = 4
 
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
@@ -395,6 +415,56 @@ def sketch_edge_groups(rng):
     ]
 
 
+def k15_edge_group(rng):
+    """A launch group aimed at positional_hashes' codes input: ambiguous
+    bases and contig starts on its runs of 16 windows, its 4096-window
+    tiles and the 14-base halo; genomes of k - 1, k and k + 1 bases."""
+    def rand(n):
+        return rng.integers(0, 4, size=n).astype(np.uint8)
+
+    k = 15
+    edge = rand(3 * 4096 + 300)
+    for s, e in ((4090, 4100), (4096 + k - 1, 4096 + k), (15, 16),
+                 (8191, 8192), (3 * 4096 + 299, 3 * 4096 + 300)):
+        edge[s:e] = 255
+    return [_genome("k15-tile-edge", edge, [4096, 4096 + k, 8192 - k + 1]),
+            _genome("k15-short", rand(k - 1)), _genome("k15-exact", rand(k)),
+            _genome("k15-plus-1", rand(k + 1), [k]),
+            _genome("k15-contigs", rand(9000),
+                    [1, 2, 2 + k, 4095, 4097, 9000 - k])]
+
+
+def two_key_distinct(torch, hashes, jobs, cut, sentinel):
+    """The other route to a group's distinct sets: one two-key sort of
+    the group's hashes (by hash, then stably by genome), first
+    occurrences within each genome, the counts by genome in one copy,
+    one scatter; (ref_set, markers) a genome. Timed beside
+    ops/fragment_ani's per-genome sorts."""
+    n = hashes.shape[0]
+    first = torch.tensor([w0 for w0, _ in jobs], device=hashes.device)
+    gid = torch.bucketize(torch.arange(n, device=hashes.device), first,
+                          right=True) - 1
+    s1, p1 = torch.sort(hashes, stable=True)
+    g, p2 = torch.sort(gid[p1], stable=True)
+    s = s1[p2]
+    keep = s != sentinel
+    keep[1:] &= (s[1:] != s[:-1]) | (g[1:] != g[:-1])
+    rank = torch.cumsum(keep, 0)
+    sizes = torch.zeros(2, len(jobs), dtype=torch.int64, device=s.device)
+    sizes[0].index_add_(0, g, keep.long())
+    sizes[1].index_add_(0, g, (keep & (s < cut)).long())
+    counts, marks = sizes.cpu().tolist()
+    total = sum(counts)
+    ref = torch.empty(total + 1, dtype=torch.int64, device=s.device)
+    ref.scatter_(0, torch.where(keep, rank - 1, total), s)
+    out, a = [], 0
+    for c, m in zip(counts, marks):
+        r = ref[a:a + c].clone()
+        out.append((r, r[:m]))
+        a += c
+    return out
+
+
 def plain_k21_hook(murmur3_k21_plain):
     """The k21_hash hook of the plain path on the card: the plain
     version takes CPU tensors, so the codes go to the host and the
@@ -490,19 +560,23 @@ def first_group(paths, read_genome, budget):
     return group
 
 
-def time_group(torch, device, concat, group):
-    """Host clock of a launch group's concat and of the copies of its
-    codes and contig starts to the card; the tensors (host codes,
-    host starts, device codes, device starts, jobs)."""
+def time_group(torch, device, group, k=21):
+    """Host clock of a launch group's load onto the card: written into
+    the shared pinned group buffer and copied (io/group.load_group,
+    median of 5, synchronised), and of its host layout alone into fresh
+    arrays; the tensors (host codes, host starts, device codes, device
+    starts, jobs)."""
+    from galah_tpu_torch.io.group import host_layout, load_group
+
+    load_ms = host_ms(torch, lambda: (load_group(group, k, device),
+                                      torch.cuda.synchronize()), 5)
+    loaded = load_group(group, k, device)
     t0 = time.perf_counter()
-    codes, offsets, jobs = concat(group, 21)
-    t1 = time.perf_counter()
-    hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
-    dc, ds = hc.to(device), hs.to(device)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return {"concat_ms": (t1 - t0) * 1e3, "copy_ms": (t2 - t1) * 1e3,
-            "tensors": (hc, hs, dc, ds, jobs)}
+    codes, offsets, jobs = host_layout(group, k)
+    layout_ms = (time.perf_counter() - t0) * 1e3
+    return {"load_ms": load_ms, "layout_ms": layout_ms,
+            "tensors": (torch.from_numpy(codes), torch.from_numpy(offsets),
+                        loaded.codes, loaded.starts, jobs)}
 
 
 def run_path(torch, cli, reset_launches, launches_now, argv):
@@ -685,6 +759,7 @@ def main(argv=None) -> int:
     from galah_tpu_torch.io.fasta import (read_genome, read_genome_plain,
                                           read_genome_stats,
                                           read_genome_stats_plain)
+    from galah_tpu_torch.io.group import host_layout, load_group
     from galah_tpu_torch.ops import sketch_stream
     from galah_tpu_torch.ops.constants import SENTINEL_BIASED
     from galah_tpu_torch.ops.fused_sketch import (fused_candidates_plain,
@@ -703,6 +778,10 @@ def main(argv=None) -> int:
                                              sketch_matrix)
     from galah_tpu_torch.ops.murmur3_k21 import (murmur3_k21,
                                                  murmur3_k21_plain)
+    from galah_tpu_torch.ops.positional_hashes import (
+        positional_hashes as k15_hashes)
+    from galah_tpu_torch.ops.positional_hashes import (
+        positional_hashes_plain as k15_plain)
     from galah_tpu_torch.kernels.rehearse_pairlist import dense_list
     from galah_tpu_torch.kernels.rehearse_pairlist import work as pl_work
     from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
@@ -759,9 +838,10 @@ def main(argv=None) -> int:
     sketch_groups = [genomes, *sketch_edge_groups(rng)]
     n_windows = 0
     for group in sketch_groups:
-        codes, offsets, jobs = sketch_stream._concat(group, 21)
+        codes, offsets, jobs = host_layout(group, 21)
         hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
-        dc, ds = hc.to(device), hs.to(device)
+        loaded = load_group(group, 21, device)
+        dc, ds = loaded.codes, loaded.starts
         n_windows += max(codes.shape[0] - 20, 0)
         for algo in ("murmur3", "tpufast"):
             got = fused_sketch_candidates(dc, ds, jobs, 21, algo).cpu()
@@ -864,9 +944,10 @@ def main(argv=None) -> int:
     mm_cases = 0
     for group in sketch_groups + [[_genome("random", rng.integers(
             0, 4, size=3 * 2 ** 20 + 25).astype(np.uint8))]]:
-        codes, offsets, _ = sketch_stream._concat(group, 21)
+        codes, offsets, _ = host_layout(group, 21)
         hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
-        dc, ds = hc.to(device), hs.to(device)
+        loaded = load_group(group, 21, device)
+        dc, ds = loaded.codes, loaded.starts
         n_win = max(codes.shape[0] - 20, 0)
         ranges = [(0, n_win), (min(1, n_win), max(n_win - 1, 0)),
                   (min(4095, n_win), max(min(8193, n_win - 4095), 0))]
@@ -886,6 +967,40 @@ def main(argv=None) -> int:
     print(f"parity murmur3_k21: {mm_cases} window ranges of the fused "
           f"groups and a random 3 Mi-window sequence, and a 3 Mbp genome "
           f"in 1 Mi-window chunks, exact {tag}")
+    # positional_hashes: the sketch groups, the k=15 edge group and the
+    # 3 Mbp genome alone, both hashes, whole and over window ranges (the
+    # range that starts at window 1 only on the small groups)
+    ph_cases = ph_windows = 0
+    for group in [*sketch_groups, k15_edge_group(rng), [genomes[-1]]]:
+        codes, offsets, _ = host_layout(group, 15)
+        hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
+        loaded = load_group(group, 15, device)
+        n_win = max(codes.shape[0] - 14, 0)
+        ph_windows += n_win
+        ranges = [(0, n_win),
+                  (min(4095, n_win), max(min(8193, n_win - 4095), 0))]
+        if n_win < 100_000:
+            ranges.append((min(1, n_win), max(n_win - 1, 0)))
+        for algo in ("murmur3", "tpufast"):
+            for w0, n in ranges:
+                got = k15_hashes(loaded.codes, loaded.starts, w0, n,
+                                 algo).cpu()
+                if not torch.equal(got, k15_plain(hc, hs, w0, n, algo)):
+                    raise PhaseError(
+                        f"positional_hashes ({algo}) disagrees with its "
+                        f"plain version at windows [{w0}, {w0 + n}) of "
+                        f"the group of {group[0].path}")
+                ph_cases += 1
+    got = positional_hashes(genomes[-1], 15, device, chunk=1 << 20).cpu()
+    if not torch.equal(got, positional_hashes(genomes[-1], 15, "cpu")):
+        raise PhaseError("positional_hashes in 1 Mi-window chunks of a "
+                         "3 Mbp genome disagrees with the plain version")
+    torch.cuda.synchronize()
+    print(f"parity positional_hashes: murmur3 and tpufast, {ph_cases} "
+          f"window ranges of {len(sketch_groups) + 2} groups ({ph_windows} "
+          f"windows; the sketch groups, a k=15 edge group, a 3 Mbp "
+          f"genome) and the 3 Mbp genome in 1 Mi-window chunks, exact "
+          f"{tag}")
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -925,6 +1040,41 @@ def main(argv=None) -> int:
               f"gzip file, codes, offsets and stats identical; a genome "
               f"{parser['c_ms']:.2f} ms in C, {parser['plain_ms']:.2f} ms "
               f"in numpy (median, host clock) {tag}")
+        # phase 4's first profile group: positional_hashes and the
+        # group's profiles on the card against the CPU plain build
+        from galah_tpu_torch.ops.fragment_ani import (PROFILE_BATCH_BUDGET,
+                                                      build_profiles_batch)
+
+        pgroup = first_group(paths[:args.genomes], read_genome,
+                             PROFILE_BATCH_BUDGET)
+        codes, offsets, _ = host_layout(pgroup, 15)
+        hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
+        loaded = load_group(pgroup, 15, device)
+        for algo in ("murmur3", "tpufast"):
+            got = k15_hashes(loaded.codes, loaded.starts, algo=algo).cpu()
+            if not torch.equal(got, k15_plain(hc, hs, algo=algo)):
+                raise PhaseError(f"positional_hashes ({algo}) disagrees "
+                                 f"with its plain version at phase 4's "
+                                 f"first profile group")
+            on_card = build_profiles_batch(pgroup, 15, 3000, device,
+                                           hash_algorithm=algo)
+            on_cpu = build_profiles_batch(pgroup, 15, 3000, "cpu",
+                                          hash_algorithm=algo)
+            for a, b in zip(on_card, on_cpu):
+                for name in ("flat_hashes", "ref_set", "markers"):
+                    if not torch.equal(getattr(a, name).cpu(),
+                                       getattr(b, name)):
+                        raise PhaseError(
+                            f"the {name} of {a.path} ({algo}) differs "
+                            f"between the card's group build and the CPU "
+                            f"plain build")
+        torch.cuda.synchronize()
+        print(f"parity positional_hashes: phase 4's first profile group, "
+              f"{len(pgroup)} genomes, {hc.numel() - 14} windows, murmur3 "
+              f"and tpufast, exact; its profiles (flat hashes, distinct "
+              f"sets, markers) from the card's group build equal the CPU "
+              f"plain build {tag}")
+        del pgroup, hc, hs, loaded, got, on_card, on_cpu
 
         # -- phase 4: end to end, skani ----------------------------------
         out_tsv = os.path.join(root, "clusters.tsv")
@@ -946,7 +1096,8 @@ def main(argv=None) -> int:
             print(f"count {name}: {n} {tag}")
         for name in KERNELS:
             print(f"launches {name}: {launches[name]} {tag}")
-        require_launched(launches, ("window_hits", "tile_stats"), "skani")
+        require_launched(launches, ("window_hits", "tile_stats",
+                                    "positional_hashes"), "skani")
 
         # -- phase 4b: end to end, finch at scale -------------------------
         finch = ["--precluster-method", "finch", "--cluster-method",
@@ -975,7 +1126,7 @@ def main(argv=None) -> int:
               f"{args.finch_genomes * 8000 / 1e6:.1f} MB; codes 1 B a "
               f"base, {sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
               f"group at most {tag}")
-        need = ["fused_sketch", "window_hits"]
+        need = ["fused_sketch", "window_hits", "positional_hashes"]
         if args.finch_genomes >= FINCH_MIN_GENOMES:
             need.append("pairlist")
         else:
@@ -1004,8 +1155,8 @@ def main(argv=None) -> int:
             print(f"finch dense count {name}: {n} {tag}")
         for name in KERNELS:
             print(f"finch dense launches {name}: {launches_d[name]} {tag}")
-        require_launched(launches_d, ("fused_sketch", "tile_stats"),
-                         "finch dense")
+        require_launched(launches_d, ("fused_sketch", "tile_stats",
+                                      "positional_hashes"), "finch dense")
         require_counts(res_d.clock.counts, {
             "pairs-streamed-stripes": -(-n_dense // sketch_stream.ROW_BLOCK)},
             "finch dense")
@@ -1054,7 +1205,8 @@ def main(argv=None) -> int:
               f"{9 * sketch_stream.FUSED_BUDGET / 1e6:.0f} MB per launch "
               f"group at most {tag}")
         require_launched(launches_h, ("hll_union", "murmur3_k21",
-                                      "window_hits"), "dashing")
+                                      "window_hits", "positional_hashes"),
+                         "dashing")
 
         # -- phase 4e: end to end, finch streamed -------------------------
         n_e = min(STREAM_GENOMES, args.finch_genomes)
@@ -1072,7 +1224,8 @@ def main(argv=None) -> int:
         require_counts(res_e.clock.counts, {"pairs-streamed-stripes": stripes},
                        "finch streamed")
         require_launched(launches_e, ("fused_sketch", "tile_stats",
-                                      "window_hits"), "finch streamed")
+                                      "window_hits", "positional_hashes"),
+                         "finch streamed")
         res_t, wall_t, launches_t = run_path(
             torch, cli, reset_launches, LAUNCHES,
             [*finch_e, "--threads", str(TWIN_THREADS),
@@ -1091,6 +1244,24 @@ def main(argv=None) -> int:
                   tag)
         print_run(f"finch streamed t{TWIN_THREADS}", res_t, launches_t,
                   KERNELS, tag)
+        require_launched(launches_t, ("positional_hashes",),
+                         f"finch streamed --threads {TWIN_THREADS}")
+
+        # -- phase 4f: end to end, the fastani clusterer ------------------
+        tsv_a = os.path.join(root, "clusters_fastani.tsv")
+        res_a, wall_a, launches_a = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            ["cluster", "-d", skani_dir, "--cluster-method", "fastani",
+             "--ani", "95", "--device", "cuda", *threads,
+             "--output-cluster-definition", tsv_a])
+        n_fam = check_families(res_a, label_of, args.genomes, family, tsv_a,
+                               "fastani")
+        require_launched(launches_a, ("window_hits", "positional_hashes"),
+                         "fastani")
+        print(f"fastani end to end: {args.genomes} genomes, "
+              f"{len(res_a.clusters)} clusters == {n_fam} planted "
+              f"families, wall {wall_a:.2f} s {tag}")
+        print_run("fastani", res_a, launches_a, KERNELS, tag)
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -1173,7 +1344,85 @@ def main(argv=None) -> int:
               f"K={k}: whole call {ts_ms:.4f} ms, kernel only "
               f"{ts_kernel:.4f} ms, plain {ts_plain:.3f} ms, bound "
               f"{ts_bound:.4f} ms ({ts_by}) {tag}")
-        del profiles, mat, directed, wh_items, rows, c_k, ts_out
+        # the sorted queries of phase 4's profiles (a torch.nonzero sync
+        # each), built anew, beside phase 4's exact-ANI stage
+        fresh = [dataclasses.replace(p, _sorted_query=None,
+                                     _totals_host=None) for p in profiles]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in fresh:
+            p.sorted_query()
+            p.totals_host()
+        torch.cuda.synchronize()
+        sq_s = time.perf_counter() - t0
+        print(f"timing sorted_query: {len(fresh)} profiles of phase 4, "
+              f"{sq_s:.3f} s ({1e3 * sq_s / len(fresh):.3f} ms a genome, "
+              f"host clock); phase 4's exact-ani stage "
+              f"{res.clock.seconds['exact-ani']:.3f} s {tag}")
+        del profiles, fresh, mat, directed, wh_items, rows, c_k, ts_out
+
+        # positional_hashes: phase 4's first profile group (8 x 2 Mbp),
+        # the kernel alone and the whole group build split into its
+        # parts; the distinct sets also by a two-key sort over the group
+        ph_group = first_group(res.genomes, read_genome,
+                               fragment_ani.PROFILE_BATCH_BUDGET)
+        ph = time_group(torch, device, ph_group, 15)
+        hc, hs, dc, ds, ph_jobs = ph["tensors"]
+        ph_ms = time_ms(torch, lambda: k15_hashes(dc, ds), 10)
+        ph_fast = time_ms(torch, lambda: k15_hashes(dc, ds,
+                                                    algo="tpufast"), 10)
+        hashes = k15_hashes(dc, ds)
+        t0 = time.perf_counter()
+        want = k15_plain(hc, hs)
+        ph_plain = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(hashes.cpu(), want):
+            raise PhaseError("positional_hashes disagrees with its plain "
+                             "version at phase 4's profile group")
+        ph_err = 0.0
+        n_win = hashes.numel()
+        n_valid = int((hashes != SENTINEL_BIASED).sum())
+        ph_bytes = hc.numel() + 8 * hs.numel() + 8 * n_win
+        ph_bound, ph_by = bound(ph_bytes, n_valid * K15_OPS_PER_WINDOW[
+            "murmur3"])
+        ph_fast_bound, ph_fast_by = bound(
+            ph_bytes, n_valid * K15_OPS_PER_WINDOW["tpufast"])
+        flats = [hashes[w0:w0 + n].clone() for w0, n in ph_jobs]
+        per_genome = fragment_ani._distinct_sets(flats)
+        two_key = two_key_distinct(torch, hashes, ph_jobs,
+                                   fragment_ani.MARKER_CUT_BIASED,
+                                   SENTINEL_BIASED)
+        for (ra, ma), (rb, mb) in zip(per_genome, two_key):
+            if not (torch.equal(ra, rb) and torch.equal(ma, mb)):
+                raise PhaseError("the two distinct-set routes disagree at "
+                                 "phase 4's profile group")
+        distinct_ms = host_ms(torch, lambda: fragment_ani._distinct_sets(
+            flats), 5)
+        two_key_ms = host_ms(torch, lambda: two_key_distinct(
+            torch, hashes, ph_jobs, fragment_ani.MARKER_CUT_BIASED,
+            SENTINEL_BIASED), 5)
+        clone_ms = time_ms(torch, lambda: [hashes[w0:w0 + n].clone()
+                                           for w0, n in ph_jobs], 5)
+        build_ms = host_ms(torch, lambda: (fragment_ani.build_profiles_batch(
+            ph_group, 15, 3000, device), torch.cuda.synchronize()), 5)
+        ph_split = {"group load (pinned write and copy)": ph["load_ms"],
+                    "kernel": ph_ms, "per-genome clones": clone_ms,
+                    "distinct sets (per-genome sorts)": distinct_ms}
+        p_stage = 1e3 * res.clock.seconds.get("profile", 0.0) / max(
+            res.clock.counts.get("profile-groups", 0), 1)
+        print(f"timing positional_hashes: {len(ph_group)} genomes, {n_win} "
+              f"windows ({n_valid} valid) from {hc.numel()} codes, murmur3: "
+              f"kernel {ph_ms:.4f} ms, plain (CPU tensors, host clock) "
+              f"{ph_plain:.1f} ms, bound {ph_bound:.4f} ms ({ph_by}); "
+              f"tpufast: kernel {ph_fast:.4f} ms, bound {ph_fast_bound:.4f} "
+              f"ms ({ph_fast_by}) {tag}")
+        print(f"timing profile group build: whole {build_ms:.2f} ms (host "
+              f"clock, median of 5) = "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ph_split.items())
+              + f" + the rest; host layout alone {ph['layout_ms']:.3f} ms; "
+              f"distinct sets by one two-key sort over the group "
+              f"{two_key_ms:.3f} ms; skani 512 profile stage per group "
+              f"{p_stage:.2f} ms {tag}")
+        del hashes, want, flats, per_genome, two_key, ph, hc, hs, dc, ds
 
         # the intersect form at the screen's widths for corpora whose
         # largest genome is about 6 and 10 Mbp (synthetic rows, 64 x 512
@@ -1265,7 +1514,7 @@ def main(argv=None) -> int:
         # and the group's whole sketch split into its parts
         group = first_group(res_f.genomes, read_genome,
                             sketch_stream.FUSED_BUDGET)
-        fs = time_group(torch, device, sketch_stream._concat, group)
+        fs = time_group(torch, device, group)
         hc, hs, dc, ds, jobs = fs["tensors"]
         fs_ms = time_ms(torch, lambda: fused_sketch_candidates(
             dc, ds, jobs, 21, "murmur3"), 10)
@@ -1296,8 +1545,7 @@ def main(argv=None) -> int:
                                            device)
         torch.cuda.synchronize()
         group_ms = (time.perf_counter() - t0) * 1e3
-        fs_split = {"host concat": fs["concat_ms"],
-                    "codes and starts copy": fs["copy_ms"],
+        fs_split = {"group load (pinned write and copy)": fs["load_ms"],
                     "kernel": fs_ms, "certificate": cert_ms}
         stage_group = 1e3 * res_f.clock.seconds.get("sketch", 0.0) \
             / max(launches_f["fused_sketch"], 1)
@@ -1310,8 +1558,8 @@ def main(argv=None) -> int:
         print(f"timing finch group sketch: whole {group_ms:.2f} ms = "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in fs_split.items())
               + f" + the rest; largest part: {max(fs_split, key=fs_split.get)}"
-              f"; finch 1024 sketch stage per launch group "
-              f"{stage_group:.2f} ms {tag}")
+              f"; host layout alone {fs['layout_ms']:.3f} ms; finch 1024 "
+              f"sketch stage per launch group {stage_group:.2f} ms {tag}")
         del cand, want, group, fs, hc, hs, dc, ds
 
         # pairlist: the finch run's collision survivors
@@ -1436,7 +1684,7 @@ def main(argv=None) -> int:
         # the group's whole HLL sketch split into its parts
         group = first_group(res_h.genomes, read_genome,
                             sketch_stream.FUSED_BUDGET)
-        hh = time_group(torch, device, sketch_stream._concat, group)
+        hh = time_group(torch, device, group)
         hc, hs, dc, ds, jobs = hh["tensors"]
         mm_ms = time_ms(torch, lambda: murmur3_k21(dc, ds), 10)
         hashes = murmur3_k21(dc, ds)
@@ -1460,8 +1708,7 @@ def main(argv=None) -> int:
         hll_sketch_genomes(group, device=device)
         torch.cuda.synchronize()
         hgroup_ms = (time.perf_counter() - t0) * 1e3
-        mm_split = {"host concat": hh["concat_ms"],
-                    "codes and starts copy": hh["copy_ms"],
+        mm_split = {"group load (pinned write and copy)": hh["load_ms"],
                     "kernel": mm_ms, "HLL fold": fold_ms}
         hstage_group = 1e3 * res_h.clock.seconds.get("sketch", 0.0) \
             / max(launches_h["murmur3_k21"], 1)
@@ -1472,8 +1719,8 @@ def main(argv=None) -> int:
         print(f"timing dashing group sketch: whole {hgroup_ms:.2f} ms = "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in mm_split.items())
               + f" + the rest; largest part: {max(mm_split, key=mm_split.get)}"
-              f"; dashing 1024 sketch stage per launch group "
-              f"{hstage_group:.2f} ms {tag}")
+              f"; host layout alone {hh['layout_ms']:.3f} ms; dashing 1024 "
+              f"sketch stage per launch group {hstage_group:.2f} ms {tag}")
         del hashes, want, hregs, group, hh, hc, hs, dc, ds
 
         # -- phase 6: kernel path vs plain path on the card ---------------
@@ -1632,6 +1879,26 @@ def main(argv=None) -> int:
          "bound_by": mm_by, "library_ms": None,
          "plain_on": "CPU tensors, host clock", "group_ms": hgroup_ms,
          "group_split_ms": mm_split},
+        {"name": "positional_hashes", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/positional_hashes.cu",
+         "replaces": "galah_tpu/ops/hashing.py:308",
+         "replaces_note": "no TPU kernel: galah_tpu hashes the k=15 "
+                          "profile windows in XLA (_hash_core)",
+         "launches": launches["positional_hashes"], "max_abs_err": ph_err,
+         "ms": ph_ms, "plain_ms": ph_plain, "bound_ms": ph_bound,
+         "bound_by": ph_by, "library_ms": None,
+         "plain_on": "CPU tensors, host clock",
+         "launches_by_path": {
+             "skani": launches["positional_hashes"],
+             "finch": launches_f["positional_hashes"],
+             "finch_dense": launches_d["positional_hashes"],
+             "dashing": launches_h["positional_hashes"],
+             "finch_streamed": launches_e["positional_hashes"],
+             "fastani": launches_a["positional_hashes"]},
+         "tpufast": {"ms": ph_fast, "bound_ms": ph_fast_bound,
+                     "bound_by": ph_fast_by},
+         "group_build_ms": build_ms, "group_split_ms": ph_split,
+         "distinct_two_key_ms": two_key_ms},
     ], "library_ms_null_because": no_library, "card": card,
         "fasta_parser": {"route": "c",
                          "source": "galah_tpu_torch/csrc/ingest.c",

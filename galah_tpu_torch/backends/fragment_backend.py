@@ -12,9 +12,10 @@ fragment kernel: the port of ``galah_tpu/backends/fragment_backend.py``.
 Profiles are built once per genome and held in an in-memory LRU
 ``ProfileStore`` on the run's device. Its misses are read ahead on
 ``ingest_depth(threads)`` worker threads
-(``io/prefetch.iter_prefetched``); the profile builds stay on the
-calling thread, the only one that touches CUDA. ``galah_tpu``'s disk-cache probe and its batched profile
-build are not ported (ROADMAP).
+(``io/prefetch.iter_prefetched``) and profiled a group at a time
+(``io/prefetch.iter_batches``, ``ops/fragment_ani.build_profiles_batch``)
+on the calling thread, the only one that touches CUDA.
+``galah_tpu``'s disk-cache probe is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import read_genome
-from galah_tpu_torch.io.prefetch import ingest_depth, iter_prefetched
+from galah_tpu_torch.io import group
+from galah_tpu_torch.io.prefetch import (ingest_depth, iter_batches,
+                                         iter_prefetched)
 from galah_tpu_torch.ops import fragment_ani
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
@@ -82,8 +85,9 @@ class ProfileStore:
 
     def get_many(self, paths: Sequence[str]) -> List[GenomeProfile]:
         """Profiles of `paths`; misses are read ahead and profiled in
-        path order. The `read` stage is the consumer's wait for a read,
-        ``work_seconds["read"]`` the workers' reading time."""
+        path order, a group at a time. The `read` stage is the
+        consumer's wait for a read, ``work_seconds["read"]`` the
+        workers' reading time, the `profile` stage each group's build."""
         by_path = {}
         misses = []
         for p in dict.fromkeys(paths):
@@ -97,15 +101,22 @@ class ProfileStore:
             iter_prefetched(misses, self.clock.timed(read_genome, "read"),
                             depth=ingest_depth(self.threads)),
             "read", "genomes-read")
-        # one profile build a genome, on this thread: galah_tpu's
-        # batched build waits for the k=15 hashing work (ROADMAP)
-        for p, genome in reads:
+        for batch in iter_batches(reads, lambda g: g.codes.shape[0],
+                                  fragment_ani.PROFILE_BATCH_BUDGET,
+                                  group.ALONE_ABOVE):
+            genomes = [g for _, g in batch]
             with self.clock.stage("profile"):
-                prof = fragment_ani.build_profile(
-                    genome, k=self.k, fraglen=self.fraglen,
+                profs = fragment_ani.build_profiles_batch(
+                    genomes, k=self.k, fraglen=self.fraglen,
                     device=self.device, hash_algorithm=self.hash_algorithm)
-            self._insert(p, prof)
-            by_path[p] = prof
+            self.clock.count("profile-groups", 1)
+            # galah_tpu's hash.batched_genomes: its long genomes take
+            # the per-genome route
+            self.clock.count("profile-batched-genomes", sum(
+                g.codes.shape[0] <= group.ALONE_ABOVE for g in genomes))
+            for (p, _), prof in zip(batch, profs):
+                self._insert(p, prof)
+                by_path[p] = prof
         return [by_path[p] for p in paths]
 
 

@@ -1,8 +1,8 @@
 """Bounded read-ahead: host FASTA reads run beside device work.
 
-The port of ``galah_tpu/io/prefetch.py``'s ``iter_prefetched``
-(``iter_batches`` and ``process_stream`` serve ``galah_tpu``'s batched
-profile build, which the port does not have yet). Reads run on a pool
+The port of ``galah_tpu/io/prefetch.py``'s ``iter_prefetched`` and
+``iter_batches`` (``process_stream``'s per-genome branch serves
+``galah_tpu``'s CPU backends; the port always groups). Reads run on a pool
 of worker threads; the C parser and the standard library's gzip
 release the interpreter lock, so `depth` reads parse at once. Items come back in
 order, an exception surfaces at the failing item's turn, and an
@@ -16,7 +16,8 @@ host arrays, and the caller builds profiles and sketches from them.
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, Sequence, Tuple, TypeVar
+from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple, TypeVar)
 
 T = TypeVar("T")
 
@@ -60,3 +61,31 @@ def iter_prefetched(
                 yield path, fut.result()
         finally:
             _settle(pending)
+
+
+def iter_batches(
+    items: Iterable[Tuple[str, T]],
+    size_fn: Callable[[T], int],
+    budget: int,
+    alone_above: Optional[int] = None,
+) -> Iterator[List[Tuple[str, T]]]:
+    """Cut a (path, item) stream, in order, into lists whose sizes (per
+    `size_fn`) sum to at most `budget`; an item larger than the budget,
+    or than `alone_above`, forms a list of its own. Pulls each item
+    only when it is needed, so a read-ahead below keeps loading while
+    the caller works on a list."""
+    buf: List[Tuple[str, T]] = []
+    total = 0
+    for path, item in items:
+        size = int(size_fn(item))
+        alone = alone_above is not None and size > alone_above
+        if buf and (alone or total + size > budget):
+            yield buf
+            buf, total = [], 0
+        buf.append((path, item))
+        total += size
+        if alone:
+            yield buf
+            buf, total = [], 0
+    if buf:
+        yield buf

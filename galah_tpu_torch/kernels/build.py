@@ -48,6 +48,8 @@ SIGNATURES = {
     "hll_union": ("hll_union_launch", [_P, _P, _I, _I, _I, _I, _P, _P,
                                        _P, _P, _P]),
     "murmur3_k21": ("murmur3_k21_launch", [_P, _P, _L, _L, _L, _P, _P]),
+    "positional_hashes": ("positional_hashes_launch", [_P, _P, _L, _L, _L,
+                                                       _I, _P, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -26,10 +26,12 @@ import numpy as np
 import torch
 
 from galah_tpu_torch.io.fasta import Genome
+from galah_tpu_torch.io.group import iter_groups, load_group
 from galah_tpu_torch.ops import hashing
 from galah_tpu_torch.ops.constants import MARKER_C, SENTINEL_BIASED
 from galah_tpu_torch.ops.u64 import biased_scalar
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.ops import positional_hashes as k15
 from galah_tpu_torch.ops.window_hits import window_element_hits
 
 # markers: hashes below 2^64 / MARKER_C, in the biased domain
@@ -40,6 +42,10 @@ MARKER_CUT_BIASED = biased_scalar((1 << 64) // MARKER_C)
 LAUNCH_ELEM_CAP = 1 << 27
 
 DEFAULT_MIN_WINDOW_VALID_FRAC = 0.5
+
+# bases a profile group: its hashes take 8 B a window on the device, 128
+# MB a group (``galah_tpu``'s ``PROFILE_BATCH_BUDGET``)
+PROFILE_BATCH_BUDGET = 1 << 24
 
 
 @dataclasses.dataclass
@@ -109,14 +115,94 @@ def build_profile(genome: Genome, k: int, fraglen: int, device="cuda",
                   subsample_c: int = 1,
                   hash_algorithm: str = "murmur3") -> GenomeProfile:
     """Profile a genome for fragment ANI, on `device`."""
+    return build_profiles_batch([genome], k, fraglen, device, subsample_c,
+                                hash_algorithm)[0]
+
+
+def build_profiles_batch(genomes: Sequence[Genome], k: int, fraglen: int,
+                         device="cuda", subsample_c: int = 1,
+                         hash_algorithm: str = "murmur3"
+                         ) -> List[GenomeProfile]:
+    """Profiles of `genomes`, in order, on `device`, a group of at most
+    ``PROFILE_BATCH_BUDGET`` bases at a time (``io/group.py``). Each
+    genome's profile depends only on the genome, not on its group."""
     _check_subsample(subsample_c)
-    flat = hashing.positional_hashes(genome, k, resolve_device(device),
-                                     algo=hash_algorithm)
-    ref_set = torch.unique(flat[flat != SENTINEL_BIASED], sorted=True)
-    markers = ref_set[ref_set < MARKER_CUT_BIASED]
-    return GenomeProfile(path=genome.path, k=k, fraglen=fraglen,
-                         flat_hashes=flat, ref_set=ref_set,
-                         markers=markers, subsample_c=subsample_c)
+    device = resolve_device(device)
+    out: List[GenomeProfile] = []
+    for idx in iter_groups(genomes, PROFILE_BATCH_BUDGET):
+        group = [genomes[i] for i in idx]
+        flats = _group_flat_hashes(group, k, device, hash_algorithm)
+        for g, flat, (ref_set, markers) in zip(group, flats,
+                                               _distinct_sets(flats)):
+            out.append(GenomeProfile(path=g.path, k=k, fraglen=fraglen,
+                                     flat_hashes=flat, ref_set=ref_set,
+                                     markers=markers,
+                                     subsample_c=subsample_c))
+    return out
+
+
+def _group_flat_hashes(group: Sequence[Genome], k: int,
+                       device: torch.device, algo: str
+                       ) -> List[torch.Tensor]:
+    """Each genome's positional hashes. At k=15 the group's codes go to
+    the device in one copy and through one launch of
+    ``ops/positional_hashes`` (its kernel on cuda); other k take
+    ``hashing.positional_hashes`` a genome. A genome's hashes are cloned
+    out of the group's, so a profile held in the LRU holds no other
+    genome's hashes."""
+    if k != k15.K:
+        return [hashing.positional_hashes(g, k, device, algo=algo)
+                for g in group]
+    loaded = load_group(group, k, device)
+    hashes = k15.positional_hashes(loaded.codes, loaded.starts, algo=algo)
+    if len(group) == 1:
+        return [hashes]
+    return [hashes[w0:w0 + n].clone() for w0, n in loaded.jobs]
+
+
+def _distinct_sets(flats: Sequence[torch.Tensor]
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(ref_set, markers) of each genome's positional hashes: the sorted
+    distinct valid hashes, and their prefix below the marker cut (biased
+    order is u64 order). Each genome is sorted on the device (the
+    sentinel sorts last) and its first occurrences marked; the group's
+    distinct and marker counts come to the host in one copy, and the
+    sets are then compacted on the device by a scatter."""
+    pending = []
+    sizes = []
+    for flat in flats:
+        if flat.shape[0] == 0:
+            pending.append(None)
+            continue
+        s = torch.sort(flat).values
+        keep = s != SENTINEL_BIASED
+        keep[1:] &= s[1:] != s[:-1]
+        rank = torch.cumsum(keep, 0)
+        below = torch.searchsorted(s, MARKER_CUT_BIASED).reshape(1)
+        # distinct hashes below the cut: the rank just before it
+        n_markers = torch.where(
+            below > 0, rank.index_select(0, (below - 1).clamp(min=0)),
+            torch.zeros_like(below))
+        pending.append((s, keep, rank))
+        sizes.append(torch.cat([rank[-1:], n_markers]))
+    host = (torch.stack(sizes).cpu().tolist() if sizes else [])
+    out = []
+    it = iter(host)
+    for item in pending:
+        if item is None:
+            empty = torch.zeros(0, dtype=torch.int64,
+                                device=flats[0].device)
+            out.append((empty, empty))
+            continue
+        s, keep, rank = item
+        n_distinct, n_markers = next(it)
+        ref = torch.empty(n_distinct + 1, dtype=torch.int64,
+                          device=s.device)
+        # every dropped hash lands in the spare last slot
+        ref.scatter_(0, torch.where(keep, rank - 1, n_distinct), s)
+        ref_set = ref[:n_distinct]
+        out.append((ref_set, ref_set[:n_markers]))
+    return out
 
 
 @dataclasses.dataclass

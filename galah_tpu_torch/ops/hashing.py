@@ -17,13 +17,16 @@ over shifted slices of the chunk's codes.
 ``canonical_key_words`` stops before the hash: it gives each window's
 canonical key as the words the hash reads (``galah_tpu``'s
 ``canonical_kmer_words``). It and ``_key_words`` are the plain preamble
-of the two sketch kernels' plain versions and the route of every other
-k and hash (the k=15 profiles). The kernels themselves read the codes:
-at k=21 with murmur3, ``positional_hashes`` hands the genome's codes to
-``ops/murmur3_k21`` (its kernel on the card).
+of the sketch and profile kernels' plain versions and the route of
+every other k and hash. The kernels themselves read the codes: at k=21
+with murmur3, ``positional_hashes`` hands the genome's codes to
+``ops/murmur3_k21``, and at k=15 to ``ops/positional_hashes`` (their
+kernels on the card).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -173,7 +176,9 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
     holds an ambiguous base or crosses a contig boundary. At k=21 with
     murmur3 the genome's codes go to the device once and each chunk of
     windows to `k21_hash(codes, starts, win0, n_win)`, by default
-    ``ops/murmur3_k21.murmur3_k21`` (its kernel on cuda)."""
+    ``ops/murmur3_k21.murmur3_k21`` (its kernel on cuda); at k=15, with
+    either hash, to ``ops/positional_hashes.positional_hashes`` (its
+    kernel on cuda)."""
     if not 1 <= k <= 31:
         raise ValueError(f"k must be in [1, 31], got {k}")
     device = resolve_device(device)
@@ -181,14 +186,18 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
     if n < k:
         return torch.zeros(0, dtype=torch.int64, device=device)
     n_win = n - k + 1
-    if algo == "murmur3" and k == 21:
-        if k21_hash is None:
-            from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
-            k21_hash = murmur3_k21
+    hash_fn = None
+    if k == 15:
+        from galah_tpu_torch.ops import positional_hashes as k15
+        hash_fn = functools.partial(k15.positional_hashes, algo=algo)
+    elif algo == "murmur3" and k == 21:
+        from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
+        hash_fn = k21_hash or murmur3_k21
+    if hash_fn is not None:
         codes = torch.from_numpy(genome.codes).to(device)
         starts = torch.from_numpy(np.asarray(genome.contig_offsets,
                                              dtype=np.int64)).to(device)
-        parts = [k21_hash(codes, starts, s, min(chunk, n_win - s))
+        parts = [hash_fn(codes, starts, s, min(chunk, n_win - s))
                  for s in range(0, n_win, chunk)]
         return parts[0] if len(parts) == 1 else torch.cat(parts)
     out = torch.empty(n_win, dtype=torch.int64, device=device)

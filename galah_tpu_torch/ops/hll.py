@@ -8,7 +8,8 @@ The dashing-equivalent precluster (reference: src/dashing.rs:33-100):
   whose hash is the all-ones sentinel (invalid windows, and a valid one
   that hashes to all ones, as in ``galah_tpu``) leave the registers
   alone. A launch group's genomes are laid end to end as for the finch
-  sketches (``ops/sketch_stream._concat``), hashed at once (the
+  sketches (``io/group.load_group``: one pinned buffer, one copy to the
+  device), hashed at once (the
   murmur3_k21 kernel on the card), and folded by genome; registers are
   a max over a set, so grouping cannot change them;
 * cardinality: the classic estimate ``alpha_m m^2 / sum 2^-reg`` with
@@ -31,17 +32,18 @@ not ported (ROADMAP: multi-GPU).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome
+from galah_tpu_torch.io.group import host_layout, iter_groups, load_group
 from galah_tpu_torch.ops.compact import iter_blocks
 from galah_tpu_torch.ops.hashing import canonical_key_words, masked_hashes
 from galah_tpu_torch.ops.hll_union import hll_union_stats, pow2_neg
 from galah_tpu_torch.ops.murmur3_k21 import murmur3_k21
-from galah_tpu_torch.ops.sketch_stream import FUSED_BUDGET, _concat
+from galah_tpu_torch.ops.sketch_stream import FUSED_BUDGET
 from galah_tpu_torch.ops.u64 import bias, lsr
 from galah_tpu_torch.timing import StageClock
 
@@ -160,22 +162,16 @@ def hll_sketch_genomes(genomes: Sequence[Genome], p: int = DEFAULT_P,
     device = resolve_device(device)
     regs = torch.zeros(len(genomes), 1 << p, dtype=torch.int32,
                        device=device)
-    groups: List[List[int]] = []
-    size = 0
-    for i, g in enumerate(genomes):
-        n = g.codes.shape[0]
-        if not groups or size + n > FUSED_BUDGET:
-            groups.append([])
-            size = 0
-        groups[-1].append(i)
-        size += n
+    groups = list(iter_groups(genomes, FUSED_BUDGET))
     for group in groups:
-        codes, offsets, jobs = _concat([genomes[i] for i in group], k)
         if algo == "murmur3" and k == 21:
-            hashes = k21_hash(torch.from_numpy(codes).to(device),
-                              torch.from_numpy(offsets).to(device), 0,
-                              max(codes.shape[0] - k + 1, 0))
+            loaded = load_group([genomes[i] for i in group], k, device)
+            jobs = loaded.jobs
+            hashes = k21_hash(loaded.codes, loaded.starts, 0,
+                              max(loaded.codes.shape[0] - k + 1, 0))
         else:
+            codes, offsets, jobs = host_layout(
+                [genomes[i] for i in group], k)
             words, valid = canonical_key_words(codes, offsets, k, device,
                                                algo)
             hashes = masked_hashes(words, valid, k, algo)

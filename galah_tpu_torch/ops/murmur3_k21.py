@@ -61,13 +61,16 @@ def plain_offsets(starts: torch.Tensor, lo: int, n: int) -> np.ndarray:
     return np.concatenate(([0], s[(s > 0) & (s < n)], [n])).astype(np.int64)
 
 
-def _window_range(codes: torch.Tensor, win0: int,
-                  n_win: Optional[int]) -> int:
-    total = max(codes.shape[0] - K + 1, 0)
+def window_range(codes: torch.Tensor, k: int, win0: int,
+                 n_win: Optional[int], what: str) -> int:
+    """The window count of [win0, win0 + n_win) (n_win None: to the
+    end); raise unless the range lies inside the codes' windows of
+    width `k`."""
+    total = max(codes.shape[0] - k + 1, 0)
     if n_win is None:
         n_win = total - win0
     if win0 < 0 or n_win < 0 or win0 + n_win > total:
-        raise ValueError(f"murmur3_k21 windows [{win0}, {win0 + n_win}) lie "
+        raise ValueError(f"{what} windows [{win0}, {win0 + n_win}) lie "
                          f"outside the {total} windows of the codes")
     return n_win
 
@@ -77,7 +80,7 @@ def murmur3_k21(codes: torch.Tensor, starts: torch.Tensor, win0: int = 0,
     """(n_win,) biased int64 hashes of windows [win0, win0 + n_win) of
     `codes` (default: all of them from win0)."""
     check_codes(codes, starts, "murmur3_k21")
-    n_win = _window_range(codes, win0, n_win)
+    n_win = window_range(codes, K, win0, n_win, "murmur3_k21")
     if codes.device.type == "cpu":
         return murmur3_k21_plain(codes, starts, win0, n_win)
     return _launch(codes, starts, win0, n_win)
@@ -91,7 +94,7 @@ def murmur3_k21_plain(codes: torch.Tensor, starts: torch.Tensor,
     check_codes(codes, starts, "murmur3_k21")
     if codes.device.type != "cpu":
         raise ValueError("murmur3_k21_plain takes CPU tensors")
-    n_win = _window_range(codes, win0, n_win)
+    n_win = window_range(codes, K, win0, n_win, "murmur3_k21")
     piece = codes[win0:win0 + n_win + K - 1].numpy()
     words, valid = canonical_key_words(
         piece, plain_offsets(starts, win0, piece.shape[0]), K, "cpu",

@@ -2,9 +2,9 @@
 fused strategy and its streaming stage.
 
 ``sketch_genomes_fused`` sketches a group of genomes with one fused
-launch: the genomes' codes are concatenated on the host (each genome
-start a contig boundary) and copied to the device with their contig
-starts, and the fused kernel (``ops/fused_sketch``) builds each
+launch: the genomes' codes and contig starts (each genome start a
+contig boundary) are laid end to end in the shared pinned group buffer
+and copied to the device at once (``io/group.py``), and the fused kernel (``ops/fused_sketch``) builds each
 window's canonical k-mer (the reference's XLA preamble), hashes it and
 keeps the 8 smallest distinct hashes of each of the 2048 position
 classes of each genome. The post-pass sorts a genome's 16,384
@@ -25,7 +25,7 @@ own windows, so the port groups genomes by a window budget alone.
 ``iter_path_sketches`` yields each unique path's sketch in path order,
 reading FASTA files ahead on ``ingest_depth(threads)`` worker threads
 (``io/prefetch.iter_prefetched``) and sketching them in budget-sized
-groups; sketches enter the store on the consumer thread. The store
+groups (``io/prefetch.iter_batches``); sketches enter the store on the consumer thread. The store
 decides what a sketch is: the finch ``SketchStore`` makes MinHash
 sketches, the dashing ``HLLStore`` HLL registers.
 ``iter_sketch_row_blocks`` turns the finch stream into blocks of
@@ -36,13 +36,14 @@ from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome, read_genome
-from galah_tpu_torch.io.prefetch import ingest_depth, iter_prefetched
+from galah_tpu_torch.io.group import host_layout, iter_groups, load_group
+from galah_tpu_torch.io.prefetch import (ingest_depth, iter_batches,
+                                         iter_prefetched)
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
                                               fused_sketch_candidates)
@@ -70,16 +71,12 @@ ROW_BLOCK = 256
 
 
 def _concat(genomes: Sequence[Genome], k: int):
-    """(codes, contig offsets, jobs) of the genomes laid end to end;
-    job j is genome j's (first window, window count)."""
-    lengths = [g.codes.shape[0] for g in genomes]
-    starts = np.concatenate(([0], np.cumsum(lengths)))
-    codes = np.concatenate([g.codes for g in genomes])
-    offsets = np.concatenate(
-        [np.asarray(g.contig_offsets[:-1], dtype=np.int64) + s
-         for g, s in zip(genomes, starts)] + [starts[-1:]])
-    jobs = [(int(s), max(n - k + 1, 0)) for s, n in zip(starts, lengths)]
-    return codes, offsets, jobs
+    """(codes, contig offsets, jobs) of the genomes laid end to end, as
+    host arrays (``io/group.host_layout``); job j is genome j's (first
+    window, window count). The stream itself loads its groups with
+    ``io/group.load_group``; the CPU tests hold the sketch kernels'
+    plain versions on these arrays."""
+    return host_layout(genomes, k)
 
 
 def certify(cand: torch.Tensor, sketch_size: int
@@ -113,24 +110,19 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
         return sketch_genomes_device_batch(genomes, sketch_size, k, algo,
                                            device)
     out: List[Optional[MinHashSketch]] = [None] * len(genomes)
-    groups: List[List[int]] = []
-    size = 0
+    short = []
     for i, g in enumerate(genomes):
-        n = g.codes.shape[0]
-        if n > DEFAULT_CHUNK:
+        if g.codes.shape[0] > DEFAULT_CHUNK:
             out[i] = sketch_genome_device(g, sketch_size, k, algo, device)
-            continue
-        if not groups or size + n > FUSED_BUDGET:
-            groups.append([])
-            size = 0
-        groups[-1].append(i)
-        size += n
+        else:
+            short.append(i)
+    groups = [[short[j] for j in idx] for idx in iter_groups(
+        [genomes[i] for i in short], FUSED_BUDGET)]
     suspects = 0
     for group in groups:
-        codes, offsets, jobs = _concat([genomes[i] for i in group], k)
-        cand = fused_sketch_candidates(torch.from_numpy(codes).to(device),
-                                       torch.from_numpy(offsets).to(device),
-                                       jobs, k, algo)
+        loaded = load_group([genomes[i] for i in group], k, device)
+        cand = fused_sketch_candidates(loaded.codes, loaded.starts,
+                                       loaded.jobs, k, algo)
         sketch, suspect = certify(cand, sketch_size)
         suspect_host = suspect.cpu().tolist()
         rows = from_biased(sketch)
@@ -153,27 +145,15 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
 def _iter_computed(paths: Sequence[str], store, threads: int
                    ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for `paths` in order, sketched by
-    ``store.sketch_group`` in groups of at most FUSED_BUDGET windows."""
-    batch: List[Tuple[str, Genome]] = []
-    size = 0
-
-    def flush():
-        with store.clock.stage("sketch"):
-            sketches = store.sketch_group([g for _, g in batch])
-        done = [(p, s) for (p, _), s in zip(batch, sketches)]
-        batch.clear()
-        return done
-
+    ``store.sketch_group`` in groups of at most FUSED_BUDGET bases."""
     reads = iter_prefetched(paths, store.clock.timed(read_genome, "read"),
                             depth=ingest_depth(threads))
-    for p, g in store.clock.waits(reads, "read", "genomes-read"):
-        if batch and size + g.codes.shape[0] > FUSED_BUDGET:
-            yield from flush()
-            size = 0
-        batch.append((p, g))
-        size += g.codes.shape[0]
-    if batch:
-        yield from flush()
+    for batch in iter_batches(store.clock.waits(reads, "read",
+                                                "genomes-read"),
+                              lambda g: g.codes.shape[0], FUSED_BUDGET):
+        with store.clock.stage("sketch"):
+            sketches = store.sketch_group([g for _, g in batch])
+        yield from ((p, s) for (p, _), s in zip(batch, sketches))
 
 
 def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
