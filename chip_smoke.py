@@ -54,6 +54,28 @@ Phases, each of which exits nonzero when it fails:
    ``cluster --cluster-method fastani``; the clusters must be the
    planted families, and window_hits and positional_hashes must have
    been launched;
+4g. galah's command line: phase 4's genomes through ``main`` as a user
+   runs it, ``cluster --genome-fasta-list L -q --threads 8`` with all
+   three representative outputs: the TSV must equal phase 4's byte for
+   byte, the list must name the 128 representatives, the symlinks must
+   resolve to their files and the copies equal them; then
+   ``cluster-validate --ani 95 --min-aligned-fraction 15`` on that TSV
+   must find 0 violations, and at least 1 with the first family split
+   in two (each launching positional_hashes and window_hits; the wall of
+   the 8,128 representative pairs is printed);
+4h. dist: all 1024 genomes (from the crossover up: the collision screen
+   and pairlist) and the first 256 (the streamed pass: tile_stats' full
+   form) through ``dist``: every line equal to the plain pair dict's at
+   ``%.6f`` (min ANI 0: every pair with any sketch overlap), all
+   within-family pairs present (1,536 and 384), fused_sketch launched;
+4i. the persistent cache: the first 64 genomes through the skani, finch
+   and dashing (with the CheckM2 report) routes with ``--sketch-cache``
+   in a directory of its own, cold then warm (and once without it): the
+   TSVs equal, the warm runs launch no fused_sketch, murmur3_k21 or
+   positional_hashes and miss nothing; on the skani route one profile
+   entry with a flipped byte is repaired (the same TSV), and a warm
+   profile load, split into its parts, is timed against a read plus a
+   group build (each route's ~2 GB of cache is removed after it);
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -92,9 +114,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import filecmp
+import gc
 import json
+import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -131,6 +157,10 @@ FINCH_MIN_GENOMES = 1024
 # phase 4e's corpus: just under the crossover, so the streamed pair pass
 # runs, in four stripes
 STREAM_GENOMES = 1000
+
+# phase 4i's corpus: the first genomes, with a profile cache entry of
+# ~32 MB a genome, so about 2 GB of cache a route
+CACHE_GENOMES = 64
 
 # host threads of every end-to-end run (--threads): the card's host has 8
 # cores; phase 4e also runs with TWIN_THREADS
@@ -589,6 +619,88 @@ def run_path(torch, cli, reset_launches, launches_now, argv):
     return res, time.perf_counter() - t0, dict(launches_now)
 
 
+def run_call(torch, reset_launches, launches_now, fn):
+    """fn() with every launch count set to 0 just before it and read
+    just after; (its result, wall seconds, launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(launches_now)
+
+
+def run_main(torch, cli, reset_launches, launches_now, argv):
+    """One command line through cli.main, as a user runs it, launch
+    counts as in run_call; the root logger, which main's -q/-v
+    replace, is put back after."""
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        rc, wall, launches = run_call(torch, reset_launches, launches_now,
+                                      lambda: cli.main(argv))
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    if rc != 0:
+        raise PhaseError(f"`{' '.join(argv[:3])} ...` exited {rc}")
+    return wall, launches
+
+
+def check_rep_outputs(tsv: bytes, reps_list, links, copies):
+    """The representative list, symlink directory and copy directory
+    against the cluster TSV's representatives; returns their count."""
+    reps = [ln.split("\t")[0] for ln in tsv.decode().splitlines()
+            if ln.split("\t")[0] == ln.split("\t")[1]]
+    with open(reps_list) as fh:
+        if fh.read().splitlines() != reps:
+            raise PhaseError("the representative list differs from the "
+                             "TSV's representatives")
+    names = sorted(os.path.basename(r) for r in reps)
+    if sorted(os.listdir(links)) != names or \
+            sorted(os.listdir(copies)) != names:
+        raise PhaseError("the representative directories do not hold one "
+                         "file a representative")
+    for r in reps:
+        link = os.path.join(links, os.path.basename(r))
+        if not (os.path.islink(link)
+                and os.path.realpath(link) == os.path.realpath(r)):
+            raise PhaseError(f"{link} does not resolve to {r}")
+        if not filecmp.cmp(os.path.join(copies, os.path.basename(r)), r,
+                           shallow=False):
+            raise PhaseError(f"the copy of {r} differs from it")
+    return len(reps)
+
+
+def split_first_family(tsv: bytes) -> bytes:
+    """The TSV with its first cluster split in two: the third member
+    becomes the representative of the rest."""
+    lines = tsv.decode().splitlines()
+    first = [ln.split("\t")[1] for ln in lines
+             if ln.split("\t")[0] == lines[0].split("\t")[0]]
+    if len(first) < 3:
+        raise PhaseError("the first cluster has fewer than 3 members")
+    rest = lines[len(first):]
+    out = [f"{first[0]}\t{m}" for m in first[:2]]
+    out += [f"{first[2]}\t{m}" for m in first[2:]]
+    return ("\n".join(out + rest) + "\n").encode()
+
+
+def check_dist(tsv_path, genomes, plain):
+    """The dist TSV equals the lines of the plain pair dict, in sorted
+    pair order with ANIs %.6f."""
+    want = "".join(f"{genomes[i]}\t{genomes[j]}\t{plain[(i, j)]:.6f}\n"
+                   for i, j in sorted(plain))
+    with open(tsv_path) as fh:
+        if fh.read() != want:
+            raise PhaseError(f"the dist TSV of {len(genomes)} genomes "
+                             f"differs from the plain pair dict's lines")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
 def check_families(res, label_of, n_genomes, family, tsv, what):
     got = sorted(sorted(label_of[res.genomes[i]] for i in c)
                  for c in res.clusters)
@@ -701,6 +813,258 @@ def require_launched(launches, names, what):
         if launches[name] == 0:
             raise PhaseError(f"kernel {name} was never launched on the "
                              f"{what} path")
+
+
+def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
+               genomes4, tsv4, paths, label_of, n_dense, report, threads,
+               family, device, tag):
+    """Phases 4g-4i: galah's command line over phase 4's genomes
+    (`genomes4`, whose TSV is `tsv4`), dist, and the persistent cache.
+    Returns what the kernel record keeps of them."""
+    from galah_tpu_torch.backends import ProfileStore
+    from galah_tpu_torch.io import diskcache
+    from galah_tpu_torch.io.diskcache import CacheDir
+    from galah_tpu_torch.io.fasta import read_genome
+    from galah_tpu_torch.ops import fragment_ani
+    from galah_tpu_torch.ops.minhash import sketch_matrix
+    from galah_tpu_torch.ops.u64 import to_biased
+
+    dev = device.type
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    # -- phase 4g: galah's command line -------------------------------
+    n_reps = len(genomes4) // family
+    g_dir = os.path.join(root, "cli")
+    os.makedirs(g_dir)
+    g_list = os.path.join(g_dir, "genomes.txt")
+    with open(g_list, "w") as fh:
+        fh.write("".join(p + "\n" for p in genomes4))
+    g_tsv, g_reps, g_links, g_copies = (
+        os.path.join(g_dir, n) for n in ("clusters.tsv", "reps.txt",
+                                         "links", "copies"))
+    wall_g, launches_g = run_main(
+        torch, cli, reset_launches, launches_now,
+        ["cluster", "--genome-fasta-list", g_list, "-q", *threads,
+         "--ani", "95", "--device", dev,
+         "--output-cluster-definition", g_tsv,
+         "--output-representative-list", g_reps,
+         "--output-representative-fasta-directory", g_links,
+         "--output-representative-fasta-directory-copy", g_copies])
+    with open(g_tsv, "rb") as fh:
+        if fh.read() != tsv4:
+            raise PhaseError("galah cli: the TSV of the "
+                             "--genome-fasta-list run differs from "
+                             "phase 4's")
+    if check_rep_outputs(tsv4, g_reps, g_links, g_copies) != n_reps:
+        raise PhaseError(f"galah cli: not {n_reps} representatives")
+    require_launched(launches_g, ("window_hits", "tile_stats",
+                                  "positional_hashes"), "galah cli")
+    print(f"galah cli: cluster --genome-fasta-list -q over phase 4's "
+          f"{len(genomes4)} genomes: TSV byte-identical to phase 4's; "
+          f"{n_reps} representatives listed, symlinked (each resolves "
+          f"to its file) and copied (bytes equal); wall {wall_g:.2f} s "
+          f"{tag}")
+    for name in kernels:
+        print(f"galah cli launches {name}: {launches_g[name]} {tag}")
+    split_tsv = os.path.join(g_dir, "split.tsv")
+    with open(split_tsv, "wb") as fh:
+        fh.write(split_first_family(tsv4))
+    validations = {}
+    for what, tsv in (("validate", g_tsv), ("validate split", split_tsv)):
+        v_args = cli.parse_args(
+            ["cluster-validate", "--cluster-file", tsv, "--ani", "95",
+             "--min-aligned-fraction", "15", "--device", dev,
+             *threads])
+        val, wall_v, launches_v = run_call(
+            torch, reset_launches, launches_now,
+            lambda: cli.run_cluster_validate(v_args))
+        require_launched(launches_v, ("positional_hashes",
+                                      "window_hits"), f"galah cli {what}")
+        validations[what] = (val, wall_v, launches_v)
+        print(f"galah cli {what}: {val.clusters} clusters, "
+              f"{val.member_pairs} member pairs in "
+              f"{val.member_seconds:.2f} s, {val.rep_pairs} "
+              f"representative pairs in {val.rep_seconds:.2f} s, "
+              f"{val.violations} violation(s); wall {wall_v:.2f} s "
+              f"{tag}")
+        for name in kernels:
+            print(f"galah cli {what} launches {name}: "
+                  f"{launches_v[name]} {tag}")
+    if validations["validate"][0].violations != 0:
+        raise PhaseError("cluster-validate finds violations in phase "
+                         "4's clusters")
+    if validations["validate split"][0].violations < 1:
+        raise PhaseError("cluster-validate finds no violation in a "
+                         "split family")
+    shutil.rmtree(g_dir)
+
+    # -- phase 4h: dist --------------------------------------------------
+    dist_runs = {}
+    for what, sub, route in (
+            ("dist sparse", paths, "pairlist"),
+            ("dist dense", paths[:n_dense], "tile_stats")):
+        if len(sub) < FINCH_MIN_GENOMES and route == "pairlist":
+            print(f"dist cut: {len(sub)} genomes stay below the "
+                  f"crossover {tag}")
+            route = "tile_stats"
+        d_tsv = os.path.join(root, "dist.tsv")
+        d_argv = cli.parse_args(["dist", "-f", *sub, "--device", dev,
+                                 *threads, "--output", d_tsv])
+        dres, wall_x, launches_x = run_call(
+            torch, reset_launches, launches_now, lambda: cli.run_dist(d_argv))
+        require_launched(launches_x, ("fused_sketch", route), what)
+        dmat = sketch_matrix([dres.store.get_cached(p) for p in sub],
+                             1000, device)
+        plain_x = plain_pair_dict(torch, dmat, 21, 0.0, 1000)
+        check_dist(d_tsv, sub, plain_x)
+        lab = [label_of[p] for p in sub]
+        within = sum(lab[i] == lab[j] for i, j in dres.pairs)
+        want_within = len(sub) // family * family * (family - 1) // 2
+        if within != want_within:
+            raise PhaseError(f"{what}: {within} within-family pairs, "
+                             f"not {want_within}")
+        del dmat
+        dist_runs[what] = launches_x
+        print(f"{what}: {len(sub)} genomes, {len(dres.pairs)} pairs with "
+              f"any sketch overlap ({within} within families, all), "
+              f"every line equal to the plain pair dict's at %.6f; "
+              f"wall {wall_x:.2f} s {tag}")
+        print_run(what, dres, launches_x, kernels, tag)
+    os.remove(d_tsv)
+
+    # -- phase 4i: the persistent sketch/profile cache -------------------
+    from galah_tpu_torch.backends import ProfileStore
+    from galah_tpu_torch.io.diskcache import CacheDir
+    from galah_tpu_torch.ops import fragment_ani
+
+    c_paths = paths[:CACHE_GENOMES]
+    cache_runs = {}
+    for route, flags in (
+            ("skani", []),
+            ("finch", ["--precluster-method", "finch"]),
+            ("dashing", ["--precluster-method", "dashing",
+                         "--checkm2-quality-report", report])):
+        cdir = os.path.join(root, f"cache_{route}")
+        tsvs = {}
+        # "uncached": the same run without the cache, for its wall
+        for run in ("uncached", "cold", "warm", "repaired"):
+            if run == "repaired":
+                if route != "skani":
+                    continue
+                entry = os.path.join(cdir, sorted(
+                    n for n in os.listdir(cdir)
+                    if n.startswith("profile-"))[0])
+                with open(entry, "r+b") as fh:
+                    fh.seek(os.path.getsize(entry) // 2)
+                    byte = fh.read(1)
+                    fh.seek(-1, 1)
+                    fh.write(bytes([byte[0] ^ 0xFF]))
+            tsvs[run] = os.path.join(root, f"cache_{route}_{run}.tsv")
+            r, wall_c, launches_c = run_path(
+                torch, cli, reset_launches, launches_now,
+                ["cluster", "-f", *c_paths, *flags, "--ani", "95",
+                 "--device", dev, *threads,
+                 *([] if run == "uncached" else ["--sketch-cache", cdir]),
+                 "--output-cluster-definition", tsvs[run]])
+            check_families(r, label_of, len(c_paths), family, tsvs[run],
+                           f"cache {route} {run}")
+            cache_runs[f"{route} {run}"] = launches_c
+            counts = r.clock.counts
+            print(f"cache {route} {run}: wall {wall_c:.2f} s, "
+                  f"cache-hits {counts['cache-hits']}, cache-misses "
+                  f"{counts['cache-misses']}, cache-repaired "
+                  f"{counts['cache-repaired']}, cache-bytes-read "
+                  f"{counts['cache-bytes-read']}, cache-bytes-written "
+                  f"{counts['cache-bytes-written']} {tag}")
+            print_run(f"cache {route} {run}", r, launches_c, kernels, tag)
+            with open(tsvs[run], "rb") as fa, \
+                    open(tsvs["uncached"], "rb") as fb:
+                if fa.read() != fb.read():
+                    raise PhaseError(f"cache {route}: the {run} TSV "
+                                     f"differs from the uncached one")
+            if run == "warm":
+                for name in ("fused_sketch", "murmur3_k21",
+                             "positional_hashes"):
+                    if launches_c[name]:
+                        raise PhaseError(
+                            f"cache {route} warm: {name} launched "
+                            f"{launches_c[name]} times")
+                require_counts(counts, {"cache-misses": 0,
+                                        "genomes-read": 0},
+                               f"cache {route} warm")
+            if run == "repaired":
+                require_counts(counts, {"cache-repaired": 1,
+                                        "cache-misses": 1},
+                               f"cache {route} repaired")
+                require_launched(launches_c, ("positional_hashes",),
+                                 f"cache {route} repaired")
+        print(f"cache {route}: {len(c_paths)} genomes, TSVs uncached = "
+              f"cold = warm"
+              f"{' = repaired' if route == 'skani' else ''}, cache "
+              f"{dir_bytes(cdir)} bytes in {len(os.listdir(cdir))} "
+              f"entries {tag}")
+        if route == "skani":
+            # a warm profile load (read, checksum, upload) against a
+            # read plus a group build, per genome
+            warm_cache = CacheDir(cdir)
+            few = c_paths[:8]
+            load_ms = host_ms(torch, lambda: (
+                ProfileStore(device, cache=warm_cache).get_many(few),
+                sync()), 3) / len(few)
+            entry_mb = dir_bytes(cdir) / len(os.listdir(cdir)) / 1e6
+            read_ms = host_ms(torch, lambda: [read_genome(p)
+                                              for p in few], 3) / len(few)
+            fgroup = [read_genome(p) for p in few]
+            build_ms = host_ms(
+                torch, lambda: (fragment_ani.build_profiles_batch(
+                    fgroup, 15, 3000, device),
+                    sync()), 5) / len(few)
+            # the warm load's parts: the npz read (zipfile checks its
+            # CRC-32), the entry's content crc32, the bias and upload
+            ents = [warm_cache.entry_path(p, "profile",
+                                          {"k": 15, "fraglen": 3000})
+                    for p in few]
+
+            def load_arrays():
+                out = []
+                for f in ents:
+                    with np.load(f) as z:
+                        out.append({n: z[n] for n in z.files})
+                return out
+
+            npz_ms = host_ms(torch, load_arrays, 3) / len(few)
+            arrays = load_arrays()
+            crc_ms = host_ms(torch, lambda: [diskcache._content_crc(
+                {n: a for n, a in e.items() if n != "__check__"})
+                for e in arrays], 3) / len(few)
+            up_ms = host_ms(torch, lambda: (
+                [to_biased(e[n], device) for e in arrays
+                 for n in ("flat_hashes", "ref_set", "markers")],
+                sync()), 3) / len(few)
+            del arrays
+            print(f"cache profile load split: npz read {npz_ms:.3f} ms, "
+                  f"content crc32 {crc_ms:.3f} ms, bias and upload "
+                  f"{up_ms:.3f} ms a genome {tag}")
+            print(f"cache profile entry: {entry_mb:.1f} MB a genome; "
+                  f"warm load {load_ms:.3f} ms a genome (read, "
+                  f"checksum, upload; host clock, median of 3 over "
+                  f"{len(few)} genomes); cold read {read_ms:.3f} ms + "
+                  f"group build {build_ms:.3f} ms a genome (a group of "
+                  f"{len(few)}) {tag}")
+            cache_profile = {"entry_mb": entry_mb, "load_ms": load_ms,
+                             "read_ms": read_ms, "build_ms": build_ms,
+                             "load_split_ms": {"npz_read": npz_ms,
+                                               "content_crc": crc_ms,
+                                               "bias_upload": up_ms}}
+            del warm_cache, fgroup
+        shutil.rmtree(cdir)
+
+    return {"launches_g": launches_g, "validations": validations,
+            "dist_runs": dist_runs, "cache_runs": cache_runs,
+            "cache_profile": cache_profile}
 
 
 def main(argv=None) -> int:
@@ -1098,6 +1462,8 @@ def main(argv=None) -> int:
             print(f"launches {name}: {launches[name]} {tag}")
         require_launched(launches, ("window_hits", "tile_stats",
                                     "positional_hashes"), "skani")
+        with open(out_tsv, "rb") as fh:
+            tsv4 = fh.read()
 
         # -- phase 4b: end to end, finch at scale -------------------------
         finch = ["--precluster-method", "finch", "--cluster-method",
@@ -1262,6 +1628,22 @@ def main(argv=None) -> int:
               f"{len(res_a.clusters)} clusters == {n_fam} planted "
               f"families, wall {wall_a:.2f} s {tag}")
         print_run("fastani", res_a, launches_a, KERNELS, tag)
+
+        # -- phases 4g-4i: galah's command line, dist, the cache -----------
+        # each run's profile store holds up to 128 profiles (~60 MB a
+        # genome with its sorted queries); the later phases read only
+        # phase 4's, so the others are let go before more runs start
+        for r in (res_f, res_d, res_h, res_e, res_t, res_a):
+            r.store = None
+        res_a.preclusterer = None  # the skani precluster shares its store
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"device memory before phase 4g: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"{tag}")
+        cli_out = phases_cli(torch, cli, reset_launches, LAUNCHES, KERNELS,
+                             root, res.genomes, tsv4, paths, label_of,
+                             n_dense, report, threads, family, device, tag)
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -1903,7 +2285,16 @@ def main(argv=None) -> int:
         "fasta_parser": {"route": "c",
                          "source": "galah_tpu_torch/csrc/ingest.c",
                          "files": parser["files"], "c_ms": parser["c_ms"],
-                         "plain_ms": parser["plain_ms"]}}
+                         "plain_ms": parser["plain_ms"]},
+        "launches_phases_4g_4i": {
+            "cli cluster": cli_out["launches_g"],
+            **{f"cli {w}": v[2] for w, v in cli_out["validations"].items()},
+            **cli_out["dist_runs"],
+            **{f"cache {w}": v for w, v in cli_out["cache_runs"].items()}},
+        "cache_profile": cli_out["cache_profile"],
+        "validate_rep_pairs": {
+            "pairs": cli_out["validations"]["validate"][0].rep_pairs,
+            "seconds": cli_out["validations"]["validate"][0].rep_seconds}}
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")
     print(json.dumps(record))

@@ -14,8 +14,11 @@ Profiles are built once per genome and held in an in-memory LRU
 ``ingest_depth(threads)`` worker threads
 (``io/prefetch.iter_prefetched``) and profiled a group at a time
 (``io/prefetch.iter_batches``, ``ops/fragment_ani.build_profiles_batch``)
-on the calling thread, the only one that touches CUDA.
-``galah_tpu``'s disk-cache probe is not ported (ROADMAP).
+on the calling thread, the only one that touches CUDA. With a disk
+cache (``io/diskcache.py``, ``--sketch-cache``) the profile arrays also
+persist across runs, as ``galah_tpu``'s entries of kind ``profile``: a
+cached genome is loaded onto the device instead of being read and
+profiled.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ import torch
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io import diskcache, group
 from galah_tpu_torch.io.fasta import read_genome
-from galah_tpu_torch.io import group
 from galah_tpu_torch.io.prefetch import (ingest_depth, iter_batches,
                                          iter_prefetched)
 from galah_tpu_torch.ops import fragment_ani
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
 from galah_tpu_torch.ops.pairwise import screen_pairs
+from galah_tpu_torch.ops.u64 import from_biased, to_biased
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -47,14 +51,17 @@ ANI_KMER = 15
 
 
 class ProfileStore:
-    """LRU cache: genome path -> GenomeProfile on `device`."""
+    """LRU cache: genome path -> GenomeProfile on `device`, over an
+    optional disk cache (`cache`; by default the one
+    ``GALAH_TPU_CACHE`` names, if any)."""
 
     def __init__(self, device="cuda", k: int = ANI_KMER,
                  fraglen: int = Defaults.FRAGMENT_LENGTH,
                  maxsize: int = 128,
                  clock: Optional[StageClock] = None,
                  hash_algorithm: str = Defaults.HASH_ALGO,
-                 threads: int = 1) -> None:
+                 threads: int = 1,
+                 cache: Optional[diskcache.CacheDir] = None) -> None:
         self.device = resolve_device(device)
         self.threads = max(1, int(threads))
         self.k = k
@@ -62,6 +69,7 @@ class ProfileStore:
         self.hash_algorithm = hash_algorithm
         self.maxsize = maxsize
         self.clock = clock or StageClock(self.device)
+        self.disk = cache or diskcache.get_cache(clock=self.clock)
         self._cache: "collections.OrderedDict[str, GenomeProfile]" = (
             collections.OrderedDict())
 
@@ -83,11 +91,39 @@ class ProfileStore:
         if len(self._cache) > self.maxsize:
             self._cache.popitem(last=False)
 
+    def _params(self) -> dict:
+        # galah_tpu keys only non-default knobs, so its default-path
+        # entries keep their names (subsample_c is always 1 here)
+        p = {"k": self.k, "fraglen": self.fraglen}
+        if self.hash_algorithm != "murmur3":
+            p["hash_algorithm"] = self.hash_algorithm
+        return p
+
+    def _load_disk(self, path: str) -> Optional[GenomeProfile]:
+        entry = self.disk.load(path, "profile", self._params())
+        if entry is None:
+            return None
+        return GenomeProfile(
+            path=path, k=self.k, fraglen=self.fraglen,
+            flat_hashes=to_biased(entry["flat_hashes"], self.device),
+            ref_set=to_biased(entry["ref_set"], self.device),
+            markers=to_biased(entry["markers"], self.device))
+
+    def _store_disk(self, path: str, prof: GenomeProfile) -> None:
+        self.disk.store(path, "profile", self._params(), {
+            "flat_hashes": from_biased(prof.flat_hashes),
+            "ref_set": from_biased(prof.ref_set),
+            "markers": from_biased(prof.markers),
+        })
+
     def get_many(self, paths: Sequence[str]) -> List[GenomeProfile]:
-        """Profiles of `paths`; misses are read ahead and profiled in
-        path order, a group at a time. The `read` stage is the
+        """Profiles of `paths`; those neither in memory nor in the disk
+        cache are read ahead and profiled in path order, a group at a
+        time, and stored to the disk cache. The `read` stage is the
         consumer's wait for a read, ``work_seconds["read"]`` the
-        workers' reading time, the `profile` stage each group's build."""
+        workers' reading time, the `profile` stage each group's build,
+        `cache-read` and `cache-write` the disk cache's loads and
+        stores."""
         by_path = {}
         misses = []
         for p in dict.fromkeys(paths):
@@ -97,6 +133,16 @@ class ProfileStore:
                 by_path[p] = prof
             else:
                 misses.append(p)
+        if self.disk.enabled and misses:
+            unheld, misses = misses, []
+            with self.clock.stage("cache-read"):
+                for p in unheld:
+                    prof = self._load_disk(p)
+                    if prof is None:
+                        misses.append(p)
+                    else:
+                        self._insert(p, prof)
+                        by_path[p] = prof
         reads = self.clock.waits(
             iter_prefetched(misses, self.clock.timed(read_genome, "read"),
                             depth=ingest_depth(self.threads)),
@@ -114,6 +160,10 @@ class ProfileStore:
             # the per-genome route
             self.clock.count("profile-batched-genomes", sum(
                 g.codes.shape[0] <= group.ALONE_ABOVE for g in genomes))
+            if self.disk.enabled:
+                with self.clock.stage("cache-write"):
+                    for (p, _), prof in zip(batch, profs):
+                        self._store_disk(p, prof)
             for (p, _), prof in zip(batch, profs):
                 self._insert(p, prof)
                 by_path[p] = prof

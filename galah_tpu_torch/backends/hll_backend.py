@@ -7,11 +7,12 @@ registers are built on the device (``ops/hll.hll_sketch_genomes``, the
 murmur3_k21 kernel hashing on the card), held in memory by an
 ``HLLStore``, and the upper triangle is thresholded on the device
 (``ops/hll.hll_threshold_pairs``, the hll_union kernel); only the
-passing pairs reach the host. Reading goes through the streaming stage
+passing pairs reach the host. With a disk cache (``--sketch-cache``)
+the registers persist as ``galah_tpu``'s entries of kind ``hll``.
+Reading goes through the streaming stage
 of the finch sketches (``ops/sketch_stream.iter_path_sketches``,
-``ingest_depth(threads)`` reads in flight). ``galah_tpu``'s disk
-cache, multi-host sketching and resilient dispatch are not ported
-(ROADMAP).
+``ingest_depth(threads)`` reads in flight). ``galah_tpu``'s
+multi-host sketching and resilient dispatch are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io import diskcache
 from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops.hll import (DEFAULT_P, hll_sketch_genomes,
                                      hll_threshold_pairs)
@@ -35,23 +37,47 @@ logger = logging.getLogger(__name__)
 
 class HLLStore:
     """Per-run cache: genome path -> (2^p,) uint8 registers on the
-    device, held in memory."""
+    device, held in memory, over an optional disk cache (`cache`; by
+    default the one ``GALAH_TPU_CACHE`` names, if any)."""
 
     def __init__(self, device="cuda", p: int = DEFAULT_P,
                  k: int = Defaults.MINHASH_KMER,
                  algo: str = Defaults.HASH_ALGO,
-                 clock: Optional[StageClock] = None) -> None:
+                 clock: Optional[StageClock] = None,
+                 cache: Optional[diskcache.CacheDir] = None) -> None:
         self.device = resolve_device(device)
         self.p = p
         self.k = k
         self.algo = algo
         self.clock = clock or StageClock(self.device)
+        self.cache = cache or diskcache.get_cache(clock=self.clock)
         self._regs: Dict[str, torch.Tensor] = {}
 
+    def _params(self) -> dict:
+        # galah_tpu's names: the seed is the finch contract's, fixed here
+        return {"p": self.p, "k": self.k, "seed": Defaults.MINHASH_SEED,
+                "algo": self.algo}
+
     def get_cached(self, path: str) -> Optional[torch.Tensor]:
-        return self._regs.get(path)
+        """The registers from memory or the disk cache (no FASTA
+        read)."""
+        regs = self._regs.get(path)
+        if regs is not None:
+            return regs
+        entry = self.cache.load(path, "hll", self._params())
+        if entry is None:
+            return None
+        regs = torch.from_numpy(entry["regs"]).to(self.device)
+        self._regs[path] = regs
+        return regs
 
     def insert(self, path: str, regs: torch.Tensor) -> torch.Tensor:
+        """Hold computed registers, and store them to the disk cache
+        (stage `cache-write`)."""
+        if self.cache.enabled:
+            with self.clock.stage("cache-write"):
+                self.cache.store(path, "hll", self._params(),
+                                 {"regs": regs.cpu().numpy()})
         self._regs[path] = regs
         return regs
 

@@ -5,7 +5,9 @@ Semantics of the reference's FinchPreclusterer (reference:
 src/finch.rs:4-73): sketch every genome (bottom-k 1000, k=21, seed 0),
 all-pairs Mash ANI, keep the pairs at or above the threshold. Sketches
 come from the streaming fused sketcher (``ops/sketch_stream``) and are
-held in memory by a ``SketchStore``. Below the sparse crossover, with
+held in memory by a ``SketchStore`` and, with a disk cache
+(``--sketch-cache``), persisted as ``galah_tpu``'s entries of kind
+``minhash``. Below the sparse crossover, with
 unique paths, the all-pairs pass is streamed: it takes the sketch rows
 in blocks, one stripe at a time, while later genomes are still read
 and sketched (``ops/pairwise.threshold_pairs_streamed``). Otherwise the
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.io import diskcache
 from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops import collision, sketch_stream
 from galah_tpu_torch.ops.minhash import sketch_matrix
@@ -36,24 +39,49 @@ logger = logging.getLogger(__name__)
 
 
 class SketchStore:
-    """Per-run cache: genome path -> MinHash sketch, held in memory."""
+    """Per-run cache: genome path -> MinHash sketch, held in memory,
+    over an optional disk cache (`cache`; by default the one
+    ``GALAH_TPU_CACHE`` names, if any)."""
 
     def __init__(self, device="cuda",
                  sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
                  k: int = Defaults.MINHASH_KMER,
                  algo: str = Defaults.HASH_ALGO,
-                 clock: Optional[StageClock] = None) -> None:
+                 clock: Optional[StageClock] = None,
+                 cache: Optional[diskcache.CacheDir] = None) -> None:
         self.device = resolve_device(device)
         self.sketch_size = sketch_size
         self.k = k
         self.algo = algo
         self.clock = clock or StageClock(self.device)
+        self.cache = cache or diskcache.get_cache(clock=self.clock)
         self._sketches: Dict[str, MinHashSketch] = {}
 
+    def _params(self) -> dict:
+        # galah_tpu's names: the seed is the finch contract's, fixed here
+        return {"sketch_size": self.sketch_size, "k": self.k,
+                "seed": Defaults.MINHASH_SEED, "algo": self.algo}
+
     def get_cached(self, path: str) -> Optional[MinHashSketch]:
-        return self._sketches.get(path)
+        """The sketch from memory or the disk cache (no FASTA read)."""
+        s = self._sketches.get(path)
+        if s is not None:
+            return s
+        entry = self.cache.load(path, "minhash", self._params())
+        if entry is None:
+            return None
+        s = MinHashSketch(hashes=entry["hashes"],
+                          sketch_size=self.sketch_size, kmer=self.k)
+        self._sketches[path] = s
+        return s
 
     def insert(self, path: str, s: MinHashSketch) -> MinHashSketch:
+        """Hold a computed sketch, and store it to the disk cache (stage
+        `cache-write`)."""
+        if self.cache.enabled:
+            with self.clock.stage("cache-write"):
+                self.cache.store(path, "minhash", self._params(),
+                                 {"hashes": s.hashes})
         self._sketches[path] = s
         return s
 

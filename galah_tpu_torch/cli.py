@@ -1,15 +1,25 @@
-"""``python -m galah_tpu_torch cluster``: the port's command line.
+"""``python -m galah_tpu_torch``: the port's command line.
 
-The port's subset of ``galah-tpu cluster``: genome inputs (-f, -d,
--x), the thresholds, the skani, finch or dashing precluster with the
-skani or fastani clusterer, the hash algorithm, quality ordering (a
-CheckM1 table, a CheckM2 report or a genomeInfo CSV, the formula and
-the completeness and contamination filters), the cluster definition
-TSV, the host threads that read genomes ahead (``--threads``), and the
-device. Defaults and help are those of
-``galah-tpu cluster``, and percentages parse as there. A flag of the
-``galah-tpu cluster`` command line that this slice does not support is
-an error that names it; no flag is silently ignored.
+Three subcommands of ``galah-tpu``, with its defaults, help strings and
+output formats:
+
+* ``cluster``: genome inputs (-f, --genome-fasta-list, -d, -x), the
+  thresholds, the skani, finch or dashing precluster with the skani or
+  fastani clusterer, the hash algorithm, quality ordering (a CheckM1
+  table, a CheckM2 report or a genomeInfo CSV, the formula and the
+  completeness and contamination filters), the cluster definition TSV,
+  the representative directories (symlinks or copies) and list, the
+  persistent sketch/profile cache (``--sketch-cache``), and the host
+  threads that read genomes ahead (``--threads``);
+* ``cluster-validate``: re-check a cluster definition with exact ANI;
+* ``dist``: all-pairs MinHash ANI as a TSV.
+
+Each takes ``-v``/``-q``, ``--full-help``, ``--full-help-roff`` and
+the device (``--device``, cuda unless the CPU is asked for).
+Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
+line that the port does not support yet is an error that names it; no
+flag is silently ignored. A user error (a bad value, a missing file)
+exits 1 with a one-line message.
 """
 
 from __future__ import annotations
@@ -17,9 +27,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-import os
 import sys
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch import __version__
 from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
@@ -28,17 +37,56 @@ from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
 
 logger = logging.getLogger("galah_tpu_torch")
 
-# flags of `galah-tpu cluster` that this port does not support yet
+# flags of `galah-tpu`'s subcommands that this port does not support yet
 UNSUPPORTED_FLAGS = (
-    "--genome-fasta-list",
     "--ani-subsample", "--rep-scan-window", "--rep-rounds",
-    "--on-bad-genome", "--sketch-cache", "--profile-trace-dir",
-    "--trace-events", "--run-report", "--checkpoint-dir", "--resume",
-    "--output-representative-fasta-directory",
-    "--output-representative-fasta-directory-copy",
-    "--output-representative-list", "--platform", "--full-help",
-    "--full-help-roff", "-v", "--verbose", "-q", "--quiet",
+    "--on-bad-genome", "--profile-trace-dir", "--trace-events",
+    "--run-report", "--checkpoint-dir", "--resume", "--platform",
 )
+
+
+def set_log_level(verbose: bool = False, quiet: bool = False) -> None:
+    """-v logs DEBUG, -q only errors, else INFO; replaces the root
+    handlers (``galah_tpu/utils/logging.py``; reference:
+    bird_tool_utils::clap_utils::set_log_level)."""
+    level = logging.INFO
+    if verbose:
+        level = logging.DEBUG
+    if quiet:
+        level = logging.ERROR
+    logging.basicConfig(
+        level=level,
+        format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
+        datefmt="%Y-%m-%dT%H:%M:%S",
+        force=True,
+    )
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Print extra debugging information")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="Unless there is an error, do not print log messages")
+    p.add_argument("--full-help", action="store_true",
+                   help="Display an extended man-style help page and exit")
+    p.add_argument("--full-help-roff", action="store_true",
+                   help="Print the extended help as raw roff man source "
+                        "and exit (pipe through `man -l -`)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="Device to run on (default: cuda; asking for "
+                        "cuda without a GPU is an error)")
+
+
+def _add_genome_inputs(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-f", "--genome-fasta-files", nargs="+",
+                   help="Path(s) to FASTA files of each genome")
+    p.add_argument("--genome-fasta-list",
+                   help="File containing FASTA file paths, one per line")
+    p.add_argument("-d", "--genome-fasta-directory",
+                   help="Directory containing FASTA files of each genome")
+    p.add_argument("-x", "--genome-fasta-extension", default="fna",
+                   help="File extension of genomes in the directory "
+                        "(default: fna)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,13 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Cluster genomes by ANI, choosing representatives",
         description="Cluster genomes by average nucleotide identity, "
                     "choosing one representative per cluster")
-    c.add_argument("-f", "--genome-fasta-files", nargs="+",
-                   help="Path(s) to FASTA files of each genome")
-    c.add_argument("-d", "--genome-fasta-directory",
-                   help="Directory containing FASTA files of each genome")
-    c.add_argument("-x", "--genome-fasta-extension", default="fna",
-                   help="File extension of genomes in the directory "
-                        "(default: fna)")
+    _add_common(c)
+    _add_genome_inputs(c)
     c.add_argument("--ani", type=float, default=Defaults.ANI,
                    help="ANI threshold for clustering (default: 95)")
     c.add_argument("--precluster-ani", type=float,
@@ -108,44 +151,105 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Host threads for FASTA stats/IO fan-out "
                         "and CPU-backend native sketching/profiling; "
                         "device parallelism is managed by the mesh")
+    c.add_argument("--sketch-cache",
+                   help="Directory for the persistent sketch/profile "
+                        "cache (also via GALAH_TPU_CACHE); sketches are "
+                        "reused across runs when genome files are "
+                        "unchanged")
     c.add_argument("--output-cluster-definition",
                    help="Output file of rep<TAB>member lines")
-    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="Device to run on (default: cuda; asking for "
-                        "cuda without a GPU is an error)")
+    c.add_argument("--output-representative-fasta-directory",
+                   help="Symlink representative genomes into this directory")
+    c.add_argument("--output-representative-fasta-directory-copy",
+                   help="Copy representative genomes into this directory")
+    c.add_argument("--output-representative-list",
+                   help="Output file with one representative path per line")
+
+    v = sub.add_parser(
+        "cluster-validate", help="Verify clustering results",
+        description="Re-check a cluster output file: every member must "
+                    "reach the ANI threshold to its representative, and "
+                    "no two representatives may reach it to each other")
+    _add_common(v)
+    v.add_argument("--cluster-file",
+                   help="Output of 'cluster' subcommand (required)")
+    v.add_argument("--ani", type=float, default=99.0,
+                   help="ANI to validate against (default: 99)")
+    v.add_argument("--min-aligned-fraction", type=float, default=50.0,
+                   help="Min aligned fraction of two genomes "
+                        "(default: 50)")
+    v.add_argument("--fragment-length", type=int,
+                   default=Defaults.FRAGMENT_LENGTH,
+                   help="Length of fragment used in fastANI-style "
+                        "calculation (default: 3000)")
+    v.add_argument("--ani-subsample", type=int, default=1,
+                   help="FracMinHash compression of the exact ANI "
+                        "re-check (see `cluster --full-help`; "
+                        "default: 1)")
+    v.add_argument("--hash-algorithm", default=Defaults.HASH_ALGO,
+                   choices=sorted(HASH_ALGORITHMS),
+                   help="k-mer hash for the validation profiles — use "
+                        "the same value the clustering ran with so "
+                        "near-threshold pairs score identically "
+                        "(default: murmur3)")
+    v.add_argument("--threads", "-t", type=int, default=1)
+
+    dd = sub.add_parser(
+        "dist",
+        help="Calculate pairwise MinHash ANI between a set of genomes",
+        description="All-pairs sketch-based ANI as a TSV — the "
+                    "reference carries this subcommand disabled "
+                    "(reference: src/main.rs:88-114); here the pair "
+                    "matrix is one tiled device computation")
+    _add_common(dd)
+    _add_genome_inputs(dd)
+    dd.add_argument("--num-hashes", type=int,
+                    default=Defaults.MINHASH_SKETCH_SIZE,
+                    help="MinHash sketch size (default: 1000)")
+    dd.add_argument("--kmer-length", type=int,
+                    default=Defaults.MINHASH_KMER,
+                    help="k-mer length (default: 21)")
+    dd.add_argument("--hash-algorithm", default=Defaults.HASH_ALGO,
+                    choices=HASH_ALGORITHMS,
+                    help="Sketch hash (default: murmur3)")
+    dd.add_argument("--min-ani", type=float, default=0.0,
+                    help="Only report pairs at or above this ANI "
+                         "(percent or fraction; default: report every "
+                         "pair with any sketch overlap)")
+    dd.add_argument("--output", help="Output TSV (default: stdout)")
+    dd.add_argument("--sketch-cache",
+                    help="Directory for the persistent sketch cache "
+                         "(also via GALAH_TPU_CACHE)")
+    dd.add_argument("--threads", "-t", type=int, default=1)
+    parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
+                                 "dist": dd}
     return parser
 
 
-def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
-    parser = build_parser()
+def parse_args(argv: Optional[Sequence[str]],
+               parser: Optional[argparse.ArgumentParser] = None
+               ) -> argparse.Namespace:
+    parser = parser or build_parser()
     args, unknown = parser.parse_known_args(argv)
     for tok in unknown:
         flag = tok.split("=", 1)[0]
         if flag in UNSUPPORTED_FLAGS:
-            parser.error(f"{flag}: this flag of `galah-tpu cluster` is "
-                         "not supported by galah_tpu_torch yet")
+            parser.error(f"{flag}: this flag of `galah-tpu "
+                         f"{args.subcommand}` is not supported by "
+                         "galah_tpu_torch yet")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     return args
 
 
-def genome_paths(args: argparse.Namespace) -> List[str]:
-    """-f files, then the -d directory's entries with the extension,
-    sorted (the order ``galah_tpu/genome_inputs.py`` gives)."""
-    out: List[str] = list(args.genome_fasta_files or [])
-    if args.genome_fasta_directory:
-        suffix = "." + args.genome_fasta_extension.lstrip(".")
-        out.extend(os.path.join(args.genome_fasta_directory, e)
-                   for e in sorted(os.listdir(args.genome_fasta_directory))
-                   if e.endswith(suffix))
-    if not out:
-        raise ValueError("No genome input specified: use "
-                         "--genome-fasta-files or --genome-fasta-directory")
-    missing = [p for p in out if not os.path.isfile(p)]
-    if missing:
-        raise FileNotFoundError(
-            f"Genome FASTA file(s) not found: {missing[:5]}")
-    return out
+def _genome_inputs(args: argparse.Namespace) -> List[str]:
+    from galah_tpu_torch.genome_inputs import parse_genome_inputs
+
+    return parse_genome_inputs(
+        genome_fasta_files=args.genome_fasta_files,
+        genome_fasta_list=args.genome_fasta_list,
+        genome_fasta_directory=args.genome_fasta_directory,
+        genome_fasta_extension=args.genome_fasta_extension)
 
 
 @dataclasses.dataclass
@@ -173,15 +277,20 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     )
     from galah_tpu_torch.cluster.engine import cluster
     from galah_tpu_torch.device import resolve_device
-    from galah_tpu_torch.outputs import write_cluster_definition
+    from galah_tpu_torch.io import diskcache
+    from galah_tpu_torch.outputs import setup_outputs, write_outputs
     from galah_tpu_torch.quality import quality_order_genomes
     from galah_tpu_torch.timing import StageClock
 
     device = resolve_device(args.device)
     clock = StageClock(device)
+    paths = _genome_inputs(args)
+    cache = diskcache.get_cache(args.sketch_cache, clock)
+    if cache.enabled:
+        logger.info("Using persistent sketch cache at %s", cache.path)
     with clock.stage("quality"):
         genomes, _ = quality_order_genomes(
-            genome_paths(args), checkm_tab_table=args.checkm_tab_table,
+            paths, checkm_tab_table=args.checkm_tab_table,
             checkm2_quality_report=args.checkm2_quality_report,
             genome_info=args.genome_info, formula=args.quality_formula,
             min_completeness=args.min_completeness,
@@ -196,57 +305,172 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     if args.precluster_method == "skani" and args.cluster_method == "skani":
         precluster_ani = ani
     # opened before any compute, so a bad output path fails fast
-    out = (open(args.output_cluster_definition, "w")
-           if args.output_cluster_definition else None)
-    store = ProfileStore(device, fraglen=args.fragment_length, clock=clock,
-                         hash_algorithm=args.hash_algorithm,
-                         threads=args.threads)
-    if args.precluster_method == "finch":
-        pre = MinHashPreclusterer(
-            min_ani=precluster_ani,
-            store=SketchStore(device, algo=args.hash_algorithm,
-                              clock=clock), threads=args.threads)
-    elif args.precluster_method == "dashing":
-        pre = HLLPreclusterer(
-            min_ani=precluster_ani,
-            store=HLLStore(device, algo=args.hash_algorithm, clock=clock),
-            threads=args.threads)
-    else:
-        pre = SkaniPreclusterer(threshold=precluster_ani,
-                                min_aligned_fraction=min_af, store=store)
-    if args.cluster_method == "fastani":
-        cl = FastANIEquivalentClusterer(threshold=ani,
-                                        min_aligned_fraction=min_af,
-                                        store=store)
-    else:
-        cl = SkaniEquivalentClusterer(threshold=ani,
-                                      min_aligned_fraction=min_af,
-                                      store=store)
+    handles = setup_outputs(
+        cluster_definition=args.output_cluster_definition,
+        representative_fasta_directory=(
+            args.output_representative_fasta_directory),
+        representative_fasta_directory_copy=(
+            args.output_representative_fasta_directory_copy),
+        representative_list=args.output_representative_list)
     try:
+        store = ProfileStore(device, fraglen=args.fragment_length,
+                             clock=clock, hash_algorithm=args.hash_algorithm,
+                             threads=args.threads, cache=cache)
+        if args.precluster_method == "finch":
+            pre = MinHashPreclusterer(
+                min_ani=precluster_ani,
+                store=SketchStore(device, algo=args.hash_algorithm,
+                                  clock=clock, cache=cache),
+                threads=args.threads)
+        elif args.precluster_method == "dashing":
+            pre = HLLPreclusterer(
+                min_ani=precluster_ani,
+                store=HLLStore(device, algo=args.hash_algorithm,
+                               clock=clock, cache=cache),
+                threads=args.threads)
+        else:
+            pre = SkaniPreclusterer(threshold=precluster_ani,
+                                    min_aligned_fraction=min_af,
+                                    store=store)
+        if args.cluster_method == "fastani":
+            cl = FastANIEquivalentClusterer(threshold=ani,
+                                            min_aligned_fraction=min_af,
+                                            store=store)
+        else:
+            cl = SkaniEquivalentClusterer(threshold=ani,
+                                          min_aligned_fraction=min_af,
+                                          store=store)
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
         clusters = cluster(genomes, pre, cl, device, clock=clock)
         logger.info("Found %d genome clusters", len(clusters))
-        if out is not None:
-            write_cluster_definition(out, clusters, genomes)
+        with clock.stage("write-outputs"):
+            write_outputs(handles, clusters, genomes)
     finally:
-        if out is not None:
-            out.close()
+        handles.close()
+    if cache.enabled:
+        logger.info("Sketch cache: %s", cache.stats())
     return RunResult(genomes=genomes, clusters=clusters, clock=clock,
                      store=store, preclusterer=pre)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="[%(asctime)s %(levelname)s] %(message)s")
-    args = parse_args(argv)
-    if args.subcommand != "cluster":
-        build_parser().print_help()
-        return 1
+def run_cluster_validate(args: argparse.Namespace):
+    """Re-check ``--cluster-file`` with the fastani clusterer; returns
+    the ``validate.Validation``. Violations are logged, not raised."""
+    from galah_tpu_torch.backends import (FastANIEquivalentClusterer,
+                                          ProfileStore)
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.ops.fragment_ani import check_subsample
+    from galah_tpu_torch.validate import validate_clusters
+
+    if not args.cluster_file:
+        raise ValueError("--cluster-file is required")
+    ani = parse_percentage(args.ani, "--ani")
+    min_af = parse_percentage(args.min_aligned_fraction,
+                              "--min-aligned-fraction")
+    if not 1 <= args.ani_subsample <= 1000:
+        raise ValueError(f"--ani-subsample must be in [1, 1000], got "
+                         f"{args.ani_subsample}")
+    check_subsample(args.ani_subsample)
+    store = ProfileStore(resolve_device(args.device),
+                         fraglen=args.fragment_length,
+                         hash_algorithm=args.hash_algorithm,
+                         threads=args.threads)
+    clusterer = FastANIEquivalentClusterer(
+        threshold=ani, min_aligned_fraction=min_af, store=store)
+    return validate_clusters(args.cluster_file, clusterer)
+
+
+@dataclasses.dataclass
+class DistResult:
+    genomes: List[str]
+    pairs: Dict[Tuple[int, int], float]
+    clock: object  # timing.StageClock
+    store: object  # backends.SketchStore holding the run's sketches
+
+
+def run_dist(args: argparse.Namespace) -> DistResult:
+    """All-pairs MinHash ANI over the genome inputs, written as
+    ``a<TAB>b<TAB>ani`` lines in sorted pair order to ``--output`` or
+    stdout."""
+    from galah_tpu_torch.backends import SketchStore
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.io import diskcache
+    from galah_tpu_torch.ops.minhash import sketch_matrix
+    from galah_tpu_torch.ops.pairwise import threshold_pairs
+    from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
+    from galah_tpu_torch.timing import StageClock
+
+    if args.hash_algorithm == "murmur3" and args.kmer_length != 21:
+        # galah_tpu hashes any k with murmur3; the port's fused sketch
+        # takes murmur3 at k=21 only
+        raise ValueError(
+            f"--kmer-length {args.kmer_length} with --hash-algorithm "
+            "murmur3 is not supported by galah_tpu_torch yet: murmur3 "
+            "sketches take --kmer-length 21 (tpufast takes 1-31)")
+    device = resolve_device(args.device)
+    clock = StageClock(device)
+    genomes = _genome_inputs(args)
+    cache = diskcache.get_cache(args.sketch_cache, clock)
+    store = SketchStore(device, sketch_size=args.num_hashes,
+                        k=args.kmer_length, algo=args.hash_algorithm,
+                        clock=clock, cache=cache)
+    logger.info("Sketching %d genomes ..", len(genomes))
+    by_path = dict(iter_path_sketches(genomes, store, args.threads))
+    mat = sketch_matrix([by_path[p] for p in genomes], args.num_hashes,
+                        device)
+    min_ani = (parse_percentage(args.min_ani, "--min-ani")
+               if args.min_ani else 0.0)
+    logger.info("Computing tiled all-pairs ANI ..")
+    pairs = threshold_pairs(mat, args.kmer_length, min_ani,
+                            args.num_hashes, clock)
+    out = open(args.output, "w") if args.output else sys.stdout
     try:
-        run_cluster(args)
-    except (ValueError, OSError) as e:
-        logger.error("%s", e)
+        for (i, j) in sorted(pairs):
+            out.write(f"{genomes[i]}\t{genomes[j]}\t{pairs[(i, j)]:.6f}\n")
+    finally:
+        if args.output:
+            out.close()
+    logger.info("Wrote %d pairs", len(pairs))
+    return DistResult(genomes=genomes, pairs=pairs, clock=clock,
+                      store=store)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = build_parser()
+    args = parse_args(argv, parser)
+    if args.subcommand is None:
+        parser.print_help()
+        return 1
+    # the help pages come before anything touches the device
+    if args.full_help_roff:
+        from galah_tpu_torch.manpage import render_full_help_roff
+
+        sys.stdout.write(render_full_help_roff(
+            parser.subcommand_parsers[args.subcommand], args.subcommand))
+        return 0
+    if args.full_help:
+        from galah_tpu_torch.manpage import print_full_help
+
+        print_full_help(parser.subcommand_parsers[args.subcommand],
+                        args.subcommand)
+        return 0
+    set_log_level(verbose=args.verbose, quiet=args.quiet)
+    logger.info("galah_tpu_torch version %s", __version__)
+    try:
+        if args.subcommand == "cluster":
+            run_cluster(args)
+        elif args.subcommand == "dist":
+            run_dist(args)
+        else:
+            run_cluster_validate(args)
+    except (ValueError, OSError, KeyError) as e:
+        # a user error: one line, exit 1, no traceback; str(e) for an
+        # OSError (args[0] is its errno), args[0] for the others
+        # (str(KeyError) is the key's repr)
+        if isinstance(e, OSError):
+            logger.error("%s", e)
+        else:
+            logger.error("%s", e.args[0] if e.args else e)
         return 1
     return 0
 

@@ -103,7 +103,7 @@ class GenomeProfile:
         return self._totals_host
 
 
-def _check_subsample(subsample_c: int) -> None:
+def check_subsample(subsample_c: int) -> None:
     if subsample_c != 1:
         raise ValueError(
             f"--ani-subsample {subsample_c}: FracMinHash-subsampled "
@@ -126,7 +126,7 @@ def build_profiles_batch(genomes: Sequence[Genome], k: int, fraglen: int,
     """Profiles of `genomes`, in order, on `device`, a group of at most
     ``PROFILE_BATCH_BUDGET`` bases at a time (``io/group.py``). Each
     genome's profile depends only on the genome, not on its group."""
-    _check_subsample(subsample_c)
+    check_subsample(subsample_c)
     device = resolve_device(device)
     out: List[GenomeProfile] = []
     for idx in iter_groups(genomes, PROFILE_BATCH_BUDGET):

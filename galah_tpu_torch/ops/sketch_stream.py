@@ -34,6 +34,7 @@ sketch rows on the device for the streamed pair pass.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -158,15 +159,20 @@ def _iter_computed(paths: Sequence[str], store, threads: int
 
 def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
                        ) -> Iterator[Tuple[str, object]]:
-    """(path, sketch) for the UNIQUE paths, in path order. Sketches the
-    store does not hold are computed (``store.sketch_group``: MinHash
-    sketches for a ``SketchStore``, HLL registers for an ``HLLStore``)
-    and inserted on this thread."""
+    """(path, sketch) for the UNIQUE paths, in path order. The store
+    (memory, then its disk cache) is probed once a path before any read
+    starts, in stage `cache-read` when the disk cache is on, so a cached
+    genome is never read; the rest are computed (``store.sketch_group``:
+    MinHash sketches for a ``SketchStore``, HLL registers for an
+    ``HLLStore``) and inserted on this thread."""
     unique = list(dict.fromkeys(paths))
-    computed = _iter_computed(
-        [p for p in unique if store.get_cached(p) is None], store, threads)
+    with (store.clock.stage("cache-read") if store.cache.enabled
+          else contextlib.nullcontext()):
+        held = {p: store.get_cached(p) for p in unique}
+    computed = _iter_computed([p for p in unique if held[p] is None],
+                              store, threads)
     for p in unique:
-        s = store.get_cached(p)
+        s = held[p]
         if s is None:
             cp, s = next(computed)
             if cp != p:

@@ -139,7 +139,7 @@ def test_cli_directory_input(families, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sketch-cache", "cache"], ["--checkpoint-dir", "d"],
+    ["--platform", "cpu"], ["--checkpoint-dir", "d"],
     ["--ani-subsample", "125"], ["--rep-rounds=8"], ["--resume"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -185,7 +185,12 @@ def test_port_imports_neither_jax_nor_galah_tpu():
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"galah_tpu_torch/io/_cingest.py",
-            "galah_tpu_torch/io/prefetch.py"} <= names
+            "galah_tpu_torch/io/prefetch.py",
+            "galah_tpu_torch/io/atomic.py",
+            "galah_tpu_torch/io/diskcache.py",
+            "galah_tpu_torch/genome_inputs.py",
+            "galah_tpu_torch/manpage.py",
+            "galah_tpu_torch/validate.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]
@@ -194,24 +199,39 @@ def test_port_imports_neither_jax_nor_galah_tpu():
 
 def test_port_run_loads_no_jax(families, tmp_path):
     """CPU cluster runs of the port (skani, finch and dashing
-    preclusters) in a fresh interpreter leave jax and galah_tpu out of
-    sys.modules, and reach the C parser and the read-ahead."""
+    preclusters, a persistent sketch cache, the representative
+    outputs), cluster-validate and dist in a fresh interpreter leave jax
+    and galah_tpu out of sys.modules, and reach the C parser, the
+    read-ahead, the genome inputs, the cache and its durable write, the
+    outputs, the validation and the help pages."""
     paths, _ = families
     out = tmp_path / "o.tsv"
+    listing = tmp_path / "genomes.txt"
+    listing.write_text("\n".join(paths[:4]) + "\n")
     code = (
         "import sys\n"
         "from galah_tpu_torch.cli import main\n"
         f"rc = main(['cluster', '-f', *{paths[:4]!r}, '--device', 'cpu',"
         f" '--precluster-method', 'finch', '--threads', '2',"
+        f" '--sketch-cache', {str(tmp_path / 'cache')!r},"
         f" '--output-cluster-definition', {str(out)!r}])\n"
-        f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
-        f" 'cpu', '--output-cluster-definition', {str(out)!r}])\n"
+        f"rc = rc or main(['cluster', '--genome-fasta-list',"
+        f" {str(listing)!r}, '--device', 'cpu', '-q',"
+        f" '--output-representative-list', {str(tmp_path / 'r.txt')!r},"
+        f" '--output-cluster-definition', {str(out)!r}])\n"
         f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
         f" 'cpu', '--precluster-method', 'dashing',"
         f" '--output-cluster-definition', {str(out)!r}])\n"
+        f"rc = rc or main(['cluster-validate', '--cluster-file',"
+        f" {str(out)!r}, '--device', 'cpu'])\n"
+        f"rc = rc or main(['dist', '-f', *{paths[:4]!r}, '--device', 'cpu',"
+        f" '--output', {str(tmp_path / 'd.tsv')!r}])\n"
+        "rc = rc or main(['dist', '--full-help-roff'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
-        "new = [m for m in ('io._cingest', 'io.prefetch') "
+        "new = [m for m in ('io._cingest', 'io.prefetch', 'io.atomic', "
+        "'io.diskcache', 'genome_inputs', 'outputs', 'validate', "
+        "'manpage') "
         "if 'galah_tpu_torch.' + m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', new)\n"
         "sys.exit(rc or (1 if bad or new else 0))\n")

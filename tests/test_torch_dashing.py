@@ -8,6 +8,8 @@ so conftest's 8-device mesh does not shard it; the pair set is the
 same either way.)
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -128,7 +130,7 @@ def test_dashing_clusters_are_families_with_best_representatives(
     assert len(pre) == 8 * 3
 
 
-def test_cli_quality_flags(families24, caplog):
+def test_cli_quality_flags(families24, capsys):
     base = ["cluster", "-f", families24[0][0]]
     args = tcli.parse_args([*base, "--checkm2-quality-report", "q.tsv",
                             "--min-completeness", "50",
@@ -140,7 +142,15 @@ def test_cli_quality_flags(families24, caplog):
     assert tcli.parse_args(base).quality_formula == "Parks2020_reduced"
     with pytest.raises(SystemExit):
         tcli.parse_args([*base, "--quality-formula", "best"])
-    # two quality inputs: the run refuses before any work
-    assert tcli.main([*base, "--device", "cpu", "--checkm-tab-table", "x",
-                      "--genome-info", "y"]) == 1
-    assert "at most one" in caplog.text
+    # two quality inputs: the run refuses before any work. main sets the
+    # log level as galah-tpu does (replacing the root handlers), so the
+    # message goes to stderr, and the root logger is restored after
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        assert tcli.main([*base, "--device", "cpu", "--checkm-tab-table",
+                          "x", "--genome-info", "y"]) == 1
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    assert "at most one" in capsys.readouterr().err
