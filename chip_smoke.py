@@ -76,6 +76,29 @@ Phases, each of which exits nonzero when it fails:
    entry with a flipped byte is repaired (the same TSV), and a warm
    profile load, split into its parts, is timed against a read plus a
    group build (each route's ~2 GB of cache is removed after it);
+4j. checkpoint and resume over finch 1024's genomes with
+   ``--rep-rounds 256`` (four greedy rounds): the run without a
+   checkpoint, then (a) an uninterrupted run with ``--checkpoint-dir``,
+   must each write phase 4b's TSV, and (a) must leave one
+   ``clusters.jsonl`` record a precluster and no round log; (b) ``main``
+   in this process, sent SIGTERM by a watcher thread once the round log
+   holds a record, must return 75 at ``greedy-round-saved`` with one
+   interruption record; (c) ``--resume`` on (b)'s directory must write
+   (a)'s TSV launching no fused_sketch or pairlist and fewer window_hits
+   than (a); (d) ``python -m galah_tpu_torch cluster`` with ``GALAH_FI``
+   killing it at the second round's append must exit 137 with one round
+   record and no ``.tmp`` file; half a record is then appended, as a
+   kill inside the write would leave it, and the resume in this process
+   must log the dropped record and write (a)'s TSV; (e) skani 512, sent
+   SIGTERM once ``fingerprint.json`` exists (written before the distance
+   pass), must stop at ``distances-saved``, and its resume must launch
+   no kernel and write phase 4's TSV;
+4k. quarantine: phase 4's genomes listed with an empty ``.fna``, a
+   truncated ``.fna.gz``, a binary file named ``.fna`` and a missing
+   path, through ``--on-bad-genome skip``: the TSV must equal phase 4's
+   and ``quarantine.json`` beside it must hold the four with
+   galah_tpu's reasons (empty, corrupt, empty, missing); without skip
+   the same list, and a short list holding the empty file, exit 1;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -121,9 +144,11 @@ import logging
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -161,6 +186,10 @@ STREAM_GENOMES = 1000
 # phase 4i's corpus: the first genomes, with a profile cache entry of
 # ~32 MB a genome, so about 2 GB of cache a route
 CACHE_GENOMES = 64
+
+# phase 4j's --rep-rounds: four greedy rounds over finch 1024's genomes,
+# so a stop after the first leaves rounds to replay and rounds to run
+RESUME_ROUND_WIDTH = 256
 
 # host threads of every end-to-end run (--threads): the card's host has 8
 # cores; phase 4e also runs with TWIN_THREADS
@@ -629,10 +658,10 @@ def run_call(torch, reset_launches, launches_now, fn):
     return out, time.perf_counter() - t0, dict(launches_now)
 
 
-def run_main(torch, cli, reset_launches, launches_now, argv):
+def run_main(torch, cli, reset_launches, launches_now, argv, want_rc=0):
     """One command line through cli.main, as a user runs it, launch
-    counts as in run_call; the root logger, which main's -q/-v
-    replace, is put back after."""
+    counts as in run_call, which must exit `want_rc`; the root logger,
+    which main's -q/-v replace, is put back after."""
     root = logging.getLogger()
     handlers, level = root.handlers[:], root.level
     try:
@@ -641,8 +670,9 @@ def run_main(torch, cli, reset_launches, launches_now, argv):
     finally:
         root.handlers[:] = handlers
         root.setLevel(level)
-    if rc != 0:
-        raise PhaseError(f"`{' '.join(argv[:3])} ...` exited {rc}")
+    if rc != want_rc:
+        raise PhaseError(f"`{' '.join(argv[:3])} ...` exited {rc}, not "
+                         f"{want_rc}")
     return wall, launches
 
 
@@ -1065,6 +1095,324 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
     return {"launches_g": launches_g, "validations": validations,
             "dist_runs": dist_runs, "cache_runs": cache_runs,
             "cache_profile": cache_profile}
+
+
+class SigtermWhen:
+    """Send SIGTERM to this process from a watcher thread once
+    `ready()` holds (polled every 2 ms). While armed, a signal that
+    lands after the run has put its handlers back is recorded in
+    `late` instead of ending the script."""
+
+    def __init__(self, ready):
+        self.ready = ready
+        self.sent = False
+        self.late = []
+
+    def __enter__(self):
+        self.prev = signal.signal(signal.SIGTERM,
+                                  lambda s, f: self.late.append(s))
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+        return self
+
+    def _watch(self):
+        while not self.done.is_set():
+            if self.ready():
+                self.sent = True
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.002)
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join(timeout=10)
+        signal.signal(signal.SIGTERM, self.prev)
+
+
+class LogLines(logging.Handler):
+    """The messages a logger emits while attached."""
+
+    def __init__(self, name):
+        super().__init__(logging.WARNING)
+        self.logger = logging.getLogger(name)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def read_log(path):
+    from galah_tpu_torch.io.atomic import read_jsonl
+
+    return read_jsonl(path)
+
+
+def tmp_debris(directory):
+    return [n for n in os.listdir(directory) if n.endswith(".tmp")]
+
+
+def phases_resilience(torch, cli, reset_launches, launches_now, kernels,
+                      root, paths, genomes4, skani_dir, tsv4, tsv4b, threads,
+                      tag):
+    """Phases 4j (checkpoint and resume) and 4k (quarantine); returns
+    what the kernel record keeps of them."""
+    from galah_tpu_torch.io.atomic import frame_line
+    from galah_tpu_torch.resilience import faults, interrupt
+
+    out = {"walls": {}, "launches": {}, "stages": {}}
+
+    def keep(what, wall, launches, r=None):
+        out["walls"][what] = wall
+        out["launches"][what] = launches
+        if r is not None:
+            out["stages"][what] = dict(r.clock.seconds)
+            print_run(what, r, launches, kernels, tag)
+            r.store = r.preclusterer = None
+        print(f"{what}: wall {wall:.2f} s {tag}")
+
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    # -- phase 4j: checkpoint and resume, finch 1024 with --rep-rounds ----
+    j_dir = os.path.join(root, "resume")
+    os.makedirs(j_dir)
+    finch_j = ["cluster", "-f", *paths, "--precluster-method", "finch",
+               "--cluster-method", "skani", "--ani", "95", *threads,
+               "--rep-rounds", str(RESUME_ROUND_WIDTH)]
+    ck = {r: os.path.join(j_dir, f"ck_{r}") for r in "abde"}
+    tsv = {r: os.path.join(j_dir, f"{r}.tsv") for r in "abcdeE"}
+
+    # (a0) the same run without a checkpoint, for the checkpoint's cost
+    # beside it (phase 4b ran before phase 4i's cache writes)
+    res_0, wall_0, launches_0 = run_path(
+        torch, cli, reset_launches, launches_now,
+        [*finch_j, "--device", "cuda", "--output-cluster-definition",
+         tsv["b"]])
+    if read(tsv["b"]) != tsv4b:
+        raise PhaseError(f"resume (a0): the --rep-rounds "
+                         f"{RESUME_ROUND_WIDTH} TSV differs from phase 4b's")
+    keep("resume (a0) without checkpoint", wall_0, launches_0, res_0)
+    del res_0
+
+    # (a) uninterrupted, checkpointed
+    res_a, wall, launches_a = run_path(
+        torch, cli, reset_launches, launches_now,
+        [*finch_j, "--device", "cuda", "--checkpoint-dir", ck["a"],
+         "--output-cluster-definition", tsv["a"]])
+    if read(tsv["a"]) != tsv4b:
+        raise PhaseError("resume (a): the checkpointed --rep-rounds "
+                         f"{RESUME_ROUND_WIDTH} TSV differs from phase 4b's")
+    records, bad = read_log(os.path.join(ck["a"], "clusters.jsonl"))
+    got = sorted(sorted(c) for rec in records for c in rec["clusters"])
+    if bad or got != sorted(sorted(c) for c in res_a.clusters) or \
+            sorted(r["precluster"] for r in records) != \
+            list(range(len(records))):
+        raise PhaseError("resume (a): clusters.jsonl does not hold one "
+                         "record a precluster with the run's clusters")
+    if os.path.exists(os.path.join(ck["a"], "greedy_rounds.jsonl")):
+        raise PhaseError("resume (a): greedy_rounds.jsonl outlived the run")
+    rounds_a = res_a.clock.counts["greedy-rounds"]
+    print(f"resume (a): finch {len(paths)} genomes, --rep-rounds "
+          f"{RESUME_ROUND_WIDTH}, {rounds_a} greedy rounds, checkpointed: "
+          f"TSV byte-identical to phase 4b's; clusters.jsonl {len(records)} "
+          f"records, one a precluster; no round log left; checkpoint-write "
+          f"{res_a.clock.seconds.get('checkpoint-write', 0.0):.4f} s; wall "
+          f"{wall:.2f} s against {wall_0:.2f} s without the checkpoint "
+          f"just before {tag}")
+    keep("resume (a)", wall, launches_a, res_a)
+    del res_a
+
+    # (b) stopped by SIGTERM once the round log holds its first record
+    log_b = os.path.join(ck["b"], "greedy_rounds.jsonl")
+    with SigtermWhen(lambda: os.path.exists(log_b)
+                     and os.path.getsize(log_b) > 0) as term:
+        wall, launches_b = run_main(
+            torch, cli, reset_launches, launches_now,
+            [*finch_j, "--device", "cuda", "--checkpoint-dir", ck["b"],
+             "--output-cluster-definition", tsv["b"]],
+            want_rc=interrupt.EXIT_PREEMPTED)
+    stops, bad = read_log(os.path.join(ck["b"], "interruptions.jsonl"))
+    if not term.sent or term.late or bad or \
+            [(s["signal"], s["boundary"]) for s in stops] != \
+            [("SIGTERM", "greedy-round-saved")]:
+        raise PhaseError(f"resume (b): not one SIGTERM stop at "
+                         f"greedy-round-saved: {stops}, late {term.late}")
+    rounds_b = len(read_log(log_b)[0])
+    print(f"resume (b): SIGTERM once the round log held a record: main "
+          f"returned {interrupt.EXIT_PREEMPTED} at greedy-round-saved "
+          f"after {rounds_b} of {rounds_a} rounds; one interruption "
+          f"record {tag}")
+    keep("resume (b)", wall, launches_b)
+
+    # (c) --resume on (b)'s checkpoint
+    res_c, wall, launches_c = run_path(
+        torch, cli, reset_launches, launches_now,
+        [*finch_j, "--device", "cuda", "--checkpoint-dir", ck["b"],
+         "--resume", "--output-cluster-definition", tsv["c"]])
+    if read(tsv["c"]) != read(tsv["a"]):
+        raise PhaseError("resume (c): the resumed TSV differs from (a)'s")
+    if launches_c["fused_sketch"] or launches_c["pairlist"] or \
+            launches_c["window_hits"] >= launches_a["window_hits"]:
+        raise PhaseError(
+            f"resume (c): fused_sketch {launches_c['fused_sketch']}, "
+            f"pairlist {launches_c['pairlist']} (want 0, 0), window_hits "
+            f"{launches_c['window_hits']} (want fewer than (a)'s "
+            f"{launches_a['window_hits']})")
+    print(f"resume (c): --resume after the stop: TSV byte-identical to "
+          f"(a)'s; launches fused_sketch 0, pairlist 0, window_hits "
+          f"{launches_c['window_hits']} against (a)'s "
+          f"{launches_a['window_hits']}; "
+          f"{res_c.clock.counts['greedy-replayed-pairs']} replayed pairs; "
+          f"checkpoint-read "
+          f"{res_c.clock.seconds.get('checkpoint-read', 0.0):.4f} s {tag}")
+    keep("resume (c)", wall, launches_c, res_c)
+    del res_c
+
+    # (d) a subprocess killed at the second round's append
+    site = "site=io.atomic.append[ckpt.greedy]"
+    env = dict(os.environ, GALAH_FI=f"{site};kind=slow-io;hang=0;max=1|"
+                                    f"{site};kind=kill")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "galah_tpu_torch", *finch_j, "-q",
+         "--device", "cuda", "--checkpoint-dir", ck["d"],
+         "--output-cluster-definition", tsv["d"]],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    wall_d = time.perf_counter() - t0
+    log_d = os.path.join(ck["d"], "greedy_rounds.jsonl")
+    if proc.returncode != faults.KILL_EXIT_CODE:
+        raise PhaseError(f"resume (d): the subprocess exited "
+                         f"{proc.returncode}, not {faults.KILL_EXIT_CODE}:"
+                         f"\n{proc.stderr[-3000:]}")
+    if len(read_log(log_d)[0]) != 1 or tmp_debris(ck["d"]):
+        raise PhaseError("resume (d): after the kill the round log does "
+                         "not hold one record, or .tmp files remain")
+    # a kill inside the append's write would leave half a record
+    torn = frame_line({"digest": "torn", "pairs": [[0, 1, 0.99]]})
+    with open(log_d, "a") as fh:
+        fh.write(torn[:len(torn) // 2])
+    with LogLines("galah_tpu_torch.cluster.checkpoint") as lines:
+        res_d, wall, launches_d = run_path(
+            torch, cli, reset_launches, launches_now,
+            [*finch_j, "--device", "cuda", "--checkpoint-dir", ck["d"],
+             "--resume", "--output-cluster-definition", tsv["d"]])
+    dropped = [m for m in lines.lines if m.startswith("Dropped 1 torn")]
+    if read(tsv["d"]) != read(tsv["a"]) or not dropped or \
+            tmp_debris(ck["d"]):
+        raise PhaseError(f"resume (d): the resume after the kill gave "
+                         f"another TSV, logged no dropped record "
+                         f"({lines.lines}) or left .tmp files")
+    print(f"resume (d): python -m galah_tpu_torch with GALAH_FI kill at "
+          f"the second round's append exited {proc.returncode} after "
+          f"{wall_d:.2f} s (process start included); the resume dropped "
+          f"the torn record ({dropped[0]!r}) and wrote (a)'s TSV; no .tmp "
+          f"left {tag}")
+    keep("resume (d)", wall, launches_d, res_d)
+    del res_d
+
+    # (e) skani 512, stopped during the distance pass
+    skani_e = ["cluster", "-d", skani_dir, "--ani", "95", "--device",
+               "cuda", *threads, "--checkpoint-dir", ck["e"]]
+    fp_e = os.path.join(ck["e"], "fingerprint.json")
+    with SigtermWhen(lambda: os.path.exists(fp_e)) as term:
+        wall, launches_e = run_main(
+            torch, cli, reset_launches, launches_now,
+            [*skani_e, "--output-cluster-definition", tsv["e"]],
+            want_rc=interrupt.EXIT_PREEMPTED)
+    stops, _ = read_log(os.path.join(ck["e"], "interruptions.jsonl"))
+    if term.late or [s["boundary"] for s in stops] != ["distances-saved"]:
+        raise PhaseError(f"resume (e): not one stop at distances-saved: "
+                         f"{stops}, late {term.late}")
+    keep("resume (e) stopped", wall, launches_e)
+    res_e, wall, launches_E = run_path(
+        torch, cli, reset_launches, launches_now,
+        [*skani_e, "--resume", "--output-cluster-definition", tsv["E"]])
+    if read(tsv["E"]) != tsv4 or any(launches_E.values()):
+        raise PhaseError(f"resume (e): the resumed skani TSV differs from "
+                         f"phase 4's, or kernels were launched: "
+                         f"{launches_E}")
+    print(f"resume (e): skani {len(genomes4)} genomes, SIGTERM once "
+          f"fingerprint.json existed: stopped at distances-saved; the "
+          f"resume launched no kernel and wrote phase 4's TSV; wall "
+          f"{wall:.3f} s {tag}")
+    keep("resume (e)", wall, launches_E, res_e)
+    del res_e
+    shutil.rmtree(j_dir)
+
+    # -- phase 4k: quarantine ------------------------------------------
+    q_dir = os.path.join(root, "quarantine")
+    os.makedirs(q_dir)
+    bad = {"empty": os.path.join(q_dir, "empty.fna"),
+           "trunc": os.path.join(q_dir, "trunc.fna.gz"),
+           "binary": os.path.join(q_dir, "binary.fna"),
+           "missing": os.path.join(q_dir, "missing.fna")}
+    with open(bad["empty"], "wb"):
+        pass
+    import gzip
+
+    whole = gzip.compress(read(genomes4[0]))
+    with open(bad["trunc"], "wb") as fh:
+        fh.write(whole[:len(whole) // 2])
+    with open(bad["binary"], "wb") as fh:
+        fh.write(bytes(range(256)) * 4096)
+    # the reasons galah_tpu's validate_genome gives these files
+    # (tests/test_torch_quarantine.py holds the port to them)
+    want = {bad["empty"]: "empty", bad["trunc"]: "corrupt",
+            bad["binary"]: "empty", bad["missing"]: "missing"}
+    listing = [genomes4[0], bad["empty"], *genomes4[1:100], bad["trunc"],
+               *genomes4[100:300], bad["binary"], *genomes4[300:],
+               bad["missing"]]
+    q_list = os.path.join(q_dir, "genomes.txt")
+    with open(q_list, "w") as fh:
+        fh.write("".join(p + "\n" for p in listing))
+    q_tsv = os.path.join(q_dir, "clusters.tsv")
+    res_q, wall, launches_q = run_path(
+        torch, cli, reset_launches, launches_now,
+        ["cluster", "--genome-fasta-list", q_list, "--on-bad-genome",
+         "skip", "--ani", "95", "--device", "cuda", *threads,
+         "--output-cluster-definition", q_tsv])
+    with open(os.path.join(q_dir, "quarantine.json")) as fh:
+        manifest = json.load(fh)["quarantined"]
+    got = {r["path"]: r["reason"] for r in manifest}
+    if read(q_tsv) != tsv4 or got != want or len(manifest) != 4:
+        raise PhaseError(f"quarantine: the skip run's TSV differs from "
+                         f"phase 4's, or the manifest is not the four bad "
+                         f"inputs with galah_tpu's reasons: {got}")
+    require_launched(launches_q, ("window_hits", "tile_stats",
+                                  "positional_hashes"), "quarantine")
+    print(f"quarantine: {len(genomes4)} genomes and 4 bad inputs with "
+          f"--on-bad-genome skip: TSV byte-identical to phase 4's; "
+          f"quarantine.json beside it: "
+          f"{sorted(set(got.values()))} for empty, truncated gzip, "
+          f"binary and missing; preflight "
+          f"{res_q.clock.seconds['preflight-genomes']:.3f} s {tag}")
+    keep("quarantine", wall, launches_q, res_q)
+    del res_q
+    # without skip the same input fails, and so do the bad files alone
+    no_skip = [["--genome-fasta-list", q_list],
+               ["-f", genomes4[0], bad["empty"], *genomes4[1:8]]]
+    for spec in no_skip:
+        wall, _ = run_main(torch, cli, reset_launches, launches_now,
+                           ["cluster", *spec, "--ani", "95", "-q",
+                            "--device", "cuda", *threads,
+                            "--output-cluster-definition",
+                            os.path.join(q_dir, "x.tsv")], want_rc=1)
+        print(f"quarantine without skip: `cluster {spec[0]} ...` exited 1 "
+              f"in {wall:.2f} s {tag}")
+    shutil.rmtree(q_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1500,6 +1848,8 @@ def main(argv=None) -> int:
                   f"the {FINCH_MIN_GENOMES}-genome crossover, so the "
                   f"pairlist kernel is not on this path {tag}")
         require_launched(launches_f, need, "finch")
+        with open(out_tsv, "rb") as fh:
+            tsv4b = fh.read()
 
         # -- phase 4c: end to end, finch dense ----------------------------
         n_dense = min(256, args.finch_genomes)
@@ -1644,6 +1994,11 @@ def main(argv=None) -> int:
         cli_out = phases_cli(torch, cli, reset_launches, LAUNCHES, KERNELS,
                              root, res.genomes, tsv4, paths, label_of,
                              n_dense, report, threads, family, device, tag)
+
+        # -- phases 4j-4k: checkpoint and resume, quarantine ---------------
+        resil_out = phases_resilience(
+            torch, cli, reset_launches, LAUNCHES, KERNELS, root, paths,
+            res.genomes, skani_dir, tsv4, tsv4b, threads, tag)
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -2292,6 +2647,8 @@ def main(argv=None) -> int:
             **cli_out["dist_runs"],
             **{f"cache {w}": v for w, v in cli_out["cache_runs"].items()}},
         "cache_profile": cli_out["cache_profile"],
+        "launches_phases_4j_4k": resil_out["launches"],
+        "walls_phases_4j_4k": resil_out["walls"],
         "validate_rep_pairs": {
             "pairs": cli_out["validations"]["validate"][0].rep_pairs,
             "seconds": cli_out["validations"]["validate"][0].rep_seconds}}

@@ -9,8 +9,11 @@ output formats:
   table, a CheckM2 report or a genomeInfo CSV, the formula and the
   completeness and contamination filters), the cluster definition TSV,
   the representative directories (symlinks or copies) and list, the
-  persistent sketch/profile cache (``--sketch-cache``), and the host
-  threads that read genomes ahead (``--threads``);
+  persistent sketch/profile cache (``--sketch-cache``), the host
+  threads that read genomes ahead (``--threads``), the greedy round
+  width (``--rep-rounds``), checkpoint and resume (``--checkpoint-dir``,
+  ``--resume``) and the quarantine of unreadable genomes
+  (``--on-bad-genome skip``);
 * ``cluster-validate``: re-check a cluster definition with exact ANI;
 * ``dist``: all-pairs MinHash ANI as a TSV.
 
@@ -19,7 +22,10 @@ the device (``--device``, cuda unless the CPU is asked for).
 Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
 line that the port does not support yet is an error that names it; no
 flag is silently ignored. A user error (a bad value, a missing file)
-exits 1 with a one-line message.
+exits 1 with a one-line message. A ``cluster`` run stopped by SIGTERM
+or SIGINT at a safe boundary exits 75 (``EXIT_PREEMPTED``) and writes
+no outputs; the handlers are installed only for the length of
+``run_cluster``, so a library caller keeps its own.
 """
 
 from __future__ import annotations
@@ -28,20 +34,23 @@ import argparse
 import dataclasses
 import logging
 import sys
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch import __version__
 from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
                                     PRECLUSTER_METHODS, QUALITY_FORMULAS,
                                     Defaults, parse_percentage)
+from galah_tpu_torch.io.fasta import CORRUPT_GZIP_ERRORS
+from galah_tpu_torch.resilience import interrupt
+from galah_tpu_torch.resilience.quarantine import ON_BAD_GENOME_CHOICES
 
 logger = logging.getLogger("galah_tpu_torch")
 
 # flags of `galah-tpu`'s subcommands that this port does not support yet
 UNSUPPORTED_FLAGS = (
-    "--ani-subsample", "--rep-scan-window", "--rep-rounds",
-    "--on-bad-genome", "--profile-trace-dir", "--trace-events",
-    "--run-report", "--checkpoint-dir", "--resume", "--platform",
+    "--ani-subsample", "--rep-scan-window", "--profile-trace-dir",
+    "--trace-events", "--run-report", "--platform",
 )
 
 
@@ -147,15 +156,39 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=QUALITY_FORMULAS,
                    help="Quality formula for ranking genomes "
                         "(default: Parks2020_reduced)")
+    c.add_argument("--rep-rounds", type=int, default=None,
+                   help="Device greedy-selection round width: genomes "
+                        "speculatively taken per round of the "
+                        "round-based representative scan (default: "
+                        "1024)")
     c.add_argument("--threads", "-t", type=int, default=1,
                    help="Host threads for FASTA stats/IO fan-out "
                         "and CPU-backend native sketching/profiling; "
                         "device parallelism is managed by the mesh")
+    c.add_argument("--on-bad-genome", default="error",
+                   choices=ON_BAD_GENOME_CHOICES,
+                   help="What to do with unreadable genome FASTAs "
+                        "(missing, empty, corrupt): 'error' aborts "
+                        "on first touch (default); 'skip' "
+                        "preflights every input, quarantines the "
+                        "bad ones into quarantine.json next to "
+                        "the outputs, and clusters the rest")
     c.add_argument("--sketch-cache",
                    help="Directory for the persistent sketch/profile "
                         "cache (also via GALAH_TPU_CACHE); sketches are "
                         "reused across runs when genome files are "
                         "unchanged")
+    c.add_argument("--checkpoint-dir",
+                   help="Persist the distance pass and finished "
+                        "preclusters here; an interrupted run resumes "
+                        "from the last completed precluster")
+    c.add_argument("--resume", action="store_true",
+                   help="Require resuming from --checkpoint-dir: fail "
+                        "if the checkpoint is missing or belongs to a "
+                        "different configuration instead of silently "
+                        "starting fresh. Without this flag a matching "
+                        "checkpoint still auto-resumes; --resume makes "
+                        "\"no checkpoint\" an error")
     c.add_argument("--output-cluster-definition",
                    help="Output file of rep<TAB>member lines")
     c.add_argument("--output-representative-fasta-directory",
@@ -242,14 +275,35 @@ def parse_args(argv: Optional[Sequence[str]],
     return args
 
 
-def _genome_inputs(args: argparse.Namespace) -> List[str]:
+def _genome_inputs(args: argparse.Namespace, manifest=None) -> List[str]:
     from galah_tpu_torch.genome_inputs import parse_genome_inputs
 
     return parse_genome_inputs(
         genome_fasta_files=args.genome_fasta_files,
         genome_fasta_list=args.genome_fasta_list,
         genome_fasta_directory=args.genome_fasta_directory,
-        genome_fasta_extension=args.genome_fasta_extension)
+        genome_fasta_extension=args.genome_fasta_extension,
+        on_bad_genome=getattr(args, "on_bad_genome", "error"),
+        manifest=manifest)
+
+
+def backend_params(hash_algorithm: str, fragment_length: int) -> Dict:
+    """The sketch settings a checkpoint's fingerprint holds: equal to
+    ``galah_tpu``'s for the same run, so either package resumes the
+    other's checkpoint."""
+    from galah_tpu_torch.backends import SkaniPreclusterer
+    from galah_tpu_torch.backends.fragment_backend import ANI_KMER
+    from galah_tpu_torch.ops.hll import DEFAULT_P
+
+    return {
+        "minhash": {"sketch_size": Defaults.MINHASH_SKETCH_SIZE,
+                    "k": Defaults.MINHASH_KMER, "seed": 0,
+                    "algo": hash_algorithm},
+        "hll": {"p": DEFAULT_P, "k": Defaults.MINHASH_KMER, "seed": 0,
+                "algo": hash_algorithm},
+        "fragment": {"k": ANI_KMER, "fraglen": fragment_length,
+                     "screen_identity": SkaniPreclusterer.SCREEN_IDENTITY},
+    }
 
 
 @dataclasses.dataclass
@@ -264,7 +318,19 @@ class RunResult:
 
 def run_cluster(args: argparse.Namespace) -> RunResult:
     """Build the backends from parsed `cluster` arguments, cluster, and
-    write the requested outputs."""
+    write the requested outputs. SIGTERM and SIGINT request a stop for
+    the length of the run: at the next safe boundary the interruption
+    is recorded in the checkpoint and ``PreemptionRequested`` raises,
+    with no output written (``main`` exits 75)."""
+    interrupt.reset()
+    interrupt.install()
+    try:
+        return _run_cluster(args)
+    finally:
+        interrupt.uninstall()
+
+
+def _run_cluster(args: argparse.Namespace) -> RunResult:
     from galah_tpu_torch.backends import (
         FastANIEquivalentClusterer,
         HLLPreclusterer,
@@ -275,16 +341,34 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
         SkaniPreclusterer,
         SketchStore,
     )
+    from galah_tpu_torch.cluster.checkpoint import (ClusterCheckpoint,
+                                                    fields_digest,
+                                                    fingerprint_fields)
     from galah_tpu_torch.cluster.engine import cluster
     from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.io import diskcache
     from galah_tpu_torch.outputs import setup_outputs, write_outputs
     from galah_tpu_torch.quality import quality_order_genomes
+    from galah_tpu_torch.resilience.quarantine import (
+        QuarantineManifest, manifest_output_dir, preflight_quarantine)
     from galah_tpu_torch.timing import StageClock
 
+    if args.rep_rounds is not None and args.rep_rounds < 1:
+        raise ValueError(f"--rep-rounds must be >= 1, got {args.rep_rounds}")
+    if args.resume and not args.checkpoint_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
     clock = StageClock(device)
-    paths = _genome_inputs(args)
+    quarantine = QuarantineManifest()
+    paths = _genome_inputs(args, quarantine)
+    if args.on_bad_genome == "skip":
+        # before quality ordering, which reads every genome itself
+        paths, _ = preflight_quarantine(paths, quarantine,
+                                        threads=args.threads, clock=clock)
+        if not paths:
+            raise ValueError(
+                "every input genome was quarantined as unreadable; "
+                "nothing to cluster (see the quarantine manifest)")
     cache = diskcache.get_cache(args.sketch_cache, clock)
     if cache.enabled:
         logger.info("Using persistent sketch cache at %s", cache.path)
@@ -313,6 +397,24 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
             args.output_representative_fasta_directory_copy),
         representative_list=args.output_representative_list)
     try:
+        ckpt = None
+        if args.checkpoint_dir:
+            fields = fingerprint_fields(
+                genomes, args.precluster_method, args.cluster_method,
+                ani, parse_percentage(args.precluster_ani,
+                                      "--precluster-ani"),
+                min_aligned_fraction=min_af,
+                fragment_length=args.fragment_length,
+                backend_params=backend_params(args.hash_algorithm,
+                                              args.fragment_length))
+            ckpt = ClusterCheckpoint(args.checkpoint_dir,
+                                     fields_digest(fields), fields=fields,
+                                     require_match=args.resume)
+            # the resume chain: a matching checkpoint with recorded
+            # interruptions continues a stopped run
+            prior = ckpt.load_interruptions()
+            if ckpt.matched_existing and (prior or args.resume):
+                interrupt.note_resume(args.checkpoint_dir, len(prior))
         store = ProfileStore(device, fraglen=args.fragment_length,
                              clock=clock, hash_algorithm=args.hash_algorithm,
                              threads=args.threads, cache=cache)
@@ -341,12 +443,34 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
                                           min_aligned_fraction=min_af,
                                           store=store)
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
-        clusters = cluster(genomes, pre, cl, device, clock=clock)
+        try:
+            clusters = cluster(genomes, pre, cl, device,
+                               rep_rounds=args.rep_rounds, clock=clock,
+                               checkpoint=ckpt)
+        except interrupt.PreemptionRequested as e:
+            # everything before the boundary is durable: record the stop
+            # and leave without outputs
+            if ckpt is not None:
+                ckpt.record_interruption({
+                    "signal": e.signame, "boundary": e.boundary,
+                    "ts": time.time()})  # a stamp, not a duration
+            logger.warning(
+                "Preempted (%s): stopped at safe boundary %r. The "
+                "checkpoint%s is consistent; rerun with --resume to "
+                "continue. Exiting %d.", e.signame, e.boundary,
+                f" at {ckpt.path}" if ckpt is not None else "",
+                interrupt.EXIT_PREEMPTED)
+            raise
         logger.info("Found %d genome clusters", len(clusters))
         with clock.stage("write-outputs"):
             write_outputs(handles, clusters, genomes)
     finally:
         handles.close()
+    if len(quarantine):
+        quarantine.write(manifest_output_dir(
+            cluster_definition=args.output_cluster_definition,
+            representative_list=args.output_representative_list,
+            checkpoint_dir=args.checkpoint_dir))
     if cache.enabled:
         logger.info("Sketch cache: %s", cache.stats())
     return RunResult(genomes=genomes, clusters=clusters, clock=clock,
@@ -463,11 +587,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             run_dist(args)
         else:
             run_cluster_validate(args)
-    except (ValueError, OSError, KeyError) as e:
+    except interrupt.PreemptionRequested:
+        return interrupt.EXIT_PREEMPTED
+    except (ValueError, OSError, KeyError, *CORRUPT_GZIP_ERRORS) as e:
         # a user error: one line, exit 1, no traceback; str(e) for an
-        # OSError (args[0] is its errno), args[0] for the others
-        # (str(KeyError) is the key's repr)
-        if isinstance(e, OSError):
+        # OSError (args[0] is its errno) or a damaged gzip stream,
+        # args[0] for the others (str(KeyError) is the key's repr)
+        if isinstance(e, (OSError, *CORRUPT_GZIP_ERRORS)):
             logger.error("%s", e)
         else:
             logger.error("%s", e.args[0] if e.args else e)

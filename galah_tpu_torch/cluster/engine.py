@@ -17,10 +17,20 @@ Windows deeper than the fold budget ("conflict windows") finish on the
 exact host-order scan; that is part of the algorithm, not a fallback.
 ``find_representatives`` / ``find_memberships`` are the per-precluster
 host-order scan the rounds must agree with.
+
+With a checkpoint (``cluster/checkpoint.py``) the distance pass, each
+round's backend-computed ANIs and each finished precluster reach the
+disk as they are made, and a resume skips or replays them. A stop
+requested by a signal (``resilience/interrupt.py``) is honoured only
+at three boundaries, each right after its state is durable:
+``distances-saved``, ``greedy-round-saved`` and ``precluster-saved``;
+never inside a kernel launch or a profile group.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -31,6 +41,7 @@ from galah_tpu_torch.cluster.cache import PairDistanceCache, pair_key
 from galah_tpu_torch.cluster.partition import partition_preclusters
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.ops import greedy_select
+from galah_tpu_torch.resilience import interrupt
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -56,30 +67,65 @@ def cluster(
     device="cuda",
     rep_rounds: Optional[int] = None,
     clock: Optional[StageClock] = None,
+    checkpoint=None,
 ) -> List[List[int]]:
     """Cluster quality-ordered genome paths -> list of index clusters,
     each with its representative first; clusters ordered by precluster
-    (biggest first) then by representative index."""
+    (biggest first) then by representative index. `checkpoint`, a
+    ``cluster.checkpoint.ClusterCheckpoint``, persists the run and
+    resumes from what it holds; its reads and writes are stages
+    ``checkpoint-read`` and ``checkpoint-write``."""
     device = resolve_device(device)
     clock = clock or StageClock(device)
     skip_clusterer = preclusterer.method_name() == clusterer.method_name()
     if skip_clusterer:
         logger.info("Preclustering and clustering methods are the same, "
                     "so reusing ANI values")
-    pre_cache = preclusterer.distances(genomes)
+    pre_cache = None
+    if checkpoint:
+        with clock.stage("checkpoint-read"):
+            pre_cache = checkpoint.load_distances()
+    if pre_cache is None:
+        pre_cache = preclusterer.distances(genomes)
+        if checkpoint:
+            with clock.stage("checkpoint-write"):
+                checkpoint.save_distances(pre_cache)
+    # safe boundary: the distance pass, the largest recompute, is durable
+    interrupt.check("distances-saved")
     preclusters = partition_preclusters(len(genomes), pre_cache.keys())
     logger.info("Found %d preclusters. The largest contained %d genomes",
                 len(preclusters), len(preclusters[0]) if preclusters else 0)
-    pending = list(enumerate(preclusters))
-    with clock.stage("greedy"):
-        done = _cluster_pending_rounds(
-            clusterer, genomes, pre_cache, pending, skip_clusterer,
-            rep_rounds, device)
+    done: Dict[int, List[List[int]]] = {}
+    if checkpoint:
+        with clock.stage("checkpoint-read"):
+            done = checkpoint.load_completed()
+    pending = [(i, m) for i, m in enumerate(preclusters) if i not in done]
+    if pending:
+        with clock.stage("greedy"):
+            finished = _cluster_pending_rounds(
+                clusterer, genomes, pre_cache, pending, skip_clusterer,
+                rep_rounds, device, checkpoint, clock)
+        done.update(finished)
+        if checkpoint:
+            with clock.stage("checkpoint-write"):
+                for pc_index, global_clusters in sorted(finished.items()):
+                    checkpoint.save_precluster(pc_index, global_clusters)
+                checkpoint.clear_greedy_rounds()
+        # safe boundary: every precluster's clusters are durable
+        interrupt.check("precluster-saved")
     all_clusters: List[List[int]] = []
-    for pc_index, _members in pending:
+    for pc_index in range(len(preclusters)):
         all_clusters.extend(done[pc_index])
     logger.info("Found %d clusters", len(all_clusters))
     return all_clusters
+
+
+def _greedy_digest(pending: List[Tuple[int, Sequence[int]]]) -> str:
+    """Digest of the pending-precluster sequence a greedy-round record
+    is valid for: a resume whose pending set differs drops the records
+    instead of replaying them into a differently shaped scan."""
+    ident = json.dumps([[pc, list(m)] for pc, m in pending])
+    return hashlib.sha256(ident.encode()).hexdigest()
 
 
 def _batch_ani(
@@ -88,10 +134,12 @@ def _batch_ani(
     pre_cache: PairDistanceCache,
     genomes: Sequence[str],
     pairs: Sequence[Tuple[int, int]],
+    computed_log: Optional[List[Tuple[int, int]]] = None,
 ) -> List[Optional[float]]:
     """ANI for index pairs: the precluster value when the methods match
     (reference: src/clusterer.rs:264-279), else one batched backend
-    call for the missing pairs."""
+    call for the missing pairs, which are appended to `computed_log`
+    when it is given."""
     out: List[Optional[float]] = [None] * len(pairs)
     to_compute: List[Tuple[int, Tuple[str, str]]] = []
     for n, (i, j) in enumerate(pairs):
@@ -99,6 +147,8 @@ def _batch_ani(
             out[n] = pre_cache.get((i, j))
         else:
             to_compute.append((n, (genomes[i], genomes[j])))
+            if computed_log is not None:
+                computed_log.append(pairs[n])
     if to_compute:
         anis = clusterer.calculate_ani_batch([p for _, p in to_compute])
         for (n, _), ani in zip(to_compute, anis):
@@ -114,9 +164,16 @@ def _cluster_pending_rounds(
     skip_clusterer: bool,
     rep_rounds: Optional[int],
     device: torch.device,
+    checkpoint=None,
+    clock: Optional[StageClock] = None,
 ) -> Dict[int, List[List[int]]]:
     """The round-based greedy strategy over ALL pending preclusters at
-    once: {precluster index -> its global clusters}."""
+    once: {precluster index -> its global clusters}. With a
+    checkpoint, each round's backend-computed pairs are appended to its
+    round log, and the log's pairs for these pending preclusters are
+    replayed into the cache first, so no replayed pair reaches the
+    backend again."""
+    clock = clock or StageClock(device)
     thr = clusterer.ani_threshold
     width = (int(rep_rounds) if rep_rounds is not None
              else greedy_select.DEFAULT_ROUND_WIDTH)
@@ -142,6 +199,16 @@ def _cluster_pending_rounds(
     ani_cache = PairDistanceCache()
     reps_by_pc: Dict[int, List[int]] = {pc: [] for pc, _ in pending}
     rep_set: Set[int] = set()
+    computed: List[Tuple[int, int]] = []  # pairs that hit the backend
+
+    digest = _greedy_digest(pending)
+    if checkpoint:
+        with clock.stage("checkpoint-read"):
+            for i, j, ani in checkpoint.load_greedy_rounds(digest):
+                ani_cache.insert((i, j), ani)
+                computed.append((i, j))
+    if computed:
+        clock.count("greedy-replayed-pairs", len(computed))
 
     def batch(pairs: List[Tuple[int, int]]) -> None:
         """Compute the pairs missing from the cache, in chunks of at
@@ -161,7 +228,7 @@ def _cluster_pending_rounds(
             if not chunk:
                 return
             anis = _batch_ani(clusterer, skip_clusterer, pre_cache,
-                              genomes, chunk)
+                              genomes, chunk, computed_log=computed)
             for p, ani in zip(chunk, anis):
                 ani_cache.insert(p, ani)
             chunk.clear()
@@ -184,8 +251,18 @@ def _cluster_pending_rounds(
     while pos < len(seq):
         window = seq[pos:pos + width]
         pos += len(window)
+        rstart = len(computed)
         _device_round(window, pc_of, adj, reps_by_pc, rep_set, batch,
                       value, thr, device)
+        clock.count("greedy-rounds", 1)
+        if checkpoint and len(computed) > rstart:
+            with clock.stage("checkpoint-write"):
+                checkpoint.save_greedy_round(
+                    digest, [(i, j, ani_cache.get((i, j)))
+                             for i, j in computed[rstart:]])
+        # safe boundary: this round's ANIs are durable; a resume replays
+        # them and derives the same decisions without computing them
+        interrupt.check("greedy-round-saved")
 
     # membership: one batch for every (rep, non-rep) hit pair, then the
     # device argmax per precluster

@@ -15,16 +15,41 @@ walk vectorized over the whole file in numpy. The semantics are line
 by line: each line is stripped of ASCII whitespace at both ends, empty
 lines are skipped, a line starting with ``>`` opens a record, and
 sequence lines before the first record belong to none.
+
+A read that fails with a transient OS error (a network filesystem's
+flake) is retried with backoff (``resilience/policy.py``; the
+``GALAH_IO_RETRY_*`` variables, 3 attempts from 0.1 s by default). A
+file the parser refuses raises ``BadGenomeError`` (reason ``empty``
+when it holds no record, else ``corrupt``); a damaged gzip stream
+raises the standard library's error (``CORRUPT_GZIP_ERRORS``), not
+retried, which ``--on-bad-genome skip`` quarantines as ``corrupt``, as
+``galah_tpu`` does; a missing file raises ``FileNotFoundError``, not
+retried.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import zlib
+from typing import Optional
 
 import numpy as np
 
 from galah_tpu_torch.io import _cingest
+from galah_tpu_torch.resilience.policy import RetryPolicy, call_with_retry
+
+
+class BadGenomeError(ValueError):
+    """A genome file the parser refuses: ``empty`` (no record) or
+    ``corrupt`` (``galah_tpu``'s ``BadGenomeError``)."""
+
+    def __init__(self, path: str, reason: str, detail: str = "") -> None:
+        self.path = path
+        self.reason = reason  # "empty" | "corrupt"
+        super().__init__(f"{reason} genome FASTA {path}"
+                         + (f": {detail}" if detail else ""))
+
 
 # ASCII -> 2-bit code; 255 marks ambiguous/non-ACGT.
 _CODE_LUT = np.full(256, 255, dtype=np.uint8)
@@ -127,11 +152,45 @@ def _parse(path: str):
     return a, starts, ends, lengths
 
 
+_IO_POLICY: Optional[RetryPolicy] = None
+
+
+def _io_policy() -> RetryPolicy:
+    """The ``GALAH_IO_RETRY`` policy, read from the environment once."""
+    global _IO_POLICY
+    if _IO_POLICY is None:
+        _IO_POLICY = RetryPolicy.from_env(
+            "GALAH_IO_RETRY", defaults=dict(max_attempts=3, base_delay=0.1))
+    return _IO_POLICY
+
+
+#: what a damaged gzip stream raises while it is read
+CORRUPT_GZIP_ERRORS = (gzip.BadGzipFile, EOFError, zlib.error)
+
+
+def _io_retryable(exc: BaseException) -> bool:
+    """A transient OS error is worth a backoff; a missing path or a
+    corrupt payload (gzip's errors are deterministic per content) is
+    not."""
+    if isinstance(exc, (FileNotFoundError, IsADirectoryError,
+                        *CORRUPT_GZIP_ERRORS)):
+        return False
+    return isinstance(exc, (OSError, TimeoutError))
+
+
 def read_genome(path: str) -> Genome:
     """Parse a (possibly gzipped) FASTA into codes + offsets + stats
-    with the C parser."""
-    codes, offsets, n_amb, n50 = _cingest.parse_fasta(_read_bytes(path),
-                                                      path)
+    with the C parser; raises ``BadGenomeError`` on a file it
+    refuses."""
+    data = call_with_retry(lambda: _read_bytes(path), _io_policy(),
+                           site=f"io.read[{path}]", classify=_io_retryable)
+    try:
+        codes, offsets, n_amb, n50 = _cingest.parse_fasta(data, path)
+    except ValueError as e:
+        msg = str(e)
+        raise BadGenomeError(
+            path, "empty" if "no FASTA records" in msg else "corrupt",
+            msg) from e
     stats = GenomeStats(num_contigs=int(offsets.shape[0]) - 1,
                         num_ambiguous_bases=n_amb, n50=n50)
     return Genome(path=path, codes=codes,

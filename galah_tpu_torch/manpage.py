@@ -162,6 +162,23 @@ _ENVIRONMENT: List[Tuple[str, str, str]] = [
      "Directory for the persistent sketch/profile cache; the "
      "--sketch-cache flag's env twin and loses to it. Unset disables "
      "caching"),
+    ("GALAH_FI", "Resilience",
+     "Deterministic fault injection at the durable-write sites, e.g. "
+     "'site=io.atomic.append[ckpt.greedy];kind=kill;prob=0.5;seed=3;"
+     "max=1'. Kinds: enospc, eio, torn-write, slow-io, and kill, which "
+     "os._exit()s the process with 137 mid-operation"),
+] + [
+    (f"GALAH_IO_RETRY_{suffix}", "Resilience",
+     f"FASTA/IO retry policy (defaults: 3 attempts, 0.1 s base delay): "
+     f"{doc}")
+    for suffix, doc in (
+        ("MAX_ATTEMPTS", "attempts per read before giving up"),
+        ("BASE_DELAY", "first backoff delay, seconds"),
+        ("MAX_DELAY", "backoff cap, seconds"),
+        ("JITTER", "+- fraction of each delay, in [0, 1]"),
+        ("TOTAL_BUDGET", "overall retry wall-clock budget per read, "
+                         "seconds"),
+        ("SEED", "makes the backoff jitter bit-reproducible"))
 ]
 
 

@@ -244,7 +244,7 @@ def test_full_help_runs_before_the_device(monkeypatch, capsys, sub):
 
 
 @pytest.mark.parametrize("argv", [
-    ["cluster", "-f", "a.fna", "--on-bad-genome", "skip"],
+    ["cluster", "-f", "a.fna", "--profile-trace-dir=d"],
     ["cluster-validate", "--cluster-file", "c.tsv", "--platform", "cpu"],
     ["dist", "-f", "a.fna", "--platform=cpu"]])
 def test_unsupported_flags_are_refused_by_name(argv, capsys):

@@ -139,8 +139,9 @@ def test_cli_directory_input(families, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--platform", "cpu"], ["--checkpoint-dir", "d"],
-    ["--ani-subsample", "125"], ["--rep-rounds=8"], ["--resume"]])
+    ["--platform", "cpu"], ["--rep-scan-window", "8"],
+    ["--ani-subsample", "125"], ["--run-report=r.json"],
+    ["--trace-events", "t.json"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", *flag])
