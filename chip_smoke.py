@@ -99,6 +99,22 @@ Phases, each of which exits nonzero when it fails:
    and ``quarantine.json`` beside it must hold the four with
    galah_tpu's reasons (empty, corrupt, empty, missing); without skip
    the same list, and a short list holding the empty file, exit 1;
+4l. the persistent sketch index over the finch corpus in quality order
+   (the CheckM2 report of 4d): ``index build`` over the first 768
+   genomes (the streamed pass: fused_sketch, tile_stats), ``insert`` of
+   the other 256 with ``--batch 64`` (one pairlist launch a batch), and
+   ``build`` of all 1024 from scratch (fused_sketch, pairlist): the
+   grown index's committed bytes must equal the from-scratch build's
+   and its clusters the planted families; ``query`` of 32 inserted
+   genomes and 32 fresh random ones must answer member (of their
+   family's cluster) and novel; ``remove`` of a representative must
+   re-elect its lowest-index member and ``fsck`` pass. Then an insert
+   batch's pair pass at catalogue scale: 20,000 synthetic indexed
+   bottom-1000 sketches in planted families and 256 inserted rows
+   (near duplicates, fresh families, empty and short rows), every
+   (u, g) u < g, 5,152,640 pairs, in one pass; the kernel's integers
+   equal the plain version's on 200,000 sampled pairs and the host
+   merge_stats on 2,000, timed beside the host loop;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -190,6 +206,17 @@ CACHE_GENOMES = 64
 # phase 4j's --rep-rounds: four greedy rounds over finch 1024's genomes,
 # so a stop after the first leaves rounds to replay and rounds to run
 RESUME_ROUND_WIDTH = 256
+
+# phase 4l: the insert batch (--batch), the genomes queried from the
+# index and fresh, and the catalogue-scale pair pass: indexed rows,
+# inserted rows (one batch), and the pairs held against the plain version
+# and against the host merge_stats
+INDEX_BATCH = 64
+QUERY_GENOMES = 32
+CATALOGUE_ROWS = 20_000
+INDEX_PASS_ROWS = 256
+PASS_SAMPLE = 200_000
+HOST_SAMPLE = 2_000
 
 # host threads of every end-to-end run (--threads): the card's host has 8
 # cores; phase 4e also runs with TWIN_THREADS
@@ -1415,6 +1442,276 @@ def phases_resilience(torch, cli, reset_launches, launches_now, kernels,
     return out
 
 
+def index_bytes(path):
+    """The committed bytes of an index directory by file name (every file
+    but interruptions.jsonl)."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name != "interruptions.jsonl":
+            with open(os.path.join(path, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+def phases_index(torch, cli, reset_launches, launches_now, kernels, root,
+                 paths, label_of, report, threads, family, seed, length,
+                 tag):
+    """Phase 4l: the persistent sketch index over the finch corpus,
+    through ``index`` as a user runs it. Returns the walls and launches
+    of each action."""
+    from galah_tpu_torch.index import incremental
+    from galah_tpu_torch.index.store import IndexStore
+    from galah_tpu_torch.quality import quality_order_genomes
+
+    out = {"walls": {}, "launches": {}, "stages": {}}
+
+    def keep(what, wall, launches, res=None):
+        out["walls"][what] = wall
+        out["launches"][what] = launches
+        if res is not None and res.clock is not None:
+            out["stages"][what] = dict(res.clock.seconds)
+            print_run(f"index {what}", res, launches, kernels, tag)
+        else:
+            for name in kernels:
+                print(f"index {what} launches {name}: {launches[name]} "
+                      f"{tag}")
+        print(f"index {what}: wall {wall:.2f} s {tag}")
+
+    def index_run(argv):
+        return run_call(torch, reset_launches, launches_now,
+                        lambda: cli.run_index(cli.parse_args(argv)))
+
+    i_dir = os.path.join(root, "index")
+    os.makedirs(i_dir)
+    grown, scratch = (os.path.join(i_dir, n) for n in ("grown", "scratch"))
+    ordered, _ = quality_order_genomes(paths, checkm2_quality_report=report,
+                                       threads=THREADS)
+    n_base = 3 * len(ordered) // 4
+    base, new = ordered[:n_base], ordered[n_base:]
+    quality = ["--checkm2-quality-report", report, *threads]
+    on = ["--device", "cuda"]
+
+    # build the first three quarters in quality order, insert the rest
+    res, wall, launches = index_run(
+        ["index", "--index-dir", grown, *on, "build", "-f", *base,
+         *quality])
+    keep("build", wall, launches, res)
+    require_launched(launches, ("fused_sketch", "tile_stats"),
+                     "index build")
+    res, wall, launches = index_run(
+        ["index", "--index-dir", grown, *on, "insert", "-f", *new,
+         *quality, "--batch", str(INDEX_BATCH)])
+    keep("insert", wall, launches, res)
+    batches = -(-len(new) // INDEX_BATCH)
+    require_launched(launches, ("fused_sketch", "pairlist"), "index insert")
+    if launches["pairlist"] != batches or res.info["inserted"] != len(new):
+        raise PhaseError(f"index insert: {launches['pairlist']} pairlist "
+                         f"launches for {batches} batches, "
+                         f"{res.info['inserted']} genomes inserted")
+    # the grown index against a from-scratch build over all genomes
+    res, wall, launches = index_run(
+        ["index", "--index-dir", scratch, *on, "build", "-f", *ordered,
+         *quality])
+    keep("build from scratch", wall, launches, res)
+    if len(ordered) >= FINCH_MIN_GENOMES:
+        require_launched(launches, ("fused_sketch", "pairlist"),
+                         "index build from scratch")
+    got, want = index_bytes(grown), index_bytes(scratch)
+    gen2 = json.loads(got.pop("gen-000002.json"))
+    got.pop("gen-000001.json")
+    gen1 = json.loads(want.pop("gen-000001.json"))
+    got.pop("MANIFEST.json")
+    want.pop("MANIFEST.json")
+    gen2.pop("generation")
+    gen1.pop("generation")
+    if got != want or gen2 != gen1:
+        raise PhaseError("index: the grown index's committed bytes differ "
+                         "from the from-scratch build's: " + ", ".join(
+                             n for n in want if got.get(n) != want[n]))
+    state = IndexStore(grown).load()
+    clusters = incremental.clusters_from_state(state)
+    fams = sorted(sorted(label_of[state.genomes[g]] for g in c)
+                  for c in clusters)
+    if fams != sorted([f] * family for f in {label_of[p] for p in paths}):
+        raise PhaseError(f"index: {len(clusters)} clusters differ from the "
+                         f"planted families")
+    print(f"index: build {len(base)} + insert {len(new)} (--batch "
+          f"{INDEX_BATCH}) byte-identical to a from-scratch build of "
+          f"{len(ordered)} (logs {', '.join(sorted(want))}; generation "
+          f"manifests equal but for the number); {len(clusters)} clusters "
+          f"== the planted families, {len(state.pairs)} pairs {tag}")
+
+    # query: inserted members and fresh random genomes
+    q_dir = os.path.join(i_dir, "novel")
+    os.makedirs(q_dir)
+    novel, _, _ = make_corpus(q_dir, QUERY_GENOMES, length, 1, seed + 7)
+    members = new[:QUERY_GENOMES]
+    q_tsv = os.path.join(i_dir, "query.tsv")
+    wall, launches = run_main(
+        torch, cli, reset_launches, launches_now,
+        ["index", "--index-dir", grown, *on, "-q", "query", "-f", *members,
+         *novel, *threads, "--output", q_tsv])
+    keep("query", wall, launches)
+    require_launched(launches, ("fused_sketch", "pairlist"), "index query")
+    with open(q_tsv) as fh:
+        rows = [ln.split("\t") for ln in fh.read().splitlines()[1:]]
+    want_rows = len(members) + len(novel)
+    if len(rows) != want_rows or any(
+            r[1] != "member" or label_of[r[2]] != label_of[r[0]]
+            for r in rows[:len(members)]) or any(
+            r[1:] != ["novel", "NA", "NA"] for r in rows[len(members):]):
+        raise PhaseError(f"index query: {len(rows)} rows; members must join "
+                         f"their family's representative, fresh genomes be "
+                         f"novel")
+    print(f"index query: {len(members)} inserted genomes member of their "
+          f"family's cluster, {len(novel)} fresh genomes novel {tag}")
+
+    # remove a representative with members, then fsck
+    has_members = set(state.membership.values())
+    rep = next(r for r in state.reps if r in has_members)
+    orphans = sorted(g for g, r in state.membership.items() if r == rep)
+    wall, launches = run_main(
+        torch, cli, reset_launches, launches_now,
+        ["index", "--index-dir", grown, *on, "-q", "remove", "-f",
+         state.genomes[rep]])
+    keep("remove", wall, launches)
+    after = IndexStore(grown).load()
+    if (rep not in after.tombstones or orphans[0] not in after.reps
+            or any(after.membership[g] != orphans[0]
+                   for g in orphans[1:])):
+        raise PhaseError("index remove: the representative's cluster did "
+                         "not re-elect its lowest-index member")
+    wall, launches = run_main(
+        torch, cli, reset_launches, launches_now,
+        ["index", "--index-dir", grown, *on, "-q", "fsck"])
+    keep("fsck", wall, launches)
+    print(f"index remove: representative {rep} tombstoned, {orphans[0]} "
+          f"re-elected for {len(orphans) - 1} member(s); generation "
+          f"{after.generation}; fsck OK {tag}")
+    shutil.rmtree(i_dir)
+    return out
+
+
+def index_pair_pass(torch, device, seed, tag):
+    """Phase 4l, catalogue scale: an insert batch's pair pass over a
+    seeded synthetic index of CATALOGUE_ROWS bottom-1000 sketches in
+    planted families of 4, and INDEX_PASS_ROWS inserted rows (near
+    duplicates of indexed rows, fresh families, two empty and two short
+    rows): every (u, g), u < g, in one pass, as ``index insert --batch
+    INDEX_PASS_ROWS`` gives it. The kernel's integers against the plain
+    version on a sample and against the host ``merge_stats`` on a
+    smaller one; timed whole, kernel alone and host loop."""
+    from galah_tpu_torch.index import incremental
+    from galah_tpu_torch.kernels.rehearse_pairlist import (SUBSTITUTED,
+                                                           family_rows)
+    from galah_tpu_torch.kernels.rehearse_pairlist import work as pl_work
+    from galah_tpu_torch.ops.pairlist import (pair_stats_pairs_plain,
+                                              run_launch, valid_lengths)
+    from galah_tpu_torch.ops.pairwise import ani_to_jaccard
+    from galah_tpu_torch.ops.sparse_device import pair_stats_for_pairs
+    from galah_tpu_torch.ops.u64 import from_biased
+    from galah_tpu_torch.timing import StageClock
+
+    rng = np.random.default_rng(seed + 11)
+    k = 1000
+    t0 = time.perf_counter()
+    indexed = np.concatenate([family_rows(rng, 4)
+                              for _ in range(CATALOGUE_ROWS // 4)])
+    sentinel = np.iinfo(np.int64).max
+    near = []
+    for r in rng.choice(CATALOGUE_ROWS, size=INDEX_PASS_ROWS // 4,
+                        replace=False):
+        row = indexed[r][indexed[r] != sentinel].copy()
+        swap = rng.random(row.shape[0]) < SUBSTITUTED
+        row[swap] = rng.integers(-(1 << 63), sentinel,
+                                 size=int(swap.sum()), dtype=np.int64)
+        row = np.unique(row)
+        near.append(np.concatenate(
+            [row, np.full(k - row.shape[0], sentinel, dtype=np.int64)]))
+    fresh = np.concatenate([family_rows(rng, 4) for _ in range(
+        (INDEX_PASS_ROWS - len(near) - 4) // 4)])
+    edge = np.full((4, k), sentinel, dtype=np.int64)
+    for i, n in ((2, 300), (3, 1)):
+        edge[i, :n] = np.sort(fresh[i, :n])
+    host = np.concatenate([indexed, np.stack(near), fresh, edge])
+    n_rows = host.shape[0]
+    gen_s = time.perf_counter() - t0
+    mat = torch.from_numpy(host).to(device)
+    # pi: the inserted row g, pj: every u < g, as insert lists them
+    pi, pj = incremental.pairs_below(np.arange(n_rows, dtype=np.int64),
+                                     CATALOGUE_ROWS, n_rows)
+    common, total = pair_stats_for_pairs(mat, pi, pj, k)
+    # the plain version on a seeded sample of the list, on the card
+    sample = np.sort(rng.choice(pi.shape[0], size=PASS_SAMPLE,
+                                replace=False))
+    ti = torch.from_numpy(pi[sample]).to(device)
+    tj = torch.from_numpy(pj[sample]).to(device)
+    pcs, pts = [], []
+    for s0 in range(0, PASS_SAMPLE, 1 << 16):
+        pc, pt = pair_stats_pairs_plain(mat, ti[s0:s0 + (1 << 16)],
+                                        tj[s0:s0 + (1 << 16)], k)
+        pcs.append(pc.cpu().numpy())
+        pts.append(pt.cpu().numpy())
+    err = int(max(np.abs(np.concatenate(pcs) - common[sample]).max(),
+                  np.abs(np.concatenate(pts) - total[sample]).max()))
+    if err:
+        raise PhaseError(f"pairlist disagrees with its plain version on "
+                         f"the index pass's sample: max error {err}")
+    # the host merge_stats on a smaller sample, timed
+    few = sample[rng.choice(PASS_SAMPLE, size=HOST_SAMPLE, replace=False)]
+    rows_u64 = from_biased(torch.from_numpy(host))
+    hosted = []
+    t0 = time.perf_counter()
+    for p in few:
+        a, b = rows_u64[pi[p]], rows_u64[pj[p]]
+        hosted.append(incremental.merge_stats(
+            a[a != np.uint64(2 ** 64 - 1)], b[b != np.uint64(2 ** 64 - 1)],
+            k))
+    host_pair_us = (time.perf_counter() - t0) * 1e6 / HOST_SAMPLE
+    if hosted != list(zip(common[few].tolist(), total[few].tolist())):
+        raise PhaseError("pairlist disagrees with the host merge_stats on "
+                         "the index pass's sample")
+    # timing: the kernel alone, the pass (host lists in, host ints out),
+    # and the pass with the keep rule and float64 ANI of the insert
+    lens = valid_lengths(mat)
+    tpi, tpj = (torch.from_numpy(a).to(device) for a in (pi, pj))
+    outs = (torch.empty(pi.shape[0], dtype=torch.int32, device=device),
+            torch.empty(pi.shape[0], dtype=torch.int32, device=device))
+    kernel_ms = time_ms(torch, lambda: run_launch(mat, lens, tpi, tpj, k,
+                                                  *outs), 5)
+    # the same pairs with the indexed row first: consecutive pairs then
+    # share their b row, which the kernel does not stage
+    swapped_ms = time_ms(torch, lambda: run_launch(mat, lens, tpj, tpi, k,
+                                                   *outs), 5)
+    pass_ms = host_ms(torch, lambda: pair_stats_for_pairs(mat, pi, pj, k),
+                      3)
+    j_thr = ani_to_jaccard(0.90, 21)
+    kept_ms = host_ms(torch, lambda: incremental.kept_pairs(
+        mat, pi, pj, k, 21, j_thr, StageClock(device)), 3)
+    ki, _, _ = incremental.kept_pairs(mat, pi, pj, k, 21, j_thr,
+                                      StageClock(device))
+    lens_h = lens.cpu().numpy()
+    p_bound, p_by = bound(*pl_work(lens_h, pi, pj, k))
+    host_s = host_pair_us * pi.shape[0] / 1e6
+    print(f"index pair pass: {CATALOGUE_ROWS} indexed + {INDEX_PASS_ROWS} "
+          f"inserted rows, K={k} ({mat.numel() * 8 / 1e6:.1f} MB on the "
+          f"card; made in {gen_s:.2f} s), {pi.shape[0]} pairs, "
+          f"{ki.shape[0]} kept at 90%: kernel alone {kernel_ms:.4f} ms "
+          f"(indexed row first: {swapped_ms:.4f} ms), "
+          f"pass (host lists in, ints out) {pass_ms:.4f} ms, with the keep "
+          f"rule and ANI {kept_ms:.4f} ms, bound {p_bound:.4f} ms ({p_by}); "
+          f"plain version equal on {PASS_SAMPLE} sampled pairs, host "
+          f"merge_stats equal on {HOST_SAMPLE} at {host_pair_us:.2f} us a "
+          f"pair, {host_s:.1f} s for the list {tag}")
+    return {"rows": int(n_rows), "pairs": int(pi.shape[0]),
+            "kept": int(ki.shape[0]), "kernel_only_ms": kernel_ms,
+            "kernel_only_ms_indexed_row_first": swapped_ms,
+            "pass_ms": pass_ms, "kept_pass_ms": kept_ms,
+            "bound_ms": p_bound, "bound_by": p_by, "max_abs_err": err,
+            "plain_sample": PASS_SAMPLE, "host_sample": HOST_SAMPLE,
+            "host_us_per_pair": host_pair_us, "host_list_s": host_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1999,6 +2296,15 @@ def main(argv=None) -> int:
         resil_out = phases_resilience(
             torch, cli, reset_launches, LAUNCHES, KERNELS, root, paths,
             res.genomes, skani_dir, tsv4, tsv4b, threads, tag)
+
+        # -- phase 4l: the persistent sketch index -------------------------
+        index_out = phases_index(torch, cli, reset_launches, LAUNCHES,
+                                 KERNELS, root, paths, label_of, report,
+                                 threads, family, args.seed,
+                                 args.genome_length, tag)
+        index_out["pass"] = index_pair_pass(torch, device, args.seed, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         from galah_tpu_torch.ops import fragment_ani
@@ -2598,7 +2904,10 @@ def main(argv=None) -> int:
          "kernel_only_ms": pl_kernel, "pass_ms": pl_pass,
          "dense": {"pairs": int(dn_pi.shape[0]), "kernel_only_ms": dn_kernel,
                    "pass_ms": dn_pass, "bound_ms": dn_bound,
-                   "bound_by": dn_by}},
+                   "bound_by": dn_by},
+         "index": {"launches": {w: v["pairlist"] for w, v in
+                                index_out["launches"].items()},
+                   "insert_pass": index_out["pass"]}},
         {"name": "hll_union", "route": "cuda",
          "source": "galah_tpu_torch/kernels/hll_union.cu",
          "replaces": "galah_tpu/ops/pallas_hll.py:72",
@@ -2649,6 +2958,8 @@ def main(argv=None) -> int:
         "cache_profile": cli_out["cache_profile"],
         "launches_phases_4j_4k": resil_out["launches"],
         "walls_phases_4j_4k": resil_out["walls"],
+        "launches_phase_4l": index_out["launches"],
+        "walls_phase_4l": index_out["walls"],
         "validate_rep_pairs": {
             "pairs": cli_out["validations"]["validate"][0].rep_pairs,
             "seconds": cli_out["validations"]["validate"][0].rep_seconds}}

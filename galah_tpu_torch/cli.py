@@ -15,7 +15,11 @@ output formats:
   ``--resume``) and the quarantine of unreadable genomes
   (``--on-bad-genome skip``);
 * ``cluster-validate``: re-check a cluster definition with exact ANI;
-* ``dist``: all-pairs MinHash ANI as a TSV.
+* ``dist``: all-pairs MinHash ANI as a TSV;
+* ``index``: the persistent sketch index (``--index-dir`` or
+  ``GALAH_TPU_INDEX_DIR``) and its actions ``build``, ``insert``,
+  ``query``, ``remove`` and ``fsck``, over directories interchangeable
+  with ``galah-tpu index``'s.
 
 Each takes ``-v``/``-q``, ``--full-help``, ``--full-help-roff`` and
 the device (``--device``, cuda unless the CPU is asked for).
@@ -24,8 +28,10 @@ line that the port does not support yet is an error that names it; no
 flag is silently ignored. A user error (a bad value, a missing file)
 exits 1 with a one-line message. A ``cluster`` run stopped by SIGTERM
 or SIGINT at a safe boundary exits 75 (``EXIT_PREEMPTED``) and writes
-no outputs; the handlers are installed only for the length of
-``run_cluster``, so a library caller keeps its own.
+no outputs, and an ``index insert`` stopped so exits 75 with the index
+loadable at its last generation; the handlers are installed only for
+the length of ``run_cluster`` and ``run_index``, so a library caller
+keeps its own.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,6 +48,7 @@ from galah_tpu_torch import __version__
 from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
                                     PRECLUSTER_METHODS, QUALITY_FORMULAS,
                                     Defaults, parse_percentage)
+from galah_tpu_torch.index import INDEX_DIR_ENV
 from galah_tpu_torch.io.fasta import CORRUPT_GZIP_ERRORS
 from galah_tpu_torch.resilience import interrupt
 from galah_tpu_torch.resilience.quarantine import ON_BAD_GENOME_CHOICES
@@ -96,6 +104,117 @@ def _add_genome_inputs(p: argparse.ArgumentParser) -> None:
     p.add_argument("-x", "--genome-fasta-extension", default="fna",
                    help="File extension of genomes in the directory "
                         "(default: fna)")
+
+
+def _add_index_quality(p: argparse.ArgumentParser) -> None:
+    """The quality inputs of `index build` and `index insert`: insert
+    order is the greedy quality order the persisted decisions rest on."""
+    p.add_argument("--checkm-tab-table",
+                   help="Output of `checkm qa .. --tab_table`")
+    p.add_argument("--checkm2-quality-report",
+                   help="CheckM2 quality_report.tsv output")
+    p.add_argument("--genome-info",
+                   help="dRep-style genome info CSV "
+                        "(genome,completeness,contamination)")
+    p.add_argument("--quality-formula",
+                   default=Defaults.QUALITY_FORMULA,
+                   choices=QUALITY_FORMULAS,
+                   help="Quality formula for ranking genomes "
+                        "(default: Parks2020_reduced)")
+    p.add_argument("--min-completeness", type=float,
+                   help="Ignore genomes with less completeness than "
+                        "this percentage")
+    p.add_argument("--max-contamination", type=float,
+                   help="Ignore genomes with more contamination than "
+                        "this percentage")
+
+
+def _add_index_parser(sub) -> argparse.ArgumentParser:
+    """`index` and its actions, with galah-tpu's flags and defaults."""
+    ix = sub.add_parser(
+        "index",
+        help="Build and incrementally maintain a persistent versioned "
+             "sketch index (insert/query/remove without re-clustering)",
+        description="Persistent versioned sketch index over a "
+                    "dereplicated corpus: `build` clusters once and "
+                    "persists the sketches, thresholded pairs, and "
+                    "greedy decisions; `insert` adds new genomes "
+                    "sketching only them and commits a new generation; "
+                    "`query` answers which cluster a genome would join "
+                    "without mutating anything; `remove` tombstones a "
+                    "genome and locally re-elects; `fsck` audits the "
+                    "on-disk state (docs/index.md)")
+    _add_common(ix)
+    ix.add_argument("--index-dir",
+                    help="Index directory (also via "
+                         f"{INDEX_DIR_ENV}); created by `build`, "
+                         "required by every action")
+    ixsub = ix.add_subparsers(dest="index_action")
+    ixb = ixsub.add_parser(
+        "build",
+        help="Dereplicate a corpus once and persist it as generation 1")
+    _add_genome_inputs(ixb)
+    _add_index_quality(ixb)
+    ixb.add_argument("--ani", type=float, default=Defaults.ANI,
+                     help="ANI clustering threshold the index is bound "
+                          "to (default: 95)")
+    ixb.add_argument("--precluster-ani", type=float,
+                     default=Defaults.PRETHRESHOLD_ANI,
+                     help="Sketch-ANI floor for persisted pairs "
+                          "(default: 90)")
+    ixb.add_argument("--hash-algorithm", default=Defaults.HASH_ALGO,
+                     choices=HASH_ALGORITHMS,
+                     help="Sketch hash the index is bound to "
+                          "(default: murmur3)")
+    ixb.add_argument("--sketch-cache",
+                     help="Directory for the persistent sketch cache "
+                          "(also via GALAH_TPU_CACHE); index records "
+                          "share its content-hash keys")
+    ixb.add_argument("--threads", "-t", type=int, default=1)
+    ixi = ixsub.add_parser(
+        "insert",
+        help="Insert new genomes, sketching only them, and commit the "
+             "next generation")
+    _add_genome_inputs(ixi)
+    _add_index_quality(ixi)
+    ixi.add_argument("--sketch-cache",
+                     help="Directory for the persistent sketch cache "
+                          "(also via GALAH_TPU_CACHE)")
+    ixi.add_argument("--threads", "-t", type=int, default=1)
+    ixi.add_argument("--batch", type=int, default=Defaults.INDEX_BATCH,
+                     help="Genomes per durable append batch — the "
+                          "preemption safe-boundary granularity "
+                          f"(default: {Defaults.INDEX_BATCH})")
+    ixi.add_argument("--resume", action="store_true",
+                     help="Continue an interrupted insert: uncommitted "
+                          "appends past the last committed generation "
+                          "are truncated and the insert redone, "
+                          "converging to the same bytes as an "
+                          "uninterrupted run. (A matching index "
+                          "auto-resumes anyway; --resume records the "
+                          "chain)")
+    ixq = ixsub.add_parser(
+        "query",
+        help="Answer which cluster each genome would join, without "
+             "mutating the index")
+    _add_genome_inputs(ixq)
+    ixq.add_argument("--sketch-cache",
+                     help="Directory for the persistent sketch cache "
+                          "(also via GALAH_TPU_CACHE)")
+    ixq.add_argument("--threads", "-t", type=int, default=1)
+    ixq.add_argument("--output",
+                     help="Output TSV of query, decision, "
+                          "representative, ANI (default: stdout)")
+    ixr = ixsub.add_parser(
+        "remove",
+        help="Tombstone genomes and locally re-elect their clusters")
+    _add_genome_inputs(ixr)
+    ixsub.add_parser(
+        "fsck",
+        help="Audit the on-disk index: commit-pointer integrity, log "
+             "checksums, cluster invariants (never mutates; uses no "
+             "device)")
+    return ix
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -254,8 +373,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Directory for the persistent sketch cache "
                          "(also via GALAH_TPU_CACHE)")
     dd.add_argument("--threads", "-t", type=int, default=1)
+    ix = _add_index_parser(sub)
     parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
-                                 "dist": dd}
+                                 "dist": dd, "index": ix}
     return parser
 
 
@@ -559,6 +679,160 @@ def run_dist(args: argparse.Namespace) -> DistResult:
                       store=store)
 
 
+@dataclasses.dataclass
+class IndexResult:
+    action: str
+    # build, insert, remove: the operation's summary; query: one dict a
+    # genome; fsck: the audit
+    info: object
+    clock: object  # timing.StageClock, or None for remove and fsck
+
+
+def _index_order_genomes(genomes: List[str], args: argparse.Namespace,
+                         clock) -> List[str]:
+    """Quality order for `index build`/`insert`; with no quality input,
+    input order, with a warning of its own and count
+    `index-quality-fallback` (representative choice is then
+    unranked)."""
+    from galah_tpu_torch.quality import quality_order_genomes
+
+    with clock.stage("quality"):
+        ordered, used_quality = quality_order_genomes(
+            genomes, checkm_tab_table=args.checkm_tab_table,
+            checkm2_quality_report=args.checkm2_quality_report,
+            genome_info=args.genome_info, formula=args.quality_formula,
+            min_completeness=args.min_completeness,
+            max_contamination=args.max_contamination,
+            threads=args.threads,
+            missing_msg="Since CheckM input is missing, genomes enter the "
+                        "index in input order, not quality order — "
+                        "representative selection is unranked. Pass "
+                        "--checkm-tab-table / --checkm2-quality-report / "
+                        "--genome-info to rank them")
+    if not used_quality:
+        clock.count("index-quality-fallback", 1)
+    return ordered
+
+
+def _run_index_fsck(index_dir: str) -> IndexResult:
+    from galah_tpu_torch.index.store import fsck
+
+    rep = fsck(index_dir)
+    print(f"index {rep['path']}: generation {rep['generation']}, "
+          f"{rep['genomes']} genome(s), {rep['clusters']} cluster(s), "
+          f"{rep['pairs']} pair(s), {rep['tombstones']} tombstone(s)")
+    for w in rep["warnings"]:
+        print(f"  warning: {w}")
+    for p in rep["problems"]:
+        print(f"  PROBLEM: {p}")
+    print("fsck: OK" if rep["ok"] else "fsck: FAILED")
+    return IndexResult(action="fsck", info=rep, clock=None)
+
+
+def run_index(args: argparse.Namespace) -> IndexResult:
+    """One `index` action. fsck and remove use no device; build, insert
+    and query run on ``--device``. SIGTERM and SIGINT request a stop for
+    the length of the action: an insert records the interruption in the
+    index and raises ``PreemptionRequested`` at its next batch boundary
+    (``main`` exits 75)."""
+    action = args.index_action
+    if action is None:
+        raise ValueError("index needs an action: build, insert, query, "
+                         "remove, or fsck")
+    index_dir = args.index_dir or os.environ.get(INDEX_DIR_ENV)
+    if not index_dir:
+        raise ValueError("no index directory: pass --index-dir or set "
+                         f"{INDEX_DIR_ENV}")
+    if action == "fsck":
+        return _run_index_fsck(index_dir)
+    interrupt.reset()
+    interrupt.install()
+    try:
+        return _run_index(args, action, index_dir)
+    finally:
+        interrupt.uninstall()
+
+
+def _run_index(args: argparse.Namespace, action: str,
+               index_dir: str) -> IndexResult:
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.index import incremental
+    from galah_tpu_torch.index.store import IndexStore
+    from galah_tpu_torch.timing import StageClock
+
+    genomes = _genome_inputs(args)
+    if action == "remove":
+        idx = IndexStore(index_dir)
+        info = None
+        for p in genomes:
+            info = incremental.remove(idx, p)
+            logger.info("Removed %s: generation %d, %d genomes in %d "
+                        "clusters remain", p, info["generation"],
+                        info["genomes"], info["clusters"])
+        return IndexResult(action=action, info=info, clock=None)
+    device = resolve_device(args.device)
+    clock = StageClock(device)
+    if action == "build":
+        ordered = _index_order_genomes(genomes, args, clock)
+        info = incremental.build(
+            index_dir, ordered, ani=parse_percentage(args.ani, "--ani"),
+            precluster_ani=parse_percentage(args.precluster_ani,
+                                            "--precluster-ani"),
+            device=device, algo=args.hash_algorithm,
+            cache_dir=args.sketch_cache, threads=args.threads,
+            clock=clock)
+        logger.info("Built index at %s: generation %d, %d genomes in "
+                    "%d clusters", index_dir, info["generation"],
+                    info["genomes"], info["clusters"])
+        return IndexResult(action=action, info=info, clock=clock)
+
+    idx = IndexStore(index_dir)
+    if action == "insert":
+        ordered = _index_order_genomes(genomes, args, clock)
+        prior = idx.load_interruptions()
+        if prior or args.resume:
+            interrupt.note_resume(index_dir, len(prior))
+        try:
+            info = incremental.insert(
+                idx, ordered, device=device, cache_dir=args.sketch_cache,
+                threads=args.threads, batch=args.batch, clock=clock)
+        except interrupt.PreemptionRequested as e:
+            idx.record_interruption({
+                "signal": e.signame, "boundary": e.boundary,
+                "ts": time.time()})  # a stamp, not a duration
+            logger.warning(
+                "Preempted (%s): stopped at safe boundary %r. The index "
+                "at %s is loadable at its last committed generation; "
+                "rerun the same insert (--resume) to converge to the "
+                "uninterrupted result. Exiting %d.", e.signame,
+                e.boundary, index_dir, interrupt.EXIT_PREEMPTED)
+            raise
+        logger.info("Inserted %d genome(s) (%d skipped as already "
+                    "present): generation %d, %d genomes in %d "
+                    "clusters, %d new representative(s)",
+                    info["inserted"], info["skipped"],
+                    info["generation"], info["genomes"],
+                    info["clusters"], info.get("new_reps", 0))
+        return IndexResult(action=action, info=info, clock=clock)
+
+    # query
+    results = incremental.query(idx, genomes, device=device,
+                                cache_dir=args.sketch_cache,
+                                threads=args.threads, clock=clock)
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        out.write("query\tdecision\trepresentative\tani\n")
+        for r in results:
+            ani = (f"{r['ani'] * 100:.4f}"
+                   if r["ani"] is not None else "NA")
+            out.write(f"{r['path']}\t{r['decision']}\t"
+                      f"{r['rep'] or 'NA'}\t{ani}\n")
+    finally:
+        if args.output:
+            out.close()
+    return IndexResult(action=action, info=results, clock=clock)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = build_parser()
     args = parse_args(argv, parser)
@@ -585,6 +859,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             run_cluster(args)
         elif args.subcommand == "dist":
             run_dist(args)
+        elif args.subcommand == "index":
+            res = run_index(args)
+            if res.action == "fsck" and not res.info["ok"]:
+                return 1
         else:
             run_cluster_validate(args)
     except interrupt.PreemptionRequested:

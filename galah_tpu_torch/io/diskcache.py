@@ -56,6 +56,20 @@ def _content_crc(arrays: Dict[str, np.ndarray]) -> int:
     return crc & 0xFFFFFFFF
 
 
+def entry_digest(genome_path: str, kind: str, params: dict) -> str:
+    """The 32 hex digits that name a genome's entry of `kind`; the
+    persistent index keys its genome records by the same digest."""
+    st = os.stat(genome_path)
+    ident = json.dumps({
+        "path": os.path.abspath(genome_path),
+        "size": st.st_size,
+        "mtime_ns": st.st_mtime_ns,
+        "kind": kind,
+        "params": {k: params[k] for k in sorted(params)},
+    }, sort_keys=True)
+    return hashlib.sha256(ident.encode()).hexdigest()[:32]
+
+
 def default_cache_dir() -> Optional[str]:
     """The cache directory named by ``GALAH_TPU_CACHE``, or None (an
     unset or empty variable disables the cache)."""
@@ -84,15 +98,7 @@ class CacheDir:
             self.clock.count(name, n)
 
     def entry_path(self, genome_path: str, kind: str, params: dict) -> str:
-        st = os.stat(genome_path)
-        ident = json.dumps({
-            "path": os.path.abspath(genome_path),
-            "size": st.st_size,
-            "mtime_ns": st.st_mtime_ns,
-            "kind": kind,
-            "params": {k: params[k] for k in sorted(params)},
-        }, sort_keys=True)
-        digest = hashlib.sha256(ident.encode()).hexdigest()[:32]
+        digest = entry_digest(genome_path, kind, params)
         return os.path.join(self.path, f"{kind}-{digest}.npz")
 
     def load(self, genome_path: str, kind: str,

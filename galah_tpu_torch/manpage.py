@@ -23,6 +23,7 @@ import textwrap
 from typing import List, Tuple
 
 from galah_tpu_torch import __version__
+from galah_tpu_torch.index import INDEX_DIR_ENV
 from galah_tpu_torch.io import diskcache
 
 WIDTH = 78
@@ -152,6 +153,51 @@ EXIT STATUS
 EXAMPLES
       galah-tpu dist -d genomes/ -x fna --min-ani 95 --output pairs.tsv
 """,
+    "index": """\
+INDEX MODEL
+   The index directory (docs/index.md) persists the dereplication
+   state of a genome catalogue: sketches, thresholded sketch-ANI
+   pairs, and the greedy representative/membership decisions, under
+   a monotonically versioned generation pointer. `build` runs the
+   device sketch pipeline once; `insert` sketches ONLY the new
+   genomes, computes only their pairs (bit-identical host math), and
+   commits the next generation — the resulting clusters are byte-
+   identical to re-dereplicating the grown catalogue from scratch,
+   as long as inserts respect the quality order. `query` mutates
+   nothing and answers in milliseconds from the committed state.
+   `remove` tombstones a genome and locally re-elects within its own
+   cluster (local repair, not a from-scratch equivalence).
+
+   Every append is durable (per-record fsync + checksum framing) and
+   a generation commits by an atomic pointer swap, so a writer
+   killed at ANY instant leaves the index loadable at its previous
+   generation; rerunning the same insert converges to the same
+   bytes. SIGTERM/SIGINT stop at the next batch boundary with exit
+   status 75.
+
+EXIT STATUS
+   0 on success, 1 on user error or a failed fsck, 75 when a
+   cooperative-preemption request stopped an insert at a safe
+   boundary (rerun to continue).
+
+EXAMPLES
+   Build an index over a catalogue, quality-ranked:
+
+      galah-tpu index --index-dir idx/ build -d genomes/ -x fna \\
+         --checkm2-quality-report quality_report.tsv --ani 95
+
+   Insert this week's new MAGs (only they are sketched):
+
+      galah-tpu index --index-dir idx/ insert -d new_mags/ -x fna
+
+   Ask where a genome would land, without changing anything:
+
+      galah-tpu index --index-dir idx/ query -f novel.fna
+
+   Audit the on-disk state:
+
+      galah-tpu index --index-dir idx/ fsck
+""",
 }
 
 
@@ -162,6 +208,9 @@ _ENVIRONMENT: List[Tuple[str, str, str]] = [
      "Directory for the persistent sketch/profile cache; the "
      "--sketch-cache flag's env twin and loses to it. Unset disables "
      "caching"),
+    (INDEX_DIR_ENV, "Runtime and IO",
+     "Index directory of `index`; the --index-dir flag's env twin and "
+     "loses to it"),
     ("GALAH_FI", "Resilience",
      "Deterministic fault injection at the durable-write sites, e.g. "
      "'site=io.atomic.append[ckpt.greedy];kind=kill;prob=0.5;seed=3;"

@@ -8,12 +8,14 @@ hashes (``torch.unique``, sorted). It serves the genomes the fused path
 does not take (longer than ``DEFAULT_CHUNK``, or a sketch size beyond
 the candidate file's capacity) and re-sketches the jobs the fused
 path's certificate flags. ``sketch_matrix`` stacks sketches into the
-(N, sketch_size) biased int64 matrix the all-pairs pass reads.
+(N, sketch_size) biased int64 matrix the all-pairs pass reads
+(``sketch_rows`` does it from bare uint64 rows, as the sketch index
+holds them).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,14 +56,25 @@ def sketch_genomes_device_batch(
             for g in genomes]
 
 
+def sketch_rows(hashes: Sequence[np.ndarray],
+                sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
+                device="cuda", rows: Optional[int] = None) -> torch.Tensor:
+    """Ascending uint64 hash rows, each cut to its first `sketch_size`
+    values, as a sentinel-padded (rows, sketch_size) biased int64 tensor
+    on `device`; the rows past the given ones (`rows` defaults to their
+    count) are all sentinel. A row shorter than `sketch_size` is padded
+    here only."""
+    mat = np.full((len(hashes) if rows is None else rows, sketch_size),
+                  SENTINEL_U64, dtype=np.uint64)
+    for i, h in enumerate(hashes):
+        m = min(h.shape[0], sketch_size)
+        mat[i, :m] = h[:m]
+    return to_biased(mat, resolve_device(device))
+
+
 def sketch_matrix(sketches: Sequence[MinHashSketch],
                   sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
                   device="cuda") -> torch.Tensor:
     """Sketches stacked into a sentinel-padded (N, sketch_size) biased
     int64 tensor on `device`, rows ascending."""
-    mat = np.full((len(sketches), sketch_size), SENTINEL_U64,
-                  dtype=np.uint64)
-    for i, s in enumerate(sketches):
-        m = min(s.size, sketch_size)
-        mat[i, :m] = s.hashes[:m]
-    return to_biased(mat, resolve_device(device))
+    return sketch_rows([s.hashes for s in sketches], sketch_size, device)

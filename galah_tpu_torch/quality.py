@@ -213,10 +213,14 @@ def quality_order_genomes(
     min_completeness: Optional[float] = None,   # percent or fraction
     max_contamination: Optional[float] = None,  # percent or fraction
     threads: int = 1,
+    missing_msg: str = ("Since CheckM input is missing, genomes are not "
+                        "being ordered by quality. Instead the order of "
+                        "their input is being used"),
 ) -> Tuple[List[str], bool]:
     """(ordered paths, whether a quality input was used). With no
-    quality input the paths keep their input order. More than one
-    input, or dRep with --genome-info, is a ValueError."""
+    quality input the paths keep their input order and `missing_msg` is
+    logged as a warning. More than one input, or dRep with
+    --genome-info, is a ValueError."""
     given = [(kind, path) for kind, path in (
         ("checkm_tab_table", checkm_tab_table),
         ("checkm2_quality_report", checkm2_quality_report),
@@ -226,9 +230,7 @@ def quality_order_genomes(
             "Specify at most one of --checkm-tab-table, "
             "--checkm2-quality-report and --genome-info")
     if not given:
-        logger.warning("Since CheckM input is missing, genomes are not "
-                       "being ordered by quality. Instead the order of "
-                       "their input is being used")
+        logger.warning("%s", missing_msg)
         return list(genome_paths), False
     kind, path = given[0]
     formula = formula or Defaults.QUALITY_FORMULA

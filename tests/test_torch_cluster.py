@@ -191,7 +191,10 @@ def test_port_imports_neither_jax_nor_galah_tpu():
             "galah_tpu_torch/io/diskcache.py",
             "galah_tpu_torch/genome_inputs.py",
             "galah_tpu_torch/manpage.py",
-            "galah_tpu_torch/validate.py"} <= names
+            "galah_tpu_torch/validate.py",
+            "galah_tpu_torch/index/__init__.py",
+            "galah_tpu_torch/index/store.py",
+            "galah_tpu_torch/index/incremental.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]
@@ -204,7 +207,8 @@ def test_port_run_loads_no_jax(families, tmp_path):
     outputs), cluster-validate and dist in a fresh interpreter leave jax
     and galah_tpu out of sys.modules, and reach the C parser, the
     read-ahead, the genome inputs, the cache and its durable write, the
-    outputs, the validation and the help pages."""
+    outputs, the validation, the help pages and the sketch index
+    (build, insert, query, remove, fsck)."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     listing = tmp_path / "genomes.txt"
@@ -228,11 +232,19 @@ def test_port_run_loads_no_jax(families, tmp_path):
         f"rc = rc or main(['dist', '-f', *{paths[:4]!r}, '--device', 'cpu',"
         f" '--output', {str(tmp_path / 'd.tsv')!r}])\n"
         "rc = rc or main(['dist', '--full-help-roff'])\n"
+        f"ix = ['index', '--index-dir', {str(tmp_path / 'ix')!r},"
+        f" '--device', 'cpu']\n"
+        f"rc = rc or main([*ix, 'build', '-f', *{paths[:3]!r}])\n"
+        f"rc = rc or main([*ix, 'insert', '-f', *{paths[3:5]!r}])\n"
+        f"rc = rc or main([*ix, 'query', '-f', {paths[5]!r}, '--output',"
+        f" {str(tmp_path / 'q.tsv')!r}])\n"
+        f"rc = rc or main([*ix, 'remove', '-f', {paths[0]!r}])\n"
+        f"rc = rc or main([*ix, 'fsck'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
         "new = [m for m in ('io._cingest', 'io.prefetch', 'io.atomic', "
         "'io.diskcache', 'genome_inputs', 'outputs', 'validate', "
-        "'manpage') "
+        "'manpage', 'index', 'index.store', 'index.incremental') "
         "if 'galah_tpu_torch.' + m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', new)\n"
         "sys.exit(rc or (1 if bad or new else 0))\n")
@@ -241,3 +253,4 @@ def test_port_run_loads_no_jax(families, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED [] MISSING []" in proc.stdout
     assert len(out.read_text().splitlines()) == 4
+    assert len((tmp_path / "q.tsv").read_text().splitlines()) == 2
