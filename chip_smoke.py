@@ -1679,10 +1679,6 @@ def index_pair_pass(torch, device, seed, tag):
             torch.empty(pi.shape[0], dtype=torch.int32, device=device))
     kernel_ms = time_ms(torch, lambda: run_launch(mat, lens, tpi, tpj, k,
                                                   *outs), 5)
-    # the same pairs with the indexed row first: consecutive pairs then
-    # share their b row, which the kernel does not stage
-    swapped_ms = time_ms(torch, lambda: run_launch(mat, lens, tpj, tpi, k,
-                                                   *outs), 5)
     pass_ms = host_ms(torch, lambda: pair_stats_for_pairs(mat, pi, pj, k),
                       3)
     j_thr = ani_to_jaccard(0.90, 21)
@@ -1690,14 +1686,12 @@ def index_pair_pass(torch, device, seed, tag):
         mat, pi, pj, k, 21, j_thr, StageClock(device)), 3)
     ki, _, _ = incremental.kept_pairs(mat, pi, pj, k, 21, j_thr,
                                       StageClock(device))
-    lens_h = lens.cpu().numpy()
-    p_bound, p_by = bound(*pl_work(lens_h, pi, pj, k))
+    p_bound, p_by = bound(*pl_work(pi, pj, k, common, total))
     host_s = host_pair_us * pi.shape[0] / 1e6
     print(f"index pair pass: {CATALOGUE_ROWS} indexed + {INDEX_PASS_ROWS} "
           f"inserted rows, K={k} ({mat.numel() * 8 / 1e6:.1f} MB on the "
           f"card; made in {gen_s:.2f} s), {pi.shape[0]} pairs, "
-          f"{ki.shape[0]} kept at 90%: kernel alone {kernel_ms:.4f} ms "
-          f"(indexed row first: {swapped_ms:.4f} ms), "
+          f"{ki.shape[0]} kept at 90%: kernel alone {kernel_ms:.4f} ms, "
           f"pass (host lists in, ints out) {pass_ms:.4f} ms, with the keep "
           f"rule and ANI {kept_ms:.4f} ms, bound {p_bound:.4f} ms ({p_by}); "
           f"plain version equal on {PASS_SAMPLE} sampled pairs, host "
@@ -1705,7 +1699,6 @@ def index_pair_pass(torch, device, seed, tag):
           f"pair, {host_s:.1f} s for the list {tag}")
     return {"rows": int(n_rows), "pairs": int(pi.shape[0]),
             "kept": int(ki.shape[0]), "kernel_only_ms": kernel_ms,
-            "kernel_only_ms_indexed_row_first": swapped_ms,
             "pass_ms": pass_ms, "kept_pass_ms": kept_ms,
             "bound_ms": p_bound, "bound_by": p_by, "max_abs_err": err,
             "plain_sample": PASS_SAMPLE, "host_sample": HOST_SAMPLE,
@@ -2636,7 +2629,8 @@ def main(argv=None) -> int:
         c_p, t_p = pair_stats_pairs_plain(fmat, tpi, tpj, 1000)
         pl_err = float(max((c_k - c_p).abs().max(), (t_k - t_p).abs().max()))
         rows_used = np.union1d(pi, pj).shape[0]
-        pl_bound, pl_by = bound(*pl_work(lens, pi, pj, 1000))
+        pl_bound, pl_by = bound(*pl_work(pi, pj, 1000, c_k.cpu().numpy(),
+                                         t_k.cpu().numpy()))
         print(f"timing pairlist: {pi.shape[0]} survivor pairs of "
               f"{rows_used} rows, K=1000: whole call {pl_ms:.4f} ms, kernel "
               f"only {pl_kernel:.4f} ms, whole pass (host numpy in and out) "
@@ -2654,7 +2648,7 @@ def main(argv=None) -> int:
         dn_pass = host_ms(torch, lambda: pair_stats_for_pairs(
             dn_mat, dn_pi, dn_pj, 1000), 3)
         dn_bound, dn_by = bound(*pl_work(
-            dn_lens.cpu().numpy(), dn_pi, dn_pj, 1000))
+            dn_pi, dn_pj, 1000, *(t.cpu().numpy() for t in dn_out)))
         print(f"timing pairlist dense: {dn_pi.shape[0]} pairs of "
               f"{dn_np.shape[0]} rows, K=1000: kernel only {dn_kernel:.4f} "
               f"ms, whole pass (host numpy in and out, one launch) "

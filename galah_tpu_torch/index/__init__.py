@@ -8,32 +8,13 @@ either package reads and writes the other's index directories;
 that re-derives the cluster engine's greedy decisions from the
 persisted sketches and pairs. See ``docs/index.md``.
 
-This module stays stdlib-only: it holds the last index operation's
-summary, which ``galah_tpu``'s run report mirrors (the port has no run
-report yet).
+This module stays stdlib-only. ``galah_tpu``'s package also holds the
+last operation's summary for its run report; the port has no run
+report yet, and its operations return their summary instead.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
-
 #: the environment variable that names the index directory when no
 #: --index-dir is given
 INDEX_DIR_ENV = "GALAH_TPU_INDEX_DIR"
-
-#: the last index operation's summary (``set_snapshot`` / ``reset``)
-_SNAPSHOT: Optional[Dict[str, Any]] = None
-
-
-def set_snapshot(snap: Dict[str, Any]) -> None:
-    global _SNAPSHOT
-    _SNAPSHOT = dict(snap)
-
-
-def snapshot() -> Optional[Dict[str, Any]]:
-    return dict(_SNAPSHOT) if _SNAPSHOT is not None else None
-
-
-def reset() -> None:
-    global _SNAPSHOT
-    _SNAPSHOT = None

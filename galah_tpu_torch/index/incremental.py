@@ -43,7 +43,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from galah_tpu_torch import index as index_pkg
 from galah_tpu_torch.backends.minhash_backend import (MinHashPreclusterer,
                                                       SketchStore)
 from galah_tpu_torch.cluster.partition import partition_preclusters
@@ -163,10 +162,9 @@ def pairs_below(live: np.ndarray, g0: int, g1: int
     """(pg, pu) of every pair (g, u), g in [g0, g1) and u < g in the
     ascending index array `live`, grouped by g, u ascending. The new
     genome is the first (the kernel's a) row: the pairlist kernel stages
-    the a row that consecutive pairs share (``kernels/pairlist.cu``),
-    8.3x faster on an H100 than a list whose b row is shared
-    (chip_smoke.py's index pair pass), and the merge statistics are
-    symmetric."""
+    the a row that consecutive pairs share (``kernels/pairlist.cu``) and
+    reads the b row in place, so the list's shared row goes first; the
+    merge statistics are symmetric."""
     gs = np.arange(g0, g1, dtype=np.int64)
     counts = np.searchsorted(live, gs)
     pu = (np.concatenate([live[:c] for c in counts]) if gs.size
@@ -262,10 +260,10 @@ def cluster_paths(state: IndexState) -> List[List[str]]:
 # -- operations --------------------------------------------------------
 
 
-def _publish(state: IndexState, op: str,
+def _summary(state: IndexState, op: str,
              extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The operation's summary, kept as the package's snapshot."""
-    snap: Dict[str, Any] = {
+    """The operation's summary."""
+    out: Dict[str, Any] = {
         "op": op,
         "generation": state.generation,
         "genomes": len(state.live),
@@ -274,9 +272,8 @@ def _publish(state: IndexState, op: str,
         "pairs": len(state.pairs),
     }
     if extra:
-        snap.update(extra)
-    index_pkg.set_snapshot(snap)
-    return snap
+        out.update(extra)
+    return out
 
 
 def build(path: str, ordered_paths: Sequence[str], ani: float,
@@ -336,7 +333,7 @@ def build(path: str, ordered_paths: Sequence[str], ani: float,
         "Built index at %s: generation %d, %d genomes, %d clusters, "
         "%d pairs", path, generation, len(state.genomes),
         len(state.reps), len(state.pairs))
-    return _publish(state, "build", counts)
+    return _summary(state, "build", counts)
 
 
 def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
@@ -374,7 +371,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
         logger.info("Skipping %d genome(s) already in the index",
                     skipped)
     if not fresh:
-        return _publish(state, "insert",
+        return _summary(state, "insert",
                         {"inserted": 0, "skipped": skipped})
 
     params = idx.params
@@ -427,7 +424,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
         generation, len(state.reps), counts["new_reps"],
         counts["reassigned"])
     counts.update({"inserted": len(fresh), "skipped": skipped})
-    return _publish(state, "insert", counts)
+    return _summary(state, "insert", counts)
 
 
 def query(idx: IndexStore, paths: Sequence[str], device="cuda",
@@ -515,5 +512,5 @@ def remove(idx: IndexStore, path: str) -> Dict[str, Any]:
         "Removed genome %d (%s) from %s: generation %d%s", target, rp,
         idx.path, generation,
         f", re-elected {reelected}" if reelected is not None else "")
-    return _publish(state, "remove",
+    return _summary(state, "remove",
                     {"removed": target, "reelected": reelected})

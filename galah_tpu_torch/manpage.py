@@ -160,11 +160,13 @@ INDEX MODEL
    pairs, and the greedy representative/membership decisions, under
    a monotonically versioned generation pointer. `build` runs the
    device sketch pipeline once; `insert` sketches ONLY the new
-   genomes, computes only their pairs (bit-identical host math), and
-   commits the next generation — the resulting clusters are byte-
-   identical to re-dereplicating the grown catalogue from scratch,
-   as long as inserts respect the quality order. `query` mutates
-   nothing and answers in milliseconds from the committed state.
+   genomes, takes only their pairs in one device pass a batch
+   (bit-identical integer pair statistics), and commits the next
+   generation — the resulting clusters are byte-identical to
+   re-dereplicating the grown catalogue from scratch, as long as
+   inserts respect the quality order. `query` mutates nothing and
+   answers from the committed state with one device pass over its
+   (representative, query) pairs.
    `remove` tombstones a genome and locally re-elects within its own
    cluster (local repair, not a from-scratch equivalence).
 

@@ -488,8 +488,9 @@ def _case_pairs(case, k, rng):
 def test_insert_pair_pass_equals_merge_stats(case, k):
     """The port's insert pair pass (plain version on the CPU) gives
     galah_tpu's merge_stats integers, and its kept pairs and ANI floats
-    are pair_ani's, on rows shorter than the sketch size, empty rows,
-    identical and disjoint rows, and pairs at the keep rule's floor."""
+    are pair_ani's (the port's host copies equal galah_tpu's), on rows
+    shorter than the sketch size, empty rows, identical and disjoint
+    rows, and pairs at the keep rule's floor."""
     rng = np.random.default_rng(1000 * k + len(case))
     pairs = _case_pairs(case, k, rng)
     flat = [s for ab in pairs for s in ab]
@@ -498,6 +499,7 @@ def test_insert_pair_pass_equals_merge_stats(case, k):
     pj = pi + 1
     common, total = pair_stats_for_pairs(mat, pi, pj, k)
     want = [jinc.merge_stats(a, b, k) for a, b in pairs]
+    assert [tinc.merge_stats(a, b, k) for a, b in pairs] == want
     assert list(zip(common.tolist(), total.tolist())) == want
     # symmetric: insert and query list the new genome first
     swapped = pair_stats_for_pairs(mat, pj, pi, k)
@@ -506,8 +508,10 @@ def test_insert_pair_pass_equals_merge_stats(case, k):
     ki, kj, anis = tinc.kept_pairs(mat, pi, pj, k, 21, j_thr,
                                    StageClock(CPU))
     got = dict(zip(ki.tolist(), anis.tolist()))
-    want_ani = {2 * n: jinc.pair_ani(a, b, k, 21, j_thr)
+    want_ani = {2 * n: tinc.pair_ani(a, b, k, 21, j_thr)
                 for n, (a, b) in enumerate(pairs)}
+    assert list(want_ani.values()) == [jinc.pair_ani(a, b, k, 21, j_thr)
+                                       for a, b in pairs]
     assert got == {n: v for n, v in want_ani.items() if v is not None}
     assert (kj == ki + 1).all()
     if case == "threshold" and k == 1000:
@@ -529,19 +533,31 @@ def _split_env(text, env):
     return head, tail
 
 
+def _split_model(text):
+    """(page without the INDEX MODEL section's first paragraph, that
+    paragraph)"""
+    head, tail = text.split("INDEX MODEL\n", 1)
+    para, rest = tail.split("\n\n", 1)
+    return head + rest, para
+
+
 @pytest.mark.parametrize("side", ["jax", "port"])
 def test_index_full_help_matches_galah_tpu(side, monkeypatch, capsys):
     """On the same `index` parser, the port's text page equals
     galah_tpu's outside the ENVIRONMENT section, which names
-    GALAH_TPU_INDEX_DIR; `index --full-help` prints it with no card."""
+    GALAH_TPU_INDEX_DIR, and the INDEX MODEL's first paragraph, which
+    says that insert and query take their pairs on the device;
+    `index --full-help` prints it with no card."""
     parser = (jbuild_parser()._subcommand_parsers["index"] if side == "jax"
               else tcli.build_parser().subcommand_parsers["index"])
-    want = jmanpage.render_full_help(parser, "index")
-    got = tmanpage.render_full_help(parser, "index")
+    want, j_model = _split_model(jmanpage.render_full_help(parser, "index"))
+    got, t_model = _split_model(tmanpage.render_full_help(parser, "index"))
     t_env = tmanpage.render_environment_section()
     assert "GALAH_TPU_INDEX_DIR" in t_env
     assert _split_env(got, t_env) == _split_env(
         want, jmanpage.render_environment_section())
+    assert "host math" in j_model and "host math" not in t_model
+    assert t_model.count("one device pass") == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["index", "--full-help"]) == 0
     assert capsys.readouterr().out == tmanpage.render_full_help(

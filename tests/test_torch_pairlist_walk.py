@@ -463,13 +463,40 @@ def test_rehearsal_finch_list_and_work():
     assert mat.shape == (1024, 1000) and pi.shape == (1536,)
     assert np.all(np.diff(pi * 1024 + pj) > 0)
     assert np.all(pi // 4 == pj // 4)
-    lens = (mat != SENT).sum(axis=1)
-    bytes_moved, ops = rpl.work(lens, pi, pj, 1000)
-    # the per-pair formula chip_smoke.py used before it was vectorised
-    import math
-    assert ops == 2 * float(sum(int(lens[a]) * math.ceil(
-        math.log2(int(lens[b]) + 1)) for a, b in zip(pi, pj)))
+    m = torch.from_numpy(mat)
+    common, total = (t.numpy() for t in tpl.pair_stats_pairs_plain(
+        m, torch.from_numpy(pi), torch.from_numpy(pj), 1000))
+    bytes_moved, _ = rpl.work(pi, pj, 1000, common, total)
     assert bytes_moved == 8 * 1000 * 1024 + 1536 * 24
+    # the operations: OPS_PER_ITEM for each item that a one-thread merge
+    # takes, on the first pairs of this list and of the dense list,
+    # whose short rows end their merges early
+    dmat, dpi, dpj = rpl.dense_list(np.random.default_rng(2), n=64)
+    for mat, pi, pj in ((mat, pi[:64], pj[:64]),
+                        (dmat, dpi[-64:], dpj[-64:])):
+        common, total = (t.numpy() for t in tpl.pair_stats_pairs_plain(
+            torch.from_numpy(mat), torch.from_numpy(pi),
+            torch.from_numpy(pj), 1000))
+        rows = [r[r != SENT] for r in mat]
+        items = sum(_merge_items(rows[a], rows[b], 1000)
+                    for a, b in zip(pi, pj))
+        assert rpl.work(pi, pj, 1000, common, total)[1] == \
+            rpl.OPS_PER_ITEM * items
+
+
+def _merge_items(a, b, sketch_size):
+    """Items a one-thread merge of the sorted distinct rows a and b
+    takes to emit the union's first min(sketch_size, |union|) values."""
+    i = j = emitted = 0
+    while emitted < sketch_size and (i < len(a) or j < len(b)):
+        if j == len(b) or (i < len(a) and a[i] < b[j]):
+            i += 1
+        elif i == len(a) or b[j] < a[i]:
+            j += 1
+        else:
+            i, j = i + 1, j + 1
+        emitted += 1
+    return i + j
 
 
 def test_rehearsal_variants_each_change_the_committed_source():
