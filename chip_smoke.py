@@ -24,7 +24,9 @@ Phases, each of which exits nonzero when it fails:
    group (8 x 2 Mbp) and that group's profiles built on the card
    against the CPU plain build, and the C FASTA parser against its
    plain numpy version on 64 corpus files and one gzip file (codes,
-   offsets and stats identical);
+   offsets and stats identical); fused_sketch also with murmur3 at
+   k = 1, 7, 8, 9, 15, 16, 17, 24, 31 and 32 on the edge groups (the
+   kernel's general key: k / 16 blocks and a tail of k mod 16 bytes);
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -54,6 +56,22 @@ Phases, each of which exits nonzero when it fails:
    ``cluster --cluster-method fastani``; the clusters must be the
    planted families, and window_hits and positional_hashes must have
    been launched;
+4m. the library API as CoverM embeds it: an argparse parser gets
+   ``add_cluster_arguments`` under CoverM's flag names
+   (``--dereplication-ani`` and the like), and
+   ``generate_galah_clusterer(..., device="cuda").cluster()`` runs over
+   phase 4's genomes (default values), phase 4b's (finch) and phase
+   4d's (dashing with the CheckM2 report): each must return the CLI
+   run's clusters in its genome order and launch that route's kernels;
+   each wall is printed beside the CLI run's; ``--dereplication-ani
+   101`` must raise a ValueError naming that flag;
+4n. ``--ani-subsample``: phase 4's genomes through ``cluster`` at c =
+   125 (skani's own compression) and c = 16: the planted families, and
+   the sorted-query elements that window_hits tests must fall by a
+   factor within [0.8 c, 1.25 c] of phase 4's (the exact-ANI stage and
+   the launches printed beside phase 4's); ``cluster-validate
+   --ani-subsample 125`` on phase 4's TSV must find 0 violations, and
+   the API at c = 125 must return the CLI run's clusters;
 4g. galah's command line: phase 4's genomes through ``main`` as a user
    runs it, ``cluster --genome-fasta-list L -q --threads 8`` with all
    three representative outputs: the TSV must equal phase 4's byte for
@@ -68,6 +86,9 @@ Phases, each of which exits nonzero when it fails:
    form) through ``dist``: every line equal to the plain pair dict's at
    ``%.6f`` (min ANI 0: every pair with any sketch overlap), all
    within-family pairs present (1,536 and 384), fused_sketch launched;
+   the same at ``--kmer-length 16`` and ``31`` with murmur3 (the fused
+   kernel's general key), the first two genomes' sketches equal to the
+   plain path's;
 4i. the persistent cache: the first 64 genomes through the skani, finch
    and dashing (with the CheckM2 report) routes with ``--sketch-cache``
    in a directory of its own, cold then warm (and once without it): the
@@ -136,8 +157,11 @@ seconds of the worker threads summed, `read work`)
    whole profile build split into load, kernel and distinct sets, with
    the distinct sets also by a two-key sort over the group; the
    sorted queries of phase 4's 512 profiles beside its exact-ANI stage;
+   fused_sketch with murmur3 at k = 16 and 31 on the finch group of k =
+   21, each with its bound (the key words and blocks of that k);
 6. kernel path against plain torch path on the card: identical
-   bidirectional ANI floats for 16 genomes, identical finch sketches
+   bidirectional ANI floats for 16 genomes, and for the same 16 at
+   ``--ani-subsample 125``, identical finch sketches
    and pair-dict ANI floats for 64 genomes (the streamed pass in blocks
    of 256 and of 16 rows, and the pairlist pass), the streamed pass
    over phase 4e's 1,000 sketches (last stripe 232 rows) against the
@@ -180,6 +204,41 @@ PEAK_OPS_PER_S = 67e12
 # (a 64-bit multiply is ~3, a 64-bit add, xor or rotate ~2) and the
 # register compare
 FUSED_OPS_PER_WINDOW = {"murmur3": 180, "tpufast": 70}
+
+
+
+def fused_murmur3_ops(k: int) -> int:
+    """32-bit operations a valid window of the fused sketch kernel with
+    murmur3 at k (kernels/fused_sketch.cu's source note): the roll,
+    select and compare (~94), ~12 a key word, ~35 a 16-byte block and
+    ~15 a tail word; 180 at k = 21."""
+    rem = k % 16
+    return (94 + 12 * -(-k // 8) + 35 * (k // 16) + 15 * (rem > 0)
+            + 15 * (rem > 8))
+
+
+# murmur3 k-mer lengths phase 3 holds the fused sketch kernel at against
+# its plain version (the tail in one word, none or two; no block below
+# 16, two at 32), and those dist runs in phase 4h and phase 5 time
+ANY_K = (1, 7, 8, 9, 15, 16, 17, 24, 31, 32)
+DIST_K = (16, 31)
+
+# --ani-subsample values of phase 4n: skani's own compression and a
+# light one
+SUBSAMPLE_C = (125, 16)
+
+# CoverM's names for the dereplication flags it embeds (phase 4m)
+COVERM_FLAGS = {
+    "ani": "dereplication-ani",
+    "precluster_ani": "dereplication-prethreshold-ani",
+    "min_aligned_fraction": "dereplication-aligned-fraction",
+    "fragment_length": "dereplication-fragment-length",
+    "precluster_method": "dereplication-precluster-method",
+    "cluster_method": "dereplication-cluster-method",
+    "quality_formula": "dereplication-quality-formula",
+    "ani_subsample": "dereplication-ani-subsample",
+    "threads": "dereplication-threads",
+}
 
 # 32-bit operations of one k=21 window of the murmur3_k21 kernel, from
 # the codes (kernels/murmur3_k21.cu's source note), and of one register
@@ -634,6 +693,20 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def valid_windows(codes, starts, k: int) -> int:
+    """Windows of width k of a launch group's codes (host arrays) that
+    hold no ambiguous base and cross no contig start: what the sketch
+    kernels hash."""
+    n = codes.shape[0] - k + 1
+    if n <= 0:
+        return 0
+    amb = np.concatenate([[0], np.cumsum(codes == 255)])
+    contig = np.searchsorted(starts, np.arange(codes.shape[0]),
+                             side="right")
+    ok = (amb[k:k + n] == amb[:n]) & (contig[:n] == contig[k - 1:k - 1 + n])
+    return int(ok.sum())
+
+
 def first_group(paths, read_genome, budget):
     """The genomes of a run's first launch group, its largest."""
     group, size = [], 0
@@ -883,7 +956,8 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
     from galah_tpu_torch.io.diskcache import CacheDir
     from galah_tpu_torch.io.fasta import read_genome
     from galah_tpu_torch.ops import fragment_ani
-    from galah_tpu_torch.ops.minhash import sketch_matrix
+    from galah_tpu_torch.ops.minhash import (sketch_genome_device,
+                                             sketch_matrix)
     from galah_tpu_torch.ops.u64 import to_biased
 
     dev = device.type
@@ -959,23 +1033,39 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
     shutil.rmtree(g_dir)
 
     # -- phase 4h: dist --------------------------------------------------
+    # murmur3 at k = 21, then at the DIST_K (the fused kernel's general
+    # key), each from the crossover up and below it; at another k the
+    # first two genomes' sketches are also held against the plain path
     dist_runs = {}
-    for what, sub, route in (
-            ("dist sparse", paths, "pairlist"),
-            ("dist dense", paths[:n_dense], "tile_stats")):
+    for what, sub, route, dk in (
+            ("dist sparse", paths, "pairlist", 21),
+            ("dist dense", paths[:n_dense], "tile_stats", 21),
+            *((f"dist k{kk} {w}", sub_k, r, kk) for kk in DIST_K
+              for w, sub_k, r in (("sparse", paths, "pairlist"),
+                                  ("dense", paths[:n_dense],
+                                   "tile_stats")))):
         if len(sub) < FINCH_MIN_GENOMES and route == "pairlist":
             print(f"dist cut: {len(sub)} genomes stay below the "
                   f"crossover {tag}")
             route = "tile_stats"
         d_tsv = os.path.join(root, "dist.tsv")
         d_argv = cli.parse_args(["dist", "-f", *sub, "--device", dev,
-                                 *threads, "--output", d_tsv])
+                                 *threads, "--kmer-length", str(dk),
+                                 "--output", d_tsv])
         dres, wall_x, launches_x = run_call(
             torch, reset_launches, launches_now, lambda: cli.run_dist(d_argv))
         require_launched(launches_x, ("fused_sketch", route), what)
+        if dk != 21:
+            for p in sub[:2]:
+                want = sketch_genome_device(read_genome(p), 1000, dk,
+                                            "murmur3", "cpu")
+                if not np.array_equal(dres.store.get_cached(p).hashes,
+                                      want.hashes):
+                    raise PhaseError(f"{what}: the sketch of {p} differs "
+                                     f"from the plain path's")
         dmat = sketch_matrix([dres.store.get_cached(p) for p in sub],
                              1000, device)
-        plain_x = plain_pair_dict(torch, dmat, 21, 0.0, 1000)
+        plain_x = plain_pair_dict(torch, dmat, dk, 0.0, 1000)
         check_dist(d_tsv, sub, plain_x)
         lab = [label_of[p] for p in sub]
         within = sum(lab[i] == lab[j] for i, j in dres.pairs)
@@ -1122,6 +1212,210 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
     return {"launches_g": launches_g, "validations": validations,
             "dist_runs": dist_runs, "cache_runs": cache_runs,
             "cache_profile": cache_profile}
+
+
+def alloc_retries(torch) -> int:
+    """cudaMalloc retries of the caching allocator so far: each one
+    freed the cached blocks and synchronised the card."""
+    return int(torch.cuda.memory_stats().get("num_alloc_retries", 0))
+
+
+def api_values(argv):
+    """The flag values of `argv` under the CoverM definition, as an
+    embedding tool parses them: (definition, vars(args))."""
+    from galah_tpu_torch.api import (ClustererCommandDefinition,
+                                     add_cluster_arguments)
+
+    defn = ClustererCommandDefinition(**COVERM_FLAGS)
+    parser = argparse.ArgumentParser(prog="coverm-like")
+    add_cluster_arguments(parser, defn)
+    return defn, vars(parser.parse_args(argv))
+
+
+def run_api(torch, reset_launches, launches_now, genome_paths, argv):
+    """generate_galah_clusterer(...).cluster() on cuda under the CoverM
+    definition, launch counts as in run_call; (clusterer, clusters,
+    wall seconds, launches)."""
+    from galah_tpu_torch.api import generate_galah_clusterer
+
+    defn, values = api_values(argv)
+
+    def go():
+        c = generate_galah_clusterer(genome_paths, values, defn,
+                                     device="cuda")
+        return c, c.cluster()
+
+    (clusterer, clusters), wall, launches = run_call(
+        torch, reset_launches, launches_now, go)
+    return clusterer, clusters, wall, launches
+
+
+def phases_api(torch, reset_launches, launches_now, kernels, runs,
+               report, tag):
+    """Phase 4m: the library API as CoverM embeds it, with CoverM's flag
+    names, over the corpora of phases 4, 4b and 4d. `runs` maps each of
+    "skani", "finch", "dashing" to (the CLI run's genome inputs, its
+    RunResult, its wall). Returns the walls and launches."""
+    t = str(THREADS)
+    api_runs = {}
+    for route, argv, need in (
+            ("skani", ["--dereplication-ani", "95",
+                       "--dereplication-threads", t],
+             ("positional_hashes", "window_hits")),
+            ("finch", ["--dereplication-precluster-method", "finch",
+                       "--dereplication-ani", "95",
+                       "--dereplication-threads", t],
+             ("fused_sketch", "pairlist", "positional_hashes",
+              "window_hits")),
+            ("dashing", ["--dereplication-precluster-method", "dashing",
+                         "--checkm2-quality-report", report,
+                         "--dereplication-ani", "95",
+                         "--dereplication-threads", t],
+             ("hll_union", "murmur3_k21", "positional_hashes",
+              "window_hits"))):
+        inputs, res_cli, wall_cli = runs[route]
+        if route == "finch" and len(inputs) < FINCH_MIN_GENOMES:
+            need = tuple(n for n in need if n != "pairlist")
+        clusterer, clusters, wall, launches = run_api(
+            torch, reset_launches, launches_now, inputs, argv)
+        if clusterer.genome_paths != res_cli.genomes:
+            raise PhaseError(f"api {route}: the genome order differs from "
+                             f"the CLI run's")
+        if clusters != res_cli.clusters:
+            raise PhaseError(f"api {route}: the clusters differ from the "
+                             f"CLI run's")
+        require_launched(launches, need, f"api {route}")
+        api_runs[route] = {"wall": wall, "cli_wall": wall_cli,
+                           "launches": launches}
+        print(f"api {route}: generate_galah_clusterer(...).cluster() "
+              f"under CoverM's flag names, {len(inputs)} genomes, "
+              f"{len(clusters)} clusters equal to the CLI run's, same "
+              f"genome order; wall {wall:.2f} s (CLI {wall_cli:.2f} s) "
+              f"{tag}")
+        print_run(f"api {route}", clusterer, launches, kernels, tag)
+        del clusterer
+        gc.collect()
+        torch.cuda.empty_cache()
+    from galah_tpu_torch.api import generate_galah_clusterer
+
+    defn, values = api_values(["--dereplication-ani", "101"])
+    try:
+        generate_galah_clusterer(runs["skani"][0], values, defn,
+                                 device="cuda")
+    except ValueError as e:
+        if "--dereplication-ani" not in str(e):
+            raise PhaseError(f"api: the out-of-range error names no "
+                             f"renamed flag: {e}")
+        print(f"api: --dereplication-ani 101 raises ValueError({e}) {tag}")
+    else:
+        raise PhaseError("api: --dereplication-ani 101 was accepted")
+    return api_runs
+
+
+def phases_subsample(torch, cli, reset_launches, launches_now, kernels,
+                     root, skani_dir, res4, launches4, tsv4, label_of,
+                     threads, family, tag):
+    """Phase 4n: --ani-subsample over phase 4's genomes (`res4`, whose
+    launches are `launches4` and TSV `tsv4`) through `cluster` at each
+    SUBSAMPLE_C, the elements
+    window_hits tests against phase 4's, cluster-validate at c = 125,
+    and the library API at c = 125. Returns the walls and launches."""
+    n = len(res4.genomes)
+    elems1 = res4.clock.counts["query-elements"]
+    out = {}
+    for c in SUBSAMPLE_C:
+        tsv = os.path.join(root, f"clusters_c{c}.tsv")
+        # the caching allocator starts each run empty, as in a process of
+        # its own; its retries (cudaMalloc after freeing the cache) are
+        # counted across the run
+        gc.collect()
+        torch.cuda.empty_cache()
+        retries0 = alloc_retries(torch)
+        r, wall, launches = run_path(
+            torch, cli, reset_launches, launches_now,
+            ["cluster", "-d", skani_dir, "--ani", "95", "--device", "cuda",
+             *threads, "--ani-subsample", str(c),
+             "--output-cluster-definition", tsv])
+        retries = alloc_retries(torch) - retries0
+        check_families(r, label_of, n, family, tsv, f"subsample c={c}")
+        require_launched(launches, ("positional_hashes", "window_hits"),
+                         f"subsample c={c}")
+        elems = r.clock.counts["query-elements"]
+        fall = elems1 / max(elems, 1)
+        if not 0.8 * c <= fall <= 1.25 * c:
+            raise PhaseError(f"subsample c={c}: window_hits tested "
+                             f"{elems} elements against {elems1} at c=1, "
+                             f"{fall:.1f}x fewer, outside [{0.8 * c:.1f}, "
+                             f"{1.25 * c:.1f}]")
+        # the exact-ANI stage's sorted queries, built anew over the run's
+        # profiles, as phase 5 times them at c = 1
+        with r.store.reserve(n):
+            profs = r.store.get_many(r.genomes)
+        fresh = [dataclasses.replace(p, _sorted_query=None,
+                                     _totals_host=None) for p in profs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in fresh:
+            p.sorted_query()
+            p.totals_host()
+        torch.cuda.synchronize()
+        sq_s = time.perf_counter() - t0
+        del profs, fresh
+        out[c] = {"wall": wall, "exact_ani_s": r.clock.seconds["exact-ani"],
+                  "profile_s": r.clock.seconds["profile"],
+                  "sorted_query_s": sq_s, "alloc_retries": retries,
+                  "window_hits": launches["window_hits"],
+                  "query_elements": elems, "launches": launches,
+                  "clusters": r.clusters, "genomes": r.genomes}
+        print(f"subsample c={c}: {n} genomes, {len(r.clusters)} clusters "
+              f"== the planted families; exact-ani stage "
+              f"{r.clock.seconds['exact-ani']:.3f} s (c=1: "
+              f"{res4.clock.seconds['exact-ani']:.3f} s), window_hits "
+              f"launches {launches['window_hits']} (c=1: "
+              f"{launches4['window_hits']}), query elements {elems} "
+              f"(c=1: {elems1}, {fall:.1f}x "
+              f"fewer); wall {wall:.2f} s {tag}")
+        print(f"subsample c={c} split: the run's {n} sorted queries built "
+              f"anew {sq_s:.3f} s (host clock); allocator retries in the "
+              f"run {retries} {tag}")
+        print_run(f"subsample c={c}", r, launches, kernels, tag)
+        del r
+        gc.collect()
+    v_args = cli.parse_args(
+        ["cluster-validate", "--cluster-file", tsv4, "--ani", "95",
+         "--min-aligned-fraction", "15", "--device", "cuda", *threads,
+         "--ani-subsample", "125"])
+    val, wall_v, launches_v = run_call(
+        torch, reset_launches, launches_now,
+        lambda: cli.run_cluster_validate(v_args))
+    require_launched(launches_v, ("positional_hashes", "window_hits"),
+                     "validate --ani-subsample 125")
+    if val.violations != 0:
+        raise PhaseError(f"cluster-validate --ani-subsample 125 finds "
+                         f"{val.violations} violations in phase 4's "
+                         f"clusters")
+    print(f"subsample validate c=125: phase 4's TSV, {val.member_pairs} "
+          f"member and {val.rep_pairs} representative pairs, 0 "
+          f"violations; wall {wall_v:.2f} s {tag}")
+    clusterer, clusters, wall_a, launches_a = run_api(
+        torch, reset_launches, launches_now, res4.genomes,
+        ["--dereplication-ani", "95", "--dereplication-ani-subsample",
+         "125", "--dereplication-threads", str(THREADS)])
+    if (clusterer.genome_paths, clusters) != (out[125]["genomes"],
+                                              out[125]["clusters"]):
+        raise PhaseError("api at --dereplication-ani-subsample 125: the "
+                         "clusters differ from the CLI run's")
+    require_launched(launches_a, ("positional_hashes", "window_hits"),
+                     "api subsample")
+    print(f"subsample api c=125: clusters equal to the CLI run's; wall "
+          f"{wall_a:.2f} s {tag}")
+    del clusterer
+    gc.collect()
+    for c in SUBSAMPLE_C:
+        del out[c]["clusters"], out[c]["genomes"]
+    return {"runs": out, "validate": {"wall": wall_v,
+                                      "launches": launches_v},
+            "api": {"wall": wall_a, "launches": launches_a}}
 
 
 class SigtermWhen:
@@ -1869,6 +2163,30 @@ def main(argv=None) -> int:
           f"short contigs; k, k-1 and all-ambiguous genomes; ragged "
           f"jobs), {n_windows} windows, candidates and certified "
           f"sketches exact {tag}")
+    # murmur3 at the other k (dist --kmer-length): the kernel's general
+    # key, k / 16 blocks and a tail of k mod 16 bytes, on the edge groups
+    any_windows = 0
+    for kk in ANY_K:
+        for group in sketch_groups[1:]:
+            codes, offsets, jobs = host_layout(group, kk)
+            loaded = load_group(group, kk, device)
+            got = fused_sketch_candidates(loaded.codes, loaded.starts, jobs,
+                                          kk, "murmur3").cpu()
+            want = fused_candidates_plain(torch.from_numpy(codes),
+                                          torch.from_numpy(offsets), jobs,
+                                          kk, "murmur3")
+            if not torch.equal(got, want):
+                raise PhaseError(
+                    f"fused_sketch (murmur3, k={kk}) disagrees with its "
+                    f"plain version at {int((got != want).sum())} "
+                    f"candidates of the group of {group[0].path}")
+            any_windows += max(codes.shape[0] - kk + 1, 0)
+    torch.cuda.synchronize()
+    print(f"parity fused_sketch: murmur3 at k = "
+          f"{', '.join(map(str, ANY_K))} on the {len(sketch_groups) - 1} "
+          f"edge groups (N runs, contig starts inside runs, genomes "
+          f"shorter than k), {any_windows} windows, candidates exact "
+          f"{tag}")
     # K = 1000, and the widest K the kernel stages (1536) and the next
     # (read in place), and K = 1; the 20,000-pair lists take the staged
     # plan where K allows
@@ -2281,6 +2599,24 @@ def main(argv=None) -> int:
         print(f"device memory before phase 4g: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
               f"{tag}")
+        # -- phase 4m: the library API as CoverM embeds it ---------------
+        api_out = phases_api(torch, reset_launches, LAUNCHES, KERNELS,
+                             {"skani": (res.genomes, res, wall),
+                              "finch": (paths, res_f, wall_f),
+                              "dashing": (paths, res_h, wall_h)},
+                             report, tag)
+
+        # -- phase 4n: --ani-subsample -------------------------------------
+        tsv4_path = os.path.join(root, "clusters4.tsv")
+        with open(tsv4_path, "wb") as fh:
+            fh.write(tsv4)
+        sub_out = phases_subsample(torch, cli, reset_launches, LAUNCHES,
+                                   KERNELS, root, skani_dir, res, launches,
+                                   tsv4_path, label_of, threads, family,
+                                   tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+
         cli_out = phases_cli(torch, cli, reset_launches, LAUNCHES, KERNELS,
                              root, res.genomes, tsv4, paths, label_of,
                              n_dense, report, threads, family, device, tag)
@@ -2596,6 +2932,40 @@ def main(argv=None) -> int:
               + f" + the rest; largest part: {max(fs_split, key=fs_split.get)}"
               f"; host layout alone {fs['layout_ms']:.3f} ms; finch 1024 "
               f"sketch stage per launch group {stage_group:.2f} ms {tag}")
+        # murmur3 at the dist k of phase 4h on the same group: the
+        # kernel's general key; the first genome's candidates against the
+        # plain version
+        fs_other_k = {}
+        for kk in DIST_K:
+            _, _, jobs_k = host_layout(group, kk)
+            k_ms = time_ms(torch, lambda: fused_sketch_candidates(
+                dc, ds, jobs_k, kk, "murmur3"), 10)
+            cand_k = fused_sketch_candidates(dc, ds, jobs_k, kk, "murmur3")
+            one_c, one_s, one_jobs = host_layout(group[:1], kk)
+            t0 = time.perf_counter()
+            want_k = fused_candidates_plain(torch.from_numpy(one_c),
+                                            torch.from_numpy(one_s),
+                                            one_jobs, kk, "murmur3")
+            k_plain = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(cand_k[:1].cpu(), want_k):
+                raise PhaseError(f"fused_sketch (murmur3, k={kk}) disagrees "
+                                 f"with its plain version at the finch "
+                                 f"run's first genome")
+            nv_k = valid_windows(hc.numpy(), hs.numpy(), kk)
+            k_bound, k_by = bound(fs_bytes, nv_k * fused_murmur3_ops(kk))
+            fs_other_k[kk] = {"ms": k_ms, "bound_ms": k_bound,
+                              "bound_by": k_by, "valid_windows": nv_k,
+                              "ops_per_window": fused_murmur3_ops(kk),
+                              "plain_first_genome_ms": k_plain,
+                              "max_abs_err": 0.0}
+            print(f"timing fused_sketch murmur3 k={kk}: the same "
+                  f"{len(jobs_k)} jobs, {nv_k} valid windows: kernel "
+                  f"{k_ms:.4f} ms (k=21: {fs_ms:.4f} ms, "
+                  f"{k_ms / fs_ms:.2f}x), bound {k_bound:.4f} ms ({k_by}, "
+                  f"{fused_murmur3_ops(kk)} operations a window); plain "
+                  f"on the first genome (CPU tensors, host clock) "
+                  f"{k_plain:.1f} ms, candidates exact {tag}")
+            del cand_k, want_k
         del cand, want, group, fs, hc, hs, dc, ds
 
         # pairlist: the finch run's collision survivors
@@ -2773,6 +3143,23 @@ def main(argv=None) -> int:
         n_val = sum(v is not None for v in a_k)
         print(f"kernel vs plain path: {len(pairs)} pairs of 16 genomes, "
               f"{n_val} gated values, identical floats {tag}")
+        # the same 16 genomes' profiles at --ani-subsample 125
+        sub125 = fragment_ani.build_profiles_batch(
+            [read_genome(p) for p in res.genomes[:16]], 15, 3000, device,
+            subsample_c=125)
+        pairs125 = [(sub125[i], sub125[j]) for i in range(16)
+                    for j in range(i + 1, 16)]
+        a_k = fragment_ani.bidirectional_ani_values(pairs125, 0.15)
+        a_p = fragment_ani.bidirectional_ani_values(
+            pairs125, 0.15, hits=window_element_hits_plain)
+        if a_k != a_p:
+            raise PhaseError("bidirectional ANI at --ani-subsample 125 "
+                             "differs between the kernel and plain paths")
+        print(f"kernel vs plain path at --ani-subsample 125: "
+              f"{len(pairs125)} pairs of 16 genomes, "
+              f"{sum(v is not None for v in a_k)} gated values, identical "
+              f"floats {tag}")
+        del sub125, pairs125
 
         from galah_tpu_torch.ops.pairwise import (threshold_pairs,
                                                   threshold_pairs_streamed)
@@ -2888,7 +3275,11 @@ def main(argv=None) -> int:
          "plain_on": "CPU tensors, host clock", "group_ms": group_ms,
          "group_split_ms": fs_split,
          "tpufast": {"ms": fast_ms, "bound_ms": fast_bound,
-                     "bound_by": fast_by}},
+                     "bound_by": fast_by},
+         "murmur3_other_k": {str(kk): v for kk, v in fs_other_k.items()},
+         "launches_dist": {w: v["fused_sketch"] for w, v in
+                           cli_out["dist_runs"].items()},
+         "launches_api_finch": api_out["finch"]["launches"]["fused_sketch"]},
         {"name": "pairlist", "route": "cuda",
          "source": "galah_tpu_torch/kernels/pairlist.cu",
          "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
@@ -2954,6 +3345,15 @@ def main(argv=None) -> int:
         "walls_phases_4j_4k": resil_out["walls"],
         "launches_phase_4l": index_out["launches"],
         "walls_phase_4l": index_out["walls"],
+        "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
+                             "launches": v["launches"]}
+                         for w, v in api_out.items()},
+        "phase_4n_subsample": {
+            "runs": {str(c): v for c, v in sub_out["runs"].items()},
+            "c1": {"exact_ani_s": res.clock.seconds["exact-ani"],
+                   "window_hits": launches["window_hits"],
+                   "query_elements": res.clock.counts["query-elements"]},
+            "validate": sub_out["validate"], "api": sub_out["api"]},
         "validate_rep_pairs": {
             "pairs": cli_out["validations"]["validate"][0].rep_pairs,
             "seconds": cli_out["validations"]["validate"][0].rep_seconds}}

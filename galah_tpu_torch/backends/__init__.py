@@ -1,5 +1,10 @@
 """Exact-ANI backends and the skani-style, finch and dashing
-preclusterers."""
+preclusterers, over the two contracts of ``backends/base.py``."""
+
+from galah_tpu_torch.backends.base import (  # noqa: F401
+    ClusterBackend,
+    PreclusterBackend,
+)
 
 from galah_tpu_torch.backends.fragment_backend import (  # noqa: F401
     FastANIEquivalentClusterer,

@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from galah_tpu_torch.backends.base import ClusterBackend, PreclusterBackend
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
@@ -53,7 +54,8 @@ ANI_KMER = 15
 class ProfileStore:
     """LRU cache: genome path -> GenomeProfile on `device`, over an
     optional disk cache (`cache`; by default the one
-    ``GALAH_TPU_CACHE`` names, if any)."""
+    ``GALAH_TPU_CACHE`` names, if any). Profiles keep only the k-mers
+    whose hash is below 2^64 / `subsample_c` (``--ani-subsample``)."""
 
     def __init__(self, device="cuda", k: int = ANI_KMER,
                  fraglen: int = Defaults.FRAGMENT_LENGTH,
@@ -61,11 +63,14 @@ class ProfileStore:
                  clock: Optional[StageClock] = None,
                  hash_algorithm: str = Defaults.HASH_ALGO,
                  threads: int = 1,
-                 cache: Optional[diskcache.CacheDir] = None) -> None:
+                 cache: Optional[diskcache.CacheDir] = None,
+                 subsample_c: int = Defaults.ANI_SUBSAMPLE) -> None:
+        fragment_ani.check_subsample(subsample_c)
         self.device = resolve_device(device)
         self.threads = max(1, int(threads))
         self.k = k
         self.fraglen = fraglen
+        self.subsample_c = int(subsample_c)
         self.hash_algorithm = hash_algorithm
         self.maxsize = maxsize
         self.clock = clock or StageClock(self.device)
@@ -93,8 +98,10 @@ class ProfileStore:
 
     def _params(self) -> dict:
         # galah_tpu keys only non-default knobs, so its default-path
-        # entries keep their names (subsample_c is always 1 here)
+        # entries keep their names
         p = {"k": self.k, "fraglen": self.fraglen}
+        if self.subsample_c != 1:
+            p["subsample_c"] = self.subsample_c
         if self.hash_algorithm != "murmur3":
             p["hash_algorithm"] = self.hash_algorithm
         return p
@@ -107,7 +114,8 @@ class ProfileStore:
             path=path, k=self.k, fraglen=self.fraglen,
             flat_hashes=to_biased(entry["flat_hashes"], self.device),
             ref_set=to_biased(entry["ref_set"], self.device),
-            markers=to_biased(entry["markers"], self.device))
+            markers=to_biased(entry["markers"], self.device),
+            subsample_c=self.subsample_c)
 
     def _store_disk(self, path: str, prof: GenomeProfile) -> None:
         self.disk.store(path, "profile", self._params(), {
@@ -154,7 +162,8 @@ class ProfileStore:
             with self.clock.stage("profile"):
                 profs = fragment_ani.build_profiles_batch(
                     genomes, k=self.k, fraglen=self.fraglen,
-                    device=self.device, hash_algorithm=self.hash_algorithm)
+                    device=self.device, subsample_c=self.subsample_c,
+                    hash_algorithm=self.hash_algorithm)
             self.clock.count("profile-groups", 1)
             # galah_tpu's hash.batched_genomes: its long genomes take
             # the per-genome route
@@ -170,23 +179,42 @@ class ProfileStore:
         return [by_path[p] for p in paths]
 
 
-class _FragmentANIMixin:
+def _exact_ani(clock: StageClock,
+               pairs: Sequence[Tuple[GenomeProfile, GenomeProfile]],
+               min_aligned_fraction: float) -> List[Optional[float]]:
+    """Gated bidirectional ANI of profile pairs, in stage `exact-ani`;
+    counts `directed_queries` and `query-elements`, the sorted-query
+    hashes that window_hits tests (about 1/c of them under
+    ``--ani-subsample c``)."""
+    with clock.stage("exact-ani"):
+        clock.count("directed_queries", 2 * len(pairs))
+        anis = fragment_ani.bidirectional_ani_values(pairs,
+                                                     min_aligned_fraction)
+    clock.count("query-elements", sum(
+        int(q.sorted_query()[0].shape[0]) for pair in pairs for q in pair
+        if q.n_windows))
+    return anis
+
+
+class _FragmentANIMixin(ClusterBackend):
     def __init__(self, threshold: float, min_aligned_fraction: float,
                  store: ProfileStore) -> None:
-        self.ani_threshold = float(threshold)
+        self._threshold = float(threshold)
         self.min_aligned_fraction = float(min_aligned_fraction)
         self.store = store
+
+    @property
+    def ani_threshold(self) -> float:
+        return self._threshold
 
     def _batch_results(self, pairs: Sequence[Tuple[str, str]]
                        ) -> List[Optional[float]]:
         unique = list(dict.fromkeys(p for pair in pairs for p in pair))
         with self.store.reserve(len(unique)):
             by_path = dict(zip(unique, self.store.get_many(unique)))
-        with self.store.clock.stage("exact-ani"):
-            self.store.clock.count("directed_queries", 2 * len(pairs))
-            return fragment_ani.bidirectional_ani_values(
-                [(by_path[a], by_path[b]) for a, b in pairs],
-                self.min_aligned_fraction)
+        return _exact_ani(self.store.clock,
+                          [(by_path[a], by_path[b]) for a, b in pairs],
+                          self.min_aligned_fraction)
 
 
 class FastANIEquivalentClusterer(_FragmentANIMixin):
@@ -210,7 +238,7 @@ class SkaniEquivalentClusterer(_FragmentANIMixin):
                 for ani in self._batch_results(pairs)]
 
 
-class SkaniPreclusterer:
+class SkaniPreclusterer(PreclusterBackend):
     """Marker screen on the device + exact fragment ANI on the
     screened pairs."""
 
@@ -255,11 +283,9 @@ class SkaniPreclusterer:
         clock.count("screened_pairs", len(pairs))
         logger.info("%d pairs passed screening; computing exact ANI ..",
                     len(pairs))
-        with clock.stage("exact-ani"):
-            clock.count("directed_queries", 2 * len(pairs))
-            anis = fragment_ani.bidirectional_ani_values(
-                [(profiles[i], profiles[j]) for i, j in pairs],
-                self.min_aligned_fraction)
+        anis = _exact_ani(clock, [(profiles[i], profiles[j])
+                                  for i, j in pairs],
+                          self.min_aligned_fraction)
         cache = PairDistanceCache()
         for (i, j), ani in zip(pairs, anis):
             if ani is not None and ani >= self.threshold:

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from galah_tpu_torch.backends.base import PreclusterBackend
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
@@ -87,7 +88,7 @@ class HLLStore:
                                        self.device, self.clock))
 
 
-class HLLPreclusterer:
+class HLLPreclusterer(PreclusterBackend):
     def __init__(self, min_ani: float, store: HLLStore,
                  threads: int = 1) -> None:
         self.min_ani = float(min_ani)

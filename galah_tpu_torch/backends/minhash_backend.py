@@ -20,6 +20,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional, Sequence
 
+from galah_tpu_torch.backends.base import PreclusterBackend
 from galah_tpu_torch.cluster.cache import PairDistanceCache
 from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
@@ -92,7 +93,7 @@ class SketchStore:
                                     self.algo, self.device, self.clock)
 
 
-class MinHashPreclusterer:
+class MinHashPreclusterer(PreclusterBackend):
     def __init__(self, min_ani: float, store: SketchStore,
                  threads: int = 1) -> None:
         self.min_ani = float(min_ani)

@@ -3,11 +3,13 @@
 Three subcommands of ``galah-tpu``, with its defaults, help strings and
 output formats:
 
-* ``cluster``: genome inputs (-f, --genome-fasta-list, -d, -x), the
-  thresholds, the skani, finch or dashing precluster with the skani or
-  fastani clusterer, the hash algorithm, quality ordering (a CheckM1
-  table, a CheckM2 report or a genomeInfo CSV, the formula and the
-  completeness and contamination filters), the cluster definition TSV,
+* ``cluster``: genome inputs (-f, --genome-fasta-list, -d, -x), and
+  the library API's flags (``api.add_cluster_arguments``) and clusterer
+  (``api.generate_galah_clusterer``): the thresholds, the skani, finch
+  or dashing precluster with the skani or fastani clusterer, the hash
+  algorithm, ``--ani-subsample``, quality ordering (a CheckM1 table, a
+  CheckM2 report or a genomeInfo CSV, the formula and the completeness
+  and contamination filters); then the cluster definition TSV,
   the representative directories (symlinks or copies) and list, the
   persistent sketch/profile cache (``--sketch-cache``), the host
   threads that read genomes ahead (``--threads``), the greedy round
@@ -15,7 +17,8 @@ output formats:
   ``--resume``) and the quarantine of unreadable genomes
   (``--on-bad-genome skip``);
 * ``cluster-validate``: re-check a cluster definition with exact ANI;
-* ``dist``: all-pairs MinHash ANI as a TSV;
+* ``dist``: all-pairs MinHash ANI as a TSV, at any k-mer length of 1
+  to 32;
 * ``index``: the persistent sketch index (``--index-dir`` or
   ``GALAH_TPU_INDEX_DIR``) and its actions ``build``, ``insert``,
   ``query``, ``remove`` and ``fsck``, over directories interchangeable
@@ -45,20 +48,21 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch import __version__
-from galah_tpu_torch.config import (CLUSTER_METHODS, HASH_ALGORITHMS,
-                                    PRECLUSTER_METHODS, QUALITY_FORMULAS,
+from galah_tpu_torch.api import (add_cluster_arguments,
+                                 generate_galah_clusterer)
+from galah_tpu_torch.config import (HASH_ALGORITHMS, QUALITY_FORMULAS,
                                     Defaults, parse_percentage)
 from galah_tpu_torch.index import INDEX_DIR_ENV
 from galah_tpu_torch.io.fasta import CORRUPT_GZIP_ERRORS
 from galah_tpu_torch.resilience import interrupt
-from galah_tpu_torch.resilience.quarantine import ON_BAD_GENOME_CHOICES
 
 logger = logging.getLogger("galah_tpu_torch")
 
 # flags of `galah-tpu`'s subcommands that this port does not support yet
+# (`cluster`'s --rep-scan-window parses, from the library API, and is
+# refused after parsing)
 UNSUPPORTED_FLAGS = (
-    "--ani-subsample", "--rep-scan-window", "--profile-trace-dir",
-    "--trace-events", "--run-report", "--platform",
+    "--profile-trace-dir", "--trace-events", "--run-report", "--platform",
 )
 
 
@@ -232,66 +236,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "choosing one representative per cluster")
     _add_common(c)
     _add_genome_inputs(c)
-    c.add_argument("--ani", type=float, default=Defaults.ANI,
-                   help="ANI threshold for clustering (default: 95)")
-    c.add_argument("--precluster-ani", type=float,
-                   default=Defaults.PRETHRESHOLD_ANI,
-                   help="Precluster ANI threshold (default: 90; equal to "
-                        "--ani for skani+skani)")
-    c.add_argument("--min-aligned-fraction", type=float,
-                   default=Defaults.ALIGNED_FRACTION * 100,
-                   help="Min aligned fraction of two genomes for "
-                        "clustering (default: 15)")
-    c.add_argument("--fragment-length", type=int,
-                   default=Defaults.FRAGMENT_LENGTH,
-                   help="Fragment length of the fastANI-style "
-                        "calculation (default: 3000)")
-    c.add_argument("--precluster-method", default=Defaults.PRECLUSTER_METHOD,
-                   choices=PRECLUSTER_METHODS,
-                   help="Precluster method: skani, finch or dashing "
-                        "(default: skani)")
-    c.add_argument("--cluster-method", default=Defaults.CLUSTER_METHOD,
-                   choices=CLUSTER_METHODS,
-                   help="Exact ANI method (default: skani)")
-    c.add_argument("--hash-algorithm", default=Defaults.HASH_ALGO,
-                   choices=HASH_ALGORITHMS,
-                   help="k-mer hash of the sketches and profiles: murmur3 "
-                        "(the finch contract) or tpufast (default: "
-                        "murmur3)")
-    c.add_argument("--checkm-tab-table",
-                   help="Output of `checkm qa .. --tab_table`")
-    c.add_argument("--checkm2-quality-report",
-                   help="CheckM2 quality_report.tsv output")
-    c.add_argument("--genome-info",
-                   help="dRep-style genome info CSV "
-                        "(genome,completeness,contamination)")
-    c.add_argument("--min-completeness", type=float,
-                   help="Ignore genomes with less completeness than "
-                        "this percentage")
-    c.add_argument("--max-contamination", type=float,
-                   help="Ignore genomes with more contamination than "
-                        "this percentage")
-    c.add_argument("--quality-formula", default=Defaults.QUALITY_FORMULA,
-                   choices=QUALITY_FORMULAS,
-                   help="Quality formula for ranking genomes "
-                        "(default: Parks2020_reduced)")
-    c.add_argument("--rep-rounds", type=int, default=None,
-                   help="Device greedy-selection round width: genomes "
-                        "speculatively taken per round of the "
-                        "round-based representative scan (default: "
-                        "1024)")
-    c.add_argument("--threads", "-t", type=int, default=1,
-                   help="Host threads for FASTA stats/IO fan-out "
-                        "and CPU-backend native sketching/profiling; "
-                        "device parallelism is managed by the mesh")
-    c.add_argument("--on-bad-genome", default="error",
-                   choices=ON_BAD_GENOME_CHOICES,
-                   help="What to do with unreadable genome FASTAs "
-                        "(missing, empty, corrupt): 'error' aborts "
-                        "on first touch (default); 'skip' "
-                        "preflights every input, quarantines the "
-                        "bad ones into quarantine.json next to "
-                        "the outputs, and clusters the rest")
+    # the shared clustering and quality flags come from the library
+    # API, so the command and an embedding tool stay in step
+    add_cluster_arguments(c)
     c.add_argument("--sketch-cache",
                    help="Directory for the persistent sketch/profile "
                         "cache (also via GALAH_TPU_CACHE); sketches are "
@@ -392,6 +339,9 @@ def parse_args(argv: Optional[Sequence[str]],
                          "galah_tpu_torch yet")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if getattr(args, "rep_scan_window", None) is not None:
+        parser.error("--rep-scan-window: this flag of `galah-tpu cluster` "
+                     "is not supported by galah_tpu_torch yet")
     return args
 
 
@@ -405,25 +355,6 @@ def _genome_inputs(args: argparse.Namespace, manifest=None) -> List[str]:
         genome_fasta_extension=args.genome_fasta_extension,
         on_bad_genome=getattr(args, "on_bad_genome", "error"),
         manifest=manifest)
-
-
-def backend_params(hash_algorithm: str, fragment_length: int) -> Dict:
-    """The sketch settings a checkpoint's fingerprint holds: equal to
-    ``galah_tpu``'s for the same run, so either package resumes the
-    other's checkpoint."""
-    from galah_tpu_torch.backends import SkaniPreclusterer
-    from galah_tpu_torch.backends.fragment_backend import ANI_KMER
-    from galah_tpu_torch.ops.hll import DEFAULT_P
-
-    return {
-        "minhash": {"sketch_size": Defaults.MINHASH_SKETCH_SIZE,
-                    "k": Defaults.MINHASH_KMER, "seed": 0,
-                    "algo": hash_algorithm},
-        "hll": {"p": DEFAULT_P, "k": Defaults.MINHASH_KMER, "seed": 0,
-                "algo": hash_algorithm},
-        "fragment": {"k": ANI_KMER, "fraglen": fragment_length,
-                     "screen_identity": SkaniPreclusterer.SCREEN_IDENTITY},
-    }
 
 
 @dataclasses.dataclass
@@ -451,63 +382,32 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
 
 
 def _run_cluster(args: argparse.Namespace) -> RunResult:
-    from galah_tpu_torch.backends import (
-        FastANIEquivalentClusterer,
-        HLLPreclusterer,
-        HLLStore,
-        MinHashPreclusterer,
-        ProfileStore,
-        SkaniEquivalentClusterer,
-        SkaniPreclusterer,
-        SketchStore,
-    )
+    """The library API's clusterer (``api.generate_galah_clusterer``)
+    over the genome inputs, with the command's outputs, checkpoint and
+    preemption around it."""
     from galah_tpu_torch.cluster.checkpoint import (ClusterCheckpoint,
                                                     fields_digest,
                                                     fingerprint_fields)
-    from galah_tpu_torch.cluster.engine import cluster
     from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.io import diskcache
     from galah_tpu_torch.outputs import setup_outputs, write_outputs
-    from galah_tpu_torch.quality import quality_order_genomes
-    from galah_tpu_torch.resilience.quarantine import (
-        QuarantineManifest, manifest_output_dir, preflight_quarantine)
+    from galah_tpu_torch.resilience.quarantine import (QuarantineManifest,
+                                                       manifest_output_dir)
     from galah_tpu_torch.timing import StageClock
 
-    if args.rep_rounds is not None and args.rep_rounds < 1:
-        raise ValueError(f"--rep-rounds must be >= 1, got {args.rep_rounds}")
     if args.resume and not args.checkpoint_dir:
         raise ValueError("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)
     clock = StageClock(device)
     quarantine = QuarantineManifest()
     paths = _genome_inputs(args, quarantine)
-    if args.on_bad_genome == "skip":
-        # before quality ordering, which reads every genome itself
-        paths, _ = preflight_quarantine(paths, quarantine,
-                                        threads=args.threads, clock=clock)
-        if not paths:
-            raise ValueError(
-                "every input genome was quarantined as unreadable; "
-                "nothing to cluster (see the quarantine manifest)")
     cache = diskcache.get_cache(args.sketch_cache, clock)
     if cache.enabled:
         logger.info("Using persistent sketch cache at %s", cache.path)
-    with clock.stage("quality"):
-        genomes, _ = quality_order_genomes(
-            paths, checkm_tab_table=args.checkm_tab_table,
-            checkm2_quality_report=args.checkm2_quality_report,
-            genome_info=args.genome_info, formula=args.quality_formula,
-            min_completeness=args.min_completeness,
-            max_contamination=args.max_contamination, threads=args.threads)
-    ani = parse_percentage(args.ani, "--ani")
-    precluster_ani = parse_percentage(args.precluster_ani,
-                                      "--precluster-ani")
-    min_af = parse_percentage(args.min_aligned_fraction,
-                              "--min-aligned-fraction")
-    # skani+skani: precluster at the final threshold (reference:
-    # src/cluster_argument_parsing.rs:983-1030)
-    if args.precluster_method == "skani" and args.cluster_method == "skani":
-        precluster_ani = ani
+    clusterer = generate_galah_clusterer(
+        paths, vars(args), cache=cache, quarantine_manifest=quarantine,
+        device=device, clock=clock)
+    genomes = clusterer.genome_paths
     # opened before any compute, so a bad output path fails fast
     handles = setup_outputs(
         cluster_definition=args.output_cluster_definition,
@@ -521,12 +421,12 @@ def _run_cluster(args: argparse.Namespace) -> RunResult:
         if args.checkpoint_dir:
             fields = fingerprint_fields(
                 genomes, args.precluster_method, args.cluster_method,
-                ani, parse_percentage(args.precluster_ani,
-                                      "--precluster-ani"),
-                min_aligned_fraction=min_af,
+                parse_percentage(args.ani, "--ani"),
+                parse_percentage(args.precluster_ani, "--precluster-ani"),
+                min_aligned_fraction=parse_percentage(
+                    args.min_aligned_fraction, "--min-aligned-fraction"),
                 fragment_length=args.fragment_length,
-                backend_params=backend_params(args.hash_algorithm,
-                                              args.fragment_length))
+                backend_params=clusterer.backend_params)
             ckpt = ClusterCheckpoint(args.checkpoint_dir,
                                      fields_digest(fields), fields=fields,
                                      require_match=args.resume)
@@ -535,38 +435,10 @@ def _run_cluster(args: argparse.Namespace) -> RunResult:
             prior = ckpt.load_interruptions()
             if ckpt.matched_existing and (prior or args.resume):
                 interrupt.note_resume(args.checkpoint_dir, len(prior))
-        store = ProfileStore(device, fraglen=args.fragment_length,
-                             clock=clock, hash_algorithm=args.hash_algorithm,
-                             threads=args.threads, cache=cache)
-        if args.precluster_method == "finch":
-            pre = MinHashPreclusterer(
-                min_ani=precluster_ani,
-                store=SketchStore(device, algo=args.hash_algorithm,
-                                  clock=clock, cache=cache),
-                threads=args.threads)
-        elif args.precluster_method == "dashing":
-            pre = HLLPreclusterer(
-                min_ani=precluster_ani,
-                store=HLLStore(device, algo=args.hash_algorithm,
-                               clock=clock, cache=cache),
-                threads=args.threads)
-        else:
-            pre = SkaniPreclusterer(threshold=precluster_ani,
-                                    min_aligned_fraction=min_af,
-                                    store=store)
-        if args.cluster_method == "fastani":
-            cl = FastANIEquivalentClusterer(threshold=ani,
-                                            min_aligned_fraction=min_af,
-                                            store=store)
-        else:
-            cl = SkaniEquivalentClusterer(threshold=ani,
-                                          min_aligned_fraction=min_af,
-                                          store=store)
+            clusterer.checkpoint = ckpt
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
         try:
-            clusters = cluster(genomes, pre, cl, device,
-                               rep_rounds=args.rep_rounds, clock=clock,
-                               checkpoint=ckpt)
+            clusters = clusterer.cluster()
         except interrupt.PreemptionRequested as e:
             # everything before the boundary is durable: record the stop
             # and leave without outputs
@@ -594,7 +466,8 @@ def _run_cluster(args: argparse.Namespace) -> RunResult:
     if cache.enabled:
         logger.info("Sketch cache: %s", cache.stats())
     return RunResult(genomes=genomes, clusters=clusters, clock=clock,
-                     store=store, preclusterer=pre)
+                     store=clusterer.clusterer.store,
+                     preclusterer=clusterer.preclusterer)
 
 
 def run_cluster_validate(args: argparse.Namespace):
@@ -603,7 +476,6 @@ def run_cluster_validate(args: argparse.Namespace):
     from galah_tpu_torch.backends import (FastANIEquivalentClusterer,
                                           ProfileStore)
     from galah_tpu_torch.device import resolve_device
-    from galah_tpu_torch.ops.fragment_ani import check_subsample
     from galah_tpu_torch.validate import validate_clusters
 
     if not args.cluster_file:
@@ -614,11 +486,11 @@ def run_cluster_validate(args: argparse.Namespace):
     if not 1 <= args.ani_subsample <= 1000:
         raise ValueError(f"--ani-subsample must be in [1, 1000], got "
                          f"{args.ani_subsample}")
-    check_subsample(args.ani_subsample)
     store = ProfileStore(resolve_device(args.device),
                          fraglen=args.fragment_length,
                          hash_algorithm=args.hash_algorithm,
-                         threads=args.threads)
+                         threads=args.threads,
+                         subsample_c=args.ani_subsample)
     clusterer = FastANIEquivalentClusterer(
         threshold=ani, min_aligned_fraction=min_af, store=store)
     return validate_clusters(args.cluster_file, clusterer)
@@ -639,18 +511,18 @@ def run_dist(args: argparse.Namespace) -> DistResult:
     from galah_tpu_torch.backends import SketchStore
     from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.io import diskcache
+    from galah_tpu_torch.ops.hashing import MAX_KMER
     from galah_tpu_torch.ops.minhash import sketch_matrix
     from galah_tpu_torch.ops.pairwise import threshold_pairs
     from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
     from galah_tpu_torch.timing import StageClock
 
-    if args.hash_algorithm == "murmur3" and args.kmer_length != 21:
-        # galah_tpu hashes any k with murmur3; the port's fused sketch
-        # takes murmur3 at k=21 only
+    if not 1 <= args.kmer_length <= MAX_KMER:
+        # galah_tpu refuses k < 1; above 32 its 64-bit k-mer packs wrap,
+        # and the orientation it hashes is then not the canonical one
         raise ValueError(
-            f"--kmer-length {args.kmer_length} with --hash-algorithm "
-            "murmur3 is not supported by galah_tpu_torch yet: murmur3 "
-            "sketches take --kmer-length 21 (tpufast takes 1-31)")
+            f"--kmer-length {args.kmer_length}: galah_tpu_torch sketches "
+            f"k-mers of 1 to {MAX_KMER} bases")
     device = resolve_device(args.device)
     clock = StageClock(device)
     genomes = _genome_inputs(args)
@@ -691,19 +563,15 @@ class IndexResult:
 def _index_order_genomes(genomes: List[str], args: argparse.Namespace,
                          clock) -> List[str]:
     """Quality order for `index build`/`insert`; with no quality input,
-    input order, with a warning of its own and count
-    `index-quality-fallback` (representative choice is then
-    unranked)."""
-    from galah_tpu_torch.quality import quality_order_genomes
+    input order, with a warning of its own (once a process, key
+    `index-quality-fallback`) and count `index-quality-fallback`
+    (representative choice is then unranked)."""
+    from galah_tpu_torch.api import quality_order_genomes
 
     with clock.stage("quality"):
         ordered, used_quality = quality_order_genomes(
-            genomes, checkm_tab_table=args.checkm_tab_table,
-            checkm2_quality_report=args.checkm2_quality_report,
-            genome_info=args.genome_info, formula=args.quality_formula,
-            min_completeness=args.min_completeness,
-            max_contamination=args.max_contamination,
-            threads=args.threads,
+            genomes, vars(args), threads=args.threads,
+            missing_key="index-quality-fallback",
             missing_msg="Since CheckM input is missing, genomes enter the "
                         "index in input order, not quality order — "
                         "representative selection is unranked. Pass "

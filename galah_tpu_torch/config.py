@@ -18,6 +18,7 @@ class Defaults:
     PRECLUSTER_METHOD = "skani"
     CLUSTER_METHOD = "skani"         # choices: skani, fastani
     QUALITY_FORMULA = "Parks2020_reduced"
+    ANI_SUBSAMPLE = 1                # --ani-subsample: FracMinHash c
     # genomes per durable `index insert` batch, the preemption boundary
     # (galah_tpu's GALAH_TPU_INDEX_BATCH default)
     INDEX_BATCH = 32

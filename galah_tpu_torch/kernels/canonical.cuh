@@ -22,7 +22,9 @@
 // f ^ mask, so the canonical string's LSB-first pack is one select; a
 // byte permute (prmt) turns 4 of its 2-bit codes into 4 ASCII bytes.
 // At k = 21 the key words are bytes 0-7, 8-15 and 16-20 (little-endian,
-// the tail's top 3 bytes zero), as ops/hashing._key_words builds them.
+// the tail's top 3 bytes zero), as ops/hashing._key_words builds them;
+// murmur3_canonical assembles any k <= 32 the same way, word w from
+// codes 8w .. 8w + 7 of the pack, its bytes past the k-th zeroed.
 // kernels/build.py hashes every .cuh beside the sources into each
 // library's name, so an edited header rebuilds both kernels.
 
@@ -85,14 +87,43 @@ __device__ __forceinline__ u64 murmur3_canonical21(u64 f, u64 r) {
   return murmur3_k21(k1, k2, tail);
 }
 
-// Walk windows p0 .. p0 + n - 1 (n >= 1) of width k (1 <= k <= 31):
+// the 2-bit packs of a k-mer: the low 2k bits (all 64 at k = 32)
+__device__ __forceinline__ u64 pack_mask(int k) {
+  return k >= 32 ? ~0ull : (1ull << (2 * k)) - 1;
+}
+
+// the ASCII key word of codes 8w .. 8w + 7 of an LSB-first pack, its
+// bytes from the k-th on zero
+__device__ __forceinline__ u64 key_word(u64 lsb, int w, int k) {
+  const u64 word = ascii8(lsb >> (16 * w));
+  const int bytes = k - 8 * w;
+  return bytes >= 8 ? word : word & ((1ull << (8 * bytes)) - 1);
+}
+
+// murmur3 x64_128 h1 (seed 0) of the canonical k-mer (1 <= k <= 32)
+// whose forward and reverse-complement packs are f and r: k / 16 blocks,
+// then a tail of k mod 16 bytes in two words
+__device__ __forceinline__ u64 murmur3_canonical(u64 f, u64 r, int k) {
+  const u64 lsb = (f <= r ? r : f) ^ pack_mask(k);
+  const int blocks = k >> 4;
+  u64 h1 = 0, h2 = 0;
+  for (int b = 0; b < blocks; ++b)
+    murmur3_block(h1, h2, key_word(lsb, 2 * b, k),
+                  key_word(lsb, 2 * b + 1, k));
+  const int rem = k & 15;
+  const u64 t1 = rem > 0 ? key_word(lsb, 2 * blocks, k) : 0;
+  const u64 t2 = rem > 8 ? key_word(lsb, 2 * blocks + 1, k) : 0;
+  return murmur3_finish(h1, h2, t1, t2, k);
+}
+
+// Walk windows p0 .. p0 + n - 1 (n >= 1) of width k (1 <= k <= 32):
 // emit(i, valid, f, r) for window p0 + i, in order. Reads codes
 // [p0, p0 + n + k - 1), which the caller keeps inside the sequence.
 template <class Emit>
 __device__ __forceinline__ void for_each_window(
     const u8* __restrict__ codes, const long long* __restrict__ starts,
     long long n_starts, long long p0, int n, int k, Emit emit) {
-  const u64 mask = (1ull << (2 * k)) - 1;
+  const u64 mask = pack_mask(k);
   const int top = 2 * k - 2;
   long long si = first_start_after(starts, n_starts, p0);
   long long next = si < n_starts ? starts[si] : kNoStart;

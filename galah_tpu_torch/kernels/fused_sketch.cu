@@ -28,8 +28,15 @@
 // registers. At the end the 4 files of a class are merged through
 // shared memory (a merge of "8 smallest distinct" files is again the 8
 // smallest distinct of the union). Hashing is murmur3 x64_128 h1 (seed
-// 0, length 21, on native 64-bit integers; murmur3.cuh) of the ASCII
-// canonical k-mer, or the multiply-free tpufast mixer of its 2-bit pack.
+// 0, on native 64-bit integers; murmur3.cuh) of the ASCII canonical
+// k-mer, or the multiply-free tpufast mixer of its 2-bit pack. The
+// kernel is a template over the murmur3 key: the k = 21 instance
+// (murmur3_canonical21: one block and a 5-byte tail, fixed) also
+// carries tpufast at any k; the other instance hashes murmur3 at any
+// k <= 32 (canonical.cuh's murmur3_canonical: k / 16 blocks and a tail
+// of k mod 16 bytes, words assembled from the canonical pack in
+// registers). The launch picks the instance by (algorithm, k), so the
+// finch default (murmur3, k = 21) runs the same code as before.
 //
 // Bound: bytes are 1 B a base in (the run's k - 1 halo is reread from
 // L1/L2) and 8 x 2048 x 8 B a job out: a 16-genome group of 32 M bases
@@ -37,7 +44,9 @@
 // 32-bit operations: the roll ~12, the canonical select and the ASCII
 // key words ~50, the murmur3 hash ~100 (12 64-bit multiplies at ~3, ~30
 // other 64-bit operations at ~2), the register compare ~4: ~180
-// (tpufast: roll, select, mixer, compare ~70). 32 M windows x 180 at
+// (tpufast: roll, select, mixer, compare ~70). At another k, murmur3
+// costs 94 + 12 a key word + 35 a 16-byte block + 15 a tail word: 121
+// at k = 8, 153 at 16, 207 at 31, 212 at 32 (180 at 21 again). 32 M windows x 180 at
 // 67e12/s is 0.086 ms, so operations bound it, 9x over the bytes. The
 // design therefore spends nothing per window that the bound does not
 // count: no key word or mask reaches device memory, a window costs one
@@ -45,8 +54,9 @@
 // shared load and one compare.
 //
 // ptxas (sm_90a, `python -m galah_tpu_torch.kernels.build --ptxas`):
-// 60 registers, no spills, 69,632 B of dynamic shared memory a block,
-// so two 512-thread blocks an SM (32 warps).
+// 60 registers for the k = 21 instance and 64 for the any-k instance
+// (the launch bound's cap), no spills, 69,632 B of dynamic shared memory
+// a block, so two 512-thread blocks an SM (32 warps).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -106,6 +116,9 @@ __device__ __forceinline__ void insert(u64 (&r)[kRegs], u64 v) {
   }
 }
 
+// kAnyK: murmur3 at any k (murmur3_canonical); else murmur3 at k = 21
+// (murmur3_canonical21) or, with tpufast_algo, tpufast at any k
+template <bool kAnyK>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sketch_kernel(const u8* __restrict__ codes,
                     const long long* __restrict__ starts, long long n_starts,
@@ -143,8 +156,12 @@ fused_sketch_kernel(const u8* __restrict__ codes,
           [&](int i, bool valid, u64 f, u64 rv) {
             u64 h = kSent;
             if (valid) {
-              h = tpufast_algo ? tpufast(f <= rv ? f : rv)
-                               : galah::murmur3_canonical21(f, rv);
+              if (kAnyK) {
+                h = galah::murmur3_canonical(f, rv, k);
+              } else {
+                h = tpufast_algo ? tpufast(f <= rv ? f : rv)
+                                 : galah::murmur3_canonical21(f, rv);
+              }
             }
             slot[i] = h;
           });
@@ -173,6 +190,24 @@ fused_sketch_kernel(const u8* __restrict__ codes,
         static_cast<long long>(r[i] ^ kBias);
 }
 
+template <bool kAnyK>
+cudaError_t launch(const dim3 grid, cudaStream_t stream, const u8* codes,
+                   const long long* starts, long long n_starts,
+                   const long long* job_off, const long long* job_len, int k,
+                   int tpufast_algo, long long* out) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_sketch_kernel<kAnyK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  fused_sketch_kernel<kAnyK><<<grid, kThreads, kSmemBytes, stream>>>(
+      codes, starts, n_starts, job_off, job_len, k, tpufast_algo, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_sketch_launch(const void* codes, const void* starts,
@@ -181,22 +216,19 @@ extern "C" int fused_sketch_launch(const void* codes, const void* starts,
                                    int tpufast_algo, void* out,
                                    void* stream) {
   if (jobs <= 0) return 0;
-  if (jobs > 65535 || k < 1 || k > 31 || (!tpufast_algo && k != 21))
+  if (jobs > 65535 || k < 1 || k > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
   const dim3 grid(kSlices, jobs);
-  fused_sketch_kernel<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u8*>(codes), static_cast<const long long*>(starts),
-      n_starts, static_cast<const long long*>(job_off),
-      static_cast<const long long*>(job_len), k, tpufast_algo,
-      static_cast<long long*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const auto* c = static_cast<const u8*>(codes);
+  const auto* st = static_cast<const long long*>(starts);
+  const auto* jo = static_cast<const long long*>(job_off);
+  const auto* jl = static_cast<const long long*>(job_len);
+  auto* o = static_cast<long long*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      (!tpufast_algo && k != 21)
+          ? launch<true>(grid, s, c, st, n_starts, jo, jl, k, 0, o)
+          : launch<false>(grid, s, c, st, n_starts, jo, jl, k, tpufast_algo,
+                          o);
+  return static_cast<int>(err);
 }

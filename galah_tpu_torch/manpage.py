@@ -147,8 +147,7 @@ OUTPUT
 
 EXIT STATUS
    0 on success, 1 on recoverable user error (bad flags, missing
-   files, a --kmer-length other than 21 with --hash-algorithm
-   murmur3).
+   files, a --kmer-length outside 1-32).
 
 EXAMPLES
       galah-tpu dist -d genomes/ -x fna --min-ani 95 --output pairs.tsv

@@ -104,11 +104,23 @@ class GenomeProfile:
 
 
 def check_subsample(subsample_c: int) -> None:
-    if subsample_c != 1:
+    """``--ani-subsample`` takes 1 <= c <= MARKER_C: the markers, the
+    distinct hashes below 2^64 / MARKER_C, must survive the cut."""
+    if not 1 <= subsample_c <= MARKER_C:
         raise ValueError(
-            f"--ani-subsample {subsample_c}: FracMinHash-subsampled "
-            "profiles (c > 1) are not supported by galah_tpu_torch yet; "
-            "use the default 1")
+            f"subsample_c must be in [1, {MARKER_C}], got {subsample_c}")
+
+
+def subsample_mask(hashes: torch.Tensor, subsample_c: int) -> torch.Tensor:
+    """`hashes` (biased) with every hash at or above 2^64 / c replaced
+    by the sentinel: the FracMinHash subsample of skani's compression
+    (reference: src/skani.rs:159-161). Positions keep their windows, so
+    the per-window counts stay comparable; c = 1 keeps every hash."""
+    if subsample_c == 1:
+        return hashes
+    cut = biased_scalar((1 << 64) // subsample_c)
+    return torch.where(hashes < cut, hashes,
+                       torch.full_like(hashes, SENTINEL_BIASED))
 
 
 def build_profile(genome: Genome, k: int, fraglen: int, device="cuda",
@@ -125,13 +137,18 @@ def build_profiles_batch(genomes: Sequence[Genome], k: int, fraglen: int,
                          ) -> List[GenomeProfile]:
     """Profiles of `genomes`, in order, on `device`, a group of at most
     ``PROFILE_BATCH_BUDGET`` bases at a time (``io/group.py``). Each
-    genome's profile depends only on the genome, not on its group."""
+    genome's profile depends only on the genome, not on its group. With
+    `subsample_c` > 1 only hashes below 2^64 / c stay (``subsample_mask``,
+    before the distinct sets, as ``galah_tpu``'s ``_profile_from_flat``);
+    the markers are then the masked distinct set's slice below 2^64 /
+    MARKER_C, the same slice as unmasked since c <= MARKER_C."""
     check_subsample(subsample_c)
     device = resolve_device(device)
     out: List[GenomeProfile] = []
     for idx in iter_groups(genomes, PROFILE_BATCH_BUDGET):
         group = [genomes[i] for i in idx]
-        flats = _group_flat_hashes(group, k, device, hash_algorithm)
+        flats = _group_flat_hashes(group, k, device, hash_algorithm,
+                                   subsample_c)
         for g, flat, (ref_set, markers) in zip(group, flats,
                                                _distinct_sets(flats)):
             out.append(GenomeProfile(path=g.path, k=k, fraglen=fraglen,
@@ -142,19 +159,23 @@ def build_profiles_batch(genomes: Sequence[Genome], k: int, fraglen: int,
 
 
 def _group_flat_hashes(group: Sequence[Genome], k: int,
-                       device: torch.device, algo: str
-                       ) -> List[torch.Tensor]:
-    """Each genome's positional hashes. At k=15 the group's codes go to
-    the device in one copy and through one launch of
-    ``ops/positional_hashes`` (its kernel on cuda); other k take
+                       device: torch.device, algo: str,
+                       subsample_c: int = 1) -> List[torch.Tensor]:
+    """Each genome's positional hashes, subsampled. At k=15 the group's
+    codes go to the device in one copy and through one launch of
+    ``ops/positional_hashes`` (its kernel on cuda), and one
+    ``subsample_mask`` covers the group; other k take
     ``hashing.positional_hashes`` a genome. A genome's hashes are cloned
     out of the group's, so a profile held in the LRU holds no other
     genome's hashes."""
     if k != k15.K:
-        return [hashing.positional_hashes(g, k, device, algo=algo)
-                for g in group]
+        return [subsample_mask(hashing.positional_hashes(g, k, device,
+                                                         algo=algo),
+                               subsample_c) for g in group]
     loaded = load_group(group, k, device)
-    hashes = k15.positional_hashes(loaded.codes, loaded.starts, algo=algo)
+    hashes = subsample_mask(
+        k15.positional_hashes(loaded.codes, loaded.starts, algo=algo),
+        subsample_c)
     if len(group) == 1:
         return [hashes]
     return [hashes[w0:w0 + n].clone() for w0, n in loaded.jobs]

@@ -26,7 +26,8 @@ import torch
 
 from galah_tpu_torch.kernels import LAUNCHES
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
-from galah_tpu_torch.ops.hashing import canonical_key_words, masked_hashes
+from galah_tpu_torch.ops.hashing import (MAX_KMER, canonical_key_words,
+                                         masked_hashes)
 from galah_tpu_torch.ops.murmur3_k21 import check_codes, plain_offsets
 
 CLASSES = 2048  # position classes per job (16 sublanes x 128 lanes)
@@ -40,9 +41,9 @@ def _check(codes: torch.Tensor, starts: torch.Tensor, jobs: Sequence[Job],
            k: int, algo: str) -> None:
     if algo not in ("murmur3", "tpufast"):
         raise ValueError(f"unknown hash algorithm {algo!r}")
-    if not 1 <= k <= 31 or (algo == "murmur3" and k != 21):
-        raise ValueError(f"fused {algo} sketching takes k in [1, 31], and "
-                         f"murmur3 takes k=21; got k={k}")
+    if not 1 <= k <= MAX_KMER:
+        raise ValueError(f"fused {algo} sketching takes k in [1, "
+                         f"{MAX_KMER}]; got k={k}")
     check_codes(codes, starts, "fused sketch")
     n = max(codes.shape[0] - k + 1, 0)
     for off, length in jobs:

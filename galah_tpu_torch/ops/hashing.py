@@ -40,6 +40,9 @@ from galah_tpu_torch.ops.u64 import as_int64, bias, lsr, rotl
 # live at once, under 1 GB on the card
 DEFAULT_CHUNK = 1 << 23
 
+# the longest k-mer: its 2-bit packs fill one 64-bit word
+MAX_KMER = 32
+
 _C1 = as_int64(0x87C37B91114253D5)
 _C2 = as_int64(0x4CF5AD432745937F)
 _F1 = as_int64(0xFF51AFD7ED558CCD)
@@ -105,8 +108,9 @@ def _key_words(cs: torch.Tensor, k: int, algo: str):
         fwd = fwd | (c << (2 * (k - 1 - j)))
         rev = rev | ((3 - c) << (2 * j))
     # A<C<G<T in both code and ASCII order, so the packed-integer
-    # compare is the lexicographic string compare
-    use_fwd = fwd <= rev
+    # compare is the lexicographic string compare (unsigned: at k = 32
+    # the packs use the sign bit)
+    use_fwd = bias(fwd) <= bias(rev)
     if algo == "tpufast":
         return (torch.where(use_fwd, fwd, rev),)
     if algo != "murmur3":
@@ -179,8 +183,8 @@ def positional_hashes(genome: Genome, k: int, device="cuda",
     ``ops/murmur3_k21.murmur3_k21`` (its kernel on cuda); at k=15, with
     either hash, to ``ops/positional_hashes.positional_hashes`` (its
     kernel on cuda)."""
-    if not 1 <= k <= 31:
-        raise ValueError(f"k must be in [1, 31], got {k}")
+    if not 1 <= k <= MAX_KMER:
+        raise ValueError(f"k must be in [1, {MAX_KMER}], got {k}")
     device = resolve_device(device)
     n = genome.codes.shape[0]
     if n < k:
@@ -214,18 +218,17 @@ def canonical_key_words(codes: np.ndarray, contig_offsets: np.ndarray,
     """(words, valid) over the ``n - k + 1`` windows of a sequence given
     as a genome's codes and contig offsets (a launch group's genomes,
     concatenated, each start a contig boundary): the
-    canonical key words each window's hash reads (``_key_words``; for
-    murmur3 k must be 21, the fused sketch kernel's key length) and the
-    window mask of ``positional_hashes``. The preamble of the sketch
-    kernels' plain versions (``ops/fused_sketch.py``,
-    ``ops/murmur3_k21.py``)."""
-    if algo == "murmur3" and k != 21:
-        raise ValueError(f"fused murmur3 sketching requires k=21, got {k}")
+    canonical key words each window's hash reads (``_key_words``:
+    ``ceil(k / 8)`` for murmur3, one for tpufast) and the window mask
+    of ``positional_hashes``. The preamble of the sketch kernels' plain
+    versions (``ops/fused_sketch.py``, ``ops/murmur3_k21.py``)."""
+    if not 1 <= k <= MAX_KMER:
+        raise ValueError(f"k must be in [1, {MAX_KMER}], got {k}")
     if algo not in ("murmur3", "tpufast"):
         raise ValueError(f"unknown hash algorithm {algo!r}")
     device = resolve_device(device)
     n_win = max(codes.shape[0] - k + 1, 0)
-    n_words = 3 if algo == "murmur3" else 1
+    n_words = -(-k // 8) if algo == "murmur3" else 1
     words = tuple(torch.empty(n_win, dtype=torch.int64, device=device)
                   for _ in range(n_words))
     valid = torch.zeros(n_win, dtype=torch.bool, device=device)

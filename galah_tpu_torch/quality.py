@@ -1,7 +1,9 @@
 """Genome quality: parsers, formulas, filtering and ordering.
 
-The port's own copy of ``galah_tpu/quality.py`` and of
-``galah_tpu.api.quality_order_genomes`` (reference:
+The port's own copy of ``galah_tpu/quality.py`` and of the body of
+``galah_tpu.api.quality_order_genomes``, whose port
+(``galah_tpu_torch/api.py``) reads the inputs from flag values and
+calls ``quality_order_genomes`` here (reference:
 src/cluster_argument_parsing.rs:576-894, src/genome_info_file.rs:20-80):
 
 * three inputs, keyed by the FASTA file's name without its last
@@ -36,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch.config import Defaults, parse_percentage
 from galah_tpu_torch.io.fasta import GenomeStats, read_genome_stats
+from galah_tpu_torch.obs.events import warn_once
 
 logger = logging.getLogger(__name__)
 
@@ -216,11 +219,15 @@ def quality_order_genomes(
     missing_msg: str = ("Since CheckM input is missing, genomes are not "
                         "being ordered by quality. Instead the order of "
                         "their input is being used"),
+    missing_key: str = "checkm-input-missing",
+    min_completeness_flag: str = "--min-completeness",
+    max_contamination_flag: str = "--max-contamination",
 ) -> Tuple[List[str], bool]:
     """(ordered paths, whether a quality input was used). With no
     quality input the paths keep their input order and `missing_msg` is
-    logged as a warning. More than one input, or dRep with
-    --genome-info, is a ValueError."""
+    warned once a process under `missing_key` (``obs/events.warn_once``).
+    More than one input, or dRep with --genome-info, is a ValueError; a
+    filter out of range is one that names its flag as given."""
     given = [(kind, path) for kind, path in (
         ("checkm_tab_table", checkm_tab_table),
         ("checkm2_quality_report", checkm2_quality_report),
@@ -230,7 +237,7 @@ def quality_order_genomes(
             "Specify at most one of --checkm-tab-table, "
             "--checkm2-quality-report and --genome-info")
     if not given:
-        logger.warning("%s", missing_msg)
+        warn_once(logger, missing_msg, key=missing_key)
         return list(genome_paths), False
     kind, path = given[0]
     formula = formula or Defaults.QUALITY_FORMULA
@@ -249,10 +256,10 @@ def quality_order_genomes(
     ordered = filter_and_order_genomes(
         list(genome_paths), table, formula=formula,
         min_completeness=(parse_percentage(
-            min_completeness, "--min-completeness")
+            min_completeness, min_completeness_flag)
             if min_completeness is not None else None),
         max_contamination=(parse_percentage(
-            max_contamination, "--max-contamination")
+            max_contamination, max_contamination_flag)
             if max_contamination is not None else None),
         threads=threads)
     return ordered, True

@@ -18,7 +18,6 @@ from galah_tpu.cluster import cache as jcache
 from galah_tpu.cluster import checkpoint as jckpt
 from galah_tpu.io import atomic as jatomic
 from galah_tpu.resilience import faults as jfaults
-from galah_tpu_torch import cli as tcli
 from galah_tpu_torch.cluster import cache as tcache
 from galah_tpu_torch.cluster import checkpoint as tckpt
 from galah_tpu_torch.io import atomic as tatomic
@@ -293,6 +292,17 @@ def _jax_backend_params(algo, fraglen):
     }
 
 
+def _port_backend_params(algo, fraglen):
+    """The backend_params of the port's library API for these values."""
+    from galah_tpu_torch.api import generate_galah_clusterer
+
+    return generate_galah_clusterer(
+        ["a.fna"], {"ani": 95.0, "precluster_ani": 90.0,
+                    "min_aligned_fraction": 15.0, "fragment_length": fraglen,
+                    "precluster_method": "skani", "cluster_method": "skani",
+                    "hash_algorithm": algo}, device="cpu").backend_params
+
+
 @pytest.mark.parametrize("route", ["skani", "finch", "dashing"])
 @pytest.mark.parametrize("algo", ["murmur3", "tpufast"])
 def test_fingerprint_equals_galah_tpu(tmp_path, monkeypatch, route, algo):
@@ -307,7 +317,7 @@ def test_fingerprint_equals_galah_tpu(tmp_path, monkeypatch, route, algo):
     spellings = [[f"data/{n}" for n in names],
                  [f"./data/{n}" for n in names],
                  [str(tmp_path / "link" / n) for n in names]]
-    params = tcli.backend_params(algo, 3000)
+    params = _port_backend_params(algo, 3000)
     assert params == _jax_backend_params(algo, 3000)
     digests = set()
     for genomes in spellings:
@@ -323,7 +333,7 @@ def test_fingerprint_equals_galah_tpu(tmp_path, monkeypatch, route, algo):
         digests.add(tckpt.fields_digest(got))
     assert len(digests) == 1
     other = tckpt.run_fingerprint(spellings[0], route, "skani", 0.95, 0.9,
-                                  0.15, 3000, tcli.backend_params(algo, 2000))
+                                  0.15, 3000, _port_backend_params(algo, 2000))
     assert other not in digests
 
 

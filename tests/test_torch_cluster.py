@@ -140,13 +140,25 @@ def test_cli_directory_input(families, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--platform", "cpu"], ["--rep-scan-window", "8"],
-    ["--ani-subsample", "125"], ["--run-report=r.json"],
+    ["--profile-trace-dir", "d"], ["--run-report=r.json"],
     ["--trace-events", "t.json"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", *flag])
     assert e.value.code == 2
     assert flag[0].split("=")[0] in capsys.readouterr().err
+
+
+def test_cli_parses_ani_subsample():
+    """--ani-subsample, refused before the port had subsampled profiles,
+    parses on `cluster` and `cluster-validate` (default 1)."""
+    args = tcli.parse_args(["cluster", "-f", "a.fna", "--ani-subsample",
+                            "125"])
+    assert args.ani_subsample == 125
+    assert tcli.parse_args(["cluster", "-f", "a.fna"]).ani_subsample == 1
+    args = tcli.parse_args(["cluster-validate", "--cluster-file", "c.tsv",
+                            "--ani-subsample", "125"])
+    assert args.ani_subsample == 125
 
 
 def test_cli_rejects_unsupported_precluster_method(capsys):
@@ -207,8 +219,9 @@ def test_port_run_loads_no_jax(families, tmp_path):
     outputs), cluster-validate and dist in a fresh interpreter leave jax
     and galah_tpu out of sys.modules, and reach the C parser, the
     read-ahead, the genome inputs, the cache and its durable write, the
-    outputs, the validation, the help pages and the sketch index
-    (build, insert, query, remove, fsck)."""
+    outputs, the validation, the help pages, the sketch index (build,
+    insert, query, remove, fsck), the library API with a subsampled
+    profile, and dist at another k."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     listing = tmp_path / "genomes.txt"
@@ -225,12 +238,12 @@ def test_port_run_loads_no_jax(families, tmp_path):
         f" '--output-representative-list', {str(tmp_path / 'r.txt')!r},"
         f" '--output-cluster-definition', {str(out)!r}])\n"
         f"rc = rc or main(['cluster', '-f', *{paths[:4]!r}, '--device',"
-        f" 'cpu', '--precluster-method', 'dashing',"
-        f" '--output-cluster-definition', {str(out)!r}])\n"
+        f" 'cpu', '--precluster-method', 'dashing', '--ani-subsample',"
+        f" '16', '--output-cluster-definition', {str(out)!r}])\n"
         f"rc = rc or main(['cluster-validate', '--cluster-file',"
         f" {str(out)!r}, '--device', 'cpu'])\n"
         f"rc = rc or main(['dist', '-f', *{paths[:4]!r}, '--device', 'cpu',"
-        f" '--output', {str(tmp_path / 'd.tsv')!r}])\n"
+        f" '--kmer-length', '16', '--output', {str(tmp_path / 'd.tsv')!r}])\n"
         "rc = rc or main(['dist', '--full-help-roff'])\n"
         f"ix = ['index', '--index-dir', {str(tmp_path / 'ix')!r},"
         f" '--device', 'cpu']\n"
@@ -244,7 +257,8 @@ def test_port_run_loads_no_jax(families, tmp_path):
         "('jax', 'jaxlib', 'galah_tpu')]\n"
         "new = [m for m in ('io._cingest', 'io.prefetch', 'io.atomic', "
         "'io.diskcache', 'genome_inputs', 'outputs', 'validate', "
-        "'manpage', 'index', 'index.store', 'index.incremental') "
+        "'manpage', 'index', 'index.store', 'index.incremental', 'api', "
+        "'backends.base', 'obs.events') "
         "if 'galah_tpu_torch.' + m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', new)\n"
         "sys.exit(rc or (1 if bad or new else 0))\n")

@@ -585,7 +585,11 @@ def test_index_on_cuda_without_a_card_raises(grown, corpus, tmp_path,
 
 def test_build_without_quality_input_warns(corpus, tmp_path, caplog):
     """With no quality input, genomes enter in input order under the
-    index's own warning, counted as index-quality-fallback."""
+    index's own warning (once a process, as galah_tpu warns it),
+    counted as index-quality-fallback."""
+    from galah_tpu_torch.obs.events import reset_warn_once
+
+    reset_warn_once()
     fams, _, _ = corpus
     args = tcli.parse_args(["index", "--index-dir", str(tmp_path / "idx"),
                             "--device", "cpu", "build", "-f",

@@ -237,12 +237,15 @@ def test_fused_sketch_rejects_bad_inputs():
     st = torch.tensor([0, 30])
     with pytest.raises(ValueError):  # codes must be uint8
         tfs.fused_sketch_candidates(c.long(), st, [(0, 10)], 21, "murmur3")
-    with pytest.raises(ValueError):  # murmur3 needs k = 21
-        tfs.fused_sketch_candidates(c, st, [(0, 10)], 15, "murmur3")
+    with pytest.raises(ValueError):  # k-mers of 1 to 32 bases
+        tfs.fused_sketch_candidates(c, st, [(0, 10)], 33, "murmur3")
+    # murmur3 takes any k of that range (dist --kmer-length)
+    assert tfs.fused_sketch_candidates(c, st, [(0, 10)], 15,
+                                       "murmur3").shape == (1, 8, 2048)
     with pytest.raises(ValueError):  # job outside the windows
         tfs.fused_sketch_candidates(c, st, [(5, 6)], 21, "tpufast")
     with pytest.raises(ValueError):  # starts must be int64
         tfs.fused_sketch_candidates(c, st.int(), [(0, 9)], 21, "tpufast")
     with pytest.raises(ValueError):
         thash.canonical_key_words(np.zeros(30, np.uint8),
-                                  np.array([0, 30]), 15, CPU, "murmur3")
+                                  np.array([0, 30]), 33, CPU, "murmur3")

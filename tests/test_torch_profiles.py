@@ -120,11 +120,20 @@ def test_profile_arrays_equal_via_convert(tmp_path, seed):
 
 
 def test_ani_subsample_rejected(tmp_path):
+    """Out of [1, 1000] the subsample is rejected with galah_tpu's
+    message; inside it the profile builds (c = 125, skani's own)."""
     p = str(tmp_path / "g.fa")
     _random_fasta(p, seed=3)
-    with pytest.raises(ValueError, match="ani-subsample"):
-        tfa.build_profile(read_genome(p), k=15, fraglen=3000, device=CPU,
-                          subsample_c=125)
+    for c in (0, 1001):
+        with pytest.raises(ValueError,
+                           match=rf"subsample_c must be in \[1, 1000\], "
+                                 rf"got {c}"):
+            tfa.build_profile(read_genome(p), k=15, fraglen=3000,
+                              device=CPU, subsample_c=c)
+    prof = tfa.build_profile(read_genome(p), k=15, fraglen=3000, device=CPU,
+                             subsample_c=125)
+    assert prof.subsample_c == 125
+    assert prof.ref_set.shape[0] < prof.flat_hashes.shape[0]
 
 
 def test_biased_order_is_unsigned_order():

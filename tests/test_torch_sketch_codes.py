@@ -25,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+from galah_tpu.ops import _csketch
 from galah_tpu.ops import hashing as jhash
 from galah_tpu_torch.io.fasta import Genome, GenomeStats
 from galah_tpu_torch.kernels import LAUNCHES
@@ -178,6 +179,35 @@ def test_codes_input_plain_versions_match_galah_tpu(case, algo):
                     from_biased(thash.positional_hashes(g, K, "cpu",
                                                         chunk=1000)),
                     want[off:off + length])
+
+
+@pytest.mark.parametrize("k", [9, 15, 16, 31])
+@pytest.mark.parametrize("case", CASES)
+def test_fused_murmur3_at_other_k_matches_galah_tpu(case, k):
+    """murmur3 at k other than 21 (``dist --kmer-length k``): the fused
+    candidate files of the plain version equal a numpy reduction of
+    galah_tpu's hashes of the same sequence (its C walker, which its
+    sketches take at k <= 32 on the CPU), and each genome's positional
+    hashes equal galah_tpu's. The kernel's key has k / 16 blocks and a
+    tail of k mod 16 bytes; these k put the tail in one word (9, 15),
+    none (16) and two (31)."""
+    genomes = _case(case)
+    codes, offsets, jobs = tss._concat(genomes, k)
+    want = _csketch.positional_hashes(codes, offsets, k=k, algo="murmur3")
+    tc, ts = torch.from_numpy(codes), torch.from_numpy(offsets)
+    words, _ = thash.canonical_key_words(codes, offsets, k, "cpu",
+                                         "murmur3")
+    assert len(words) == -(-k // 8)
+    got = tfs.fused_candidates_plain(tc, ts, jobs, k, "murmur3")
+    assert torch.equal(got, tfs.fused_sketch_candidates(tc, ts, jobs, k,
+                                                        "murmur3"))
+    np.testing.assert_array_equal(from_biased(got),
+                                  _candidates_np(want, jobs))
+    for g in genomes:
+        np.testing.assert_array_equal(
+            from_biased(thash.positional_hashes(g, k, "cpu")),
+            _csketch.positional_hashes(g.codes, g.contig_offsets, k=k,
+                                       algo="murmur3"))
 
 
 def test_plain_versions_take_cpu_tensors_only():

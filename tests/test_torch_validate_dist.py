@@ -93,9 +93,9 @@ def test_validate_counts_match_galah_tpu(corpus, tmp_path, case, flags, ani,
 
 
 def test_validate_cli_exit_codes(corpus, tmp_path, root_logger, capsys):
-    """Exit 0 whatever the violations, as galah_tpu; --ani-subsample
-    above 1 and a missing --cluster-file are refused (exit 1) with the
-    flag named."""
+    """Exit 0 whatever the violations, as galah_tpu, --ani-subsample 125
+    included; --ani-subsample 0 and a missing --cluster-file are refused
+    (exit 1) with the flag named, as galah_tpu refuses them."""
     paths, labels = corpus
     cluster_file, _ = _cluster_files(tmp_path, paths, labels)["foreign"]
     argv = ["cluster-validate", "--cluster-file", cluster_file, "-q"]
@@ -105,11 +105,15 @@ def test_validate_cli_exit_codes(corpus, tmp_path, root_logger, capsys):
     assert jmain(["cluster-validate"]) == tcli.main(
         ["cluster-validate", "--device", "cpu"]) == 1
     assert "--cluster-file" in capsys.readouterr().err
+    assert jmain([*argv, "--ani-subsample", "125"]) == 0
     assert tcli.main([*argv, "--device", "cpu", "--ani-subsample",
-                      "125"]) == 1
-    assert "--ani-subsample 125" in capsys.readouterr().err
+                      "125"]) == 0
+    capsys.readouterr()
+    assert jmain([*argv, "--ani-subsample", "0"]) == 1
     assert tcli.main([*argv, "--device", "cpu", "--ani-subsample",
                       "0"]) == 1
+    err = capsys.readouterr().err
+    assert err.count("--ani-subsample must be in [1, 1000], got 0") == 2
 
 
 def _c_route(mat, k, min_ani, sketch_size=None):
@@ -155,11 +159,40 @@ def test_dist_tsv_matches_galah_tpu(corpus, monkeypatch, tmp_path,
 
 
 def test_dist_refuses_murmur3_at_other_k(corpus, root_logger, capsys):
-    """galah_tpu's dist hashes murmur3 at any k; the port's fused sketch
-    takes k=21 only, and says so naming both flags, not a different
-    answer."""
+    """The port sketches k-mers of 1 to 32 bases: k = 0, which galah_tpu
+    refuses too, and k = 33, where galah_tpu's 64-bit packs wrap and it
+    hashes a k-mer's non-canonical orientation (ROADMAP.md, section 3),
+    are refused naming the flag and the range."""
     paths, _ = corpus
-    assert tcli.main(["dist", "-f", *paths[:2], "--device", "cpu",
-                      "--kmer-length", "15"]) == 1
-    err = capsys.readouterr().err
-    assert "--kmer-length 15" in err and "--hash-algorithm murmur3" in err
+    for k in (0, 33):
+        assert tcli.main(["dist", "-f", *paths[:2], "--device", "cpu",
+                          "--kmer-length", str(k)]) == 1
+        err = capsys.readouterr().err
+        assert f"--kmer-length {k}" in err and "1 to 32" in err
+    assert jmain(["dist", "-f", *paths[:2], "--kmer-length", "0"]) == 1
+
+
+@pytest.mark.parametrize("k", [9, 15, 16, 31, 32])
+def test_dist_murmur3_at_other_k_matches_galah_tpu(corpus, monkeypatch,
+                                                   tmp_path, root_logger,
+                                                   k):
+    """`dist --kmer-length k` with murmur3 writes galah_tpu's TSV byte for
+    byte on both sides of the sparse crossover (the fused sketch's plain
+    version at k on the CPU), and finds every within-family pair."""
+    paths, labels = corpus
+    base = ["dist", "-f", *paths, "-q", "--kmer-length", str(k)]
+    monkeypatch.setattr(jpairwise, "threshold_pairs", _c_route)
+    assert jmain([*base, "--output", str(tmp_path / "jc.tsv")]) == 0
+    monkeypatch.undo()
+    assert tcli.main([*base, "--device", "cpu",
+                      "--output", str(tmp_path / "td.tsv")]) == 0
+    monkeypatch.setattr(tcol, "SPARSE_SCREEN_MIN_N", 0)
+    assert tcli.main([*base, "--device", "cpu",
+                      "--output", str(tmp_path / "ts.tsv")]) == 0
+    want = (tmp_path / "jc.tsv").read_bytes()
+    assert (tmp_path / "td.tsv").read_bytes() == want
+    assert (tmp_path / "ts.tsv").read_bytes() == want
+    rows = [ln.split("\t") for ln in want.decode().splitlines()]
+    within = [(a, b) for a, b, _ in rows
+              if labels[paths.index(a)] == labels[paths.index(b)]]
+    assert len(within) == 4 * 3
