@@ -104,7 +104,8 @@ Phases, each of which exits nonzero when it fails:
    ``clusters.jsonl`` record a precluster and no round log; (b) ``main``
    in this process, sent SIGTERM by a watcher thread once the round log
    holds a record, must return 75 at ``greedy-round-saved`` with one
-   interruption record; (c) ``--resume`` on (b)'s directory must write
+   interruption record, and its run report and trace (phase 4o's
+   checks) must say so; (c) ``--resume`` on (b)'s directory must write
    (a)'s TSV launching no fused_sketch or pairlist and fewer window_hits
    than (a); (d) ``python -m galah_tpu_torch cluster`` with ``GALAH_FI``
    killing it at the second round's append must exit 137 with one round
@@ -136,6 +137,25 @@ Phases, each of which exits nonzero when it fails:
    (u, g) u < g, 5,152,640 pairs, in one pass; the kernel's integers
    equal the plain version's on 200,000 sampled pairs and the host
    merge_stats on 2,000, timed beside the host loop;
+4o. observability: the runs of phases 4 (skani 512), 4b (finch 1024)
+   and 4d (dashing 1024) again, each as ``python -m galah_tpu_torch
+   cluster`` in a process of its own with ``--run-report``,
+   ``--trace-events`` and ``GALAH_OBS_HEARTBEAT_S=0.25``: each TSV must
+   equal its phase's byte for byte; each report must pass the port's
+   ``obs.report.validate``, its ``dispatch`` section must be the
+   phase's launch counts and its funnel the phase's clock counts
+   (possible, screened and kept pairs, exact ANIs computed and
+   wasted), with exact ANIs computed on the finch and dashing routes;
+   each trace must load as JSON with one stage span for each stage the
+   clock timed and no nvcc span (the kernels were built in phase 2);
+   each heartbeat must hold at least two beats, the last the final
+   one; all seven kernels must appear in the three reports; each wall
+   is printed beside its phase's wall without observability (and
+   finch's beside the same process without them), and each part's cost
+   timed alone; a kernel built anew under a trace in this process must
+   give one nvcc span. Phase
+   4j's stopped run (b) also writes a report and a trace: the report
+   must say stop requested by SIGTERM at ``greedy-round-saved``;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -261,6 +281,9 @@ STREAM_GENOMES = 1000
 # phase 4i's corpus: the first genomes, with a profile cache entry of
 # ~32 MB a genome, so about 2 GB of cache a route
 CACHE_GENOMES = 64
+
+# phase 4o's heartbeat period, seconds
+OBS_HEARTBEAT_S = 0.25
 
 # phase 4j's --rep-rounds: four greedy rounds over finch 1024's genomes,
 # so a stop after the first leaves rounds to replay and rounds to run
@@ -1552,14 +1575,18 @@ def phases_resilience(torch, cli, reset_launches, launches_now, kernels,
     keep("resume (a)", wall, launches_a, res_a)
     del res_a
 
-    # (b) stopped by SIGTERM once the round log holds its first record
+    # (b) stopped by SIGTERM once the round log holds its first record,
+    # with a run report and a trace
     log_b = os.path.join(ck["b"], "greedy_rounds.jsonl")
+    rep_b = os.path.join(j_dir, "b_report.json")
+    trace_b = os.path.join(j_dir, "b_trace.json")
     with SigtermWhen(lambda: os.path.exists(log_b)
                      and os.path.getsize(log_b) > 0) as term:
         wall, launches_b = run_main(
             torch, cli, reset_launches, launches_now,
             [*finch_j, "--device", "cuda", "--checkpoint-dir", ck["b"],
-             "--output-cluster-definition", tsv["b"]],
+             "--output-cluster-definition", tsv["b"],
+             "--run-report", rep_b, "--trace-events", trace_b],
             want_rc=interrupt.EXIT_PREEMPTED)
     stops, bad = read_log(os.path.join(ck["b"], "interruptions.jsonl"))
     if not term.sent or term.late or bad or \
@@ -1568,10 +1595,20 @@ def phases_resilience(torch, cli, reset_launches, launches_now, kernels,
         raise PhaseError(f"resume (b): not one SIGTERM stop at "
                          f"greedy-round-saved: {stops}, late {term.late}")
     rounds_b = len(read_log(log_b)[0])
+    rep, _, _ = check_obs_artifacts("resume (b)", rep_b, trace_b, None,
+                                    launches_b, tag, stopped=True)
+    kinds = [ev["kind"] for ev in rep["events"]]
+    if rep["preemption"]["boundary"] != "greedy-round-saved" or \
+            rep["preemption"]["signals"] != ["SIGTERM"] or \
+            "preempted" not in kinds:
+        raise PhaseError(f"resume (b): the report's preemption "
+                         f"{rep['preemption']}, events {kinds}")
     print(f"resume (b): SIGTERM once the round log held a record: main "
           f"returned {interrupt.EXIT_PREEMPTED} at greedy-round-saved "
           f"after {rounds_b} of {rounds_a} rounds; one interruption "
-          f"record {tag}")
+          f"record; the run report says stop requested by SIGTERM at "
+          f"greedy-round-saved with a `preempted` event, the trace "
+          f"parses {tag}")
     keep("resume (b)", wall, launches_b)
 
     # (c) --resume on (b)'s checkpoint
@@ -1999,6 +2036,273 @@ def index_pair_pass(torch, device, seed, tag):
             "host_us_per_pair": host_pair_us, "host_list_s": host_s}
 
 
+def stage_names(tree):
+    """(name, count) of every node of a report's stage tree."""
+    for node in tree:
+        yield node["name"], node["count"]
+        yield from stage_names(node.get("children", []))
+
+
+def check_obs_artifacts(what, rep_path, trace_path, hb_dir, want_launches,
+                        tag, stopped=False):
+    """A run's report, trace and heartbeat, from the port's own readers:
+    the report valid, its dispatch section the launch deltas of
+    `want_launches`, its preemption section as `stopped` says, the
+    trace plain JSON with one stage span for each stage the clock
+    timed and no nvcc span (every kernel was built before), the
+    heartbeat (when `hb_dir`) at least 2 beats, its last the final one.
+    Returns (report, the trace's events, the beats)."""
+    from galah_tpu_torch.obs import heartbeat as obs_heartbeat
+    from galah_tpu_torch.obs import report as report_mod
+
+    rep = report_mod.load(rep_path)
+    problems = report_mod.validate(rep)
+    if problems:
+        raise PhaseError(f"{what}: the run report is not valid: "
+                         f"{problems[:3]}")
+    want = {k: v for k, v in want_launches.items() if v}
+    if rep["dispatch"]["dispatches"] != want:
+        raise PhaseError(f"{what}: the report's dispatches "
+                         f"{rep['dispatch']['dispatches']} are not the "
+                         f"launch deltas {want}")
+    pre = rep.get("preemption") or {}
+    if bool(pre.get("stop_requested")) != stopped:
+        raise PhaseError(f"{what}: preemption section {pre}, stop "
+                         f"requested should be {stopped}")
+    with open(trace_path) as fh:
+        events = json.load(fh)
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "stage":
+            spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    timed = {}
+    for name, count in stage_names(rep["stages"]["tree"]):
+        timed[name] = timed.get(name, 0) + count
+    if spans != timed:
+        raise PhaseError(f"{what}: the trace's stage spans {spans} are "
+                         f"not the stages the clock timed {timed}")
+    nvcc = [ev for ev in events if ev.get("cat") == "nvcc"]
+    if nvcc:
+        raise PhaseError(f"{what}: {len(nvcc)} nvcc spans, but every "
+                         "kernel was built before this run")
+    beats = []
+    if hb_dir is not None:
+        beats, torn = obs_heartbeat.load(hb_dir)
+        hb = (rep.get("flow") or {}).get("heartbeat") or {}
+        if len(beats) < 2 or torn or beats[-1]["beat"] != hb.get("beats"):
+            raise PhaseError(f"{what}: heartbeat {len(beats)} beats "
+                             f"({torn} torn), the last "
+                             f"{beats[-1]['beat'] if beats else None}, "
+                             f"the report's final beat {hb.get('beats')}")
+    import importlib.util
+
+    checker = ("jsonschema" if importlib.util.find_spec("jsonschema")
+               else "required sections only: no jsonschema")
+    print(f"{what}: report valid ({checker}), "
+          f"dispatches {rep['dispatch']['dispatches']} == the launch "
+          f"deltas; trace {len(events)} events, "
+          f"{sum(spans.values())} stage spans == the clock's "
+          f"{sum(timed.values())} stages, no nvcc span; heartbeat "
+          f"{len(beats)} beats {tag}")
+    return rep, events, beats
+
+
+def run_cli_process(argv, log, env):
+    """``python -m galah_tpu_torch`` with `argv` in a process of its own,
+    its output to `log`; (exit code, wall seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(log, "wb") as fh:
+        rc = subprocess.run([sys.executable, "-m", "galah_tpu_torch", *argv],
+                            cwd=here, env=env, stdout=fh,
+                            stderr=subprocess.STDOUT, check=False).returncode
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log, "rb") as fh:
+            tail = fh.read()[-3000:].decode(errors="replace")
+        raise PhaseError(f"`{' '.join(argv[:3])} ...` exited {rc}:\n{tail}")
+    return wall
+
+
+def obs_costs(rep_path, n_events, n_beats, root, tag):
+    """The host seconds observability adds to a run, each part timed on
+    its own in this process: assembling, validating and writing the
+    report of `rep_path`'s size, emitting `n_events` trace events, and
+    `n_beats` heartbeat beats (on their own thread in a run)."""
+    from galah_tpu_torch import obs
+    from galah_tpu_torch.obs import report as report_mod
+
+    rep = report_mod.load(rep_path)
+    t0 = time.perf_counter()
+    problems = report_mod.validate(rep)
+    report_mod.write(os.path.join(root, "cost_report.json"), rep)
+    report_s = time.perf_counter() - t0
+    rec = obs.trace.TraceRecorder(os.path.join(root, "cost_trace.json"))
+    t0 = time.perf_counter()
+    for _ in range(n_events):
+        rec.complete("profile", t0, 0.001)
+    trace_s = time.perf_counter() - t0
+    rec.close()
+    hb = obs.heartbeat.Heartbeat(os.path.join(root, "cost_hb"), 3600.0)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        hb.beat()
+    beat_s = (time.perf_counter() - t0) / 8
+    print(f"obs costs: validating and writing a {os.path.getsize(rep_path)}"
+          f" B report {report_s * 1e3:.1f} ms; {n_events} trace events "
+          f"{trace_s * 1e3:.1f} ms; a beat {beat_s * 1e3:.2f} ms, "
+          f"{n_beats} beats {n_beats * beat_s * 1e3:.1f} ms (on the beat "
+          f"thread) {tag}")
+    if problems:
+        raise PhaseError(f"obs costs: the report is not valid: {problems}")
+    return {"report_ms": report_s * 1e3, "trace_ms": trace_s * 1e3,
+            "beat_ms": beat_s * 1e3}
+
+
+def nvcc_span(root, tag):
+    """A kernel built anew (window_hits, into a directory of its own)
+    with a trace open in this process: the trace must hold one nvcc
+    span, for that build."""
+    from galah_tpu_torch.kernels import build
+    from galah_tpu_torch.obs import trace
+
+    out_dir = os.path.join(root, "nvcc_span")
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "trace.json")
+    lib_path = build._lib_path
+    build._lib_path = lambda name: os.path.join(
+        out_dir, os.path.basename(lib_path(name)))
+    try:
+        trace.start(path)
+        seconds = build.build(["window_hits"])
+    finally:
+        trace.stop()
+        build._lib_path = lib_path
+    with open(path) as fh:
+        spans = [ev for ev in json.load(fh) if ev.get("cat") == "nvcc"]
+    if [(ev["ph"], ev["name"]) for ev in spans] != [
+            ("X", "nvcc window_hits.cu")]:
+        raise PhaseError(f"obs: a traced build of window_hits gave the "
+                         f"nvcc spans {spans}")
+    print(f"obs: window_hits.cu built anew under a trace: one nvcc span "
+          f"of {spans[0]['dur'] / 1e6:.2f} s (build {seconds:.2f} s) {tag}")
+    return spans[0]["dur"] / 1e3
+
+
+def phase_obs(root, runs, threads, tag):
+    """Phase 4o: each of `runs`, {what: (argv, phase TSV bytes, phase
+    launches, phase clock, phase wall)}, through ``python -m
+    galah_tpu_torch cluster`` with --run-report, --trace-events and
+    GALAH_OBS_HEARTBEAT_S=0.25, and finch's also without them (the
+    control: the same process start, CUDA context and first-run
+    allocations); returns the record's entries."""
+    env = dict(os.environ, GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
+    out = {}
+    # a report's schema check imports jsonschema once a process
+    probe = subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); "
+         "import jsonschema; print(time.perf_counter() - t)"],
+        capture_output=True, text=True, check=False)
+    if probe.returncode == 0:
+        out["jsonschema_import_ms"] = float(probe.stdout) * 1e3
+        print(f"obs costs: importing jsonschema in a fresh process "
+              f"{out['jsonschema_import_ms']:.1f} ms {tag}")
+    for what, (argv, tsv_want, launches, clock, wall) in runs.items():
+        d = os.path.join(root, f"obs_{what}")
+        os.makedirs(d)
+        tsv = os.path.join(d, "clusters.tsv")
+        rep_path = os.path.join(d, "run_report.json")
+        trace_path = os.path.join(d, "trace.json")
+        wall_obs = run_cli_process(
+            [*argv, *threads, "--output-cluster-definition", tsv,
+             "--run-report", rep_path, "--trace-events", trace_path],
+            os.path.join(d, "log.txt"), env)
+        with open(tsv, "rb") as fh:
+            if fh.read() != tsv_want:
+                raise PhaseError(f"obs {what}: the TSV differs from the "
+                                 "phase's without observability")
+        rep, events, beats = check_obs_artifacts(
+            f"obs {what}", rep_path, trace_path, d, launches, tag)
+        funnel = rep["funnel"]
+        counters = rep["counters"]
+        for key, count in (("possible_pairs", "screen-possible-pairs"),
+                           ("screened_candidates", "screen-candidates"),
+                           ("kept_pairs", "screen-kept-pairs"),
+                           ("exact_ani_computed", "exact-ani-computed"),
+                           ("exact_ani_wasted", "exact-ani-wasted")):
+            if not (funnel[key] == counters.get(count, 0)
+                    == clock.counts.get(count, 0)):
+                raise PhaseError(
+                    f"obs {what}: funnel {key} {funnel[key]}, the "
+                    f"report's {count} {counters.get(count, 0)}, the "
+                    f"phase's {clock.counts.get(count, 0)}")
+        if argv[argv.index("--precluster-method") + 1] != "skani" \
+                and funnel["exact_ani_computed"] <= 0:
+            raise PhaseError(f"obs {what}: no exact ANI computed")
+        drift = {k: (v, clock.counts.get(k)) for k, v in counters.items()
+                 if not k.startswith("disp[")
+                 and v != clock.counts.get(k)}
+        print(f"obs {what}: TSV byte-identical to the phase's; funnel "
+              f"possible {funnel['possible_pairs']}, candidates "
+              f"{funnel['screened_candidates']}, kept "
+              f"{funnel['kept_pairs']}, exact ANI computed "
+              f"{funnel['exact_ani_computed']} ({funnel['exact_ani_wasted']}"
+              f" wasted) == the phase's counts; other counts that differ "
+              f"from the phase's: {drift or 'none'} {tag}")
+        entry = {"wall_s": wall_obs, "run_s": rep["run"]["duration_s"],
+                 "phase_wall_s": wall,
+                 "dispatches": rep["dispatch"]["dispatches"],
+                 "funnel": {k: v for k, v in funnel.items()
+                            if k != "cache"},
+                 "trace_events": len(events), "beats": len(beats),
+                 "report_bytes": os.path.getsize(rep_path),
+                 "trace_bytes": os.path.getsize(trace_path),
+                 "stages_s": {n["name"]: n["total_s"]
+                              for n in rep["stages"]["tree"]},
+                 "phase_stages_s": {n["name"]: n["total_s"]
+                                    for n in clock.tree()}}
+        control = ""
+        if what == "finch":
+            c_dir = os.path.join(d, "control")
+            os.makedirs(c_dir)
+            c_tsv = os.path.join(c_dir, "clusters.tsv")
+            entry["control_wall_s"] = run_cli_process(
+                [*argv, *threads, "--output-cluster-definition", c_tsv],
+                os.path.join(c_dir, "log.txt"),
+                {k: v for k, v in os.environ.items()
+                 if not k.startswith("GALAH_OBS_")})
+            with open(c_tsv, "rb") as fh:
+                if fh.read() != tsv_want:
+                    raise PhaseError("obs control: the TSV differs")
+            control = (f", {entry['control_wall_s']:.2f} s for the same "
+                       f"process without them")
+        print(f"obs {what}: wall {wall_obs:.2f} s as a process with "
+              f"report, trace and heartbeat{control} (the run "
+              f"{rep['run']['duration_s']:.2f} s of it) against "
+              f"{wall:.2f} s for the phase's run in this process without "
+              f"them; report {entry['report_bytes']} B, trace "
+              f"{entry['trace_bytes']} B, {len(beats)} beats {tag}")
+        print(f"obs {what}: stages with observability, in its process / "
+              f"the phase's, inclusive seconds: " + ", ".join(
+                  f"{n} {v:.3f}/{entry['phase_stages_s'].get(n, 0.0):.3f}"
+                  for n, v in entry["stages_s"].items()) + f" {tag}")
+        entry["costs"] = obs_costs(rep_path, len(events), len(beats), d, tag)
+        out[what] = entry
+    seen = set()
+    for what in runs:
+        seen.update(out[what]["dispatches"])
+    from galah_tpu_torch.kernels import KERNELS
+
+    missing = [k for k in KERNELS if k not in seen]
+    if missing:
+        raise PhaseError(f"obs: kernels {missing} launched in none of the "
+                         f"three observed runs")
+    print(f"obs: all {len(KERNELS)} kernels launched across the observed "
+          f"runs {tag}")
+    out["nvcc_span_ms"] = nvcc_span(root, tag)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2397,6 +2701,8 @@ def main(argv=None) -> int:
         del pgroup, hc, hs, loaded, got, on_card, on_cpu
 
         # -- phase 4: end to end, skani ----------------------------------
+        print(f"phase 4 starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         out_tsv = os.path.join(root, "clusters.tsv")
         threads = ["--threads", str(THREADS)]
         res, wall, launches = run_path(
@@ -2531,6 +2837,8 @@ def main(argv=None) -> int:
         require_launched(launches_h, ("hll_union", "murmur3_k21",
                                       "window_hits", "positional_hashes"),
                          "dashing")
+        with open(out_tsv, "rb") as fh:
+            tsv4d = fh.read()
 
         # -- phase 4e: end to end, finch streamed -------------------------
         n_e = min(STREAM_GENOMES, args.finch_genomes)
@@ -2600,6 +2908,8 @@ def main(argv=None) -> int:
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
               f"{tag}")
         # -- phase 4m: the library API as CoverM embeds it ---------------
+        print(f"phase 4m starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         api_out = phases_api(torch, reset_launches, LAUNCHES, KERNELS,
                              {"skani": (res.genomes, res, wall),
                               "finch": (paths, res_f, wall_f),
@@ -2617,16 +2927,22 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        print(f"phase 4g starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         cli_out = phases_cli(torch, cli, reset_launches, LAUNCHES, KERNELS,
                              root, res.genomes, tsv4, paths, label_of,
                              n_dense, report, threads, family, device, tag)
 
         # -- phases 4j-4k: checkpoint and resume, quarantine ---------------
+        print(f"phase 4j starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         resil_out = phases_resilience(
             torch, cli, reset_launches, LAUNCHES, KERNELS, root, paths,
             res.genomes, skani_dir, tsv4, tsv4b, threads, tag)
 
         # -- phase 4l: the persistent sketch index -------------------------
+        print(f"phase 4l starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         index_out = phases_index(torch, cli, reset_launches, LAUNCHES,
                                  KERNELS, root, paths, label_of, report,
                                  threads, family, args.seed,
@@ -2635,7 +2951,27 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # -- phase 4o: observability on the card ---------------------------
+        print(f"phase 4o starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        obs_out = phase_obs(root, {
+            "skani": (["cluster", "-d", skani_dir, "--ani", "95",
+                       "--device", "cuda", "--precluster-method", "skani"],
+                      tsv4, launches, res.clock, wall),
+            "finch": (["cluster", "-f", *paths, "--precluster-method",
+                       "finch", "--cluster-method", "skani", "--ani", "95",
+                       "--device", "cuda"],
+                      tsv4b, launches_f, res_f.clock, wall_f),
+            "dashing": (["cluster", "-f", *paths, "--precluster-method",
+                         "dashing", "--cluster-method", "skani", "--ani",
+                         "95", "--checkm2-quality-report", report,
+                         "--device", "cuda"],
+                        tsv4d, launches_h, res_h.clock, wall_h)},
+            threads, tag)
+
         # -- phase 5: timing at the main paths' shapes ---------------------
+        print(f"phase 5 starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         from galah_tpu_torch.ops import fragment_ani
 
         # the run's profiles (the store's LRU may have evicted some; they
@@ -3131,6 +3467,8 @@ def main(argv=None) -> int:
         del hashes, want, hregs, group, hh, hc, hs, dc, ds
 
         # -- phase 6: kernel path vs plain path on the card ---------------
+        print(f"phase 6 starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
         sub = [p for p in store.get_many(res.genomes[:16])]
         pairs = [(sub[i], sub[j]) for i in range(16)
                  for j in range(i + 1, 16)]
@@ -3344,6 +3682,7 @@ def main(argv=None) -> int:
         "launches_phases_4j_4k": resil_out["launches"],
         "walls_phases_4j_4k": resil_out["walls"],
         "launches_phase_4l": index_out["launches"],
+        "phase_4o_obs": obs_out,
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}

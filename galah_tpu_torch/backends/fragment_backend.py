@@ -279,7 +279,8 @@ class SkaniPreclusterer(PreclusterBackend):
         mat, counts = self.marker_matrix(profiles)
         with clock.stage("screen"):
             pairs = screen_pairs(mat, counts,
-                                 self.SCREEN_IDENTITY ** self.store.k)
+                                 self.SCREEN_IDENTITY ** self.store.k,
+                                 clock=clock)
         clock.count("screened_pairs", len(pairs))
         logger.info("%d pairs passed screening; computing exact ANI ..",
                     len(pairs))

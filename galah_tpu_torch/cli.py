@@ -22,10 +22,18 @@ output formats:
 * ``index``: the persistent sketch index (``--index-dir`` or
   ``GALAH_TPU_INDEX_DIR``) and its actions ``build``, ``insert``,
   ``query``, ``remove`` and ``fsck``, over directories interchangeable
-  with ``galah-tpu index``'s.
+  with ``galah-tpu index``'s;
+* ``report``: render run reports, or ``--diff`` two, of either package.
 
-Each takes ``-v``/``-q``, ``--full-help``, ``--full-help-roff`` and
-the device (``--device``, cuda unless the CPU is asked for).
+``cluster`` and ``index`` write a run report (``--run-report`` or
+``GALAH_OBS_REPORT``), a Chrome trace (``--trace-events`` or
+``GALAH_OBS_TRACE_EVENTS``) and, with ``GALAH_OBS_HEARTBEAT_S`` set, a
+``heartbeat.jsonl`` beside the report (``obs/``); a preempted or failed
+run still writes its report and closes its trace.
+
+Each takes ``-v``/``-q``, ``--full-help`` and ``--full-help-roff``, and
+each but ``report`` the device (``--device``, cuda unless the CPU is
+asked for).
 Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
 line that the port does not support yet is an error that names it; no
 flag is silently ignored. A user error (a bad value, a missing file)
@@ -42,28 +50,27 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from galah_tpu_torch import __version__
+from galah_tpu_torch import __version__, obs
 from galah_tpu_torch.api import (add_cluster_arguments,
                                  generate_galah_clusterer)
 from galah_tpu_torch.config import (HASH_ALGORITHMS, QUALITY_FORMULAS,
-                                    Defaults, parse_percentage)
+                                    Defaults, env_value, parse_percentage)
 from galah_tpu_torch.index import INDEX_DIR_ENV
 from galah_tpu_torch.io.fasta import CORRUPT_GZIP_ERRORS
+from galah_tpu_torch.obs import events
 from galah_tpu_torch.resilience import interrupt
 
 logger = logging.getLogger("galah_tpu_torch")
 
-# flags of `galah-tpu`'s subcommands that this port does not support yet
-# (`cluster`'s --rep-scan-window parses, from the library API, and is
-# refused after parsing)
-UNSUPPORTED_FLAGS = (
-    "--profile-trace-dir", "--trace-events", "--run-report", "--platform",
-)
+# flags of `galah-tpu`'s subcommands that this port does not support
+# yet: the XLA profiler trace and the JAX platform (`cluster`'s
+# --rep-scan-window parses, from the library API, and is refused after
+# parsing)
+UNSUPPORTED_FLAGS = ("--profile-trace-dir", "--platform")
 
 
 def set_log_level(verbose: bool = False, quiet: bool = False) -> None:
@@ -83,7 +90,7 @@ def set_log_level(verbose: bool = False, quiet: bool = False) -> None:
     )
 
 
-def _add_common(p: argparse.ArgumentParser) -> None:
+def _add_verbosity(p: argparse.ArgumentParser) -> None:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Print extra debugging information")
     p.add_argument("-q", "--quiet", action="store_true",
@@ -93,6 +100,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--full-help-roff", action="store_true",
                    help="Print the extended help as raw roff man source "
                         "and exit (pipe through `man -l -`)")
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    _add_verbosity(p)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="Device to run on (default: cuda; asking for "
                         "cuda without a GPU is an error)")
@@ -153,6 +164,14 @@ def _add_index_parser(sub) -> argparse.ArgumentParser:
                     help="Index directory (also via "
                          f"{INDEX_DIR_ENV}); created by `build`, "
                          "required by every action")
+    ix.add_argument("--trace-events",
+                    help="Write a Chrome-trace-format event timeline "
+                         "to this file. Env equivalent: "
+                         "GALAH_OBS_TRACE_EVENTS")
+    ix.add_argument("--run-report",
+                    help="Write run_report.json (with its `index` "
+                         "section) to this file at run end. Env "
+                         "equivalent: GALAH_OBS_REPORT")
     ixsub = ix.add_subparsers(dest="index_action")
     ixb = ixsub.add_parser(
         "build",
@@ -244,6 +263,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "cache (also via GALAH_TPU_CACHE); sketches are "
                         "reused across runs when genome files are "
                         "unchanged")
+    c.add_argument("--trace-events",
+                   help="Write a Chrome-trace-format event timeline "
+                        "(stage spans, nvcc build spans, resilience "
+                        "events; Perfetto-loadable) to this file. Env "
+                        "equivalent: GALAH_OBS_TRACE_EVENTS")
+    c.add_argument("--run-report",
+                   help="Write the machine-readable run_report.json "
+                        "(stage tree, dispatch counts, precluster "
+                        "funnel, flag snapshot, resilience events) to "
+                        "this file at run end; render or diff it with "
+                        "`galah_tpu_torch report`. Env equivalent: "
+                        "GALAH_OBS_REPORT")
     c.add_argument("--checkpoint-dir",
                    help="Persist the distance pass and finished "
                         "preclusters here; an interrupted run resumes "
@@ -321,8 +352,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "(also via GALAH_TPU_CACHE)")
     dd.add_argument("--threads", "-t", type=int, default=1)
     ix = _add_index_parser(sub)
+    rp = sub.add_parser(
+        "report",
+        help="Render or diff run_report.json files from past runs",
+        description="Human-readable rendering of the machine-readable "
+                    "run report a `cluster --run-report` run wrote "
+                    "(stage wall-clock tree, dispatch/sync counts, "
+                    "precluster funnel, flag snapshot, resilience "
+                    "events); with --diff, per-stage and per-metric "
+                    "deltas between two reports")
+    _add_verbosity(rp)
+    rp.add_argument("paths", nargs="+", metavar="REPORT",
+                    help="run_report.json file(s) to render")
+    rp.add_argument("--diff", action="store_true",
+                    help="Compare exactly two reports: per-stage "
+                         "wall-clock, dispatch/funnel, and per-metric "
+                         "deltas")
     parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
-                                 "dist": dd, "index": ix}
+                                 "dist": dd, "index": ix, "report": rp}
     return parser
 
 
@@ -367,38 +414,61 @@ class RunResult:
     preclusterer: object
 
 
+def _start_telemetry(args: argparse.Namespace) -> Optional[str]:
+    """Open the trace (``--trace-events``, else
+    ``GALAH_OBS_TRACE_EVENTS``), arm the crash hooks and start the
+    heartbeat beside the report; returns the report's path
+    (``--run-report``, else ``GALAH_OBS_REPORT``), or None."""
+    trace_path = args.trace_events or env_value("GALAH_OBS_TRACE_EVENTS")
+    if trace_path:
+        obs.trace.start(trace_path)
+    report_path = args.run_report or env_value("GALAH_OBS_REPORT")
+    obs.install_crash_hooks()
+    obs.heartbeat.maybe_start(report_path)
+    return report_path
+
+
 def run_cluster(args: argparse.Namespace) -> RunResult:
     """Build the backends from parsed `cluster` arguments, cluster, and
     write the requested outputs. SIGTERM and SIGINT request a stop for
     the length of the run: at the next safe boundary the interruption
     is recorded in the checkpoint and ``PreemptionRequested`` raises,
-    with no output written (``main`` exits 75)."""
+    with no output written (``main`` exits 75). The run report and the
+    trace are written however the run ends."""
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.timing import StageClock
+
+    started_at = time.time()  # a stamp for the report, not a duration
+    obs.reset_run()
     interrupt.reset()
     interrupt.install()
+    report_path = _start_telemetry(args)
+    clock = None
     try:
-        return _run_cluster(args)
+        if args.resume and not args.checkpoint_dir:
+            raise ValueError("--resume requires --checkpoint-dir")
+        clock = StageClock(resolve_device(args.device))
+        return _run_cluster(args, clock)
     finally:
         interrupt.uninstall()
+        obs.finalize("cluster", clock, report_path=report_path,
+                     started_at=started_at)
 
 
-def _run_cluster(args: argparse.Namespace) -> RunResult:
+def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
     """The library API's clusterer (``api.generate_galah_clusterer``)
     over the genome inputs, with the command's outputs, checkpoint and
-    preemption around it."""
+    preemption around it, on the device of `clock` (a
+    ``timing.StageClock``)."""
     from galah_tpu_torch.cluster.checkpoint import (ClusterCheckpoint,
                                                     fields_digest,
                                                     fingerprint_fields)
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.io import diskcache
     from galah_tpu_torch.outputs import setup_outputs, write_outputs
     from galah_tpu_torch.resilience.quarantine import (QuarantineManifest,
                                                        manifest_output_dir)
-    from galah_tpu_torch.timing import StageClock
 
-    if args.resume and not args.checkpoint_dir:
-        raise ValueError("--resume requires --checkpoint-dir")
-    device = resolve_device(args.device)
-    clock = StageClock(device)
+    device = clock.device
     quarantine = QuarantineManifest()
     paths = _genome_inputs(args, quarantine)
     cache = diskcache.get_cache(args.sketch_cache, clock)
@@ -435,6 +505,8 @@ def _run_cluster(args: argparse.Namespace) -> RunResult:
             prior = ckpt.load_interruptions()
             if ckpt.matched_existing and (prior or args.resume):
                 interrupt.note_resume(args.checkpoint_dir, len(prior))
+                events.record("resumed", checkpoint_dir=args.checkpoint_dir,
+                              prior_interruptions=len(prior))
             clusterer.checkpoint = ckpt
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
         try:
@@ -442,6 +514,8 @@ def _run_cluster(args: argparse.Namespace) -> RunResult:
         except interrupt.PreemptionRequested as e:
             # everything before the boundary is durable: record the stop
             # and leave without outputs
+            events.record("preempted", signal=e.signame,
+                          boundary=e.boundary)
             if ckpt is not None:
                 ckpt.record_interruption({
                     "signal": e.signame, "boundary": e.boundary,
@@ -579,6 +653,12 @@ def _index_order_genomes(genomes: List[str], args: argparse.Namespace,
                         "--genome-info to rank them")
     if not used_quality:
         clock.count("index-quality-fallback", 1)
+        events.record("index-quality-fallback", n_genomes=len(ordered))
+        obs.metrics.counter(
+            "index.quality_fallback",
+            help="Index build/insert batches ordered by input order "
+                 "because no quality input was given",
+            unit="batches").inc()
     return ordered
 
 
@@ -602,33 +682,45 @@ def run_index(args: argparse.Namespace) -> IndexResult:
     and query run on ``--device``. SIGTERM and SIGINT request a stop for
     the length of the action: an insert records the interruption in the
     index and raises ``PreemptionRequested`` at its next batch boundary
-    (``main`` exits 75)."""
+    (``main`` exits 75). Every action but fsck writes the run report and
+    the trace, however it ends."""
     action = args.index_action
     if action is None:
         raise ValueError("index needs an action: build, insert, query, "
                          "remove, or fsck")
-    index_dir = args.index_dir or os.environ.get(INDEX_DIR_ENV)
+    index_dir = args.index_dir or env_value(INDEX_DIR_ENV)
     if not index_dir:
         raise ValueError("no index directory: pass --index-dir or set "
                          f"{INDEX_DIR_ENV}")
     if action == "fsck":
         return _run_index_fsck(index_dir)
-    interrupt.reset()
-    interrupt.install()
-    try:
-        return _run_index(args, action, index_dir)
-    finally:
-        interrupt.uninstall()
-
-
-def _run_index(args: argparse.Namespace, action: str,
-               index_dir: str) -> IndexResult:
     from galah_tpu_torch.device import resolve_device
-    from galah_tpu_torch.index import incremental
-    from galah_tpu_torch.index.store import IndexStore
     from galah_tpu_torch.timing import StageClock
 
-    genomes = _genome_inputs(args)
+    started_at = time.time()  # a stamp for the report, not a duration
+    obs.reset_run()
+    interrupt.reset()
+    interrupt.install()
+    report_path = _start_telemetry(args)
+    clock = None
+    try:
+        genomes = _genome_inputs(args)
+        if action != "remove":
+            clock = StageClock(resolve_device(args.device))
+        return _run_index(args, action, index_dir, genomes, clock)
+    finally:
+        interrupt.uninstall()
+        obs.finalize("index", clock, report_path=report_path,
+                     started_at=started_at)
+
+
+def _run_index(args: argparse.Namespace, action: str, index_dir: str,
+               genomes: List[str], clock) -> IndexResult:
+    """`action` over `genomes`; `clock` (a ``timing.StageClock``) gives
+    the device of build, insert and query, and is None for remove."""
+    from galah_tpu_torch.index import incremental
+    from galah_tpu_torch.index.store import IndexStore
+
     if action == "remove":
         idx = IndexStore(index_dir)
         info = None
@@ -638,8 +730,7 @@ def _run_index(args: argparse.Namespace, action: str,
                         "clusters remain", p, info["generation"],
                         info["genomes"], info["clusters"])
         return IndexResult(action=action, info=info, clock=None)
-    device = resolve_device(args.device)
-    clock = StageClock(device)
+    device = clock.device
     if action == "build":
         ordered = _index_order_genomes(genomes, args, clock)
         info = incremental.build(
@@ -660,11 +751,15 @@ def _run_index(args: argparse.Namespace, action: str,
         prior = idx.load_interruptions()
         if prior or args.resume:
             interrupt.note_resume(index_dir, len(prior))
+            events.record("resumed", index_dir=index_dir,
+                          prior_interruptions=len(prior))
         try:
             info = incremental.insert(
                 idx, ordered, device=device, cache_dir=args.sketch_cache,
                 threads=args.threads, batch=args.batch, clock=clock)
         except interrupt.PreemptionRequested as e:
+            events.record("preempted", signal=e.signame,
+                          boundary=e.boundary)
             idx.record_interruption({
                 "signal": e.signame, "boundary": e.boundary,
                 "ts": time.time()})  # a stamp, not a duration
@@ -701,6 +796,40 @@ def _run_index(args: argparse.Namespace, action: str,
     return IndexResult(action=action, info=results, clock=clock)
 
 
+def run_report_cmd(args: argparse.Namespace) -> int:
+    """Render run_report.json files, or diff two of them; 1 on an
+    unreadable or invalid report (``galah_tpu``'s ``run_report_cmd``).
+    Pure file I/O: no device."""
+    from galah_tpu_torch.obs import report as report_mod
+
+    loaded = []
+    for path in args.paths:
+        try:
+            rep = report_mod.load(path)
+        except (OSError, ValueError) as e:  # missing file, bad JSON
+            logger.error("%s: cannot read run report (%s)", path, e)
+            return 1
+        problems = report_mod.validate(rep)
+        if problems:
+            logger.error("%s: not a valid run report: %s", path,
+                         problems[0])
+            return 1
+        loaded.append((path, rep))
+    if args.diff:
+        if len(loaded) != 2:
+            logger.error("report --diff takes exactly two reports, "
+                         "got %d", len(loaded))
+            return 1
+        (pa, ra), (pb, rb) = loaded
+        sys.stdout.write(report_mod.diff(ra, rb, label_a=pa, label_b=pb))
+        return 0
+    for i, (path, rep) in enumerate(loaded):
+        if i:
+            sys.stdout.write("\n")
+        sys.stdout.write(report_mod.render(rep))
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = build_parser()
     args = parse_args(argv, parser)
@@ -721,6 +850,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         args.subcommand)
         return 0
     set_log_level(verbose=args.verbose, quiet=args.quiet)
+    if args.subcommand == "report":
+        return run_report_cmd(args)
     logger.info("galah_tpu_torch version %s", __version__)
     try:
         if args.subcommand == "cluster":

@@ -40,6 +40,7 @@ import torch
 from galah_tpu_torch.cluster.cache import PairDistanceCache, pair_key
 from galah_tpu_torch.cluster.partition import partition_preclusters
 from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops import greedy_select
 from galah_tpu_torch.resilience import interrupt
 from galah_tpu_torch.timing import StageClock
@@ -200,6 +201,7 @@ def _cluster_pending_rounds(
     reps_by_pc: Dict[int, List[int]] = {pc: [] for pc, _ in pending}
     rep_set: Set[int] = set()
     computed: List[Tuple[int, int]] = []  # pairs that hit the backend
+    consulted: Set[Tuple[int, int]] = set()  # pairs a rep decision read
 
     digest = _greedy_digest(pending)
     if checkpoint:
@@ -253,7 +255,7 @@ def _cluster_pending_rounds(
         pos += len(window)
         rstart = len(computed)
         _device_round(window, pc_of, adj, reps_by_pc, rep_set, batch,
-                      value, thr, device)
+                      value, consulted, thr, device)
         clock.count("greedy-rounds", 1)
         if checkpoint and len(computed) > rstart:
             with clock.stage("checkpoint-write"):
@@ -278,6 +280,7 @@ def _cluster_pending_rounds(
                 and not ani_cache.contains((i, r)):
             todo.append((r, i))
     todo.sort(key=lambda p: (p[1], p[0]))
+    n_rep_computed = len(computed)
     batch(todo)
 
     results: Dict[int, List[List[int]]] = {}
@@ -306,7 +309,43 @@ def _cluster_pending_rounds(
                         "inconsistent backend")
                 clusters[int(best[gi])].append(g)
         results[pc] = clusters
+
+    # waste, split by the phase that paid for each pair: the membership
+    # argmax reads every cached (non-rep, rep) pair, so a computed key
+    # joining a rep and a non-rep was read
+    computed_keys = {pair_key(*p) for p in computed}
+    mem_consulted = {k for k in computed_keys
+                     if (k[0] in rep_set) != (k[1] in rep_set)}
+    live = consulted | mem_consulted
+    rep_keys = {pair_key(*p) for p in computed[:n_rep_computed]}
+    mem_keys = {pair_key(*p) for p in computed[n_rep_computed:]} \
+        - rep_keys
+    _count_waste(clock, len(computed_keys), rep=len(rep_keys - live),
+                 membership=len(mem_keys - live), warm=0)
     return results
+
+
+def _count_waste(clock: StageClock, n_computed: int, rep: int,
+                 membership: int, warm: int) -> None:
+    """The exact ANIs computed and those no greedy decision read, the
+    waste split by the phase that paid for it (``galah_tpu``'s
+    ``_emit_waste_counters``; no warm pass runs here, so its share is
+    0)."""
+    wasted = rep + membership + warm
+    clock.count("exact-ani-computed", n_computed)
+    clock.count("exact-ani-wasted", wasted)
+    clock.count("exact-ani-wasted-rep", rep)
+    clock.count("exact-ani-wasted-membership", membership)
+    clock.count("exact-ani-wasted-warm", warm)
+    obs_metrics.counter(
+        "ani.exact_computed",
+        help="Exact ANI pairs the backend computed",
+        unit="pairs").inc(n_computed)
+    obs_metrics.counter(
+        "ani.exact_wasted",
+        help="Backend-computed ANI pairs no greedy decision "
+             "ever consulted (speculation waste)",
+        unit="pairs").inc(wasted)
 
 
 def _device_round(
@@ -317,6 +356,7 @@ def _device_round(
     rep_set: Set[int],
     batch,
     value,
+    consulted: Set[Tuple[int, int]],
     thr: float,
     device: torch.device,
 ) -> None:
@@ -329,6 +369,7 @@ def _device_round(
     (3) the device fold as the authoritative decision, cross-checked
     against the sub-round bookkeeping. A window the budget cannot
     finish completes its undecided tail on the exact host-order scan.
+    Every pair a decision reads is added to `consulted`.
     """
     w = len(window)
     win_pos = {g: wi for wi, g in enumerate(window)}
@@ -341,6 +382,7 @@ def _device_round(
         for r in reps_by_pc[pc_of[g]]:
             if r not in hits[g]:
                 continue
+            consulted.add(pair_key(r, g))
             v = value(r, g)
             if v is not None and v >= thr:
                 ext[wi] = True
@@ -375,6 +417,7 @@ def _device_round(
             decided[fi] = True
             tentative[fi] = True
         for fi, ti in claims:
+            consulted.add(pair_key(window[fi], window[ti]))
             v = value(window[fi], window[ti])
             if v is not None and v >= thr:
                 decided[ti] = True
@@ -410,6 +453,7 @@ def _device_round(
             batch([(window[fi], t) for fi in cands])
             is_rep = True
             for fi in cands:
+                consulted.add(pair_key(window[fi], t))
                 v = value(window[fi], t)
                 if v is not None and v >= thr:
                     is_rep = False

@@ -43,6 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from galah_tpu_torch import index as index_pkg
 from galah_tpu_torch.backends.minhash_backend import (MinHashPreclusterer,
                                                       SketchStore)
 from galah_tpu_torch.cluster.partition import partition_preclusters
@@ -51,6 +52,7 @@ from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.index import store as index_store
 from galah_tpu_torch.index.store import IndexState, IndexStore
 from galah_tpu_torch.io import diskcache
+from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops.minhash import sketch_rows
 from galah_tpu_torch.ops.pairwise import ani_to_jaccard, stats_to_ani_f64
 from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
@@ -149,6 +151,7 @@ def kept_pairs(mat: torch.Tensor, pi: np.ndarray, pj: np.ndarray,
         keep_j.append(cj[keep])
         anis.append(stats_to_ani_f64(common[keep], total[keep], k))
     clock.count("index-pairs", int(pi.shape[0]))
+    clock.count("screen-possible-pairs", int(pi.shape[0]))
     if not keep_i:
         empty = np.zeros(0, dtype=np.int64)
         return empty, empty, np.zeros(0, dtype=np.float64)
@@ -260,19 +263,34 @@ def cluster_paths(state: IndexState) -> List[List[str]]:
 # -- operations --------------------------------------------------------
 
 
-def _summary(state: IndexState, op: str,
+def _publish(state: IndexState, op: str,
              extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The operation's summary."""
+    """The operation's summary, also set as the run report's ``index``
+    section, and the index gauges."""
+    live = len(state.live)
+    obs_metrics.gauge(
+        "index.generation",
+        help="Committed generation of the persistent sketch index",
+        unit="generation").set(float(state.generation))
+    obs_metrics.gauge(
+        "index.genomes",
+        help="Live (non-tombstoned) genomes in the sketch index",
+        unit="genomes").set(float(live))
+    obs_metrics.gauge(
+        "index.clusters",
+        help="Clusters (representatives) in the sketch index",
+        unit="clusters").set(float(len(state.reps)))
     out: Dict[str, Any] = {
         "op": op,
         "generation": state.generation,
-        "genomes": len(state.live),
+        "genomes": live,
         "clusters": len(state.reps),
         "tombstones": len(state.tombstones),
         "pairs": len(state.pairs),
     }
     if extra:
         out.update(extra)
+    index_pkg.set_snapshot(out)
     return out
 
 
@@ -333,7 +351,7 @@ def build(path: str, ordered_paths: Sequence[str], ani: float,
         "Built index at %s: generation %d, %d genomes, %d clusters, "
         "%d pairs", path, generation, len(state.genomes),
         len(state.reps), len(state.pairs))
-    return _summary(state, "build", counts)
+    return _publish(state, "build", counts)
 
 
 def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
@@ -371,7 +389,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
         logger.info("Skipping %d genome(s) already in the index",
                     skipped)
     if not fresh:
-        return _summary(state, "insert",
+        return _publish(state, "insert",
                         {"inserted": 0, "skipped": skipped})
 
     params = idx.params
@@ -424,7 +442,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
         generation, len(state.reps), counts["new_reps"],
         counts["reassigned"])
     counts.update({"inserted": len(fresh), "skipped": skipped})
-    return _summary(state, "insert", counts)
+    return _publish(state, "insert", counts)
 
 
 def query(idx: IndexStore, paths: Sequence[str], device="cuda",
@@ -512,5 +530,5 @@ def remove(idx: IndexStore, path: str) -> Dict[str, Any]:
         "Removed genome %d (%s) from %s: generation %d%s", target, rp,
         idx.path, generation,
         f", re-elected {reelected}" if reelected is not None else "")
-    return _summary(state, "remove",
+    return _publish(state, "remove",
                     {"removed": target, "reelected": reelected})

@@ -33,7 +33,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from galah_tpu_torch.config import env_value
 from galah_tpu_torch.io import atomic
+from galah_tpu_torch.obs import metrics as obs_metrics
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +75,24 @@ def entry_digest(genome_path: str, kind: str, params: dict) -> str:
 def default_cache_dir() -> Optional[str]:
     """The cache directory named by ``GALAH_TPU_CACHE``, or None (an
     unset or empty variable disables the cache)."""
-    return os.environ.get(CACHE_ENV) or None
+    return env_value(CACHE_ENV) or None
+
+
+#: clock count -> (metric, help, unit) of galah_tpu's cache metrics
+_METRICS = {
+    "cache-hits": ("cache.hits",
+                   "Sketch/profile cache entries reused from disk", ""),
+    "cache-misses": ("cache.misses",
+                     "Sketch/profile cache lookups that recomputed", ""),
+    "cache-repaired": ("cache.repaired",
+                       "Corrupt cache entries dropped for recompute", ""),
+    "cache-bytes-read": ("cache.bytes_read",
+                         "Bytes of cache entries read back from disk",
+                         "bytes"),
+    "cache-bytes-written": ("cache.bytes_written",
+                            "Bytes of cache entries committed to disk",
+                            "bytes"),
+}
 
 
 class CacheDir:
@@ -96,6 +115,12 @@ class CacheDir:
     def _count(self, name: str, n: int = 1) -> None:
         if self.clock is not None:
             self.clock.count(name, n)
+        # mirrored into the metrics registry under galah_tpu's names:
+        # the run report's funnel reads its cache hit rate there; loads
+        # may come from read-ahead threads, which the registry's lock
+        # makes safe
+        metric, help_text, unit = _METRICS[name]
+        obs_metrics.counter(metric, help=help_text, unit=unit).inc(n)
 
     def entry_path(self, genome_path: str, kind: str, params: dict) -> str:
         digest = entry_digest(genome_path, kind, params)

@@ -18,7 +18,9 @@ sequence lines before the first record belong to none.
 
 A read that fails with a transient OS error (a network filesystem's
 flake) is retried with backoff (``resilience/policy.py``; the
-``GALAH_IO_RETRY_*`` variables, 3 attempts from 0.1 s by default). A
+``GALAH_IO_RETRY_*`` variables, 3 attempts from 0.1 s by default),
+each retry a ``retry`` event of the run report, the shape of
+``galah_tpu``'s dispatch retry events. A
 file the parser refuses raises ``BadGenomeError`` (reason ``empty``
 when it holds no record, else ``corrupt``); a damaged gzip stream
 raises the standard library's error (``CORRUPT_GZIP_ERRORS``), not
@@ -37,6 +39,7 @@ from typing import Optional
 import numpy as np
 
 from galah_tpu_torch.io import _cingest
+from galah_tpu_torch.obs import events
 from galah_tpu_torch.resilience.policy import RetryPolicy, call_with_retry
 
 
@@ -182,8 +185,12 @@ def read_genome(path: str) -> Genome:
     """Parse a (possibly gzipped) FASTA into codes + offsets + stats
     with the C parser; raises ``BadGenomeError`` on a file it
     refuses."""
+    site = f"io.read[{path}]"
     data = call_with_retry(lambda: _read_bytes(path), _io_policy(),
-                           site=f"io.read[{path}]", classify=_io_retryable)
+                           site=site, classify=_io_retryable,
+                           on_retry=lambda attempt, exc: events.record(
+                               "retry", site=site, attempt=attempt,
+                               error=f"{type(exc).__name__}: {exc}"))
     try:
         codes, offsets, n_amb, n50 = _cingest.parse_fasta(data, path)
     except ValueError as e:

@@ -6,7 +6,8 @@ seconds, not minutes), for ``sm_90a``, into ``galah_tpu_torch/_build/``.
 The library's file name carries the content hash of the source and of
 every header (``*.cuh``) beside it, so an unchanged source is built
 once per checkout and an edited source or header anew.
-All requested sources compile in parallel, one ``nvcc`` each.
+All requested sources compile in parallel, one ``nvcc`` each; with
+``--trace-events`` each build is a span of category ``nvcc``.
 
 A build failure raises with nvcc's output; nothing falls back.
 
@@ -25,6 +26,8 @@ import subprocess
 import sys
 import time
 from typing import Dict, Iterable
+
+from galah_tpu_torch.obs import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -88,11 +91,16 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(_HERE, f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        started = time.perf_counter()
+        procs.append((name, out, tmp, started, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
-    for name, out, tmp, proc in procs:
+    for name, out, tmp, started, proc in procs:
         log, _ = proc.communicate()
+        # the span ends when this build is reaped, after the ones
+        # started before it
+        trace.emit_complete(f"nvcc {name}.cu", started,
+                            time.perf_counter() - started, cat="nvcc")
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
             continue

@@ -23,8 +23,7 @@ import textwrap
 from typing import List, Tuple
 
 from galah_tpu_torch import __version__
-from galah_tpu_torch.index import INDEX_DIR_ENV
-from galah_tpu_torch.io import diskcache
+from galah_tpu_torch.config import FLAGS
 
 WIDTH = 78
 
@@ -139,6 +138,30 @@ EXIT STATUS
 EXAMPLES
       galah-tpu cluster-validate --cluster-file clusters.tsv --ani 95
 """,
+    "report": """\
+REPORT CONTENTS
+   A run report (produced by `cluster --run-report PATH` or the
+   GALAH_OBS_REPORT variable, schema committed at
+   galah_tpu/obs/run_report.schema.json) records the stage wall-clock
+   tree, per-stage device dispatch and host-sync round trips, the
+   precluster funnel (possible -> screened -> kept -> ANI-computed
+   pairs plus sketch-cache hit rate), the full GALAH_* flag snapshot,
+   device topology, typed metrics, and every resilience event
+   (retries, CPU-fallback demotions, quarantined genomes).
+
+EXIT STATUS
+   0 on success (including a clean diff); 1 on unreadable or
+   schema-invalid input.
+
+EXAMPLES
+   Render one report:
+
+      galah-tpu report run_report.json
+
+   Diff two runs stage-by-stage and metric-by-metric:
+
+      galah-tpu report --diff before.json after.json
+""",
     "dist": """\
 OUTPUT
    One line per genome pair whose sketches share any hash, or whose
@@ -202,48 +225,30 @@ EXAMPLES
 }
 
 
-#: (name, section title, help) of every environment variable the port
-#: reads
-_ENVIRONMENT: List[Tuple[str, str, str]] = [
-    (diskcache.CACHE_ENV, "Runtime and IO",
-     "Directory for the persistent sketch/profile cache; the "
-     "--sketch-cache flag's env twin and loses to it. Unset disables "
-     "caching"),
-    (INDEX_DIR_ENV, "Runtime and IO",
-     "Index directory of `index`; the --index-dir flag's env twin and "
-     "loses to it"),
-    ("GALAH_FI", "Resilience",
-     "Deterministic fault injection at the durable-write sites, e.g. "
-     "'site=io.atomic.append[ckpt.greedy];kind=kill;prob=0.5;seed=3;"
-     "max=1'. Kinds: enospc, eio, torn-write, slow-io, and kill, which "
-     "os._exit()s the process with 137 mid-operation"),
-] + [
-    (f"GALAH_IO_RETRY_{suffix}", "Resilience",
-     f"FASTA/IO retry policy (defaults: 3 attempts, 0.1 s base delay): "
-     f"{doc}")
-    for suffix, doc in (
-        ("MAX_ATTEMPTS", "attempts per read before giving up"),
-        ("BASE_DELAY", "first backoff delay, seconds"),
-        ("MAX_DELAY", "backoff cap, seconds"),
-        ("JITTER", "+- fraction of each delay, in [0, 1]"),
-        ("TOTAL_BUDGET", "overall retry wall-clock budget per read, "
-                         "seconds"),
-        ("SEED", "makes the backoff jitter bit-reproducible"))
+# section titles of the ENVIRONMENT page, in galah_tpu's order
+_ENV_SECTION_TITLES = [
+    ("runtime", "Runtime and IO"),
+    ("resilience", "Resilience"),
+    ("observability", "Observability"),
 ]
 
 
 def render_environment_section() -> str:
-    """The ENVIRONMENT section: every variable galah_tpu_torch reads
-    (``galah_tpu`` renders its whole GALAH_* registry here)."""
+    """The ENVIRONMENT section, rendered from the port's registry
+    (``config.FLAGS``): every GALAH_* variable galah_tpu_torch reads."""
     out = ["ENVIRONMENT",
            _wrap("Every GALAH_* variable galah_tpu_torch reads."),
            ""]
-    for title in dict.fromkeys(t for _, t, _ in _ENVIRONMENT):
+    for section, title in _ENV_SECTION_TITLES:
         out.append(f"  {title}:")
-        for name, t, help_text in sorted(_ENVIRONMENT):
-            if t == title:
-                out.append(f"  {name}")
-                out.append(_wrap(help_text, indent=6))
+        for flag in sorted(FLAGS.values(), key=lambda f: f.name):
+            if flag.section != section:
+                continue
+            head = f"  {flag.name}"
+            if flag.default is not None:
+                head += f" (default: {flag.default})"
+            out.append(head)
+            out.append(_wrap(flag.help, indent=6))
         out.append("")
     return "\n".join(out)
 
@@ -352,10 +357,10 @@ def render_full_help_roff(parser: argparse.ArgumentParser,
         for f in rest:
             emit_action(by_flag[f])
     out.append(".SH ENVIRONMENT")
-    for name, _title, help_text in sorted(_ENVIRONMENT):
+    for flag in sorted(FLAGS.values(), key=lambda f: f.name):
         out.append(".TP")
-        out.append(f"\\fB{esc(name)}\\fR")
-        out.append(esc(help_text))
+        out.append(f"\\fB{esc(flag.name)}\\fR")
+        out.append(esc(flag.help))
 
     epilog = _EPILOGS.get(subcommand, "")
     for block in epilog.split("\n\n"):

@@ -33,6 +33,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops import collision
 from galah_tpu_torch.ops.compact import iter_blocks
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
@@ -58,6 +59,16 @@ def stats_to_ani_f64(common: np.ndarray, total: np.ndarray,
     with np.errstate(divide="ignore"):
         d = -np.log(2.0 * j / (1.0 + j)) / float(k)
     return np.where(common > 0, 1.0 - d, 0.0)
+
+
+def note_survival(candidates: int, kept: int) -> None:
+    """The ``screen.survival_rate`` gauge: the kept share of the last
+    screening pass's candidate pairs."""
+    obs_metrics.gauge(
+        "screen.survival_rate",
+        help="Fraction of screened candidate pairs the threshold "
+             "kept (last screening pass)", unit="fraction").set(
+        kept / candidates if candidates else 0.0)
 
 
 def _pad_rows(mat: torch.Tensor, quantum: int) -> torch.Tensor:
@@ -102,12 +113,19 @@ def _rowblock_screen(mat: torch.Tensor, counts: torch.Tensor, r0: int,
 def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
                  c_floor: float, row_tile: int = ROW_TILE,
                  col_tile: int = COL_TILE,
-                 cap_per_row: int = CAP_PER_ROW) -> List[Tuple[int, int]]:
+                 cap_per_row: int = CAP_PER_ROW,
+                 clock: Optional[StageClock] = None
+                 ) -> List[Tuple[int, int]]:
     """i<j pairs whose marker containment >= c_floor, in row-major
     order. `marker_mat` is (N, M) biased int64 on the device, sorted
-    and sentinel-padded; `counts` the per-genome marker counts."""
+    and sentinel-padded; `counts` the per-genome marker counts.
+    `clock` gets the count ``screen-possible-pairs``, and on the
+    collision route ``screen-candidates`` and ``screen-kept-pairs``
+    (``galah_tpu`` counts the three on that route only)."""
+    clock = clock or StageClock(marker_mat.device)
     n = marker_mat.shape[0]
     counts64 = np.asarray(counts, dtype=np.int64)
+    clock.count("screen-possible-pairs", n * (n - 1) // 2)
     if n >= collision.SPARSE_SCREEN_MIN_N:
         # the collision counts ARE the containment numerators (marker
         # sets are distinct), so the exact check needs no second pass
@@ -115,6 +133,9 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
             from_biased(marker_mat), counts64)
         denom = np.minimum(counts64[pi], counts64[pj]).astype(np.float64)
         keep = (denom > 0) & (inter.astype(np.float64) >= c_floor * denom)
+        clock.count("screen-candidates", int(pi.shape[0]))
+        clock.count("screen-kept-pairs", int(keep.sum()))
+        note_survival(int(pi.shape[0]), int(keep.sum()))
         return list(zip(pi[keep].tolist(), pj[keep].tolist()))
     device = marker_mat.device
     mat = _pad_rows(marker_mat, math.lcm(row_tile, col_tile))
@@ -188,8 +209,9 @@ def threshold_pairs_streamed(
     [r0, r1)), and the exact float64 check runs on the host over the
     integers. ``common > 0`` drops the sentinel padding (a sentinel row
     shares nothing). `clock` gets the `pair-stats` stage and the
-    `pairs-streamed-stripes` count."""
+    `pairs-streamed-stripes` and `screen-possible-pairs` counts."""
     clock = clock or StageClock(torch.device("cpu"))
+    clock.count("screen-possible-pairs", n * (n - 1) // 2)
     j_thr = ani_to_jaccard(min_ani, k)
     r_cap = ROW_TILE
     while r_cap < n:

@@ -21,7 +21,8 @@ import torch
 from galah_tpu_torch.ops.collision import candidate_pairs_minhash
 from galah_tpu_torch.ops.constants import SENTINEL_U64
 from galah_tpu_torch.ops.pairlist import run_launch, valid_lengths
-from galah_tpu_torch.ops.pairwise import ani_to_jaccard, stats_to_ani_f64
+from galah_tpu_torch.ops.pairwise import (ani_to_jaccard, note_survival,
+                                          stats_to_ani_f64)
 from galah_tpu_torch.ops.u64 import from_biased
 from galah_tpu_torch.timing import StageClock
 
@@ -79,7 +80,7 @@ def threshold_pairs_sparse(mat: torch.Tensor, k: int, min_ani: float,
     """Sparse {(i, j): ani} for i<j pairs with ani >= min_ani: collision
     screen on the host, pair stats on the device, exact check on the
     host. `clock` gets the `collision-screen` and `pair-stats` stages
-    and the screen's counts."""
+    and the screen's counts (possible pairs, candidates, kept pairs)."""
     clock = clock or StageClock(mat.device)
     if sketch_size is None:
         sketch_size = mat.shape[1]
@@ -88,13 +89,16 @@ def threshold_pairs_sparse(mat: torch.Tensor, k: int, min_ani: float,
         host = from_biased(mat)
         lens = (host != SENTINEL_U64).sum(axis=1).astype(np.int64)
         pi, pj = candidate_pairs_minhash(host, lens, j_thr, sketch_size)
+    n = mat.shape[0]
     clock.count("screen-candidates", int(pi.shape[0]))
+    clock.count("screen-possible-pairs", n * (n - 1) // 2)
     with clock.stage("pair-stats"):
         common, total = pair_stats_for_pairs(mat, pi, pj, sketch_size)
     common = common.astype(np.int64)
     total = total.astype(np.int64)
     keep = common.astype(np.float64) >= j_thr * total
     clock.count("screen-kept-pairs", int(keep.sum()))
+    note_survival(int(pi.shape[0]), int(keep.sum()))
     ani = stats_to_ani_f64(common[keep], total[keep], k)
     return {(int(a), int(b)): float(v)
             for a, b, v in zip(pi[keep], pj[keep], ani)}

@@ -36,6 +36,8 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
+from galah_tpu_torch.config import env_value
+
 logger = logging.getLogger(__name__)
 
 FS_FAULT_KINDS = ("enospc", "eio", "torn-write", "slow-io")
@@ -188,7 +190,7 @@ def get_injector() -> Optional[FaultInjector]:
     with _LOCK:
         if not _ENV_CHECKED:
             _ENV_CHECKED = True
-            text = os.environ.get("GALAH_FI")
+            text = env_value("GALAH_FI")
             if text:
                 _INSTALLED = FaultInjector(parse_spec(text))
                 logger.warning("fault injection ACTIVE from GALAH_FI=%r",

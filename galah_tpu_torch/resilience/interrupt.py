@@ -6,10 +6,9 @@ operator sends SIGINT.
 
 * ``install()`` registers SIGTERM and SIGINT handlers. The first signal
   only records itself and sets the stop flag; a second means "now":
-  the process exits with ``EXIT_PREEMPTED`` at once. Every checkpoint
-  write is durable when it returns, so there is nothing to flush
-  (``galah_tpu`` flushes its telemetry here, which the port does not
-  have).
+  the process runs the flush hooks (``register_flush``; the heartbeat's
+  last beat) and exits with ``EXIT_PREEMPTED`` at once. Every
+  checkpoint write is durable when it returns.
 * The engine calls ``check(boundary)`` right after the state of
   `boundary` reached the disk; with a stop pending it raises
   ``PreemptionRequested``. The CLI records the interruption in the
@@ -57,6 +56,17 @@ _BOUNDARY: Optional[str] = None
 _RESUMED_FROM: Optional[str] = None
 _PRIOR_INTERRUPTIONS = 0
 _PREV_HANDLERS: Dict[int, Any] = {}
+# last-gasp hooks of the second-signal exit (the first signal's path
+# drains through obs.finalize instead); each is bounded and lock-light,
+# and its failure is ignored here
+_FLUSH_HOOKS: List[Any] = []
+
+
+def register_flush(fn) -> None:
+    """Register a callable run right before the second-signal hard
+    exit (idempotent per callable)."""
+    if fn not in _FLUSH_HOOKS:
+        _FLUSH_HOOKS.append(fn)
 
 
 def _handler(signum, frame) -> None:
@@ -64,6 +74,11 @@ def _handler(signum, frame) -> None:
     if _STOP.is_set():
         logger.error("second signal %s: exiting immediately (%d)",
                      signame, EXIT_PREEMPTED)
+        for fn in list(_FLUSH_HOOKS):
+            try:
+                fn()
+            except Exception:
+                logger.debug("flush hook failed", exc_info=True)
         os._exit(EXIT_PREEMPTED)
     _SIGNALS.append(signame)
     _STOP.set()

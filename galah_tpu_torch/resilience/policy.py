@@ -77,10 +77,12 @@ def call_with_retry(
     site: str,
     classify: Callable[[BaseException], bool],
     sleep: Optional[Callable[[float], None]] = None,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
 ) -> T:
     """fn(), retried on the errors `classify` accepts until the
     policy's attempts or budget run out; then the last error raises.
-    `sleep` defaults to ``time.sleep``, looked up at each call."""
+    `on_retry(attempt, exc)` runs before each backoff sleep. `sleep`
+    defaults to ``time.sleep``, looked up at each call."""
     t0 = time.monotonic()
     for attempt in range(policy.max_attempts):
         try:
@@ -95,6 +97,8 @@ def call_with_retry(
                                "attempt %d", site, policy.total_budget,
                                attempt + 1)
                 raise
+            if on_retry is not None:
+                on_retry(attempt, e)
             logger.warning("%s: attempt %d/%d failed (%s: %s); retrying "
                            "in %.2f s", site, attempt + 1,
                            policy.max_attempts, type(e).__name__, e, d)

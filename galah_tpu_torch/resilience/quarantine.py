@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from galah_tpu_torch.io import atomic
 from galah_tpu_torch.io.prefetch import iter_prefetched
+from galah_tpu_torch.obs import events as obs_events
 
 logger = logging.getLogger(__name__)
 
@@ -103,9 +104,10 @@ def preflight_quarantine(
     clock=None,
 ) -> Tuple[List[str], QuarantineManifest]:
     """Validate every genome, `threads` reads at a time; returns (the
-    kept paths, the manifest), both in input order. With a
-    ``timing.StageClock``, the preflight is stage ``preflight-genomes``
-    and the count ``quarantined-genomes``."""
+    kept paths, the manifest), both in input order; each quarantined
+    genome is a ``quarantine`` event. With a ``timing.StageClock``,
+    the preflight is stage ``preflight-genomes`` and the count
+    ``quarantined-genomes``."""
     manifest = manifest if manifest is not None else QuarantineManifest()
     unique = list(dict.fromkeys(genome_paths))
     verdicts = iter_prefetched(unique, validate, depth=threads)
@@ -117,6 +119,9 @@ def preflight_quarantine(
         if verdict is not None:
             manifest.add(path, *verdict)
             dropped.add(path)
+            reason, detail = verdict
+            obs_events.record("quarantine", genome=path, reason=reason,
+                              detail=detail)
     if clock is not None:
         clock.count("quarantined-genomes", len(dropped))
     return [p for p in genome_paths if p not in dropped], manifest

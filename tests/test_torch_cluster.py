@@ -5,6 +5,7 @@ Tolerance: none — cluster lists equal, TSV bytes equal.
 """
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -140,13 +141,36 @@ def test_cli_directory_input(families, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--platform", "cpu"], ["--rep-scan-window", "8"],
-    ["--profile-trace-dir", "d"], ["--run-report=r.json"],
-    ["--trace-events", "t.json"]])
+    ["--profile-trace-dir", "d"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", *flag])
     assert e.value.code == 2
     assert flag[0].split("=")[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sub", ["cluster", "index"])
+@pytest.mark.parametrize("flag", ["--run-report", "--trace-events"])
+def test_cli_accepts_observability_flag(families, tmp_path, sub, flag):
+    """--run-report and --trace-events, refused before the port had a
+    run report, parse on `cluster` and `index` (also as --flag=value)
+    and write their file, which loads as JSON."""
+    paths, _ = families
+    out = tmp_path / "out.json"
+    argv = (["cluster", "-f", *paths[:4], "--device", "cpu", f"{flag}={out}"]
+            if sub == "cluster" else
+            ["index", "--index-dir", str(tmp_path / "idx"), "--device",
+             "cpu", f"{flag}={out}", "build", "-f", *paths[:4]])
+    args = tcli.parse_args(argv)
+    assert getattr(args, flag[2:].replace("-", "_")) == str(out)
+    assert tcli.main(argv) == 0
+    with open(out) as fh:
+        loaded = json.load(fh)
+    if flag == "--run-report":
+        assert loaded["kind"] == "galah-tpu-run-report"
+        assert loaded["run"]["subcommand"] == sub
+    else:
+        assert any(ev.get("ph") == "X" for ev in loaded)
 
 
 def test_cli_parses_ani_subsample():
@@ -206,7 +230,12 @@ def test_port_imports_neither_jax_nor_galah_tpu():
             "galah_tpu_torch/validate.py",
             "galah_tpu_torch/index/__init__.py",
             "galah_tpu_torch/index/store.py",
-            "galah_tpu_torch/index/incremental.py"} <= names
+            "galah_tpu_torch/index/incremental.py",
+            "galah_tpu_torch/obs/__init__.py",
+            "galah_tpu_torch/obs/heartbeat.py",
+            "galah_tpu_torch/obs/metrics.py",
+            "galah_tpu_torch/obs/report.py",
+            "galah_tpu_torch/obs/trace.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]
