@@ -93,10 +93,15 @@ Phases, each of which exits nonzero when it fails:
    and dashing (with the CheckM2 report) routes with ``--sketch-cache``
    in a directory of its own, cold then warm (and once without it): the
    TSVs equal, the warm runs launch no fused_sketch, murmur3_k21 or
-   positional_hashes and miss nothing; on the skani route one profile
-   entry with a flipped byte is repaired (the same TSV), and a warm
-   profile load, split into its parts, is timed against a read plus a
-   group build (each route's ~2 GB of cache is removed after it);
+   positional_hashes and miss nothing, but on the card, where the store
+   skips profile entries, every route reads and profiles its genomes
+   again (positional_hashes launched) and the skani route probes and
+   writes nothing; on the finch route one
+   sketch entry with a flipped byte is repaired (the same TSV; on the
+   CPU, a profile entry on the skani route), and a warm profile load,
+   written and read through the store's entry writer and loader and
+   split into its parts, is timed against a read plus a group build
+   (each route's cache is removed after it);
 4j. checkpoint and resume over finch 1024's genomes with
    ``--rep-rounds 256`` (four greedy rounds): the run without a
    checkpoint, then (a) an uninterrupted run with ``--checkpoint-dir``,
@@ -156,6 +161,20 @@ Phases, each of which exits nonzero when it fails:
    give one nvcc span. Phase
    4j's stopped run (b) also writes a report and a trace: the report
    must say stop requested by SIGTERM at ``greedy-round-saved``;
+4p. the fleet: phase 4's genomes through ``python -m galah_tpu_torch
+   fleet run --workers 2 --shards 4 --threads 4`` with a shared cache
+   and a supervisor report; one worker is SIGKILLed once it has beaten
+   and opened its checkpoint (the event log must show its shard
+   preempted with reason signal-9, then relaunched with resume true),
+   then the supervisor is sent SIGTERM once and must exit 75, and a
+   ``--resume`` run must finish: its TSV equal to phase 4's byte for
+   byte, ``fleet status`` every shard done, ``fleet analyze --json``'s
+   blame summing to its fleet wall, the supervisor's and every shard's
+   report valid, positional_hashes, tile_stats and window_hits among
+   the shard reports' dispatches, no worker left running; the fleet,
+   supervise and merge walls, the within- and cross-shard pair counts,
+   each worker's process wall and the run inside it, and the cache's
+   use are printed beside phase 4's wall;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -284,6 +303,14 @@ CACHE_GENOMES = 64
 
 # phase 4o's heartbeat period, seconds
 OBS_HEARTBEAT_S = 0.25
+
+# phase 4p: the fleet's workers and shards over phase 4's genomes, and
+# each worker's read-ahead threads (two workers share the host's 8
+# cores); the seconds it may wait for each event it drives
+FLEET_WORKERS = 2
+FLEET_SHARDS = 4
+FLEET_THREADS = 4
+FLEET_WAIT_S = 300
 
 # phase 4j's --rep-rounds: four greedy rounds over finch 1024's genomes,
 # so a stop after the first leaves rounds to replay and rounds to run
@@ -981,7 +1008,6 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
     from galah_tpu_torch.ops import fragment_ani
     from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                              sketch_matrix)
-    from galah_tpu_torch.ops.u64 import to_biased
 
     dev = device.type
 
@@ -1112,6 +1138,10 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
 
     c_paths = paths[:CACHE_GENOMES]
     cache_runs = {}
+    # on the card the profile store neither probes nor writes profile
+    # entries (fragment_backend.ProfileStore.cache_profiles), so the
+    # skani route's cache stays empty and the repaired entry is finch's
+    skip_profiles = not ProfileStore(device).cache_profiles
     for route, flags in (
             ("skani", []),
             ("finch", ["--precluster-method", "finch"]),
@@ -1119,14 +1149,17 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
                          "--checkm2-quality-report", report])):
         cdir = os.path.join(root, f"cache_{route}")
         tsvs = {}
+        profile_route = route == "skani" and skip_profiles
+        repair_route = "finch" if skip_profiles else "skani"
         # "uncached": the same run without the cache, for its wall
         for run in ("uncached", "cold", "warm", "repaired"):
             if run == "repaired":
-                if route != "skani":
+                if route != repair_route:
                     continue
+                prefix = "minhash-" if route == "finch" else "profile-"
                 entry = os.path.join(cdir, sorted(
                     n for n in os.listdir(cdir)
-                    if n.startswith("profile-"))[0])
+                    if n.startswith(prefix))[0])
                 with open(entry, "r+b") as fh:
                     fh.seek(os.path.getsize(entry) // 2)
                     byte = fh.read(1)
@@ -1155,36 +1188,61 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
                 if fa.read() != fb.read():
                     raise PhaseError(f"cache {route}: the {run} TSV "
                                      f"differs from the uncached one")
-            if run == "warm":
+            if profile_route and run != "uncached":
+                # no probe and no entry: the run is the uncached one
+                require_counts(counts, {"cache-hits": 0,
+                                        "cache-misses": 0,
+                                        "cache-bytes-written": 0},
+                               f"cache {route} {run}")
+                require_launched(launches_c, ("positional_hashes",),
+                                 f"cache {route} {run}")
+            elif run == "warm":
+                # with profile entries skipped the exact-ANI profiles
+                # are read and built again; the sketches come warm
                 for name in ("fused_sketch", "murmur3_k21",
-                             "positional_hashes"):
+                             *(() if skip_profiles
+                               else ("positional_hashes",))):
                     if launches_c[name]:
                         raise PhaseError(
                             f"cache {route} warm: {name} launched "
                             f"{launches_c[name]} times")
-                require_counts(counts, {"cache-misses": 0,
-                                        "genomes-read": 0},
+                require_counts(counts, {"cache-misses": 0} if skip_profiles
+                               else {"cache-misses": 0, "genomes-read": 0},
                                f"cache {route} warm")
+                if skip_profiles:
+                    require_launched(launches_c, ("positional_hashes",),
+                                     f"cache {route} warm")
             if run == "repaired":
                 require_counts(counts, {"cache-repaired": 1,
                                         "cache-misses": 1},
                                f"cache {route} repaired")
-                require_launched(launches_c, ("positional_hashes",),
+                require_launched(launches_c, ("fused_sketch",)
+                                 if route == "finch"
+                                 else ("positional_hashes",),
                                  f"cache {route} repaired")
         print(f"cache {route}: {len(c_paths)} genomes, TSVs uncached = "
               f"cold = warm"
-              f"{' = repaired' if route == 'skani' else ''}, cache "
+              f"{' = repaired' if route == repair_route else ''}, cache "
               f"{dir_bytes(cdir)} bytes in {len(os.listdir(cdir))} "
-              f"entries {tag}")
+              f"entries"
+              f"{' (profile entries skipped on ' + dev + ')' if profile_route else ''}"
+              f" {tag}")
         if route == "skani":
-            # a warm profile load (read, checksum, upload) against a
-            # read plus a group build, per genome
-            warm_cache = CacheDir(cdir)
+            # a warm profile load (read in place into pinned buffers,
+            # checksum, upload) against a read plus a group build, per
+            # genome, through the store's own entry writer and loader
+            pdir = os.path.join(root, "cache_profiles")
+            warm_cache = CacheDir(pdir)
             few = c_paths[:8]
+            pstore = ProfileStore(device, cache=warm_cache)
+            t0 = time.perf_counter()
+            for p, prof in zip(few, pstore.get_many(few)):
+                pstore._store_disk(p, prof)
+            sync()
+            write_ms = (time.perf_counter() - t0) * 1e3 / len(few)
             load_ms = host_ms(torch, lambda: (
-                ProfileStore(device, cache=warm_cache).get_many(few),
-                sync()), 3) / len(few)
-            entry_mb = dir_bytes(cdir) / len(os.listdir(cdir)) / 1e6
+                [pstore._load_disk(p) for p in few], sync()), 3) / len(few)
+            entry_mb = dir_bytes(pdir) / len(os.listdir(pdir)) / 1e6
             read_ms = host_ms(torch, lambda: [read_genome(p)
                                               for p in few], 3) / len(few)
             fgroup = [read_genome(p) for p in few]
@@ -1192,18 +1250,21 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
                 torch, lambda: (fragment_ani.build_profiles_batch(
                     fgroup, 15, 3000, device),
                     sync()), 5) / len(few)
-            # the warm load's parts: the npz read (zipfile checks its
-            # CRC-32), the entry's content crc32, the bias and upload
+            # the warm load's parts: the members read in place into
+            # pinned buffers, the entry's content crc32, the upload
             ents = [warm_cache.entry_path(p, "profile",
                                           {"k": 15, "fraglen": 3000})
                     for p in few]
 
+            def pinned(name, shape, dtype):
+                n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+                return torch.empty(n, dtype=torch.uint8,
+                                   pin_memory=dev == "cuda"
+                                   ).numpy().view(dtype).reshape(shape)
+
             def load_arrays():
-                out = []
-                for f in ents:
-                    with np.load(f) as z:
-                        out.append({n: z[n] for n in z.files})
-                return out
+                return [diskcache._read_stored_npz(f, pinned)
+                        for f in ents]
 
             npz_ms = host_ms(torch, load_arrays, 3) / len(few)
             arrays = load_arrays()
@@ -1211,25 +1272,35 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
                 {n: a for n, a in e.items() if n != "__check__"})
                 for e in arrays], 3) / len(few)
             up_ms = host_ms(torch, lambda: (
-                [to_biased(e[n], device) for e in arrays
+                [torch.from_numpy(e[n].view(np.int64)).to(
+                    device, non_blocking=True) for e in arrays
                  for n in ("flat_hashes", "ref_set", "markers")],
                 sync()), 3) / len(few)
             del arrays
-            print(f"cache profile load split: npz read {npz_ms:.3f} ms, "
-                  f"content crc32 {crc_ms:.3f} ms, bias and upload "
-                  f"{up_ms:.3f} ms a genome {tag}")
+            print(f"cache profile load split: members read in place "
+                  f"{npz_ms:.3f} ms, content crc32 {crc_ms:.3f} ms, "
+                  f"upload {up_ms:.3f} ms a genome {tag}")
+            wins = load_ms < read_ms + build_ms
             print(f"cache profile entry: {entry_mb:.1f} MB a genome; "
+                  f"cold write {write_ms:.3f} ms a genome (read, build, "
+                  f"write; host clock, one pass over {len(few)} genomes); "
                   f"warm load {load_ms:.3f} ms a genome (read, "
                   f"checksum, upload; host clock, median of 3 over "
                   f"{len(few)} genomes); cold read {read_ms:.3f} ms + "
                   f"group build {build_ms:.3f} ms a genome (a group of "
-                  f"{len(few)}) {tag}")
+                  f"{len(few)}): the warm load "
+                  f"{'wins' if wins else 'loses'}; profile entries "
+                  f"{'skipped' if skip_profiles else 'kept'} on {dev} "
+                  f"{tag}")
             cache_profile = {"entry_mb": entry_mb, "load_ms": load_ms,
+                             "write_ms": write_ms,
                              "read_ms": read_ms, "build_ms": build_ms,
-                             "load_split_ms": {"npz_read": npz_ms,
+                             "skipped_on_card": skip_profiles,
+                             "load_split_ms": {"read_in_place": npz_ms,
                                                "content_crc": crc_ms,
-                                               "bias_upload": up_ms}}
-            del warm_cache, fgroup
+                                               "upload": up_ms}}
+            del warm_cache, pstore, fgroup
+            shutil.rmtree(pdir)
         shutil.rmtree(cdir)
 
     return {"launches_g": launches_g, "validations": validations,
@@ -2189,6 +2260,266 @@ def nvcc_span(root, tag):
     return spans[0]["dur"] / 1e3
 
 
+def fleet_events(fleet_dir):
+    """The fleet's event log, the intact records in order."""
+    from galah_tpu_torch.fleet import plan
+    from galah_tpu_torch.io import atomic
+
+    return atomic.read_jsonl(plan.events_path(fleet_dir))[0]
+
+
+def wait_for(what, probe, proc):
+    """probe()'s first value that is not None, polled every 50 ms while
+    the supervisor `proc` runs, for at most FLEET_WAIT_S."""
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while time.monotonic() < deadline:
+        got = probe()
+        if got is not None:
+            return got
+        if proc.poll() is not None:
+            raise PhaseError(f"fleet: the supervisor exited "
+                             f"{proc.returncode} before {what}")
+        time.sleep(0.05)
+    raise PhaseError(f"fleet: no {what} within {FLEET_WAIT_S} s")
+
+
+def fleet_stragglers(fleet_dir):
+    """Processes whose environment carries the fleet's worker stamp,
+    killed; their pids (none when every worker was stopped)."""
+    stamp = f"GALAH_TPU_FLEET_WORKER={os.path.abspath(fleet_dir)}".encode()
+    left = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as fh:
+                if stamp not in fh.read().split(b"\0"):
+                    continue
+            os.kill(int(name), signal.SIGKILL)
+            left.append(int(name))
+        except OSError:
+            continue
+    return left
+
+
+def phase_fleet(root, skani_dir, tsv4, wall4, dev, tag):
+    """Phase 4p: phase 4's genomes through ``python -m galah_tpu_torch
+    fleet run`` (FLEET_WORKERS workers over FLEET_SHARDS shards on the
+    one card, a shared cache and a supervisor report). One worker is
+    SIGKILLed once it has beaten and opened its checkpoint: the event
+    log must show its shard preempted with reason signal-9, then
+    relaunched with resume true. Then the supervisor is sent SIGTERM
+    once and must exit 75, and a ``--resume`` run must finish: its TSV
+    equal to phase 4's, ``fleet status`` every shard done, ``fleet
+    analyze --json``'s blame summing to its fleet wall, every report
+    valid, and positional_hashes, tile_stats and window_hits among the
+    shard reports' dispatches. Returns the record's entry."""
+    from galah_tpu_torch.fleet import scheduler as fsched
+    from galah_tpu_torch.obs import report as report_mod
+    from galah_tpu_torch.obs.heartbeat import read_latest_beat
+    from galah_tpu_torch.resilience import interrupt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    froot = os.path.join(root, "fleet")
+    os.makedirs(froot)
+    fleet_dir = os.path.join(froot, "fleet")
+    out_tsv = os.path.join(froot, "clusters.tsv")
+    sup_report = os.path.join(froot, "supervisor.json")
+    argv = [sys.executable, "-m", "galah_tpu_torch", "fleet", "run",
+            "-d", skani_dir, "--ani", "95", "--device", dev,
+            "--workers", str(FLEET_WORKERS), "--shards", str(FLEET_SHARDS),
+            "--threads", str(FLEET_THREADS), "--fleet-dir", fleet_dir,
+            "--sketch-cache", os.path.join(froot, "cache"),
+            "--run-report", sup_report,
+            "--output-cluster-definition", out_tsv]
+
+    def tail(log):
+        with open(log, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    # (a) the first run: a worker SIGKILLed, then the supervisor SIGTERMed
+    log1 = os.path.join(froot, "run1.log")
+    t0 = time.perf_counter()
+    with open(log1, "wb") as fh:
+        proc = subprocess.Popen(argv, cwd=here, stdout=fh,
+                                stderr=subprocess.STDOUT)
+    try:
+        def victim():
+            for rec in fleet_events(fleet_dir):
+                if rec.get("ev") != "shard-started":
+                    continue
+                sid = rec["shard"]
+                if (read_latest_beat(fsched.shard_heartbeat_path(
+                        fleet_dir, sid)) is not None
+                        and os.path.exists(os.path.join(
+                            fsched.shard_ckpt_dir(fleet_dir, sid),
+                            "fingerprint.json"))):
+                    return sid, rec["pid"]
+            return None
+
+        sid, pid = wait_for("a worker with a beat and an open checkpoint",
+                            victim, proc)
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            raise PhaseError(f"fleet: shard {sid}'s worker {pid} ended "
+                             f"before the kill") from None
+        kill_s = time.perf_counter() - t0
+
+        def relaunched():
+            evs = fleet_events(fleet_dir)
+            hits = [i for i, r in enumerate(evs)
+                    if r.get("ev") == "shard-preempted"
+                    and r.get("shard") == sid]
+            if not hits:
+                return None
+            again = [r for r in evs[hits[0]:]
+                     if r.get("ev") == "shard-launched"
+                     and r.get("shard") == sid]
+            return (evs[hits[0]], again[0]) if again else None
+
+        pre_rec, relaunch = wait_for(f"shard {sid}'s relaunch", relaunched,
+                                     proc)
+        if pre_rec.get("reason") != "signal-9" or relaunch.get(
+                "resume") is not True:
+            raise PhaseError(f"fleet: shard {sid} killed by SIGKILL gave "
+                             f"{pre_rec} then {relaunch}, not reason "
+                             f"signal-9 then a launch with resume true")
+        proc.send_signal(signal.SIGTERM)
+        rc1 = proc.wait(timeout=FLEET_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall1 = time.perf_counter() - t0
+    if rc1 != interrupt.EXIT_PREEMPTED:
+        raise PhaseError(f"fleet: the supervisor sent SIGTERM exited "
+                         f"{rc1}, not 75:\n{tail(log1)}")
+    left = fleet_stragglers(fleet_dir)
+    if left:
+        raise PhaseError(f"fleet: workers {left} outlived the stopped "
+                         f"supervisor")
+    print(f"fleet: shard {sid}'s worker SIGKILLed {kill_s:.2f} s into the "
+          f"run: preempted (signal-9), relaunched with resume; the "
+          f"supervisor sent SIGTERM exited 75 after {wall1:.2f} s {tag}")
+
+    # (b) the resume finishes the fleet
+    log2 = os.path.join(froot, "run2.log")
+    t0 = time.perf_counter()
+    with open(log2, "wb") as fh:
+        rc2 = subprocess.run([*argv, "--resume"], cwd=here, stdout=fh,
+                             stderr=subprocess.STDOUT,
+                             check=False).returncode
+    wall2 = time.perf_counter() - t0
+    left = fleet_stragglers(fleet_dir)
+    if rc2 != 0 or left:
+        raise PhaseError(f"fleet: the --resume run exited {rc2}, workers "
+                         f"left {left}:\n{tail(log2)}")
+    with open(out_tsv, "rb") as fh:
+        if fh.read() != tsv4:
+            raise PhaseError("fleet: the TSV differs from phase 4's")
+
+    def cli_out(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "galah_tpu_torch", "fleet", *args],
+            cwd=here, capture_output=True, check=True).stdout.decode()
+
+    status = cli_out("status", fleet_dir)
+    rows = [ln for ln in status.splitlines()
+            if ln.lstrip().startswith("shard ")]
+    if len(rows) != FLEET_SHARDS or not all(" done " in ln for ln in rows):
+        raise PhaseError(f"fleet status: not every shard done:\n{status}")
+    ru = json.loads(cli_out("analyze", "--json", fleet_dir))
+    blame = sum(c["blame_s"] for c in ru["components"].values())
+    # each component is rounded to 1e-6 s; their sum is the wall
+    if abs(blame - ru["fleet_wall_s"]) > 1e-5:
+        raise PhaseError(f"fleet analyze: blame {blame} s does not sum "
+                         f"to the fleet wall {ru['fleet_wall_s']} s")
+    sup = report_mod.load(sup_report)
+    reports = {"supervisor": sup}
+    for s in range(FLEET_SHARDS):
+        reports[f"shard {s}"] = report_mod.load(
+            fsched.shard_report_path(fleet_dir, s))
+    for what, rep in reports.items():
+        problems = report_mod.validate(rep)
+        if problems:
+            raise PhaseError(f"fleet: the {what} report is not valid: "
+                             f"{problems[:3]}")
+    fleet = sup["fleet"]
+    chains = {s["shard_id"]: s["preemptions"] for s in fleet["shards"]}
+    if fleet["shards_done"] != FLEET_SHARDS or "signal-9" not in chains[
+            sid] or not any("fleet-interrupted" in c
+                            for c in chains.values()):
+        raise PhaseError(f"fleet: the supervisor's fleet section {fleet}")
+
+    # walls: each worker process from the event log, the run inside it
+    # from the shard's report (the last attempt's)
+    evs = fleet_events(fleet_dir)
+    opened = {}
+    for rec in evs:
+        ev, s = rec.get("ev"), rec.get("shard")
+        if ev == "shard-started":
+            opened[s] = rec
+        elif ev in ("shard-preempted", "shard-done") and s in opened:
+            start = opened.pop(s)
+            print(f"fleet worker: shard {s} attempt {start['attempt']} "
+                  f"process wall {rec['ts'] - start['ts']:.2f} s "
+                  f"({rec.get('reason', 'done')}) {tag}")
+    dispatches = {}
+    for s in range(FLEET_SHARDS):
+        rep = reports[f"shard {s}"]
+        print(f"fleet worker: shard {s}'s last run "
+              f"{rep['run']['duration_s']:.2f} s inside its process, "
+              f"dispatches {rep['dispatch']['dispatches']} {tag}")
+        for name, n in rep["dispatch"]["dispatches"].items():
+            dispatches[name] = dispatches.get(name, 0) + n
+    counters = sup["counters"]
+    stages = {n["name"]: n for n in sup["stages"]["tree"]}
+    supervise_s = stages["fleet-supervise"]["total_s"]
+    print(f"fleet: wall {ru['fleet_wall_s']:.2f} s over both supervisor "
+          f"runs ({wall1:.2f} s stopped + {wall2:.2f} s resumed, host "
+          f"clock), the resumed run's supervise {supervise_s:.2f} s and "
+          f"merge {fleet['merge_wall_s']:.2f} s; phase 4's single run "
+          f"{wall4:.2f} s {tag}")
+    print(f"fleet: {counters.get('fleet-within-shard-pairs', 0)} "
+          f"within-shard and {counters.get('fleet-cross-shard-pairs', 0)} "
+          f"cross-shard pairs; rollup blame {json.dumps({k: c['blame_s'] for k, c in ru['components'].items()})}, "
+          f"bottleneck {ru['bottleneck']} {tag}")
+    written = sum(r["counters"].get("cache-bytes-written", 0)
+                  for r in reports.values())
+    hits = sum(r["counters"].get("cache-hits", 0) for r in reports.values())
+    if dev == "cuda":
+        if written or hits:
+            raise PhaseError(f"fleet: {written} cache bytes written and "
+                             f"{hits} hits on the card, where profile "
+                             f"entries are skipped")
+        print(f"fleet cache: profile entries skipped on cuda (0 bytes "
+              f"written, 0 hits in all reports) {tag}")
+    else:
+        n_gen = fleet.get("n_genomes") or 1
+        write_s = sum(node["total_s"] for r in reports.values()
+                      for node in r["stages"]["tree"]
+                      if node["name"] == "cache-write")
+        print(f"fleet cache: {written} bytes written, {hits} hits; "
+              f"cache-write {write_s * 1e3 / n_gen:.3f} ms a genome "
+              f"{tag}")
+    merge_disp = sup["dispatch"]["dispatches"]
+    for name in sorted(set(dispatches) | set(merge_disp)):
+        print(f"launches 4p {name}: workers {dispatches.get(name, 0)}, "
+              f"merge {merge_disp.get(name, 0)} {tag}")
+    need = ("positional_hashes", "tile_stats", "window_hits")
+    require_launched({n: dispatches.get(n, 0) for n in need}, need,
+                     "fleet workers")
+    shutil.rmtree(froot)
+    return {"fleet_wall_s": ru["fleet_wall_s"], "stopped_wall": wall1,
+            "resumed_wall": wall2, "supervise_s": supervise_s,
+            "merge_s": fleet["merge_wall_s"], "single_wall": wall4,
+            "within_pairs": counters.get("fleet-within-shard-pairs", 0),
+            "cross_pairs": counters.get("fleet-cross-shard-pairs", 0),
+            "launches_workers": dispatches, "launches_merge": merge_disp,
+            "blame": {k: c["blame_s"] for k, c in ru["components"].items()}}
+
+
 def phase_obs(root, runs, threads, tag):
     """Phase 4o: each of `runs`, {what: (argv, phase TSV bytes, phase
     launches, phase clock, phase wall)}, through ``python -m
@@ -2969,6 +3300,13 @@ def main(argv=None) -> int:
                         tsv4d, launches_h, res_h.clock, wall_h)},
             threads, tag)
 
+        # -- phase 4p: the fleet on the card --------------------------------
+        print(f"phase 4p starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_out = phase_fleet(root, skani_dir, tsv4, wall, "cuda", tag)
+
         # -- phase 5: timing at the main paths' shapes ---------------------
         print(f"phase 5 starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -3683,6 +4021,7 @@ def main(argv=None) -> int:
         "walls_phases_4j_4k": resil_out["walls"],
         "launches_phase_4l": index_out["launches"],
         "phase_4o_obs": obs_out,
+        "phase_4p_fleet": fleet_out,
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}

@@ -15,10 +15,11 @@ Profiles are built once per genome and held in an in-memory LRU
 (``io/prefetch.iter_prefetched``) and profiled a group at a time
 (``io/prefetch.iter_batches``, ``ops/fragment_ani.build_profiles_batch``)
 on the calling thread, the only one that touches CUDA. With a disk
-cache (``io/diskcache.py``, ``--sketch-cache``) the profile arrays also
-persist across runs, as ``galah_tpu``'s entries of kind ``profile``: a
-cached genome is loaded onto the device instead of being read and
-profiled.
+cache (``io/diskcache.py``, ``--sketch-cache``) on the CPU the profile
+arrays also persist across runs, as ``galah_tpu``'s entries of kind
+``profile``: a cached genome is loaded instead of being read and
+profiled. On the card the store neither probes nor writes them: there a
+profile entry loads slower than the genome is read and profiled again.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ from galah_tpu_torch.ops import fragment_ani
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
 from galah_tpu_torch.ops.pairwise import screen_pairs
-from galah_tpu_torch.ops.u64 import from_biased, to_biased
+from galah_tpu_torch.ops.u64 import bias, from_biased, to_biased
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -67,6 +68,11 @@ class ProfileStore:
                  subsample_c: int = Defaults.ANI_SUBSAMPLE) -> None:
         fragment_ani.check_subsample(subsample_c)
         self.device = resolve_device(device)
+        # on the card a profile entry (16 bytes a base) costs more to
+        # load than the genome costs to read and profile again (PERF.md,
+        # phase 4i), so the store probes and writes profile entries only
+        # on the CPU; either way no result changes
+        self.cache_profiles = self.device.type != "cuda"
         self.threads = max(1, int(threads))
         self.k = k
         self.fraglen = fraglen
@@ -107,15 +113,30 @@ class ProfileStore:
         return p
 
     def _load_disk(self, path: str) -> Optional[GenomeProfile]:
-        entry = self.disk.load(path, "profile", self._params())
+        """A profile entry, on the card read straight into page-locked
+        buffers, uploaded from them and biased there."""
+        pinned = {}
+        alloc = None
+        if self.device.type == "cuda":
+            def alloc(name, shape, dtype):
+                nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+                pinned[name] = torch.empty(nbytes, dtype=torch.uint8,
+                                           pin_memory=True)
+                return pinned[name].numpy().view(dtype).reshape(shape)
+        entry = self.disk.load(path, "profile", self._params(), alloc=alloc)
         if entry is None:
             return None
+
+        def upload(name: str) -> torch.Tensor:
+            if name not in pinned:
+                return to_biased(entry[name], self.device)
+            return bias(pinned[name].view(torch.int64).to(
+                self.device, non_blocking=True))
+
         return GenomeProfile(
             path=path, k=self.k, fraglen=self.fraglen,
-            flat_hashes=to_biased(entry["flat_hashes"], self.device),
-            ref_set=to_biased(entry["ref_set"], self.device),
-            markers=to_biased(entry["markers"], self.device),
-            subsample_c=self.subsample_c)
+            flat_hashes=upload("flat_hashes"), ref_set=upload("ref_set"),
+            markers=upload("markers"), subsample_c=self.subsample_c)
 
     def _store_disk(self, path: str, prof: GenomeProfile) -> None:
         self.disk.store(path, "profile", self._params(), {
@@ -141,7 +162,8 @@ class ProfileStore:
                 by_path[p] = prof
             else:
                 misses.append(p)
-        if self.disk.enabled and misses:
+        use_disk = self.disk.enabled and self.cache_profiles
+        if use_disk and misses:
             unheld, misses = misses, []
             with self.clock.stage("cache-read"):
                 for p in unheld:
@@ -169,7 +191,7 @@ class ProfileStore:
             # the per-genome route
             self.clock.count("profile-batched-genomes", sum(
                 g.codes.shape[0] <= group.ALONE_ABOVE for g in genomes))
-            if self.disk.enabled:
+            if use_disk:
                 with self.clock.stage("cache-write"):
                     for (p, _), prof in zip(batch, profs):
                         self._store_disk(p, prof)
@@ -270,6 +292,21 @@ class SkaniPreclusterer(PreclusterBackend):
         return mat, counts
 
     def distances(self, genome_paths: Sequence[str]) -> PairDistanceCache:
+        return self._distances(genome_paths)
+
+    def distances_subset(self, genome_paths: Sequence[str],
+                         keep: Callable[[int, int], bool]
+                         ) -> PairDistanceCache:
+        """``distances`` restricted to the screened pairs with
+        ``keep(i, j)`` true. The fleet merge computes its cross-shard
+        pairs through this: the profile, screen and exact-ANI path is
+        ``distances``', and only the screened pair list is filtered, so
+        every kept value is bit-identical to a full run's."""
+        return self._distances(genome_paths, keep)
+
+    def _distances(self, genome_paths: Sequence[str],
+                   keep: Optional[Callable[[int, int], bool]] = None
+                   ) -> PairDistanceCache:
         clock = self.store.clock
         n = len(genome_paths)
         logger.info("Profiling %d genomes for skani-style "
@@ -281,6 +318,8 @@ class SkaniPreclusterer(PreclusterBackend):
             pairs = screen_pairs(mat, counts,
                                  self.SCREEN_IDENTITY ** self.store.k,
                                  clock=clock)
+            if keep is not None:
+                pairs = [p for p in pairs if keep(p[0], p[1])]
         clock.count("screened_pairs", len(pairs))
         logger.info("%d pairs passed screening; computing exact ANI ..",
                     len(pairs))

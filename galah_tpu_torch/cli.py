@@ -1,7 +1,7 @@
 """``python -m galah_tpu_torch``: the port's command line.
 
-Three subcommands of ``galah-tpu``, with its defaults, help strings and
-output formats:
+The subcommands of ``galah-tpu`` that the port has, with its defaults,
+help strings and output formats:
 
 * ``cluster``: genome inputs (-f, --genome-fasta-list, -d, -x), and
   the library API's flags (``api.add_cluster_arguments``) and clusterer
@@ -23,7 +23,13 @@ output formats:
   ``GALAH_TPU_INDEX_DIR``) and its actions ``build``, ``insert``,
   ``query``, ``remove`` and ``fsck``, over directories interchangeable
   with ``galah-tpu index``'s;
-* ``report``: render run reports, or ``--diff`` two, of either package.
+* ``report``: render run reports, or ``--diff`` two, of either package;
+* ``fleet``: ``run`` shards the quality-ordered genomes, supervises one
+  preemptible ``cluster`` worker subprocess a shard (exit 75, death by
+  signal and a stale heartbeat mean preemption; the shard is reassigned
+  and resumes from its checkpoint) and merges the shard checkpoints
+  into clusters byte-identical to one process's; ``status`` and
+  ``analyze`` read a fleet directory without a device.
 
 ``cluster`` and ``index`` write a run report (``--run-report`` or
 ``GALAH_OBS_REPORT``), a Chrome trace (``--trace-events`` or
@@ -33,7 +39,8 @@ run still writes its report and closes its trace.
 
 Each takes ``-v``/``-q``, ``--full-help`` and ``--full-help-roff``, and
 each but ``report`` the device (``--device``, cuda unless the CPU is
-asked for).
+asked for; ``fleet`` takes it on ``run``, and passes it to every
+worker).
 Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
 line that the port does not support yet is an error that names it; no
 flag is silently ignored. A user error (a bad value, a missing file)
@@ -50,6 +57,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -240,6 +248,98 @@ def _add_index_parser(sub) -> argparse.ArgumentParser:
     return ix
 
 
+def _add_fleet_parser(sub) -> argparse.ArgumentParser:
+    """`fleet` and its actions, with galah-tpu's flags, defaults and help,
+    and the port's --device on `run`."""
+    ft = sub.add_parser(
+        "fleet",
+        help="Run one dereplication job across preemptible worker "
+             "subprocesses (shard, supervise, reassign, merge)",
+        description="Elastic preemptible-fleet execution: `run` shards "
+                    "the quality-ordered genome set, supervises one "
+                    "`galah_tpu_torch cluster` worker per shard (exit "
+                    "75, SIGKILL and stale heartbeats all mean "
+                    "preemption -> reassign; retry budget per shard), "
+                    "then merges shard checkpoints into clusters "
+                    "byte-identical to a single-process run; `status` "
+                    "renders a fleet directory's plan/event/heartbeat "
+                    "state (no device)")
+    _add_verbosity(ft)
+    ftsub = ft.add_subparsers(dest="fleet_action")
+    ftr = ftsub.add_parser(
+        "run",
+        help="Shard, supervise and merge one dereplication job")
+    _add_genome_inputs(ftr)
+    add_cluster_arguments(ftr)
+    ftr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                     help="Device of the workers and the merge (default: "
+                          "cuda; asking for cuda without a GPU is an "
+                          "error)")
+    ftr.add_argument("--fleet-dir", required=True,
+                     help="Fleet working directory: shard plan, event "
+                          "log, per-shard checkpoints/reports live "
+                          "here (the resume root)")
+    ftr.add_argument("--workers", type=int,
+                     help="Max live worker subprocesses (default: "
+                          "GALAH_TPU_FLEET_WORKERS)")
+    ftr.add_argument("--shards", type=int,
+                     help="Shard count (default: GALAH_TPU_FLEET_SHARDS "
+                          "or the worker cap)")
+    ftr.add_argument("--stale-s", type=float,
+                     help="Heartbeat staleness deadline in seconds "
+                          "(default: GALAH_TPU_FLEET_STALE_S)")
+    ftr.add_argument("--resume", action="store_true",
+                     help="Require resuming the fleet at --fleet-dir: "
+                          "fail if the plan is missing or belongs to "
+                          "a different configuration. Without this "
+                          "flag a matching plan still auto-resumes")
+    ftr.add_argument("--sketch-cache",
+                     help="Shared sketch/profile cache for workers and "
+                          "the merge (default: <fleet-dir>/cache; also "
+                          "via GALAH_TPU_CACHE)")
+    ftr.add_argument("--run-report",
+                     help="Write the supervisor's run_report.json "
+                          "(with its `fleet` section) to this file. "
+                          "Env equivalent: GALAH_OBS_REPORT")
+    ftr.add_argument("--output-cluster-definition",
+                     help="Output file of rep<TAB>member lines")
+    ftr.add_argument("--output-representative-fasta-directory",
+                     help="Symlink representative genomes into this "
+                          "directory")
+    ftr.add_argument("--output-representative-fasta-directory-copy",
+                     help="Copy representative genomes into this "
+                          "directory")
+    ftr.add_argument("--output-representative-list",
+                     help="Output file with one representative path "
+                          "per line")
+    fts = ftsub.add_parser(
+        "status",
+        help="Render a fleet directory's shard/event/heartbeat state "
+             "(no device; usable while a fleet is live)")
+    fts.add_argument("fleet_dir", help="Fleet working directory")
+    fta = ftsub.add_parser(
+        "analyze",
+        help="Cross-shard critical path of a fleet dir: blame table "
+             "(scheduler/compute/straggler/merge) summing to the "
+             "fleet wall, and the named bottleneck (no device)",
+        description="Aggregate fleet_events.jsonl + per-shard run "
+                    "reports/heartbeats into the fleet_rollup blame "
+                    "table, write fleet_report.json beside the plan, "
+                    "and name the bottleneck. Tolerates torn tails, "
+                    "shards missing mid-write, and shard reports of "
+                    "either package. Exit codes: 0 rollup printed, 1 "
+                    "rollup-impossible dir (no event log), 2 usage "
+                    "error")
+    fta.add_argument("fleet_dir", help="Fleet working directory")
+    fta.add_argument("--json", action="store_true",
+                     help="Emit the rollup as JSON instead of the "
+                          "blame table")
+    fta.add_argument("--no-report", action="store_true",
+                     help="Skip writing fleet_report.json (print "
+                          "only)")
+    return ft
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="galah_tpu_torch",
@@ -368,8 +468,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Compare exactly two reports: per-stage "
                          "wall-clock, dispatch/funnel, and per-metric "
                          "deltas")
+    ft = _add_fleet_parser(sub)
     parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
-                                 "dist": dd, "index": ix, "report": rp}
+                                 "dist": dd, "index": ix, "report": rp,
+                                 "fleet": ft}
     return parser
 
 
@@ -830,6 +932,264 @@ def run_report_cmd(args: argparse.Namespace) -> int:
     return 0
 
 
+def run_fleet(args: argparse.Namespace) -> int:
+    """`fleet run`: shard, supervise and merge, with `run_cluster`'s
+    telemetry lifecycle (the supervisor's own run report, with its
+    ``fleet`` and ``fleet_rollup`` sections, its heartbeat with role
+    ``scheduler``). Returns the exit code: 0, 1 on a user error or a
+    shard that spent its retry budget, 75 when the supervisor was
+    stopped (rerun to resume)."""
+    from galah_tpu_torch.device import resolve_device
+    from galah_tpu_torch.timing import StageClock
+
+    started_at = time.time()  # a stamp for the report, not a duration
+    obs.reset_run()
+    interrupt.reset()
+    interrupt.install()
+    trace_path = env_value("GALAH_OBS_TRACE_EVENTS")
+    if trace_path:
+        obs.trace.start(trace_path)
+    report_path = args.run_report or env_value("GALAH_OBS_REPORT")
+    obs.install_crash_hooks()
+    obs.heartbeat.maybe_start(report_path, role="scheduler")
+    clock = None
+    try:
+        clock = StageClock(resolve_device(args.device))
+        return _run_fleet_inner(args, clock)
+    finally:
+        interrupt.uninstall()
+        obs.finalize("fleet", clock, report_path=report_path,
+                     started_at=started_at)
+
+
+def _fleet_worker_argv(args: argparse.Namespace, fleet_dir: str,
+                       cache_path: str):
+    """The worker command line: one `python -m galah_tpu_torch cluster`
+    run a shard on the supervisor's device, its genomes passed in shard
+    order (already quality-ordered), so the worker never reorders
+    them."""
+    from galah_tpu_torch.fleet import scheduler as fleet_scheduler
+
+    def worker_argv(spec, resume: bool) -> List[str]:
+        sid = spec.shard_id
+        argv = [sys.executable, "-m", "galah_tpu_torch", "cluster",
+                "--genome-fasta-files", *spec.genomes,
+                "--ani", str(args.ani),
+                "--precluster-ani", str(args.precluster_ani),
+                "--min-aligned-fraction", str(args.min_aligned_fraction),
+                "--fragment-length", str(args.fragment_length),
+                "--precluster-method", args.precluster_method,
+                "--cluster-method", args.cluster_method,
+                "--ani-subsample", str(args.ani_subsample),
+                "--hash-algorithm", args.hash_algorithm,
+                "--threads", str(args.threads or 1),
+                "--checkpoint-dir",
+                fleet_scheduler.shard_ckpt_dir(fleet_dir, sid),
+                "--run-report",
+                fleet_scheduler.shard_report_path(fleet_dir, sid),
+                "--output-cluster-definition",
+                fleet_scheduler.shard_tsv_path(fleet_dir, sid),
+                "--device", args.device]
+        if cache_path:
+            argv += ["--sketch-cache", cache_path]
+        if resume:
+            argv.append("--resume")
+        return argv
+
+    return worker_argv
+
+
+def _run_fleet_inner(args: argparse.Namespace, clock) -> int:
+    from galah_tpu_torch import fleet as fleet_pkg
+    from galah_tpu_torch.cluster.checkpoint import fingerprint_fields
+    from galah_tpu_torch.fleet import merge as fleet_merge
+    from galah_tpu_torch.fleet import plan as fleet_plan
+    from galah_tpu_torch.fleet.scheduler import FleetScheduler, append_stamp
+    from galah_tpu_torch.io import atomic, diskcache
+    from galah_tpu_torch.outputs import setup_outputs, write_outputs
+    from galah_tpu_torch.resilience.quarantine import (QuarantineManifest,
+                                                       manifest_output_dir)
+
+    # the merge is byte-identical only when every shard's checkpoint is
+    # thresholded at the final ANI, which is the skani/skani
+    # configuration (the API precluster at the final ANI there); other
+    # methods would shard correctly but merge approximately
+    if (args.precluster_method != "skani"
+            or args.cluster_method != "skani"):
+        logger.error(
+            "fleet run requires --precluster-method skani and "
+            "--cluster-method skani (got %s/%s): the cross-shard "
+            "merge is only byte-identical when shard checkpoints are "
+            "thresholded at the final ANI", args.precluster_method,
+            args.cluster_method)
+        return 1
+
+    fleet_dir = args.fleet_dir
+    quarantine = QuarantineManifest()
+    genomes = _genome_inputs(args, quarantine)
+
+    # one shared cache for the workers and the merge
+    cache_path = (args.sketch_cache or diskcache.default_cache_dir()
+                  or os.path.join(fleet_dir, "cache"))
+    cache = diskcache.get_cache(cache_path, clock)
+    logger.info("Using shared fleet sketch cache at %s", cache.path)
+
+    clusterer = generate_galah_clusterer(
+        genomes, vars(args), cache=cache, quarantine_manifest=quarantine,
+        device=clock.device, clock=clock)
+    genomes = clusterer.genome_paths
+    ani = parse_percentage(args.ani, "--ani")
+
+    # only None is unset: --workers 0 / --shards 0 are refused below,
+    # never replaced by the environment's or the default value
+    workers = (args.workers if args.workers is not None
+               else int(env_value("GALAH_TPU_FLEET_WORKERS") or 2))
+    n_shards = (args.shards if args.shards is not None
+                else int(env_value("GALAH_TPU_FLEET_SHARDS") or 0)
+                or workers)
+    if workers < 1:
+        logger.error("--workers must be >= 1, got %d", workers)
+        return 1
+    stale_s = (args.stale_s if args.stale_s is not None
+               else float(env_value("GALAH_TPU_FLEET_STALE_S") or 30))
+    poll_s = float(env_value("GALAH_TPU_FLEET_POLL_S") or 0.2)
+    heartbeat_s = float(env_value("GALAH_TPU_FLEET_HEARTBEAT_S") or 1)
+
+    fields = fingerprint_fields(
+        genomes, args.precluster_method, args.cluster_method, ani,
+        parse_percentage(args.precluster_ani, "--precluster-ani"),
+        min_aligned_fraction=parse_percentage(
+            args.min_aligned_fraction, "--min-aligned-fraction"),
+        fragment_length=args.fragment_length,
+        backend_params=clusterer.backend_params)
+    # a --resume under another configuration raises, naming the fields
+    shards = fleet_plan.ensure_plan(fleet_dir, genomes, fields, n_shards,
+                                    require_match=args.resume)
+    logger.info("Fleet plan: %d genomes in %d shard(s), %d worker(s)",
+                len(genomes), len(shards), workers)
+
+    # opened before any compute, so a bad output path fails fast
+    handles = setup_outputs(
+        cluster_definition=args.output_cluster_definition,
+        representative_fasta_directory=(
+            args.output_representative_fasta_directory),
+        representative_fasta_directory_copy=(
+            args.output_representative_fasta_directory_copy),
+        representative_list=args.output_representative_list)
+    try:
+        # the resume chain: earlier fleet-interrupted events mean this
+        # run continues a stopped supervisor
+        prior_records, _ = atomic.read_jsonl(
+            fleet_plan.events_path(fleet_dir))
+        prior = [r for r in prior_records if isinstance(r, dict)
+                 and r.get("ev") == "fleet-interrupted"]
+        if (prior or args.resume) and prior_records:
+            interrupt.note_resume(fleet_dir, len(prior))
+            events.record("resumed", fleet_dir=fleet_dir,
+                          prior_interruptions=len(prior))
+
+        sched = FleetScheduler(
+            fleet_dir, shards,
+            _fleet_worker_argv(args, fleet_dir, cache.path or cache_path),
+            workers=workers, stale_s=stale_s, poll_s=poll_s,
+            heartbeat_s=heartbeat_s)
+        try:
+            with clock.stage("fleet-supervise"):
+                snap = sched.run()
+        except interrupt.PreemptionRequested as e:
+            events.record("preempted", signal=e.signame,
+                          boundary=e.boundary)
+            fleet_pkg.set_snapshot(sched.snapshot())
+            logger.warning(
+                "Fleet preempted (%s) at %r: worker checkpoints are "
+                "consistent; rerun with --resume to continue. Exiting %d.",
+                e.signame, e.boundary, interrupt.EXIT_PREEMPTED)
+            return interrupt.EXIT_PREEMPTED
+        if snap["shards_failed"]:
+            fleet_pkg.set_snapshot(snap)
+            logger.error(
+                "%d shard(s) exhausted their retry budget (see "
+                "fleet-shard-failed events at %s); not merging a partial "
+                "fleet", snap["shards_failed"],
+                fleet_plan.events_path(fleet_dir))
+            return 1
+
+        merge_t0 = time.monotonic()
+        with clock.stage("fleet-merge"):
+            clusters = fleet_merge.merge(fleet_dir, genomes, shards,
+                                         clusterer.preclusterer, ani,
+                                         clock=clock)
+        snap["merge_wall_s"] = round(time.monotonic() - merge_t0, 6)
+        snap["n_genomes"] = len(genomes)
+        # the merge's window, in the event log too, so `fleet analyze`
+        # works on a dir whose report never landed
+        append_stamp(fleet_dir, "fleet-merge-done",
+                     wall_s=snap["merge_wall_s"])
+        fleet_pkg.set_snapshot(snap)
+        logger.info("Found %d genome clusters", len(clusters))
+        with clock.stage("write-outputs"):
+            write_outputs(handles, clusters, genomes)
+        logger.info("Finished printing genome clusters")
+    finally:
+        handles.close()
+    if clusterer.quarantine is not None and len(clusterer.quarantine):
+        clusterer.quarantine.write(manifest_output_dir(
+            cluster_definition=args.output_cluster_definition,
+            representative_list=args.output_representative_list,
+            checkpoint_dir=fleet_dir))
+    return 0
+
+
+def run_fleet_status(args: argparse.Namespace) -> int:
+    """`fleet status`: a fleet dir rendered without a device (and
+    without torch)."""
+    from galah_tpu_torch.fleet.scheduler import render_status
+
+    sys.stdout.write(render_status(args.fleet_dir))
+    return 0
+
+
+def run_fleet_analyze(args: argparse.Namespace) -> int:
+    """`fleet analyze`: the cross-shard critical path of a fleet dir,
+    its blame table summing to the fleet wall, ``fleet_report.json``
+    beside the plan and the named bottleneck. File reads only (no
+    device, no torch); live and half-written dirs alike."""
+    import json
+
+    from galah_tpu_torch.obs import fleet_view
+
+    started_at = time.time()  # a stamp for the report, not a duration
+    ru = fleet_view.rollup(args.fleet_dir)
+    if ru is None:
+        logger.error("%s: rollup-impossible — no fleet event log (run "
+                     "`galah_tpu_torch fleet run --fleet-dir %s` first)",
+                     args.fleet_dir, args.fleet_dir)
+        return 1
+    if not args.no_report:
+        try:
+            path = fleet_view.write_fleet_report(
+                args.fleet_dir, ru, argv=sys.argv, started_at=started_at)
+            logger.info("Wrote %s", path)
+        except Exception:  # the table still prints without the file
+            logger.warning("fleet_report.json write failed", exc_info=True)
+    if args.json:
+        print(json.dumps(ru, indent=1, sort_keys=True))
+        return 0
+    for line in fleet_view.render_rollup(ru):
+        print(line)
+    return 0
+
+
+def run_fleet_cmd(args: argparse.Namespace) -> int:
+    if args.fleet_action == "run":
+        return run_fleet(args)
+    if args.fleet_action == "status":
+        return run_fleet_status(args)
+    if args.fleet_action == "analyze":
+        return run_fleet_analyze(args)
+    raise ValueError("fleet needs an action: run, status or analyze")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = build_parser()
     args = parse_args(argv, parser)
@@ -858,6 +1218,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             run_cluster(args)
         elif args.subcommand == "dist":
             run_dist(args)
+        elif args.subcommand == "fleet":
+            return run_fleet_cmd(args)
         elif args.subcommand == "index":
             res = run_index(args)
             if res.action == "fsck" and not res.info["ok"]:

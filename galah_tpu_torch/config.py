@@ -78,12 +78,12 @@ class Flag:
 def _retry_family(prefix: str, section_help: str) -> Tuple[Flag, ...]:
     """The knobs ``RetryPolicy.from_env`` reads under `prefix`_*."""
     spec = (
-        ("MAX_ATTEMPTS", "int", "attempts per read before giving up"),
+        ("MAX_ATTEMPTS", "int", "attempts before giving up"),
         ("BASE_DELAY", "float", "first backoff delay, seconds"),
         ("MAX_DELAY", "float", "backoff cap, seconds"),
         ("JITTER", "float", "+- fraction of each delay, in [0, 1]"),
         ("TOTAL_BUDGET", "float",
-         "overall retry wall-clock budget per read, seconds"),
+         "overall retry wall-clock budget, seconds"),
         ("SEED", "int", "makes the backoff jitter bit-reproducible"),
     )
     return tuple(
@@ -106,11 +106,38 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "prob=0.5;seed=3;max=1'. Kinds: enospc, eio, torn-write, "
               "slow-io, and kill, which os._exit()s the process with 137 "
               "mid-operation"),
+    Flag("GALAH_TPU_FLEET_WORKERS", kind="int", default="2",
+         section="resilience",
+         help="Fleet supervisor (galah_tpu_torch fleet run): maximum "
+              "worker subprocesses live at once. Shards queue behind "
+              "the worker cap and are reassigned on preemption"),
+    Flag("GALAH_TPU_FLEET_SHARDS", kind="int", section="resilience",
+         help="Fleet shard count: contiguous quality-order slices of "
+              "the genome set, one worker run each. Unset defaults to "
+              "the worker cap"),
+    Flag("GALAH_TPU_FLEET_STALE_S", kind="float", default="30",
+         section="resilience",
+         help="Heartbeat staleness deadline, seconds: a worker whose "
+              "newest heartbeat record is older than this is killed "
+              "and its shard reassigned (same treatment as exit 75 "
+              "and SIGKILL). Requires a nonzero fleet heartbeat "
+              "period"),
+    Flag("GALAH_TPU_FLEET_POLL_S", kind="float", default="0.2",
+         section="resilience",
+         help="Fleet supervisor poll period, seconds"),
+    Flag("GALAH_TPU_FLEET_HEARTBEAT_S", kind="float", default="1",
+         section="resilience",
+         help="GALAH_OBS_HEARTBEAT_S value injected into fleet "
+              "workers (their liveness signal); 0 disables worker "
+              "heartbeats AND staleness detection"),
     Flag("GALAH_TPU_FLEET_WORKER", section="resilience",
-         help="Set by galah_tpu's fleet supervisor in every worker "
-              "subprocess's environment (value: the fleet dir's "
-              "absolute path); the heartbeat brands its beats with "
-              "role `worker` when it is set. Never set this by hand"),
+         help="Set by the fleet supervisor (galah_tpu_torch fleet run) "
+              "in every worker subprocess's environment (value: the "
+              "fleet dir's absolute path): the orphan-adoption stamp it "
+              "matches against /proc/<pid>/environ, and the marker the "
+              "heartbeat uses to brand its beats with role `worker`. "
+              "Never set this by hand: a process carrying the stamp is "
+              "killable by any supervisor of that fleet dir"),
     Flag("GALAH_OBS_REPORT", section="observability",
          help="Write the end-of-run run_report.json (stage tree, "
               "dispatch counts, precluster funnel, flag snapshot, "
@@ -131,9 +158,16 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "disables it"),
 ) + _retry_family(
     "GALAH_IO_RETRY", "FASTA/IO retry policy (defaults: 3 attempts, "
-    "0.1 s base delay)")
+    "0.1 s base delay)"
+) + _retry_family(
+    "GALAH_TPU_FLEET_RETRY", "Per-shard fleet reassignment budget "
+    "(max_attempts bounds worker-fault preemptions per shard before "
+    "quarantine; delays pace the relaunch backoff)")
 
 FLAGS: Dict[str, Flag] = {f.name: f for f in _FLAG_DEFS}
+
+#: The prefixes of the ``RetryPolicy.from_env`` families above.
+FLAG_FAMILIES: Tuple[str, ...] = ("GALAH_IO_RETRY", "GALAH_TPU_FLEET_RETRY")
 
 
 def env_value(name: str) -> Optional[str]:

@@ -9,7 +9,10 @@ are those ``galah_tpu`` stores (hashes as plain uint64) plus a
 ``__check__`` crc32 over every array's name, dtype, shape and bytes. A
 cache directory written by either package is read by the other.
 
-Writes go through ``io/atomic.py``. An entry that cannot be read, or
+An entry's members are read straight into their arrays at their
+offsets in the zip (no zipfile CRC pass, no copies), and its
+``__check__`` is computed over the arrays in place. Writes go through
+``io/atomic.py``. An entry that cannot be read, or
 whose checksum does not match, is dropped and counted as a miss, and
 the caller recomputes and stores it again: a corrupt cache costs time,
 never a wrong sketch. Opening a cache sweeps ``.tmp`` debris older than
@@ -28,8 +31,10 @@ import hashlib
 import json
 import logging
 import os
+import struct
+import zipfile
 import zlib
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -48,14 +53,70 @@ _CHECK_KEY = "__check__"
 
 
 def _content_crc(arrays: Dict[str, np.ndarray]) -> int:
-    """crc32 over the name, dtype, shape and bytes of every array."""
+    """crc32 over the name, dtype, shape and bytes of every array (the
+    bytes read in place, through a uint8 view)."""
     crc = 0
     for name in sorted(arrays):
         a = np.ascontiguousarray(arrays[name])
         for part in (name, str(a.dtype), str(a.shape)):
             crc = zlib.crc32(part.encode(), crc)
-        crc = zlib.crc32(a.tobytes(), crc)
+        crc = zlib.crc32(a.reshape(-1).view(np.uint8), crc)
     return crc & 0xFFFFFFFF
+
+
+#: an ``alloc(name, shape, dtype)`` gives the array a member is read
+#: into (C-contiguous, of that shape and dtype), for instance a view of
+#: page-locked memory
+Alloc = Callable[[str, Tuple[int, ...], np.dtype], np.ndarray]
+
+
+def _read_stored_npz(path: str, alloc: Optional[Alloc] = None
+                     ) -> Optional[Dict[str, np.ndarray]]:
+    """The members of an uncompressed ``.npz``, each read with one
+    ``readinto`` at its offset in the zip into an array of `alloc` (or a
+    fresh one), skipping zipfile's own CRC-32 pass and its copies; None
+    when a member is compressed or Fortran-ordered (``np.load`` then
+    reads it). A malformed file raises."""
+    with open(path, "rb") as fh:
+        with zipfile.ZipFile(fh) as zf:
+            infos = zf.infolist()
+        if any(i.compress_type != zipfile.ZIP_STORED for i in infos):
+            return None
+        out: Dict[str, np.ndarray] = {}
+        for info in infos:
+            fh.seek(info.header_offset)
+            head = fh.read(30)
+            if len(head) != 30 or head[:4] != b"PK\x03\x04":
+                raise ValueError(f"bad local header of {info.filename}")
+            n_name, n_extra = struct.unpack("<HH", head[26:30])
+            if fh.read(n_name) != info.orig_filename.encode(
+                    "utf-8" if info.flag_bits & 0x800 else "cp437"):
+                raise ValueError(f"local name of {info.filename} differs")
+            fh.seek(n_extra, 1)
+            start = fh.tell()
+            version = np.lib.format.read_magic(fh)
+            if version == (1, 0):
+                shape, fortran, dtype = \
+                    np.lib.format.read_array_header_1_0(fh)
+            else:
+                shape, fortran, dtype = \
+                    np.lib.format.read_array_header_2_0(fh)
+            if fortran or dtype.hasobject:
+                return None
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            if fh.tell() - start + nbytes != info.file_size:
+                raise ValueError(f"member {info.filename} has "
+                                 f"{info.file_size} bytes, its header "
+                                 f"says {fh.tell() - start + nbytes}")
+            name = info.filename
+            if name.endswith(".npy"):
+                name = name[:-4]
+            arr = (alloc(name, shape, dtype) if alloc is not None
+                   else np.empty(shape, dtype=dtype))
+            if fh.readinto(arr.reshape(-1).view(np.uint8)) != nbytes:
+                raise ValueError(f"member {info.filename} is truncated")
+            out[name] = arr
+    return out
 
 
 def entry_digest(genome_path: str, kind: str, params: dict) -> str:
@@ -126,15 +187,22 @@ class CacheDir:
         digest = entry_digest(genome_path, kind, params)
         return os.path.join(self.path, f"{kind}-{digest}.npz")
 
-    def load(self, genome_path: str, kind: str,
-             params: dict) -> Optional[Dict[str, np.ndarray]]:
-        """The entry's arrays, or None on a miss or when disabled."""
+    def load(self, genome_path: str, kind: str, params: dict,
+             alloc: Optional[Alloc] = None
+             ) -> Optional[Dict[str, np.ndarray]]:
+        """The entry's arrays, or None on a miss or when disabled. The
+        stored members are read in place (``_read_stored_npz``, into the
+        arrays of `alloc` when given), and an entry is then trusted only
+        through its ``__check__``; an entry without one goes through
+        ``np.load``, whose zipfile checks each member's CRC-32."""
         if not self.enabled:
             return None
         entry = self.entry_path(genome_path, kind, params)
         try:
-            with np.load(entry) as z:
-                out = {name: z[name] for name in z.files}
+            out = _read_stored_npz(entry, alloc)
+            if out is None or _CHECK_KEY not in out:
+                with np.load(entry) as z:
+                    out = {name: z[name] for name in z.files}
         except FileNotFoundError:
             self.misses += 1
             self._count("cache-misses")

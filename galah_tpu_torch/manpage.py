@@ -8,8 +8,8 @@ builder). Here, as in ``galah_tpu``, the page is built from the argparse
 parser plus section prose, as plain text (paged when stdout is a TTY)
 or as roff source. Every page equals ``galah_tpu``'s for the same
 parser but for its ENVIRONMENT section, which lists the variables the
-port itself reads, and for the ``dist`` epilog, which ``galah_tpu``
-lacks; the pages keep its command name, ``galah-tpu``.
+port itself reads, and for the ``dist`` and ``fleet`` epilogs, which
+``galah_tpu`` lacks; the pages keep its command name, ``galah-tpu``.
 """
 
 from __future__ import annotations
@@ -221,6 +221,39 @@ EXAMPLES
    Audit the on-disk state:
 
       galah-tpu index --index-dir idx/ fsck
+""",
+    "fleet": """\
+FLEET MODEL
+   `run` slices the quality-ordered genomes into --shards contiguous
+   shards and runs one `python -m galah_tpu_torch cluster` worker a
+   shard, at most --workers at once, on the supervisor's --device and
+   with a checkpoint of its own. Exit 75, death by a signal and a
+   heartbeat older than --stale-s all mean preemption: the shard is
+   reassigned to a fresh worker that resumes from its checkpoint, and
+   a shard that spends its retry budget (GALAH_TPU_FLEET_RETRY_*)
+   fails the fleet. The merge unions the shards' pairs, adds the
+   cross-shard pairs and replays the greedy selection: the clusters
+   equal a single-process run's byte for byte (skani/skani only).
+   Every decision is logged in <fleet-dir>/fleet_events.jsonl before
+   it is acted on, so a rerun of the same command resumes the fleet.
+   Concurrent workers build the CUDA kernels safely: each build is
+   written to a file of its own and renamed into place.
+
+EXIT STATUS
+   0 on success; 1 on a user error, a plan of another configuration
+   under --resume, or a shard that spent its retry budget; 75 when the
+   supervisor was stopped (rerun to resume).
+
+EXAMPLES
+   Four shards over two workers sharing one GPU:
+
+      galah_tpu_torch fleet run -d genomes/ -x fna --fleet-dir fl/ \\
+         --workers 2 --shards 4 --output-cluster-definition clusters.tsv
+
+   Watch it, then read where its time went:
+
+      galah_tpu_torch fleet status fl/
+      galah_tpu_torch fleet analyze fl/
 """,
 }
 

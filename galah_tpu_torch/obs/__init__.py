@@ -42,15 +42,17 @@ LEDGER_ENV = "GALAH_OBS_LEDGER"
 
 
 def reset_run() -> None:
-    """Fresh metrics, events, heartbeat and index snapshot for a new
-    run (the trace recorder's lifetime is the CLI invocation, managed
-    by start/stop)."""
+    """Fresh metrics, events, heartbeat, index and fleet snapshots for
+    a new run (the trace recorder's lifetime is the CLI invocation,
+    managed by start/stop)."""
+    from galah_tpu_torch import fleet as fleet_pkg
     from galah_tpu_torch import index as index_pkg
 
     metrics.reset()
     events.reset()
     heartbeat.reset()
     index_pkg.reset()
+    fleet_pkg.reset()
 
 
 def finalize(subcommand: str, clock=None,

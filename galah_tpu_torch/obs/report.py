@@ -14,9 +14,12 @@ and diffs the other's reports; the stage names differ (the README's
 port section maps them), so a cross-package diff lines up the counters
 and the funnel but not the stage rows.
 
-``galah_tpu``'s ``device_costs``, ``sanitizer``, ``lint``, ``fleet``
-and ``fleet_rollup`` sections come from modules the port lacks; a
-report of either package that holds them still renders and diffs here.
+A fleet supervisor's report (``fleet run``) adds the ``fleet`` section
+(``fleet.snapshot()``) and the ``fleet_rollup`` section
+(``obs/fleet_view.rollup`` over the fleet directory).
+``galah_tpu``'s ``device_costs``, ``sanitizer`` and ``lint`` sections
+come from modules the port lacks; a report of either package that holds
+them still renders and diffs here.
 """
 
 from __future__ import annotations
@@ -190,6 +193,21 @@ def assemble(subcommand: str, clock=None,
             report["index"] = idx_snap
     except Exception:  # additive section; never lose a report
         logger.debug("index snapshot failed", exc_info=True)
+    try:
+        from galah_tpu_torch import fleet as fleet_pkg
+
+        fleet_snap = fleet_pkg.snapshot()
+        if fleet_snap is not None:
+            report["fleet"] = fleet_snap
+            fleet_dir = fleet_snap.get("fleet_dir")
+            if fleet_dir:
+                from galah_tpu_torch.obs import fleet_view
+
+                ru = fleet_view.rollup(fleet_dir)
+                if ru is not None:
+                    report["fleet_rollup"] = ru
+    except Exception:  # additive sections; never lose a report
+        logger.debug("fleet snapshot failed", exc_info=True)
     try:
         from galah_tpu_torch.obs import heartbeat as obs_heartbeat
 
@@ -479,9 +497,11 @@ def render(report: dict) -> str:
                 f"[{sh.get('lo')}:{sh.get('hi')})  "
                 f"{sh.get('status')}  attempts={sh.get('attempts')}  "
                 f"chain={chain}")
-    # (galah_tpu renders the fleet_rollup section through
-    # obs/fleet_view.py, which the port lacks; the diff below still
-    # compares it)
+    rollup = report.get("fleet_rollup")
+    if isinstance(rollup, dict):
+        from galah_tpu_torch.obs import fleet_view
+
+        lines += [""] + fleet_view.render_rollup(rollup)
     lint = report.get("lint")
     if lint is not None:
         fams = ", ".join(f"{fam}={n}" for fam, n in

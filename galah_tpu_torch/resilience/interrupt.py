@@ -6,9 +6,11 @@ operator sends SIGINT.
 
 * ``install()`` registers SIGTERM and SIGINT handlers. The first signal
   only records itself and sets the stop flag; a second means "now":
-  the process runs the flush hooks (``register_flush``; the heartbeat's
-  last beat) and exits with ``EXIT_PREEMPTED`` at once. Every
-  checkpoint write is durable when it returns.
+  the process sends SIGTERM to the fleet workers' process groups
+  (``register_worker_group``), runs the flush hooks
+  (``register_flush``; the heartbeat's last beat) and exits with
+  ``EXIT_PREEMPTED`` at once. Every checkpoint write is durable when it
+  returns.
 * The engine calls ``check(boundary)`` right after the state of
   `boundary` reached the disk; with a stop pending it raises
   ``PreemptionRequested``. The CLI records the interruption in the
@@ -60,6 +62,12 @@ _PREV_HANDLERS: Dict[int, Any] = {}
 # drains through obs.finalize instead); each is bounded and lock-light,
 # and its failure is ignored here
 _FLUSH_HOOKS: List[Any] = []
+# process groups of a fleet supervisor's live workers (pgid == worker
+# pid, each started in its own session): the second-signal exit sends
+# them SIGTERM first, so a supervisor that dies at once leaves no
+# worker writing to a checkpoint it no longer owns. Main thread only,
+# as the fleet's poll loop is.
+_WORKER_GROUPS: List[int] = []
 
 
 def register_flush(fn) -> None:
@@ -69,11 +77,37 @@ def register_flush(fn) -> None:
         _FLUSH_HOOKS.append(fn)
 
 
+def register_worker_group(pgid: int) -> None:
+    """Track a live fleet worker's process group for forwarding."""
+    if pgid not in _WORKER_GROUPS:
+        _WORKER_GROUPS.append(pgid)
+
+
+def unregister_worker_group(pgid: int) -> None:
+    try:
+        _WORKER_GROUPS.remove(pgid)
+    except ValueError:
+        pass
+
+
+def forward_to_worker_groups(signum: int = signal.SIGTERM) -> None:
+    """Send `signum` to every registered worker process group; a group
+    already gone is skipped."""
+    for pgid in list(_WORKER_GROUPS):
+        try:
+            os.killpg(pgid, signum)
+        except (ProcessLookupError, PermissionError):
+            pass
+        except Exception:
+            logger.debug("forward to pgid %d failed", pgid, exc_info=True)
+
+
 def _handler(signum, frame) -> None:
     signame = signal.Signals(signum).name
     if _STOP.is_set():
         logger.error("second signal %s: exiting immediately (%d)",
                      signame, EXIT_PREEMPTED)
+        forward_to_worker_groups(signal.SIGTERM)
         for fn in list(_FLUSH_HOOKS):
             try:
                 fn()
@@ -112,6 +146,7 @@ def reset() -> None:
     global _BOUNDARY, _RESUMED_FROM, _PRIOR_INTERRUPTIONS
     _STOP.clear()
     _SIGNALS.clear()
+    _WORKER_GROUPS.clear()
     _BOUNDARY = None
     _RESUMED_FROM = None
     _PRIOR_INTERRUPTIONS = 0
@@ -121,6 +156,10 @@ def request_stop(signame: str = "REQUESTED") -> None:
     """Request a stop without a signal."""
     _SIGNALS.append(signame)
     _STOP.set()
+
+
+def stop_requested() -> bool:
+    return _STOP.is_set()
 
 
 def check(boundary: str) -> None:

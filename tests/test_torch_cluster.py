@@ -235,7 +235,12 @@ def test_port_imports_neither_jax_nor_galah_tpu():
             "galah_tpu_torch/obs/heartbeat.py",
             "galah_tpu_torch/obs/metrics.py",
             "galah_tpu_torch/obs/report.py",
-            "galah_tpu_torch/obs/trace.py"} <= names
+            "galah_tpu_torch/obs/trace.py",
+            "galah_tpu_torch/obs/fleet_view.py",
+            "galah_tpu_torch/fleet/__init__.py",
+            "galah_tpu_torch/fleet/plan.py",
+            "galah_tpu_torch/fleet/scheduler.py",
+            "galah_tpu_torch/fleet/merge.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]

@@ -256,3 +256,85 @@ def test_failed_store_raises_and_leaves_no_debris(corpus, tmp_path):
     atomic.write_bytes(str(target), b"new")
     assert target.read_bytes() == b"new"
     assert sorted(os.listdir(tmp_path)) == ["cache", "t.bin"]
+
+
+def _entry_arrays(rng):
+    return {"flat_hashes": rng.integers(0, 2 ** 63, 5000, dtype=np.uint64),
+            "ref_set": np.sort(rng.integers(0, 2 ** 63, 700,
+                                            dtype=np.uint64)),
+            "markers": np.zeros(0, dtype=np.uint64),
+            "windows": rng.integers(0, 9, (3, 4), dtype=np.int32)}
+
+
+@pytest.mark.parametrize("flip", [None, "data", "npy-header",
+                                  "local-name", "unchecked-data"])
+def test_load_in_place_equals_stored_and_catches_flips(corpus, tmp_path,
+                                                       flip):
+    """A load reads each stored member in place (into `alloc`'s arrays)
+    and equals the arrays stored, as galah_tpu's load of the same entry
+    does; a byte flipped in a member's data, in its .npy header or in
+    its zip name is still caught, the entry dropped and counted as a
+    miss and a repair. An entry without __check__ goes through zipfile,
+    whose CRC-32 catches the flip."""
+    paths, _ = corpus
+    clock = StageClock(CPU)
+    c = tdiskcache.CacheDir(str(tmp_path / "c"), clock)
+    params = {"k": 15, "fraglen": 3000}
+    arrays = _entry_arrays(np.random.default_rng(5))
+    if flip == "unchecked-data":
+        entry = c.entry_path(paths[0], "profile", params)
+        atomic.write_npz(entry, arrays)
+    else:
+        c.store(paths[0], "profile", params, arrays)
+        entry = c.entry_path(paths[0], "profile", params)
+    raw = bytearray(open(entry, "rb").read())
+    at = {"data": raw.find(arrays["ref_set"].tobytes()) + 100,
+          "unchecked-data": raw.find(arrays["ref_set"].tobytes()) + 100,
+          "npy-header": raw.find(b"'descr'") + 3,
+          "local-name": raw.find(b"ref_set.npy")}.get(flip)
+    if at is not None:
+        assert at > 3  # found
+        raw[at] ^= 0x5A
+        open(entry, "wb").write(bytes(raw))
+    allocated = []
+
+    def alloc(name, shape, dtype):
+        allocated.append(name)
+        return np.full(shape, 7, dtype=dtype)
+
+    got = c.load(paths[0], "profile", params, alloc=alloc)
+    if flip is not None:
+        assert got is None and not os.path.exists(entry)
+        assert (clock.counts["cache-repaired"],
+                clock.counts["cache-misses"]) == (1, 1)
+        return
+    assert sorted(allocated) == sorted([*arrays, "__check__"])
+    want = jdiskcache.CacheDir(str(tmp_path / "c")).load(
+        paths[0], "profile", params)
+    assert sorted(got) == sorted(want) == sorted(arrays)
+    for name, a in arrays.items():
+        for side in (got, want):
+            assert side[name].dtype == a.dtype and side[name].shape == a.shape
+            np.testing.assert_array_equal(side[name], a)
+    assert clock.counts["cache-hits"] == 1
+
+
+def test_profile_store_skips_entries_as_on_the_card(corpus, tmp_path):
+    """On the CPU the store caches profiles; under the card's rule
+    (cache_profiles False) it neither probes nor writes a profile entry,
+    and its profiles are the same."""
+    paths, _ = corpus
+    clock = StageClock(CPU)
+    c = tdiskcache.CacheDir(str(tmp_path / "c"), clock)
+    assert ProfileStore(CPU, cache=c).cache_profiles is True
+    off = ProfileStore(CPU, clock=clock, cache=c)
+    off.cache_profiles = False
+    profs = off.get_many(paths[:2])
+    assert os.listdir(tmp_path / "c") == []
+    assert all(clock.counts[k] == 0 for k in ("cache-hits", "cache-misses",
+                                              "cache-bytes-written"))
+    on = ProfileStore(CPU, cache=c).get_many(paths[:2])
+    for a, b in zip(profs, on):
+        for name in ("flat_hashes", "ref_set", "markers"):
+            assert torch.equal(getattr(a, name), getattr(b, name))
+    assert len(os.listdir(tmp_path / "c")) == 2
