@@ -175,6 +175,20 @@ Phases, each of which exits nonzero when it fails:
    supervise and merge walls, the within- and cross-shard pair counts,
    each worker's process wall and the run inside it, and the cache's
    use are printed beside phase 4's wall;
+4q. scale-out on the one card: (a) phase 4's skani 512, 4b's finch 1024
+   and 4d's dashing 1024 through ``cluster`` in this process with the
+   pair passes given a mesh of two slots on cuda:0 and then four, and
+   4c's finch 256 on the four through the streamed stripes: each TSV
+   must equal its phase's, and tile_stats, pairlist or hll_union (the
+   kernel the mesh shards) must launch more often than in its phase;
+   each run's wall and those three kernels' launches are printed; (b)
+   phase 4's skani 512 and 4b's finch 1024 as two ``python -m
+   galah_tpu_torch cluster``
+   processes, ranks 0 and 1 of one gloo group, both with LOCAL_RANK 0:
+   rank 0's TSV must equal the phase's and rank 1 must write none, each
+   rank's report must say its process index and count; each rank's
+   process wall, stage walls, exchange seconds and launches are printed.
+   A speed-up cannot show on one card and none is claimed;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -311,6 +325,14 @@ FLEET_WORKERS = 2
 FLEET_SHARDS = 4
 FLEET_THREADS = 4
 FLEET_WAIT_S = 300
+
+# phase 4q: the slot counts of (a)'s meshes, each slot on cuda:0; the
+# kernels whose launches it prints; the ranks of (b) and the longest they
+# may run
+MESH_SLOTS = (2, 4)
+MESH_KERNELS = ("tile_stats", "pairlist", "hll_union")
+RANKS = 2
+RANK_WAIT_S = 300
 
 # phase 4j's --rep-rounds: four greedy rounds over finch 1024's genomes,
 # so a stop after the first leaves rounds to replay and rounds to run
@@ -2634,6 +2656,188 @@ def phase_obs(root, runs, threads, tag):
     return out
 
 
+def phase_mesh(torch, cli, reset_launches, launches_now, runs, root, tag):
+    """Phase 4q (a): each of `runs`, {what: (argv, phase TSV bytes, phase
+    wall, phase launches, slot counts, the kernel the mesh shards)},
+    through ``cli.run_cluster`` in this process with ``auto_mesh``
+    giving the pair passes a mesh of that many slots, all on cuda:0 (in
+    a job it gives one slot a rank). Each TSV must equal its phase's,
+    the run's pair passes must have taken the mesh, and the kernel must
+    have launched more often than in its phase (one launch a tile or
+    chunk). Returns the record's entry."""
+    from galah_tpu_torch.parallel import mesh as pmesh
+
+    card0 = torch.device("cuda", 0)
+    orig_auto = pmesh.auto_mesh
+    taken = []
+    out = {}
+    try:
+        for slots in MESH_SLOTS:
+            def auto_mesh(device, _n=slots):
+                taken.append(_n)
+                return pmesh.make_mesh([card0] * _n)
+
+            pmesh.auto_mesh = auto_mesh
+            for what, (argv, tsv_want, wall, launches, counts, kernel) \
+                    in runs.items():
+                if slots not in counts:
+                    continue
+                tsv = os.path.join(root, f"mesh_{slots}_{what}.tsv"
+                                   .replace(" ", "_"))
+                taken.clear()
+                _res, wall_m, launches_m = run_path(
+                    torch, cli, reset_launches, launches_now,
+                    [*argv, "--output-cluster-definition", tsv])
+                with open(tsv, "rb") as fh:
+                    if fh.read() != tsv_want:
+                        raise PhaseError(f"mesh {slots} {what}: the TSV "
+                                         "differs from the phase's")
+                if not taken:
+                    raise PhaseError(f"mesh {slots} {what}: the pair pass "
+                                     "took no mesh")
+                if launches_m[kernel] <= launches[kernel]:
+                    raise PhaseError(
+                        f"mesh {slots} {what}: {kernel} launched "
+                        f"{launches_m[kernel]} times, no more than the "
+                        f"phase's {launches[kernel]}: the mesh did not "
+                        "shard it")
+                shown = {k: launches_m[k] for k in MESH_KERNELS}
+                print(f"mesh of {slots} slots on cuda:0 {what}: TSV "
+                      f"byte-identical to the phase's; wall {wall_m:.2f} s "
+                      f"against the phase's {wall:.2f} s; launches "
+                      + ", ".join(f"{k} {v} (phase {launches[k]})"
+                                  for k, v in shown.items()) + f" {tag}")
+                out[f"{slots} slots {what}"] = {"wall_s": wall_m,
+                                                "phase_wall_s": wall,
+                                                "launches": launches_m}
+    finally:
+        pmesh.auto_mesh = orig_auto
+    return out
+
+
+def scale_launches(kernel, mesh_out, ranks_out):
+    """`kernel`'s launches in each run of phase 4q: the mesh runs', and
+    each rank's from its report."""
+    got = {f"mesh {w}": v["launches"][kernel] for w, v in mesh_out.items()}
+    for what, entry in ranks_out.items():
+        got[f"ranks {what}"] = [r["launches"].get(kernel, 0)
+                                for r in entry["ranks"]]
+    return got
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ranks(root, runs, tag):
+    """Phase 4q (b): each of `runs`, {what: (argv, phase TSV bytes,
+    phase wall)}, as RANKS ``python -m galah_tpu_torch cluster``
+    processes, ranks of one gloo group on 127.0.0.1, every rank with
+    LOCAL_RANK 0 (the one card), each with its own output path and run
+    report. Rank 0's TSV must equal the phase's and no other rank may
+    write one; a rank that fails or outlives RANK_WAIT_S ends the
+    others. Returns the record's entry: each rank's process wall,
+    stage walls, exchange seconds and launches."""
+    from galah_tpu_torch.obs import report as report_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for what, (argv, tsv_want, wall) in runs.items():
+        d = os.path.join(root, f"ranks_{what}".replace(" ", "_"))
+        os.makedirs(d)
+        port = str(free_port())
+        procs, logs, t0 = [], [], time.perf_counter()
+        for rank in range(RANKS):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(RANKS),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port)
+            log = open(os.path.join(d, f"rank{rank}.log"), "wb")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "galah_tpu_torch", *argv,
+                 "--output-cluster-definition",
+                 os.path.join(d, f"rank{rank}.tsv"),
+                 "--run-report", os.path.join(d, f"rank{rank}.json")],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+        walls = [None] * RANKS
+        try:
+            while any(w is None for w in walls):
+                for rank, p in enumerate(procs):
+                    if walls[rank] is None and p.poll() is not None:
+                        walls[rank] = time.perf_counter() - t0
+                        if p.returncode != 0:
+                            raise PhaseError(
+                                f"ranks {what}: rank {rank} exited "
+                                f"{p.returncode}:\n" + open(
+                                    os.path.join(d, f"rank{rank}.log"),
+                                    "rb").read()[-3000:].decode(
+                                    errors="replace"))
+                if time.perf_counter() - t0 > RANK_WAIT_S:
+                    raise PhaseError(f"ranks {what}: still running after "
+                                     f"{RANK_WAIT_S} s")
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        with open(os.path.join(d, "rank0.tsv"), "rb") as fh:
+            if fh.read() != tsv_want:
+                raise PhaseError(f"ranks {what}: rank 0's TSV differs from "
+                                 "the phase's")
+        written = [r for r in range(1, RANKS)
+                   if os.path.exists(os.path.join(d, f"rank{r}.tsv"))]
+        if written:
+            raise PhaseError(f"ranks {what}: ranks {written} wrote a TSV")
+        entry = {"phase_wall_s": wall, "ranks": []}
+        for rank in range(RANKS):
+            with open(os.path.join(d, f"rank{rank}.json")) as fh:
+                rep = json.load(fh)
+            errors = report_mod.validate(rep)
+            if errors:
+                raise PhaseError(f"ranks {what}: rank {rank}'s report is "
+                                 f"invalid: {errors[:3]}")
+            dev = rep["device"]
+            if (dev["process_index"],
+                    dev["process_count"]) != (rank, RANKS):
+                raise PhaseError(f"ranks {what}: rank {rank}'s report says "
+                                 f"process {dev['process_index']}/"
+                                 f"{dev['process_count']}")
+            mets = rep["metrics"]
+            ex_s = mets.get("distributed.exchange_seconds", {}).get(
+                "value", 0.0)
+            n_ex = mets.get("distributed.exchanges", {}).get("value", 0)
+            if n_ex <= 0:
+                raise PhaseError(f"ranks {what}: rank {rank} made no "
+                                 "exchange")
+            stages = {n["name"]: n["total_s"]
+                      for n in rep["stages"]["tree"]}
+            disp = rep["dispatch"]["dispatches"]
+            run_s = rep["run"]["duration_s"]
+            entry["ranks"].append({
+                "process_wall_s": walls[rank],
+                "run_s": run_s, "stages_s": stages,
+                "exchange_s": ex_s, "exchanges": n_ex, "launches": disp})
+            print(f"ranks {what}: rank {rank}/{RANKS} on cuda:0, process "
+                  f"wall {walls[rank]:.2f} s (the run {run_s:.2f} s of "
+                  f"it), {n_ex} exchanges {ex_s:.3f} s; stages "
+                  + ", ".join(f"{n} {v:.3f}" for n, v in stages.items())
+                  + "; launches " + ", ".join(
+                      f"{k} {v}" for k, v in sorted(disp.items()))
+                  + f" {tag}")
+        print(f"ranks {what}: rank 0's TSV byte-identical to the phase's "
+              f"(its run {wall:.2f} s in one process), no other rank wrote "
+              f"one {tag}")
+        out[what] = entry
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3121,6 +3325,8 @@ def main(argv=None) -> int:
         require_counts(res_d.clock.counts, {
             "pairs-streamed-stripes": -(-n_dense // sketch_stream.ROW_BLOCK)},
             "finch dense")
+        with open(out_tsv, "rb") as fh:
+            tsv4c = fh.read()
 
         # -- phase 4d: end to end, dashing with quality ranking ------------
         report = os.path.join(root, "quality_report.tsv")
@@ -3306,6 +3512,40 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         fleet_out = phase_fleet(root, skani_dir, tsv4, wall, "cuda", tag)
+
+        # -- phase 4q: scale-out, a mesh and ranks on the one card -------
+        print(f"phase 4q starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        skani_argv = ["cluster", "-d", skani_dir, "--ani", "95", "--device",
+                      "cuda", *threads]
+        finch_argv = ["cluster", "-f", *paths, "--precluster-method",
+                      "finch", "--cluster-method", "skani", "--ani", "95",
+                      "--device", "cuda", *threads]
+        both = MESH_SLOTS
+        mesh_out = phase_mesh(torch, cli, reset_launches, LAUNCHES, {
+            "skani 512": (skani_argv, tsv4, wall, launches, both,
+                          "tile_stats"),
+            "finch 1024": (finch_argv, tsv4b, wall_f, launches_f, both,
+                           "pairlist"),
+            "dashing 1024": (
+                ["cluster", "-f", *paths, "--precluster-method", "dashing",
+                 "--cluster-method", "skani", "--ani", "95",
+                 "--checkm2-quality-report", report, "--device", "cuda",
+                 *threads], tsv4d, wall_h, launches_h, both, "hll_union"),
+            "finch 256 streamed": (
+                ["cluster", "-f", *paths[:n_dense], "--precluster-method",
+                 "finch", "--cluster-method", "skani", "--ani", "95",
+                 "--device", "cuda", *threads], tsv4c, wall_d, launches_d,
+                (4,), "tile_stats")}, root, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks_out = phase_ranks(root, {
+            "skani 512": (skani_argv, tsv4, wall),
+            "finch 1024": (finch_argv, tsv4b, wall_f)}, tag)
+        print(f"phase 4q ends {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
 
         # -- phase 5: timing at the main paths' shapes ---------------------
         print(f"phase 5 starts {time.perf_counter() - t_script:.1f} s "
@@ -3927,7 +4167,9 @@ def main(argv=None) -> int:
          "ms": wh_ms, "plain_ms": wh_plain, "bound_ms": wh_bound,
          "bound_by": wh_by, "library_ms": wh_lib,
          "kernel_only_ms": wh_kernel,
-         "library_call": "torch.isin(q, r), one call a pair, summed"},
+         "library_call": "torch.isin(q, r), one call a pair, summed",
+         "launches_4q": scale_launches("window_hits", mesh_out,
+                                       ranks_out)},
         {"name": "tile_stats", "route": "cuda",
          "source": "galah_tpu_torch/kernels/tile_stats.cu",
          "replaces": "galah_tpu/ops/pallas_pairwise.py:308",
@@ -3941,7 +4183,9 @@ def main(argv=None) -> int:
                        "ms": tf_ms, "kernel_only_ms": tf_kernel,
                        "plain_ms": tf_plain, "bound_ms": tf_bound,
                        "bound_by": tf_by, "stripes": tf_stripes},
-         "intersect_wide_k": ts_wide},
+         "intersect_wide_k": ts_wide,
+         "launches_4q": scale_launches("tile_stats", mesh_out,
+                                       ranks_out)},
         {"name": "fused_sketch", "route": "cuda",
          "source": "galah_tpu_torch/kernels/fused_sketch.cu",
          "replaces": "galah_tpu/ops/pallas_sketch.py:400",
@@ -3955,7 +4199,9 @@ def main(argv=None) -> int:
          "murmur3_other_k": {str(kk): v for kk, v in fs_other_k.items()},
          "launches_dist": {w: v["fused_sketch"] for w, v in
                            cli_out["dist_runs"].items()},
-         "launches_api_finch": api_out["finch"]["launches"]["fused_sketch"]},
+         "launches_api_finch": api_out["finch"]["launches"]["fused_sketch"],
+         "launches_4q": scale_launches("fused_sketch", mesh_out,
+                                       ranks_out)},
         {"name": "pairlist", "route": "cuda",
          "source": "galah_tpu_torch/kernels/pairlist.cu",
          "replaces": "galah_tpu/ops/pallas_pairlist.py:403",
@@ -3968,7 +4214,9 @@ def main(argv=None) -> int:
                    "bound_by": dn_by},
          "index": {"launches": {w: v["pairlist"] for w, v in
                                 index_out["launches"].items()},
-                   "insert_pass": index_out["pass"]}},
+                   "insert_pass": index_out["pass"]},
+         "launches_4q": scale_launches("pairlist", mesh_out,
+                                       ranks_out)},
         {"name": "hll_union", "route": "cuda",
          "source": "galah_tpu_torch/kernels/hll_union.cu",
          "replaces": "galah_tpu/ops/pallas_hll.py:72",
@@ -3977,7 +4225,9 @@ def main(argv=None) -> int:
          "bound_by": hu_by, "library_ms": None,
          "kernel_only_ms": hu_kernel,
          "pass": {"ms": hu_pass_ms, "kernel_only_ms": hu_pass_kernel,
-                  "bound_ms": hu_pass_bound, "launches": hu_pass}},
+                  "bound_ms": hu_pass_bound, "launches": hu_pass},
+         "launches_4q": scale_launches("hll_union", mesh_out,
+                                       ranks_out)},
         {"name": "murmur3_k21", "route": "cuda",
          "source": "galah_tpu_torch/kernels/murmur3_k21.cu",
          "replaces": "galah_tpu/ops/pallas_sketch.py:235",
@@ -3985,7 +4235,9 @@ def main(argv=None) -> int:
          "ms": mm_ms, "plain_ms": mm_plain, "bound_ms": mm_bound,
          "bound_by": mm_by, "library_ms": None,
          "plain_on": "CPU tensors, host clock", "group_ms": hgroup_ms,
-         "group_split_ms": mm_split},
+         "group_split_ms": mm_split,
+         "launches_4q": scale_launches("murmur3_k21", mesh_out,
+                                       ranks_out)},
         {"name": "positional_hashes", "route": "cuda",
          "source": "galah_tpu_torch/kernels/positional_hashes.cu",
          "replaces": "galah_tpu/ops/hashing.py:308",
@@ -4005,7 +4257,9 @@ def main(argv=None) -> int:
          "tpufast": {"ms": ph_fast, "bound_ms": ph_fast_bound,
                      "bound_by": ph_fast_by},
          "group_build_ms": build_ms, "group_split_ms": ph_split,
-         "distinct_two_key_ms": two_key_ms},
+         "distinct_two_key_ms": two_key_ms,
+         "launches_4q": scale_launches("positional_hashes", mesh_out,
+                                       ranks_out)},
     ], "library_ms_null_because": no_library, "card": card,
         "fasta_parser": {"route": "c",
                          "source": "galah_tpu_torch/csrc/ingest.c",
@@ -4022,6 +4276,7 @@ def main(argv=None) -> int:
         "launches_phase_4l": index_out["launches"],
         "phase_4o_obs": obs_out,
         "phase_4p_fleet": fleet_out,
+        "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}

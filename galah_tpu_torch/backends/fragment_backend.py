@@ -3,7 +3,10 @@ fragment kernel: the port of ``galah_tpu/backends/fragment_backend.py``.
 
 * ``SkaniPreclusterer`` — marker-containment screen over all pairs,
   then exact fragment ANI on the screened pairs only (reference:
-  src/skani.rs:33-106).
+  src/skani.rs:33-106). In a multi-process job each rank profiles its
+  strided shard, the marker rows are exchanged, the screen is split
+  over the ranks and each rank computes the exact ANI of the pairs
+  whose second genome it profiled (``parallel/distributed.py``).
 * ``SkaniEquivalentClusterer`` — a gated pair is ANI 0.0, never None
   (reference: src/skani.rs:108-129).
 * ``FastANIEquivalentClusterer`` — a gated pair is None (reference:
@@ -41,10 +44,11 @@ from galah_tpu_torch.io.fasta import read_genome
 from galah_tpu_torch.io.prefetch import (ingest_depth, iter_batches,
                                          iter_prefetched)
 from galah_tpu_torch.ops import fragment_ani
-from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fragment_ani import GenomeProfile
 from galah_tpu_torch.ops.pairwise import screen_pairs
 from galah_tpu_torch.ops.u64 import bias, from_biased, to_biased
+from galah_tpu_torch.parallel import distributed
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -275,13 +279,14 @@ class SkaniPreclusterer(PreclusterBackend):
     def method_name(self) -> str:
         return "skani"
 
-    def marker_matrix(self, profiles: Sequence[GenomeProfile]
-                      ) -> Tuple[torch.Tensor, np.ndarray]:
-        """Markers padded to a common width (a multiple of 64) with the
+    def marker_matrix(self, profiles: Sequence[GenomeProfile],
+                      width: int = 0) -> Tuple[torch.Tensor, np.ndarray]:
+        """Markers padded to a common width (`width`, else the widest
+        profile's count rounded up to a multiple of 64) with the
         sentinel, and the per-genome marker counts."""
         n = len(profiles)
-        m = -(-max(max((p.markers.shape[0] for p in profiles),
-                       default=1), 1) // 64) * 64
+        m = width or -(-max(max((p.markers.shape[0] for p in profiles),
+                                default=1), 1) // 64) * 64
         mat = torch.full((n, m), SENTINEL_BIASED, dtype=torch.int64,
                          device=self.store.device)
         counts = np.zeros(n, dtype=np.int64)
@@ -304,6 +309,56 @@ class SkaniPreclusterer(PreclusterBackend):
         every kept value is bit-identical to a full run's."""
         return self._distances(genome_paths, keep)
 
+    def _marker_matrix_multihost(self, genome_paths: Sequence[str]):
+        """Each rank profiles only its strided shard of the genomes and
+        the marker rows are exchanged, the common width agreed by one
+        exchange first. Returns (the marker matrix on the device, the
+        counts, this rank's profiles by genome index), the profiles kept
+        for the exact-ANI shard whatever the LRU's size."""
+        n = len(genome_paths)
+        mine_idx = distributed.host_shard(list(range(n)))
+        with self.store.reserve(max(len(mine_idx), 1)):
+            mine = self.store.get_many([genome_paths[i] for i in mine_idx])
+        local_max = max(max((p.markers.shape[0] for p in mine),
+                            default=1), 1)
+        maxes = distributed.exchange(
+            "marker-width", np.array([local_max], dtype=np.int64))
+        m = -(-int(maxes.max()) // 64) * 64
+        local_mat, local_counts = self.marker_matrix(mine, width=m)
+        local = np.concatenate(
+            [from_biased(local_mat).reshape(len(mine), m),
+             local_counts.astype(np.uint64)[:, None]], axis=1)
+        full = distributed.allgather_host_rows(n, local,
+                                               fill=SENTINEL_U64)
+        mat = to_biased(np.ascontiguousarray(full[:, :m]),
+                        self.store.device)
+        return mat, full[:, m].astype(np.int64), dict(zip(mine_idx, mine))
+
+    def _exact_ani_multihost(self, genome_paths: Sequence[str],
+                             pairs: Sequence[Tuple[int, int]],
+                             warm: dict) -> List[Optional[float]]:
+        """Exact ANI of the screened pairs split over the ranks: a rank
+        owns the pairs whose second genome is in its profile shard
+        (owner ``j % P`` matches ``host_shard``'s stride), profiles only
+        the first genomes it lacks, and the floats are exchanged, a
+        failing rank raising on every rank."""
+        clock = self.store.clock
+
+        def compute_mine(idxs):
+            my_pairs = [pairs[k] for k in idxs]
+            ends = list(dict.fromkeys(g for pair in my_pairs for g in pair))
+            missing = [g for g in ends if g not in warm]
+            with self.store.reserve(max(len(missing), 1)):
+                prof = dict(zip(missing, self.store.get_many(
+                    [genome_paths[g] for g in missing])))
+            prof.update((g, warm[g]) for g in ends if g in warm)
+            return _exact_ani(clock, [(prof[i], prof[j])
+                                      for i, j in my_pairs],
+                              self.min_aligned_fraction)
+
+        return distributed.sharded_optional_floats(
+            len(pairs), compute_mine, owner=lambda k: pairs[k][1])
+
     def _distances(self, genome_paths: Sequence[str],
                    keep: Optional[Callable[[int, int], bool]] = None
                    ) -> PairDistanceCache:
@@ -311,9 +366,13 @@ class SkaniPreclusterer(PreclusterBackend):
         n = len(genome_paths)
         logger.info("Profiling %d genomes for skani-style "
                     "preclustering ..", n)
-        with self.store.reserve(n):
-            profiles = self.store.get_many(genome_paths)
-        mat, counts = self.marker_matrix(profiles)
+        multi = distributed.process_count() > 1
+        if multi:
+            mat, counts, warm = self._marker_matrix_multihost(genome_paths)
+        else:
+            with self.store.reserve(n):
+                profiles = self.store.get_many(genome_paths)
+            mat, counts = self.marker_matrix(profiles)
         with clock.stage("screen"):
             pairs = screen_pairs(mat, counts,
                                  self.SCREEN_IDENTITY ** self.store.k,
@@ -323,9 +382,12 @@ class SkaniPreclusterer(PreclusterBackend):
         clock.count("screened_pairs", len(pairs))
         logger.info("%d pairs passed screening; computing exact ANI ..",
                     len(pairs))
-        anis = _exact_ani(clock, [(profiles[i], profiles[j])
-                                  for i, j in pairs],
-                          self.min_aligned_fraction)
+        if multi:
+            anis = self._exact_ani_multihost(genome_paths, pairs, warm)
+        else:
+            anis = _exact_ani(clock, [(profiles[i], profiles[j])
+                                      for i, j in pairs],
+                              self.min_aligned_fraction)
         cache = PairDistanceCache()
         for (i, j), ani in zip(pairs, anis):
             if ani is not None and ani >= self.threshold:

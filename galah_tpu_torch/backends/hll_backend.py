@@ -11,8 +11,10 @@ passing pairs reach the host. With a disk cache (``--sketch-cache``)
 the registers persist as ``galah_tpu``'s entries of kind ``hll``.
 Reading goes through the streaming stage
 of the finch sketches (``ops/sketch_stream.iter_path_sketches``,
-``ingest_depth(threads)`` reads in flight). ``galah_tpu``'s
-multi-host sketching and resilient dispatch are not ported (ROADMAP).
+``ingest_depth(threads)`` reads in flight). In a multi-process job each
+rank sketches its strided shard and the registers are exchanged
+(``parallel/distributed.py``); the pair pass is split over the ranks.
+``galah_tpu``'s resilient dispatch is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from galah_tpu_torch.backends.base import PreclusterBackend
@@ -31,6 +34,7 @@ from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops.hll import (DEFAULT_P, hll_sketch_genomes,
                                      hll_threshold_pairs)
 from galah_tpu_torch.ops.sketch_stream import iter_path_sketches
+from galah_tpu_torch.parallel import distributed
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -98,15 +102,35 @@ class HLLPreclusterer(PreclusterBackend):
     def method_name(self) -> str:
         return "dashing"
 
+    def _regs_multihost(self, genome_paths: Sequence[str]) -> torch.Tensor:
+        """Each rank sketches its strided shard of the unique genomes and
+        the (4 KB) register rows are exchanged into the same matrix on
+        every rank (``distributed.allgather_host_rows``)."""
+        store = self.store
+        unique = list(dict.fromkeys(genome_paths))
+        mine = distributed.host_shard(unique)
+        by_path = dict(iter_path_sketches(mine, store, self.threads))
+        local = (torch.stack([by_path[p] for p in mine]).cpu().numpy()
+                 if mine else np.zeros((0, 1 << store.p), np.uint8))
+        full = distributed.allgather_host_rows(len(unique), local,
+                                               fill=np.uint8(0))
+        index = {path: i for i, path in enumerate(unique)}
+        return torch.from_numpy(
+            full[[index[p] for p in genome_paths]]).to(store.device)
+
     def distances(self, genome_paths: Sequence[str]) -> PairDistanceCache:
         store = self.store
         logger.info("Sketching HLL registers of %d genomes on %s ..",
                     len(genome_paths), store.device)
-        by_path = dict(iter_path_sketches(genome_paths, store,
-                                          self.threads))
-        regs = torch.stack([by_path[p] for p in genome_paths]) \
-            if genome_paths else torch.zeros(
-                0, 1 << store.p, dtype=torch.uint8, device=store.device)
+        if distributed.process_count() > 1:
+            regs = self._regs_multihost(genome_paths)
+        else:
+            by_path = dict(iter_path_sketches(genome_paths, store,
+                                              self.threads))
+            regs = torch.stack([by_path[p] for p in genome_paths]) \
+                if genome_paths else torch.zeros(
+                    0, 1 << store.p, dtype=torch.uint8,
+                    device=store.device)
         logger.info("Computing tiled all-pairs HLL ANI ..")
         with store.clock.stage("pair-stats"):
             pairs = hll_threshold_pairs(regs, store.k, self.min_ani)

@@ -12,13 +12,19 @@ unique paths, the all-pairs pass is streamed: it takes the sketch rows
 in blocks, one stripe at a time, while later genomes are still read
 and sketched (``ops/pairwise.threshold_pairs_streamed``). Otherwise the
 whole sketch matrix goes through ``ops/pairwise.threshold_pairs`` (the
-collision screen plus the pairlist kernel from the crossover up).
+collision screen plus the pairlist kernel from the crossover up). In a
+multi-process job (``parallel/distributed.py``) each rank sketches its
+strided shard of the genomes and the rows are exchanged; the stream is
+not taken there, as in ``galah_tpu``, and the pair pass is split over
+the ranks (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import logging
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 from galah_tpu_torch.backends.base import PreclusterBackend
 from galah_tpu_torch.cluster.cache import PairDistanceCache
@@ -27,13 +33,17 @@ from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io import diskcache
 from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops import collision, sketch_stream
-from galah_tpu_torch.ops.minhash import sketch_matrix
+from galah_tpu_torch.ops.constants import SENTINEL_U64
+from galah_tpu_torch.ops.minhash import sketch_matrix, sketch_rows
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.pairwise import (threshold_pairs,
                                           threshold_pairs_streamed)
 from galah_tpu_torch.ops.sketch_stream import (iter_path_sketches,
                                                iter_sketch_row_blocks,
                                                sketch_genomes_fused)
+from galah_tpu_torch.ops.u64 import from_biased, to_biased
+from galah_tpu_torch.parallel import distributed
+from galah_tpu_torch.parallel import mesh as pmesh
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -103,14 +113,39 @@ class MinHashPreclusterer(PreclusterBackend):
     def method_name(self) -> str:
         return "finch"
 
+    def _sketch_matrix_multihost(self, genome_paths: Sequence[str]
+                                 ) -> torch.Tensor:
+        """Each rank reads and sketches only its strided shard of the
+        unique genomes; the sketch rows are exchanged
+        (``distributed.allgather_host_rows``) into the same full matrix
+        on every rank, so every rank's pair pass and decisions agree. K
+        x 8 bytes a genome travel (8 KB at K = 1000)."""
+        unique = list(dict.fromkeys(genome_paths))
+        mine = distributed.host_shard(unique)
+        by_path = dict(iter_path_sketches(mine, self.store, self.threads))
+        local = sketch_rows([by_path[p].hashes for p in mine],
+                            self.store.sketch_size, "cpu")
+        full = distributed.allgather_host_rows(
+            len(unique), from_biased(local), fill=SENTINEL_U64)
+        index = {path: i for i, path in enumerate(unique)}
+        return to_biased(full[[index[p] for p in genome_paths]],
+                         self.store.device)
+
     def distances(self, genome_paths: Sequence[str]) -> PairDistanceCache:
         store = self.store
         logger.info("Sketching MinHash representations of %d genomes "
                     "on %s ..", len(genome_paths), store.device)
         n = len(genome_paths)
         # the stream's rows are the unique paths, and the sparse pass
-        # from the crossover up needs the whole matrix
-        if (n < collision.SPARSE_SCREEN_MIN_N
+        # from the crossover up needs the whole matrix, as does a
+        # multi-process job's exchange of sketch rows
+        if distributed.process_count() > 1:
+            mat = self._sketch_matrix_multihost(genome_paths)
+            logger.info("Computing all-pairs Mash ANI over %d ranks ..",
+                        distributed.process_count())
+            pairs = threshold_pairs(mat, store.k, self.min_ani,
+                                    store.sketch_size, store.clock)
+        elif (n < collision.SPARSE_SCREEN_MIN_N
                 and len(dict.fromkeys(genome_paths)) == n):
             logger.info("Streaming all-pairs Mash ANI behind the reads ..")
             blocks = iter_sketch_row_blocks(genome_paths, store,
@@ -118,7 +153,8 @@ class MinHashPreclusterer(PreclusterBackend):
             pairs = threshold_pairs_streamed(
                 blocks, n, store.k, self.min_ani,
                 store.sketch_size, store.clock,
-                block=sketch_stream.ROW_BLOCK)
+                block=sketch_stream.ROW_BLOCK,
+                mesh=pmesh.auto_mesh(store.device))
         else:
             by_path = dict(iter_path_sketches(genome_paths, store,
                                               self.threads))

@@ -566,11 +566,18 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
                                                     fields_digest,
                                                     fingerprint_fields)
     from galah_tpu_torch.io import diskcache
-    from galah_tpu_torch.outputs import setup_outputs, write_outputs
+    from galah_tpu_torch.outputs import (setup_outputs,
+                                         validate_output_paths,
+                                         write_outputs)
+    from galah_tpu_torch.parallel import distributed
     from galah_tpu_torch.resilience.quarantine import (QuarantineManifest,
                                                        manifest_output_dir)
 
     device = clock.device
+    # join the process group when torchrun's variables say so (a no-op
+    # in one process); every rank computes the same clusters, and only
+    # rank 0 writes them
+    distributed.initialize(device=device)
     quarantine = QuarantineManifest()
     paths = _genome_inputs(args, quarantine)
     cache = diskcache.get_cache(args.sketch_cache, clock)
@@ -580,17 +587,31 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
         paths, vars(args), cache=cache, quarantine_manifest=quarantine,
         device=device, clock=clock)
     genomes = clusterer.genome_paths
-    # opened before any compute, so a bad output path fails fast
-    handles = setup_outputs(
+    # opened before any compute, so a bad output path fails fast; the
+    # ranks that do not write check the same paths before the first
+    # exchange
+    is_writer = distributed.process_index() == 0
+    output_args = dict(
         cluster_definition=args.output_cluster_definition,
         representative_fasta_directory=(
             args.output_representative_fasta_directory),
         representative_fasta_directory_copy=(
             args.output_representative_fasta_directory_copy),
         representative_list=args.output_representative_list)
+    if is_writer:
+        handles = setup_outputs(**output_args)
+    else:
+        validate_output_paths(**output_args)
+        handles = None
     try:
         ckpt = None
         if args.checkpoint_dir:
+            # each rank keeps its own checkpoint: ranks appending to one
+            # would interleave it
+            ckpt_dir = args.checkpoint_dir
+            if distributed.process_count() > 1:
+                ckpt_dir = os.path.join(
+                    ckpt_dir, f"proc_{distributed.process_index()}")
             fields = fingerprint_fields(
                 genomes, args.precluster_method, args.cluster_method,
                 parse_percentage(args.ani, "--ani"),
@@ -599,16 +620,25 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
                     args.min_aligned_fraction, "--min-aligned-fraction"),
                 fragment_length=args.fragment_length,
                 backend_params=clusterer.backend_params)
-            ckpt = ClusterCheckpoint(args.checkpoint_dir,
-                                     fields_digest(fields), fields=fields,
+            ckpt = ClusterCheckpoint(ckpt_dir, fields_digest(fields),
+                                     fields=fields,
                                      require_match=args.resume)
             # the resume chain: a matching checkpoint with recorded
             # interruptions continues a stopped run
             prior = ckpt.load_interruptions()
             if ckpt.matched_existing and (prior or args.resume):
-                interrupt.note_resume(args.checkpoint_dir, len(prior))
-                events.record("resumed", checkpoint_dir=args.checkpoint_dir,
+                interrupt.note_resume(ckpt_dir, len(prior))
+                events.record("resumed", checkpoint_dir=ckpt_dir,
                               prior_interruptions=len(prior))
+            # a resume is all-or-nothing across ranks: a stop can fall
+            # between two ranks' saves, and uneven state would put one
+            # rank in an exchange that another skips
+            if distributed.process_count() > 1 and not \
+                    distributed.tokens_agree(ckpt.state_token()):
+                logger.warning(
+                    "Checkpoint state differs across ranks; dropping it "
+                    "and recomputing so that every rank stays in step")
+                ckpt.reset_state()
             clusterer.checkpoint = ckpt
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
         try:
@@ -630,11 +660,16 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
                 interrupt.EXIT_PREEMPTED)
             raise
         logger.info("Found %d genome clusters", len(clusters))
-        with clock.stage("write-outputs"):
-            write_outputs(handles, clusters, genomes)
+        if is_writer:
+            with clock.stage("write-outputs"):
+                write_outputs(handles, clusters, genomes)
+        else:
+            logger.info("Rank %d: outputs written by rank 0",
+                        distributed.process_index())
     finally:
-        handles.close()
-    if len(quarantine):
+        if handles is not None:
+            handles.close()
+    if len(quarantine) and is_writer:
         quarantine.write(manifest_output_dir(
             cluster_definition=args.output_cluster_definition,
             representative_list=args.output_representative_list,

@@ -152,6 +152,38 @@ class ClusterCheckpoint:
     def enabled(self) -> bool:
         return self.path is not None
 
+    def state_token(self) -> bytes:
+        """Digest of the resumable state (the distances file's bytes,
+        the completed precluster ids and the greedy-round log): the
+        ranks compare these (``distributed.tokens_agree``) so that a
+        resume is all-or-nothing, since a resume from uneven state
+        would put one rank in the distance pass's exchanges and skip
+        them on another."""
+        h = hashlib.sha256()
+        if not self.enabled:
+            return h.digest()
+        fn = os.path.join(self.path, _DISTANCES)
+        if os.path.exists(fn):
+            with open(fn, "rb") as f:
+                h.update(f.read())
+        h.update(json.dumps(sorted(self.load_completed())).encode())
+        gn = os.path.join(self.path, _GREEDY)
+        if os.path.exists(gn):
+            with open(gn, "rb") as f:
+                h.update(f.read())
+        return h.digest()
+
+    def reset_state(self) -> None:
+        """Drop the resumable state and keep the fingerprint: the next
+        run recomputes from scratch on every rank alike."""
+        if not self.enabled:
+            return
+        for name in (_DISTANCES, _CLUSTERS, _GREEDY):
+            try:
+                os.unlink(os.path.join(self.path, name))
+            except FileNotFoundError:
+                pass
+
     # -- the precluster distance pass ------------------------------------
 
     def load_distances(self) -> Optional[PairDistanceCache]:

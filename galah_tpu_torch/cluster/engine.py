@@ -25,6 +25,10 @@ requested by a signal (``resilience/interrupt.py``) is honoured only
 at three boundaries, each right after its state is durable:
 ``distances-saved``, ``greedy-round-saved`` and ``precluster-saved``;
 never inside a kernel launch or a profile group.
+
+In a multi-process job (``parallel/distributed.py``) every rank runs
+the same rounds, and each backend ANI batch is split over the ranks
+(``_backend_ani_batch``) and exchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import zlib
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -42,6 +47,7 @@ from galah_tpu_torch.cluster.partition import partition_preclusters
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops import greedy_select
+from galah_tpu_torch.parallel import distributed
 from galah_tpu_torch.resilience import interrupt
 from galah_tpu_torch.timing import StageClock
 
@@ -151,10 +157,29 @@ def _batch_ani(
             if computed_log is not None:
                 computed_log.append(pairs[n])
     if to_compute:
-        anis = clusterer.calculate_ani_batch([p for _, p in to_compute])
+        anis = _backend_ani_batch(clusterer, [p for _, p in to_compute])
         for (n, _), ani in zip(to_compute, anis):
             out[n] = ani
     return out
+
+
+def _backend_ani_batch(clusterer, path_pairs: List[Tuple[str, str]]
+                       ) -> List[Optional[float]]:
+    """One backend ANI batch, split over the ranks of a multi-process
+    job. Every rank reaches this with the same pairs (the engine is
+    deterministic and its caches agree), and a pair goes to the rank
+    that ``zlib.crc32`` of its second path names, so that a genome's
+    pairs against the representatives land on one rank; a failing rank
+    makes every rank raise. In one process, a plain call."""
+    n_proc = distributed.process_count()
+    if n_proc <= 1 or len(path_pairs) < n_proc:
+        return clusterer.calculate_ani_batch(path_pairs)
+    owners = [zlib.crc32(b.encode()) for _a, b in path_pairs]
+    return distributed.sharded_optional_floats(
+        len(path_pairs),
+        lambda idxs: clusterer.calculate_ani_batch(
+            [path_pairs[k] for k in idxs]),
+        owner=lambda k: owners[k])
 
 
 def _cluster_pending_rounds(

@@ -195,13 +195,19 @@ cudaError_t launch(const dim3 grid, cudaStream_t stream, const u8* codes,
                    const long long* starts, long long n_starts,
                    const long long* job_off, const long long* job_len, int k,
                    int tpufast_algo, long long* out) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_sketch_kernel<kAnyK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  // the attribute is the function's on one device: set it once a device
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(fused_sketch_kernel<kAnyK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
     if (err != cudaSuccess) return err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   fused_sketch_kernel<kAnyK><<<grid, kThreads, kSmemBytes, stream>>>(
       codes, starts, n_starts, job_off, job_len, k, tpufast_algo, out);

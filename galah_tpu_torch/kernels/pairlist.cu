@@ -105,7 +105,12 @@ pairlist_kernel(const long long* __restrict__ mat, int k,
   }
 }
 
-int g_max_smem = -1;  // the card's opt-in shared memory a block
+// each device's opt-in dynamic shared memory a block, set with the
+// kernel's attribute at the first launch on that device (the attribute
+// is a function's on one device)
+constexpr int kMaxDevices = 64;
+int g_max_smem[kMaxDevices] = {};
+bool g_smem_set[kMaxDevices] = {};
 
 }  // namespace
 
@@ -115,32 +120,38 @@ extern "C" int pairlist_launch(const void* mat, int k, const void* lens,
                                void* stream) {
   if (b <= 0) return 0;
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (g_max_smem < 0) {
-    int dev = 0, optin = 0;
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (!g_smem_set[dev]) {
+    int optin = 0;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess) {
       err = cudaFuncGetAttributes(&attr, pairlist_kernel<true>);
     }
     if (err == cudaSuccess) {
-      g_max_smem = optin - static_cast<int>(attr.sharedSizeBytes);
+      // dynamic and static shared memory together stay within opt-in
+      const int limit = optin - static_cast<int>(attr.sharedSizeBytes);
       err = cudaFuncSetAttribute(pairlist_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 g_max_smem);
+                                 limit);
+      if (err == cudaSuccess) {
+        g_max_smem[dev] = limit;
+        g_smem_set[dev] = true;
+      }
     }
-    if (err != cudaSuccess) {
-      g_max_smem = -1;
-      return static_cast<int>(err);
-    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int max_smem = g_max_smem[dev];
   const long long stride = (static_cast<long long>(k) + 2) & ~1LL;
   const long long smem = (1 + kWarps) * stride * 8;
   const bool staged =
-      k <= kMaxStagedK && b >= kMinStagedPairs && smem <= g_max_smem;
+      k <= kMaxStagedK && b >= kMinStagedPairs && smem <= max_smem;
   const unsigned blocks = static_cast<unsigned>(
       (static_cast<long long>(b) + kWarps - 1) / kWarps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -42,7 +42,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 TABLE = "constexpr int kTiles[][2] = {{4, 8}};"
 SMALL_TILES = ("constexpr int kTiles[][2] = {{4, 8}, {2, 8}, {2, 4}, "
                "{1, 4}, {1, 2}, {1, 1}};")
-STAGE_TEST = "if (bytes <= g_max_smem) {"
+STAGE_TEST = "if (bytes <= max_smem) {"
 NO_STAGE = "if (false) {"
 
 

@@ -195,7 +195,12 @@ tile_stats_kernel(const long long* __restrict__ rows,
   }
 }
 
-int g_max_smem = -1;  // the card's opt-in shared memory a block
+// each device's opt-in dynamic shared memory a block, set with the
+// kernel's attribute at the first launch on that device (the attribute
+// is a function's on one device)
+constexpr int kMaxDevices = 64;
+int g_max_smem[kMaxDevices] = {};
+bool g_smem_set[kMaxDevices] = {};
 
 }  // namespace
 
@@ -204,36 +209,40 @@ extern "C" int tile_stats_launch(const void* rows, const void* cols,
                                  int intersect, void* common, void* total,
                                  void* stream) {
   if (br <= 0 || bc <= 0 || k < 0) return 0;
-  if (g_max_smem < 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (!g_smem_set[dev]) {
     int optin = 0;
     cudaFuncAttributes attr;
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess) {
       err = cudaFuncGetAttributes(&attr, tile_stats_kernel<true>);
     }
     if (err == cudaSuccess) {
       // dynamic and static shared memory together stay within opt-in
-      g_max_smem = optin - static_cast<int>(attr.sharedSizeBytes);
+      const int limit = optin - static_cast<int>(attr.sharedSizeBytes);
       err = cudaFuncSetAttribute(tile_stats_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 g_max_smem);
+                                 limit);
+      if (err == cudaSuccess) {
+        g_max_smem[dev] = limit;
+        g_smem_set[dev] = true;
+      }
     }
-    if (err != cudaSuccess) {
-      g_max_smem = -1;
-      return static_cast<int>(err);
-    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int max_smem = g_max_smem[dev];
   const long long stride = (static_cast<long long>(k) + 2) & ~1LL;
   int tr = kInPlace[0], tc = kInPlace[1];
   long long smem = 0;
   for (const auto& tile : kTiles) {
     const long long bytes = (tile[0] + tile[1]) * stride * 8;
-    if (bytes <= g_max_smem) {
+    if (bytes <= max_smem) {
       tr = tile[0];
       tc = tile[1];
       smem = bytes;

@@ -74,9 +74,11 @@ def device_topology(device=None) -> dict:
     if torch is None or device is None:
         return topo
     try:
+        from galah_tpu_torch.parallel import distributed
+
         topo["backend"] = device.type
-        topo["process_index"] = 0
-        topo["process_count"] = 1
+        topo["process_index"] = distributed.process_index()
+        topo["process_count"] = distributed.process_count()
         if device.type == "cuda" and torch.cuda.is_initialized():
             n = torch.cuda.device_count()
             topo["device_count"] = n

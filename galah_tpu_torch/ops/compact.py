@@ -25,14 +25,16 @@ def iter_blocks(
     """Yield (r0, result) per row block, retrying on overflow.
 
     `run_block(r0, cap)` returns a tuple whose LAST element is the true
-    passing count (an int); a count above `cap` reruns the block with
-    the next power-of-two capacity that holds it.
+    passing count (an int, or one a mesh slot); a count above `cap`
+    reruns the block with the next power-of-two capacity that holds it.
     """
     for r0 in range(0, n, row_tile):
         cap = _pow2_at_least(cap_per_row * row_tile)
         while True:
             result = run_block(r0, cap)
-            count = int(result[-1])
+            count = int(max(result[-1])
+                        if isinstance(result[-1], (list, tuple))
+                        else result[-1])
             if count <= cap:
                 break
             cap = _pow2_at_least(max(2 * cap, count))

@@ -106,10 +106,12 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, jobs: Sequence[Job],
     stream = torch.cuda.current_stream(device).cuda_stream
     for j0 in range(0, len(jobs), _MAX_JOBS):
         n = min(_MAX_JOBS, len(jobs) - j0)
-        err = lib.fused_sketch_launch(
-            codes.data_ptr(), starts.data_ptr(), starts.shape[0],
-            meta[0, j0:].data_ptr(), meta[1, j0:].data_ptr(), n, k,
-            int(algo == "tpufast"), out[j0:].data_ptr(), stream)
+        # the library launches on the current device: make it `device`
+        with torch.cuda.device(device):
+            err = lib.fused_sketch_launch(
+                codes.data_ptr(), starts.data_ptr(), starts.shape[0],
+                meta[0, j0:].data_ptr(), meta[1, j0:].data_ptr(), n, k,
+                int(algo == "tpufast"), out[j0:].data_ptr(), stream)
         build.check("fused_sketch", err)
         LAUNCHES["fused_sketch"] += 1
     return out

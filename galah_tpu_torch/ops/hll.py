@@ -25,8 +25,9 @@ The dashing-equivalent precluster (reference: src/dashing.rs:33-100):
 Hashes are biased int64 (``ops/u64.py``); the register index and
 ``clz`` read the unbiased bits. Torch has no ``clz``, and ``log2`` in
 float64 rounds wrongly above 2^53, so ``clz64`` is a binary search
-over logical shifts. ``galah_tpu``'s sharded pass over a device mesh is
-not ported (ROADMAP: multi-GPU).
+over logical shifts. Over the ranks of a multi-process job (one slot
+a rank) the pair pass is sharded
+(``parallel/mesh.sharded_hll_threshold_pairs``) with the same values.
 """
 
 from __future__ import annotations
@@ -209,15 +210,25 @@ def _rowblock(mat: torch.Tensor, cards: torch.Tensor, r0: int,
 def hll_threshold_pairs(regs: torch.Tensor, k: int, min_ani: float,
                         row_tile: int = ROW_TILE, col_tile: int = COL_TILE,
                         cap_per_row: int = CAP_PER_ROW,
-                        union_stats=hll_union_stats
+                        union_stats=hll_union_stats, mesh=None
                         ) -> Dict[Tuple[int, int], float]:
     """Sparse {(i, j): ani} over the i<j pairs of an (N, 2^p) uint8
     register matrix whose f32 HLL Mash ANI reaches `min_ani` (compared
     in f32, as ``galah_tpu`` does). `union_stats` is
-    ``hll_union_stats`` (the kernel on cuda) or its plain version."""
+    ``hll_union_stats`` (the kernel on cuda) or its plain version. Over
+    more than one slot (`mesh`, by default ``parallel/mesh.auto_mesh``
+    of the device) the pass is ``sharded_hll_threshold_pairs``."""
+    from galah_tpu_torch.parallel import mesh as pmesh
+
     n, m = regs.shape
     if n == 0:
         return {}
+    if mesh is None:
+        mesh = pmesh.auto_mesh(regs.device)
+    if mesh is not None and mesh.size > 1:
+        return pmesh.sharded_hll_threshold_pairs(
+            regs, k, min_ani, mesh, row_tile=row_tile, col_tile=col_tile,
+            cap_per_row=cap_per_row, union_stats=union_stats)
     quantum = math.lcm(row_tile, col_tile)
     n_pad = -(-n // quantum) * quantum
     mat = torch.zeros(n_pad, m, dtype=torch.uint8, device=regs.device)

@@ -162,7 +162,10 @@ def run_launch(launch: Launch) -> Tuple[torch.Tensor, torch.Tensor]:
         return launch.powsum, launch.zeros
     # the kernel refuses more than 65535 * 8 rows (its grid's y limit);
     # the pair pass gives it one row block
-    err = build.load("hll_union").hll_union_launch(*launch_args(launch))
+    lib = build.load("hll_union")
+    # the library launches on the current device: make it the rows'
+    with torch.cuda.device(launch.rows.device):
+        err = lib.hll_union_launch(*launch_args(launch))
     build.check("hll_union", err)
     LAUNCHES["hll_union"] += 1
     return launch.powsum, launch.zeros

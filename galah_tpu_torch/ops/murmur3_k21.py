@@ -112,9 +112,11 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, win0: int,
         return out
     lib = build.load("murmur3_k21")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.murmur3_k21_launch(codes.data_ptr(), starts.data_ptr(),
-                                 starts.shape[0], win0, n_win,
-                                 out.data_ptr(), stream)
+    # the library launches on the current device: make it the codes'
+    with torch.cuda.device(codes.device):
+        err = lib.murmur3_k21_launch(codes.data_ptr(), starts.data_ptr(),
+                                     starts.shape[0], win0, n_win,
+                                     out.data_ptr(), stream)
     build.check("murmur3_k21", err)
     LAUNCHES["murmur3_k21"] += 1
     return out

@@ -105,10 +105,13 @@ def run_launch(mat: torch.Tensor, lens: torch.Tensor, pi: torch.Tensor,
 
     lib = build.load("pairlist")
     stream = torch.cuda.current_stream(mat.device).cuda_stream
-    err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1], lens.data_ptr(),
-                              pi.data_ptr(), pj.data_ptr(), b,
-                              int(sketch_size), common.data_ptr(),
-                              total.data_ptr(), stream)
+    # the library launches on the current device: make it the matrix's
+    with torch.cuda.device(mat.device):
+        err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1],
+                                  lens.data_ptr(), pi.data_ptr(),
+                                  pj.data_ptr(), b, int(sketch_size),
+                                  common.data_ptr(), total.data_ptr(),
+                                  stream)
     build.check("pairlist", err)
     LAUNCHES["pairlist"] += 1
     return common, total

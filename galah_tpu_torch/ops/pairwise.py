@@ -22,7 +22,9 @@ From the crossover up, both take the host collision screen
 (``ops/collision.py``) instead: the screen's counts are its exact
 containment numerators, and finch evaluates the collision survivors
 with the pairlist kernel (``ops/sparse_device.py``). Either way the
-result is the same.
+result is the same. Over the ranks of a multi-process job (one slot a
+rank) each pass is sharded over a mesh (``parallel/mesh.py``), again
+with the same result.
 """
 
 from __future__ import annotations
@@ -114,11 +116,16 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
                  c_floor: float, row_tile: int = ROW_TILE,
                  col_tile: int = COL_TILE,
                  cap_per_row: int = CAP_PER_ROW,
-                 clock: Optional[StageClock] = None
-                 ) -> List[Tuple[int, int]]:
+                 clock: Optional[StageClock] = None,
+                 mesh=None) -> List[Tuple[int, int]]:
     """i<j pairs whose marker containment >= c_floor, in row-major
     order. `marker_mat` is (N, M) biased int64 on the device, sorted
     and sentinel-padded; `counts` the per-genome marker counts.
+    Below the crossover, over more than one slot (`mesh`, by default
+    ``parallel/mesh.auto_mesh`` of the device: the ranks of a
+    multi-process job) the dense pass is sharded
+    (``sharded_screen_pairs``); an explicit `mesh` pins the dense pass
+    at any size, as in ``galah_tpu``.
     `clock` gets the count ``screen-possible-pairs``, and on the
     collision route ``screen-candidates`` and ``screen-kept-pairs``
     (``galah_tpu`` counts the three on that route only)."""
@@ -126,7 +133,7 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
     n = marker_mat.shape[0]
     counts64 = np.asarray(counts, dtype=np.int64)
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
-    if n >= collision.SPARSE_SCREEN_MIN_N:
+    if mesh is None and n >= collision.SPARSE_SCREEN_MIN_N:
         # the collision counts ARE the containment numerators (marker
         # sets are distinct), so the exact check needs no second pass
         pi, pj, inter = collision.collision_pair_counts(
@@ -137,6 +144,14 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
         clock.count("screen-kept-pairs", int(keep.sum()))
         note_survival(int(pi.shape[0]), int(keep.sum()))
         return list(zip(pi[keep].tolist(), pj[keep].tolist()))
+    from galah_tpu_torch.parallel import mesh as pmesh
+
+    if mesh is None:
+        mesh = pmesh.auto_mesh(marker_mat.device)
+    if mesh is not None and mesh.size > 1:
+        return pmesh.sharded_screen_pairs(
+            marker_mat, counts64, c_floor, mesh, row_tile=row_tile,
+            col_tile=col_tile, cap_per_row=cap_per_row)
     device = marker_mat.device
     mat = _pad_rows(marker_mat, math.lcm(row_tile, col_tile))
     n_pad = mat.shape[0]
@@ -164,23 +179,35 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
 
 def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
                     sketch_size: Optional[int] = None,
-                    clock: Optional[StageClock] = None
-                    ) -> Dict[Tuple[int, int], float]:
+                    clock: Optional[StageClock] = None,
+                    mesh=None) -> Dict[Tuple[int, int], float]:
     """Sparse {(i, j): ani} for i<j pairs whose float64 Mash ANI reaches
     `min_ani`, over an (N, K) biased sketch matrix on the device: the
     streamed pass over its blocks of COL_TILE rows below the sparse
     crossover, the collision screen and pairlist pass
-    (``sparse_device``) from it up. `clock` gets the stages
+    (``sparse_device``) from it up. Over more than one slot (`mesh`, by
+    default ``parallel/mesh.auto_mesh`` of the device) the pass below
+    the crossover is ``sharded_threshold_pairs`` and the pair list from
+    it up is split over the slots. `clock` gets the stages
     (`pair-stats`, and `collision-screen` when sparse)."""
+    from galah_tpu_torch.parallel import mesh as pmesh
+
     clock = clock or StageClock(sketch_mat.device)
     if sketch_size is None:
         sketch_size = sketch_mat.shape[1]
     n = sketch_mat.shape[0]
+    if mesh is None:
+        mesh = pmesh.auto_mesh(sketch_mat.device)
     if n >= collision.SPARSE_SCREEN_MIN_N:
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
         return threshold_pairs_sparse(sketch_mat, k, min_ani, sketch_size,
-                                      clock)
+                                      clock, mesh=mesh)
+    if mesh is not None and mesh.size > 1:
+        clock.count("screen-possible-pairs", n * (n - 1) // 2)
+        with clock.stage("pair-stats"):
+            return pmesh.sharded_threshold_pairs(
+                sketch_mat, k, min_ani, mesh, sketch_size=sketch_size)
     blocks = ((r0, sketch_mat[r0:r0 + COL_TILE])
               for r0 in range(0, n, COL_TILE))
     return threshold_pairs_streamed(blocks, n, k, min_ani, sketch_size,
@@ -195,6 +222,7 @@ def threshold_pairs_streamed(
     sketch_size: int,
     clock: Optional[StageClock] = None,
     block: int = COL_TILE,
+    mesh=None,
 ) -> Dict[Tuple[int, int], float]:
     """``threshold_pairs`` below the sparse crossover, over ``(r0,
     rows)`` blocks of at most `block` biased sketch rows on the device
@@ -208,12 +236,22 @@ def threshold_pairs_streamed(
     form. Every pair i < j is covered once (rows [0, r1) x columns
     [r0, r1)), and the exact float64 check runs on the host over the
     integers. ``common > 0`` drops the sentinel padding (a sentinel row
-    shares nothing). `clock` gets the `pair-stats` stage and the
+    shares nothing). Over a `mesh` whose slot count is a power of two
+    each stripe is sharded (``parallel/mesh.sharded_stripe_stats``: the
+    rows over the slots), the padding starting at slots x ``ROW_TILE``
+    rows; any other mesh leaves the stripe on one device, as in
+    ``galah_tpu``.
+    `clock` gets the `pair-stats` stage and the
     `pairs-streamed-stripes` and `screen-possible-pairs` counts."""
     clock = clock or StageClock(torch.device("cpu"))
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
     j_thr = ani_to_jaccard(min_ani, k)
-    r_cap = ROW_TILE
+    n_dev = mesh.size if mesh is not None else 1
+    if n_dev > 1 and n_dev & (n_dev - 1):
+        # the power-of-two row padding needs a power-of-two mesh
+        mesh, n_dev = None, 1
+    quantum = ROW_TILE * n_dev
+    r_cap = quantum
     while r_cap < n:
         r_cap <<= 1
     done: Optional[torch.Tensor] = None
@@ -229,16 +267,25 @@ def threshold_pairs_streamed(
                               dtype=torch.int64, device=rows.device)
         done[r0:r0 + bsz] = rows
         r1 = r0 + bsz
-        r_pad = ROW_TILE
+        r_pad = quantum
         while r_pad < r1:
             r_pad <<= 1
         with clock.stage("pair-stats"):
             cols = torch.full((block, rows.shape[1]), SENTINEL_BIASED,
                               dtype=torch.int64, device=rows.device)
             cols[:bsz] = rows
-            common, total = tile_stats(done[:r_pad], cols, sketch_size)
-            common = common.cpu().numpy().astype(np.int64)
-            total = total.cpu().numpy().astype(np.int64)
+            if mesh is not None:
+                from galah_tpu_torch.parallel.mesh import \
+                    sharded_stripe_stats
+
+                common, total = sharded_stripe_stats(
+                    done[:r_pad], cols, sketch_size, mesh,
+                    row_tile=ROW_TILE, r_pad=r_pad)
+            else:
+                common, total = tile_stats(done[:r_pad], cols, sketch_size)
+                common, total = common.cpu().numpy(), total.cpu().numpy()
+            common = common.astype(np.int64)
+            total = total.astype(np.int64)
         clock.count("pairs-streamed-stripes", 1)
         gi = np.arange(r_pad)[:, None]
         gj = r0 + np.arange(block)[None, :]

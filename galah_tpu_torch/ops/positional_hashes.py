@@ -85,9 +85,11 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, win0: int,
         return out
     lib = build.load("positional_hashes")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.positional_hashes_launch(
-        codes.data_ptr(), starts.data_ptr(), starts.shape[0], win0, n_win,
-        _ALGOS[algo], out.data_ptr(), stream)
+    # the library launches on the current device: make it the codes'
+    with torch.cuda.device(codes.device):
+        err = lib.positional_hashes_launch(
+            codes.data_ptr(), starts.data_ptr(), starts.shape[0], win0,
+            n_win, _ALGOS[algo], out.data_ptr(), stream)
     build.check("positional_hashes", err)
     LAUNCHES["positional_hashes"] += 1
     return out

@@ -8,7 +8,10 @@ of the survivors only (the list uploaded once, one launch of the
 pairlist kernel, ``ops/pairlist``, the results downloaded once), and the host applies the exact float64
 integer-Jaccard keep-check and reports the float64 ANI. The integers
 are those of the dense pass, so the pair dict is the dense pass's,
-at O(NK log NK + survivors) instead of O(N^2) tiles.
+at O(NK log NK + survivors) instead of O(N^2) tiles. Over a device mesh
+(``parallel/mesh.py``) the candidate list is split into one chunk a
+slot, one pairlist launch each (``galah_tpu/ops/sparse_device.py``'s
+sharded batch).
 """
 
 from __future__ import annotations
@@ -43,6 +46,15 @@ def pair_stats_for_pairs(mat: torch.Tensor, pi: np.ndarray, pj: np.ndarray,
     PAIR_BATCH pairs at a time), and the results come back in one copy.
     The host side runs in torch, whose copies and reductions of large
     CPU tensors use every core."""
+    return collect_pair_stats(enqueue_pair_stats(mat, pi, pj, sketch_size))
+
+
+def enqueue_pair_stats(mat: torch.Tensor, pi: np.ndarray, pj: np.ndarray,
+                     sketch_size: int) -> Tuple[torch.Tensor, torch.device]:
+    """``pair_stats_for_pairs`` up to its wait: the checked list
+    uploaded, the launch enqueued and the results' copy to the host
+    queued. Returns (the (2, B) int32 host buffer, the device to wait
+    for) for ``collect_pair_stats``."""
     hpi = torch.from_numpy(np.ascontiguousarray(pi, dtype=np.int64))
     hpj = torch.from_numpy(np.ascontiguousarray(pj, dtype=np.int64))
     if hpi.shape != hpj.shape or hpi.dim() != 1:
@@ -68,19 +80,29 @@ def pair_stats_for_pairs(mat: torch.Tensor, pi: np.ndarray, pj: np.ndarray,
                    out[0, s:e], out[1, s:e])
     host = torch.empty((2, n_pairs), dtype=torch.int32, pin_memory=on_card)
     host.copy_(out, non_blocking=True)
-    if on_card:
-        torch.cuda.current_stream(mat.device).synchronize()
+    return host, mat.device
+
+
+def collect_pair_stats(enqueued: Tuple[torch.Tensor, torch.device]
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Wait for an ``enqueue_pair_stats`` and return (common, total)."""
+    host, device = enqueued
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
     return host.numpy()[0], host.numpy()[1]
 
 
 def threshold_pairs_sparse(mat: torch.Tensor, k: int, min_ani: float,
                            sketch_size: Optional[int] = None,
-                           clock: Optional[StageClock] = None
-                           ) -> Dict[Tuple[int, int], float]:
+                           clock: Optional[StageClock] = None,
+                           mesh=None) -> Dict[Tuple[int, int], float]:
     """Sparse {(i, j): ani} for i<j pairs with ani >= min_ani: collision
     screen on the host, pair stats on the device, exact check on the
-    host. `clock` gets the `collision-screen` and `pair-stats` stages
-    and the screen's counts (possible pairs, candidates, kept pairs)."""
+    host. With a `mesh` of more than one slot the candidate list is
+    split over the slots (``parallel/mesh.sharded_pair_stats_for_pairs``,
+    one pairlist launch a slot); the integers are the same. `clock`
+    gets the `collision-screen` and `pair-stats` stages and the
+    screen's counts (possible pairs, candidates, kept pairs)."""
     clock = clock or StageClock(mat.device)
     if sketch_size is None:
         sketch_size = mat.shape[1]
@@ -93,7 +115,14 @@ def threshold_pairs_sparse(mat: torch.Tensor, k: int, min_ani: float,
     clock.count("screen-candidates", int(pi.shape[0]))
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
     with clock.stage("pair-stats"):
-        common, total = pair_stats_for_pairs(mat, pi, pj, sketch_size)
+        if mesh is not None and mesh.size > 1:
+            from galah_tpu_torch.parallel.mesh import \
+                sharded_pair_stats_for_pairs
+
+            common, total = sharded_pair_stats_for_pairs(
+                mat, pi, pj, sketch_size, mesh)
+        else:
+            common, total = pair_stats_for_pairs(mat, pi, pj, sketch_size)
     common = common.astype(np.int64)
     total = total.astype(np.int64)
     keep = common.astype(np.float64) >= j_thr * total

@@ -116,9 +116,12 @@ def run_launch(rows: torch.Tensor, cols: torch.Tensor, sketch_size: int,
         return common, total
     lib = build.load("tile_stats")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    err = lib.tile_stats_launch(
-        rows.data_ptr(), cols.data_ptr(), br, bc, k, int(sketch_size),
-        int(bool(intersect)), common.data_ptr(), total.data_ptr(), stream)
+    # the library launches on the current device: make it the rows'
+    with torch.cuda.device(rows.device):
+        err = lib.tile_stats_launch(
+            rows.data_ptr(), cols.data_ptr(), br, bc, k, int(sketch_size),
+            int(bool(intersect)), common.data_ptr(), total.data_ptr(),
+            stream)
     build.check("tile_stats", err)
     LAUNCHES["tile_stats"] += 1
     return common, total

@@ -123,9 +123,11 @@ def run_launch(launch: Launch) -> torch.Tensor:
         return launch.hits
     lib = build.load("window_hits")
     stream = torch.cuda.current_stream(launch.hits.device).cuda_stream
-    err = lib.window_hits_launch(
-        launch.plan.data_ptr(), launch.plan.shape[1], launch.n_blocks,
-        SEGMENT, launch.hits.data_ptr(), stream)
+    # the library launches on the current device: make it the flags'
+    with torch.cuda.device(launch.hits.device):
+        err = lib.window_hits_launch(
+            launch.plan.data_ptr(), launch.plan.shape[1], launch.n_blocks,
+            SEGMENT, launch.hits.data_ptr(), stream)
     build.check("window_hits", err)
     LAUNCHES["window_hits"] += 1
     return launch.hits

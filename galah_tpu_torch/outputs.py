@@ -8,8 +8,10 @@ first; representative FASTAs are symlinked (to their real path) or
 copied into output directories, a clashing file name renamed with
 ``.1.fna``, ``.2.fna`` and so on; the representative list holds one
 path a line. ``read_cluster_file`` parses a cluster definition back.
-``galah_tpu``'s ``validate_output_paths`` serves multi-host processes
-that do not write, and waits for multi-GPU.
+In a multi-process job only rank 0 opens and writes the outputs; the
+other ranks check the same paths without touching them
+(``validate_output_paths``), so that a bad path fails every rank before
+the first exchange.
 """
 
 from __future__ import annotations
@@ -55,6 +57,59 @@ def _setup_directory(path: Optional[str], argument: str) -> Optional[str]:
         logger.info("Creating %s ..", argument)
         os.makedirs(path, exist_ok=True)
     return path
+
+
+def _nearest_existing_dir(path: str) -> str:
+    """The closest existing ancestor of `path` (``os.makedirs`` would
+    create everything below it)."""
+    d = os.path.abspath(path)
+    while not os.path.exists(d):
+        parent = os.path.dirname(d)
+        if parent == d:
+            break
+        d = parent
+    return d
+
+
+def validate_output_paths(
+    cluster_definition: Optional[str] = None,
+    representative_fasta_directory: Optional[str] = None,
+    representative_fasta_directory_copy: Optional[str] = None,
+    representative_list: Optional[str] = None,
+) -> None:
+    """``setup_outputs``' checks, case for case, without touching the
+    targets: a file output needs an existing, writable parent and must
+    not be a directory; a directory output must be empty if it exists,
+    else creatable (its nearest existing ancestor writable)."""
+    for p in (cluster_definition, representative_list):
+        if p:
+            if os.path.isdir(p):
+                raise ValueError(f"output path {p} is a directory")
+            d = os.path.dirname(os.path.abspath(p)) or "."
+            if not os.path.isdir(d) or not os.access(d, os.W_OK):
+                raise OSError(f"output path not writable: {p}")
+            if os.path.exists(p) and not os.access(p, os.W_OK):
+                raise OSError(f"output file not writable: {p}")
+    for p, argument in (
+            (representative_fasta_directory,
+             "output-representative-fasta-directory"),
+            (representative_fasta_directory_copy,
+             "output-representative-fasta-directory-copy")):
+        if not p:
+            continue
+        if os.path.exists(p):
+            if not os.path.isdir(p):
+                raise ValueError(
+                    f"The {argument} path specified ({p}) exists but "
+                    "is not a directory")
+            if os.listdir(p):
+                raise ValueError(
+                    f"The {argument} specified ({p}) exists and is "
+                    "not empty")
+        else:
+            anc = _nearest_existing_dir(p)
+            if not os.path.isdir(anc) or not os.access(anc, os.W_OK):
+                raise OSError(f"output directory not creatable: {p}")
 
 
 def setup_outputs(

@@ -22,8 +22,9 @@ src/cluster_argument_parsing.rs:576-894, src/genome_info_file.rs:20-80):
 The sort is stable: ties keep input order. The formulas that need
 assembly stats read each genome once more, stats only
 (``io/fasta.read_genome_stats``), on `threads` worker threads (the C
-parser releases the interpreter lock).
-``galah_tpu``'s multi-host stats pass is not ported.
+parser releases the interpreter lock); in a multi-process job each
+rank reads its strided shard and the stats are exchanged
+(``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from galah_tpu_torch.config import Defaults, parse_percentage
 from galah_tpu_torch.io.fasta import GenomeStats, read_genome_stats
@@ -148,6 +151,39 @@ def retrieve(table: QualityTable, fasta_path: str) -> GenomeQuality:
             f"Failed to find CheckM statistics for {fasta_path}") from None
 
 
+def _assembly_stats(paths: Sequence[str],
+                    threads: int) -> Dict[str, GenomeStats]:
+    """Each path's assembly stats, read on `threads` threads. In a
+    multi-process job each rank reads its strided shard and the three
+    integers a genome are exchanged, so every rank ranks from the same
+    numbers; a rank whose reads fail makes every rank raise."""
+    from galah_tpu_torch.parallel import distributed
+
+    def read_all(ps: Sequence[str]) -> List[GenomeStats]:
+        with ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
+            return list(pool.map(read_genome_stats, ps))
+
+    if distributed.process_count() <= 1:
+        return dict(zip(paths, read_all(paths)))
+    mine = distributed.host_shard(list(paths))
+    err = None
+    local_stats: List[GenomeStats] = []
+    try:
+        local_stats = read_all(mine)
+    except Exception as e:  # re-raised on every rank below
+        err = e
+    distributed.raise_if_any_host_failed(err)
+    local = np.array([[s.num_contigs, s.num_ambiguous_bases, s.n50]
+                      for s in local_stats],
+                     dtype=np.int64).reshape(len(mine), 3)
+    full = distributed.allgather_host_rows(len(paths), local,
+                                           fill=np.int64(0))
+    return {p: GenomeStats(num_contigs=int(full[i, 0]),
+                           num_ambiguous_bases=int(full[i, 1]),
+                           n50=int(full[i, 2]))
+            for i, p in enumerate(paths)}
+
+
 def filter_and_order_genomes(
     genome_paths: Sequence[str],
     table: QualityTable,
@@ -171,9 +207,8 @@ def filter_and_order_genomes(
         kept.append(p)
 
     stats: Dict[str, GenomeStats] = {}
-    if formula in ("Parks2020_reduced", "dRep"):
-        with ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
-            stats = dict(zip(kept, pool.map(read_genome_stats, kept)))
+    if formula in ("Parks2020_reduced", "dRep") and kept:
+        stats = _assembly_stats(kept, threads)
 
     def score(p: str) -> float:
         q = retrieve(table, p)

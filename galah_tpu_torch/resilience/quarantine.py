@@ -11,6 +11,7 @@ manifest's bytes are ``galah_tpu``'s.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -107,21 +108,41 @@ def preflight_quarantine(
     kept paths, the manifest), both in input order; each quarantined
     genome is a ``quarantine`` event. With a ``timing.StageClock``,
     the preflight is stage ``preflight-genomes`` and the count
-    ``quarantined-genomes``."""
+    ``quarantined-genomes``.
+
+    In a multi-process job each rank validates its strided shard and
+    the bad masks are OR-exchanged, so every rank drops the same
+    genomes (a peer's genome is recorded as ``corrupt``, "flagged by a
+    peer host", as in ``galah_tpu``)."""
+    import numpy as np
+
+    from galah_tpu_torch.parallel import distributed
+
     manifest = manifest if manifest is not None else QuarantineManifest()
     unique = list(dict.fromkeys(genome_paths))
-    verdicts = iter_prefetched(unique, validate, depth=threads)
-    if clock is not None:
-        with clock.stage("preflight-genomes"):
-            verdicts = list(verdicts)
+    mine = distributed.host_shard(unique)
+    verdicts = iter_prefetched(mine, validate, depth=threads)
+    bad = np.zeros(len(unique), dtype=np.uint8)
+    reasons = {}
+    with (clock.stage("preflight-genomes") if clock is not None
+          else contextlib.nullcontext()):
+        index = {p: i for i, p in enumerate(unique)}
+        for path, verdict in verdicts:
+            if verdict is not None:
+                bad[index[path]] = 1
+                reasons[path] = verdict
+        if distributed.process_count() > 1:
+            bad = distributed.exchange("quarantine-mask", bad).max(
+                axis=0).astype(np.uint8)
     dropped = set()
-    for path, verdict in verdicts:
-        if verdict is not None:
-            manifest.add(path, *verdict)
-            dropped.add(path)
-            reason, detail = verdict
-            obs_events.record("quarantine", genome=path, reason=reason,
-                              detail=detail)
+    for i in np.nonzero(bad)[0].tolist():
+        path = unique[i]
+        reason, detail = reasons.get(path,
+                                     ("corrupt", "flagged by a peer host"))
+        manifest.add(path, reason, detail)
+        dropped.add(path)
+        obs_events.record("quarantine", genome=path, reason=reason,
+                          detail=detail)
     if clock is not None:
         clock.count("quarantined-genomes", len(dropped))
     return [p for p in genome_paths if p not in dropped], manifest
