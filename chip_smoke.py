@@ -161,6 +161,26 @@ Phases, each of which exits nonzero when it fails:
    give one nvcc span. Phase
    4j's stopped run (b) also writes a report and a trace: the report
    must say stop requested by SIGTERM at ``greedy-round-saved``;
+4r. profiled runs: phases 4 (skani 512), 4b (finch 1024), 4d (dashing
+   1024) and 4e (finch 1000 streamed) again as ``python -m
+   galah_tpu_torch cluster`` processes with ``--profile-trace-dir``,
+   ``--run-report``, ``GALAH_OBS_LEDGER``, ``GALAH_OBS_OPENMETRICS`` and
+   ``GALAH_OBS_HEARTBEAT_S=0.25``: each TSV must equal its phase's; each
+   report's ``device_costs`` calls, its dispatches and the
+   ``torch.profiler`` trace's kernel events (named ``<kernel>_kernel``)
+   must be the phase's launches, kernel for kernel; the kernels' summed
+   device seconds must lie within the run wall and no bandwidth or
+   operations share exceed 1.05; the streamed run's flow critical path
+   must name ingest, sketch and pairs with blame summing to the wall
+   within 1% (``flow analyze`` exit 0); three ``perf record``s and a
+   ``perf check`` over the run's ledger must exit 0, ``top DIR --json``
+   must give the last beat and every line of the ``.prom`` page must
+   parse. It prints each kernel's in-run device ms a launch (beside
+   phase 5's isolated time at the end), the card's busy share of each
+   run wall from the trace's kernel, memcpy and memset spans, the trace
+   bytes, and finch 1024's wall beside a control process with
+   ``GALAH_OBS_PROFILE=0 GALAH_OBS_FLOW=0`` and no profiler trace (same
+   TSV, same launches, no device_costs entry, no flow stage);
 4p. the fleet: phase 4's genomes through ``python -m galah_tpu_torch
    fleet run --workers 2 --shards 4 --threads 4`` with a shared cache
    and a supervisor report; one worker is SIGKILLed once it has beaten
@@ -233,6 +253,7 @@ import dataclasses
 import filecmp
 import gc
 import json
+import re
 import logging
 import math
 import os
@@ -2656,6 +2677,261 @@ def phase_obs(root, runs, threads, tag):
     return out
 
 
+# the Prometheus text format: a comment line, or a sample line
+_PROM_LINE = re.compile(
+    r'^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .*|'
+    r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|'
+    r'\\.)*",?)*\})? -?([0-9.eE+-]+|Inf|NaN))$')
+
+
+def profiler_trace(trace_dir, kernels):
+    """The one ``*.pt.trace.json`` a --profile-trace-dir run wrote:
+    (its bytes, {kernel: kernel events whose name holds
+    ``<kernel>_kernel``}, {kernel: their summed span seconds}, the
+    seconds the card was busy in kernel, memcpy and memset spans,
+    overlaps merged)."""
+    names = [f for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        raise PhaseError(f"{trace_dir}: {len(names)} profiler traces, "
+                         "expected 1")
+    path = os.path.join(trace_dir, names[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    counts = {k: 0 for k in kernels}
+    span_s = {k: 0.0 for k in kernels}
+    spans = []
+    for ev in events:
+        cat = str(ev.get("cat", "")).lower()
+        if ev.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                              "gpu_memset"):
+            continue
+        spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+        if cat == "kernel":
+            for k in kernels:
+                if f"{k}_kernel" in ev.get("name", ""):
+                    counts[k] += 1
+                    span_s[k] += float(ev["dur"]) / 1e6
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return os.path.getsize(path), counts, span_s, busy / 1e6
+
+
+def run_tool(argv):
+    """``python -m galah_tpu_torch`` `argv` (a file-reading tool): its
+    exit code and standard output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "galah_tpu_torch", *argv],
+                          cwd=here, capture_output=True, text=True,
+                          check=False)
+    return proc.returncode, proc.stdout
+
+
+def phase_profiled(root, runs, threads, tag):
+    """Phase 4r: each of `runs`, {what: (argv, phase TSV bytes, phase
+    launches, phase wall)}, as a ``python -m galah_tpu_torch cluster``
+    process with
+    --profile-trace-dir, --run-report, GALAH_OBS_LEDGER,
+    GALAH_OBS_OPENMETRICS and GALAH_OBS_HEARTBEAT_S; then the tools
+    (``flow analyze``, ``perf record|check``, ``top --json``) over its
+    files, and finch 1024 again with GALAH_OBS_PROFILE=0 and
+    GALAH_OBS_FLOW=0 as the control. Returns the record's entries."""
+    from galah_tpu_torch.kernels import KERNELS
+    from galah_tpu_torch.obs import heartbeat as obs_heartbeat
+    from galah_tpu_torch.obs import report as report_mod
+
+    out = {}
+    for what, (argv, tsv_want, launches, phase_wall) in runs.items():
+        d = os.path.join(root, "prof_" + what.replace(" ", "_"))
+        os.makedirs(d)
+        tsv = os.path.join(d, "clusters.tsv")
+        rep_path = os.path.join(d, "run_report.json")
+        ledger = os.path.join(d, "ledger.jsonl")
+        prom = os.path.join(d, "metrics.prom")
+        env = dict(os.environ, GALAH_OBS_LEDGER=ledger,
+                   GALAH_OBS_OPENMETRICS=prom,
+                   GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
+        wall = run_cli_process(
+            [*argv, *threads, "--output-cluster-definition", tsv,
+             "--run-report", rep_path, "--profile-trace-dir",
+             os.path.join(d, "trace")], os.path.join(d, "log.txt"), env)
+        with open(tsv, "rb") as fh:
+            if fh.read() != tsv_want:
+                raise PhaseError(f"profiled {what}: the TSV differs from "
+                                 "the phase's")
+        rep = report_mod.load(rep_path)
+        problems = report_mod.validate(rep)
+        if problems:
+            raise PhaseError(f"profiled {what}: report not valid: "
+                             f"{problems[:3]}")
+        disp = rep["dispatch"]["dispatches"]
+        want = {k: v for k, v in launches.items() if v}
+        if disp != want:
+            raise PhaseError(f"profiled {what}: dispatches {disp}, the "
+                             f"phase's launches {want}")
+        dc = rep["device_costs"]
+        entries = dc["entries"]
+        calls = {k: e["calls"] for k, e in entries.items() if e["calls"]}
+        if calls != disp:
+            raise PhaseError(f"profiled {what}: device_costs calls {calls}"
+                             f" are not the dispatches {disp}")
+        trace_bytes, in_trace, span_s, busy_s = profiler_trace(
+            os.path.join(d, "trace"), KERNELS)
+        in_trace = {k: v for k, v in in_trace.items() if v}
+        if in_trace != disp:
+            raise PhaseError(f"profiled {what}: the profiler trace's "
+                             f"kernel events {in_trace} are not the "
+                             f"launches {disp}")
+        run_s = rep["run"]["duration_s"]
+        dev_s = sum(e["device_s"] or 0.0 for e in entries.values())
+        if not 0 < dev_s <= run_s:
+            raise PhaseError(f"profiled {what}: kernels' device seconds "
+                             f"{dev_s} outside (0, run wall {run_s}]")
+        for name, e in entries.items():
+            for key in ("bandwidth_utilization", "flops_utilization"):
+                if e.get(key) is None and e["calls"]:
+                    raise PhaseError(f"profiled {what}: {name} {key} is "
+                                     "null on the card")
+                if (e.get(key) or 0.0) > 1.05:
+                    raise PhaseError(f"profiled {what}: {name} {key} "
+                                     f"{e[key]} > 1.05")
+        rc, text = run_tool(["top", d, "--json"])
+        beats, torn = obs_heartbeat.load(d)
+        if rc != 0 or not beats or json.loads(text) != beats[-1]:
+            raise PhaseError(f"profiled {what}: `top --json` exit {rc} "
+                             "is not the last beat")
+        with open(prom) as fh:
+            page = fh.read().splitlines()
+        bad = [ln for ln in page if not _PROM_LINE.match(ln)]
+        if not page or bad:
+            raise PhaseError(f"profiled {what}: the OpenMetrics page has "
+                             f"{len(page)} lines, unparsed {bad[:3]}")
+        for _ in range(3):
+            rc, _text = run_tool(["perf", "--ledger", ledger, "record",
+                                  rep_path, "--source", "cluster"])
+            if rc != 0:
+                raise PhaseError(f"profiled {what}: perf record exit {rc}")
+        rc, text = run_tool(["perf", "--ledger", ledger, "check"])
+        if rc != 0:
+            raise PhaseError(f"profiled {what}: perf check exit {rc}: "
+                             f"{text[-500:]}")
+        entry = {"wall_s": wall, "run_s": run_s, "trace_bytes": trace_bytes,
+                 "busy_s": busy_s, "busy_share": busy_s / run_s,
+                 "phase_wall_s": phase_wall,
+                 "busy_share_of_phase_wall": busy_s / phase_wall,
+                 "device_s": dev_s, "dispatches": disp,
+                 "hbm_peak_bytes": dc["hbm"]["peak_bytes"],
+                 "beats": len(beats), "prom_lines": len(page),
+                 "perf_check": text.strip().splitlines()[-1],
+                 "kernels": {k: {"calls": e["calls"],
+                                 "trace_ms": 1e3 * span_s[k],
+                                 "trace_ms_per_launch": (
+                                     1e3 * span_s[k] / e["calls"]
+                                     if e["calls"] else None),
+                                 "device_ms": 1e3 * (e["device_s"] or 0.0),
+                                 "ms_per_launch": (1e3 * e["device_s"]
+                                                   / e["calls"]
+                                                   if e["calls"] else None),
+                                 "dispatch_ms": 1e3 * e["dispatch_wall_s"],
+                                 "bandwidth_utilization":
+                                     e["bandwidth_utilization"],
+                                 "flops_utilization":
+                                     e["flops_utilization"]}
+                             for k, e in entries.items()}}
+        cp = (rep.get("flow") or {}).get("critical_path")
+        if cp:
+            blame = sum(v["blame_s"] for v in cp["stages"].values())
+            entry["flow"] = {"bottleneck": cp["bottleneck"],
+                             "blame_s": {k: v["blame_s"] for k, v
+                                         in cp["stages"].items()},
+                             "e2e_wall_s": cp["e2e_wall_s"]}
+            if "streamed" in what:
+                if not {"ingest", "sketch", "pairs"} <= set(cp["stages"]):
+                    raise PhaseError(f"profiled {what}: the critical path "
+                                     f"names {sorted(cp['stages'])}")
+                if abs(blame - cp["e2e_wall_s"]) > 0.01 * cp["e2e_wall_s"]:
+                    raise PhaseError(f"profiled {what}: blame {blame} s "
+                                     f"against the wall "
+                                     f"{cp['e2e_wall_s']} s")
+                rc, text = run_tool(["flow", "analyze", rep_path])
+                if rc != 0:
+                    raise PhaseError(f"profiled {what}: flow analyze exit "
+                                     f"{rc}")
+                print(text.rstrip())
+        elif "streamed" in what:
+            raise PhaseError(f"profiled {what}: no flow critical path")
+        print(f"profiled {what}: TSV byte-identical; device_costs calls "
+              f"== dispatches == profiler kernel events {disp}; process "
+              f"{wall:.2f} s, run {run_s:.3f} s; kernels' device "
+              f"{dev_s * 1e3:.2f} ms (events), "
+              f"{1e3 * sum(span_s.values()):.2f} ms (trace spans); card "
+              f"busy (kernel + memcpy + memset spans) {busy_s:.3f} s = "
+              f"{100 * busy_s / run_s:.2f}% of the profiled run wall, "
+              f"{100 * busy_s / phase_wall:.2f}% of the phase's unprofiled "
+              f"wall {phase_wall:.2f} s; trace {trace_bytes} B; HBM "
+              f"high-water "
+              f"{dc['hbm']['peak_bytes']} B; {len(beats)} beats; "
+              f".prom {len(page)} lines parsed; {entry['perf_check']} {tag}")
+        for k, e in sorted(entry["kernels"].items()):
+            if e["calls"]:
+                print(f"profiled {what} {k}: {e['calls']} launches, trace "
+                      f"spans {e['trace_ms']:.3f} ms "
+                      f"({e['trace_ms_per_launch']:.4f} ms a launch), "
+                      f"events {e['device_ms']:.3f} ms "
+                      f"({e['ms_per_launch']:.4f} ms a launch), dispatch "
+                      f"{e['dispatch_ms']:.2f} ms, "
+                      f"bandwidth {100 * e['bandwidth_utilization']:.2f}% "
+                      f"ops {100 * e['flops_utilization']:.2f}% of the "
+                      f"peaks {tag}")
+        out[what] = entry
+    seen = set()
+    for what in runs:
+        seen.update(out[what]["dispatches"])
+    missing = [k for k in KERNELS if k not in seen]
+    if missing:
+        raise PhaseError(f"profiled: kernels {missing} launched in none "
+                         "of the runs")
+    # the control: finch 1024 with the accounting and flow tracing off
+    # (and no profiler trace): same TSV, same launches, no fallback
+    argv, tsv_want, _launches, _wall = runs["finch 1024"]
+    d = os.path.join(root, "prof_control")
+    os.makedirs(d)
+    tsv = os.path.join(d, "clusters.tsv")
+    rep_path = os.path.join(d, "run_report.json")
+    env = dict(os.environ, GALAH_OBS_PROFILE="0", GALAH_OBS_FLOW="0",
+               GALAH_OBS_LEDGER=os.path.join(d, "ledger.jsonl"),
+               GALAH_OBS_OPENMETRICS=os.path.join(d, "metrics.prom"),
+               GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
+    wall = run_cli_process(
+        [*argv, *threads, "--output-cluster-definition", tsv,
+         "--run-report", rep_path], os.path.join(d, "log.txt"), env)
+    rep = report_mod.load(rep_path)
+    with open(tsv, "rb") as fh:
+        same = fh.read() == tsv_want
+    disp = rep["dispatch"]["dispatches"]
+    if not same or disp != out["finch 1024"]["dispatches"] \
+            or rep["device_costs"]["entries"] \
+            or (rep.get("flow") or {}).get("stages"):
+        raise PhaseError(f"profiled control: TSV equal {same}, dispatches "
+                         f"{disp}, device_costs "
+                         f"{sorted(rep['device_costs']['entries'])}, flow "
+                         f"stages {(rep.get('flow') or {}).get('stages')}")
+    out["control_finch_1024"] = {"wall_s": wall,
+                                 "run_s": rep["run"]["duration_s"]}
+    print(f"profiled control: finch 1024 with GALAH_OBS_PROFILE=0 "
+          f"GALAH_OBS_FLOW=0 and no profiler trace: TSV and launches "
+          f"equal; process {wall:.2f} s, run {rep['run']['duration_s']:.3f}"
+          f" s, against {out['finch 1024']['wall_s']:.2f} s / "
+          f"{out['finch 1024']['run_s']:.3f} s profiled {tag}")
+    return out
+
+
 def phase_mesh(torch, cli, reset_launches, launches_now, runs, root, tag):
     """Phase 4q (a): each of `runs`, {what: (argv, phase TSV bytes, phase
     wall, phase launches, slot counts, the kernel the mesh shards)},
@@ -3506,6 +3782,30 @@ def main(argv=None) -> int:
                         tsv4d, launches_h, res_h.clock, wall_h)},
             threads, tag)
 
+        # -- phase 4r: profiled runs ----------------------------------------
+        print(f"phase 4r starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(tsv_e, "rb") as fh:
+            tsv4e = fh.read()
+        prof_out = phase_profiled(root, {
+            "skani 512": (["cluster", "-d", skani_dir, "--ani", "95",
+                           "--device", "cuda", "--precluster-method",
+                           "skani"], tsv4, launches, wall),
+            "finch 1024": (["cluster", "-f", *paths, "--precluster-method",
+                            "finch", "--cluster-method", "skani", "--ani",
+                            "95", "--device", "cuda"], tsv4b, launches_f,
+                           wall_f),
+            "dashing 1024": (["cluster", "-f", *paths,
+                              "--precluster-method", "dashing",
+                              "--cluster-method", "skani", "--ani", "95",
+                              "--checkm2-quality-report", report,
+                              "--device", "cuda"], tsv4d, launches_h,
+                             wall_h),
+            "finch 1000 streamed": (finch_e, tsv4e, launches_e, wall_e)},
+            threads, tag)
+
         # -- phase 4p: the fleet on the card --------------------------------
         print(f"phase 4p starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -4290,6 +4590,23 @@ def main(argv=None) -> int:
         "validate_rep_pairs": {
             "pairs": cli_out["validations"]["validate"][0].rep_pairs,
             "seconds": cli_out["validations"]["validate"][0].rep_seconds}}
+    # each kernel's mean ms a launch inside 4r's runs (its trace spans,
+    # and the CUDA event pairs of device_costs), beside phase 5's
+    # isolated time (the kernel alone where it was timed)
+    for k in record["kernels"]:
+        k["in_run_ms_4r"] = {
+            what: {"trace": run["kernels"][k["name"]]["trace_ms_per_launch"],
+                   "events": run["kernels"][k["name"]]["ms_per_launch"]}
+            for what, run in prof_out.items()
+            if k["name"] in run.get("kernels", {})
+            and run["kernels"][k["name"]]["calls"]}
+        isolated = k.get("kernel_only_ms", k["ms"])
+        print(f"in-run vs isolated {k['name']}: " + ", ".join(
+            f"{what} {v['trace']:.4f} (events {v['events']:.4f})"
+            for what, v in k["in_run_ms_4r"].items())
+            + f" ms a launch (4r trace spans) against {isolated:.4f} ms "
+            f"(phase 5) {tag}")
+    record["phase_4r_profiled"] = prof_out
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")
     print(json.dumps(record))

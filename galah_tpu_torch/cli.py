@@ -24,6 +24,12 @@ help strings and output formats:
   ``query``, ``remove`` and ``fsck``, over directories interchangeable
   with ``galah-tpu index``'s;
 * ``report``: render run reports, or ``--diff`` two, of either package;
+* ``perf``: ``record``, ``history`` and ``check`` over the cross-run
+  perf ledger (``GALAH_OBS_LEDGER`` or ``--ledger``), a file either
+  package reads and appends to;
+* ``flow analyze``: the critical path of a run report's flow telemetry;
+* ``top``: the newest heartbeat of a run directory, or a fleet
+  directory's per-shard grid;
 * ``fleet``: ``run`` shards the quality-ordered genomes, supervises one
   preemptible ``cluster`` worker subprocess a shard (exit 75, death by
   signal and a stale heartbeat mean preemption; the shard is reassigned
@@ -33,12 +39,17 @@ help strings and output formats:
 
 ``cluster`` and ``index`` write a run report (``--run-report`` or
 ``GALAH_OBS_REPORT``), a Chrome trace (``--trace-events`` or
-``GALAH_OBS_TRACE_EVENTS``) and, with ``GALAH_OBS_HEARTBEAT_S`` set, a
-``heartbeat.jsonl`` beside the report (``obs/``); a preempted or failed
-run still writes its report and closes its trace.
+``GALAH_OBS_TRACE_EVENTS``), a ledger entry (``GALAH_OBS_LEDGER``) and,
+with ``GALAH_OBS_HEARTBEAT_S`` set, a ``heartbeat.jsonl`` beside the
+report (``obs/``); a preempted or failed run still writes its report
+and closes its trace. ``cluster --profile-trace-dir DIR`` writes a
+``torch.profiler`` trace of the clustering (host ops and, on the card,
+every kernel) as ``DIR/*.pt.trace.json``, for TensorBoard or Perfetto.
+``report``, ``perf``, ``flow`` and ``top`` read files only and import
+no torch.
 
 Each takes ``-v``/``-q``, ``--full-help`` and ``--full-help-roff``, and
-each but ``report`` the device (``--device``, cuda unless the CPU is
+each but ``report``, ``perf``, ``flow`` and ``top`` the device (``--device``, cuda unless the CPU is
 asked for; ``fleet`` takes it on ``run``, and passes it to every
 worker).
 Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
@@ -75,10 +86,9 @@ from galah_tpu_torch.resilience import interrupt
 logger = logging.getLogger("galah_tpu_torch")
 
 # flags of `galah-tpu`'s subcommands that this port does not support
-# yet: the XLA profiler trace and the JAX platform (`cluster`'s
-# --rep-scan-window parses, from the library API, and is refused after
-# parsing)
-UNSUPPORTED_FLAGS = ("--profile-trace-dir", "--platform")
+# yet: the JAX platform (`cluster`'s --rep-scan-window parses, from the
+# library API, and is refused after parsing)
+UNSUPPORTED_FLAGS = ("--platform",)
 
 
 def set_log_level(verbose: bool = False, quiet: bool = False) -> None:
@@ -363,6 +373,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "cache (also via GALAH_TPU_CACHE); sketches are "
                         "reused across runs when genome files are "
                         "unchanged")
+    c.add_argument("--profile-trace-dir",
+                   help="Capture a torch.profiler trace of the "
+                        "clustering (host ops and, on the card, every "
+                        "kernel and copy) into this directory as "
+                        "*.pt.trace.json (TensorBoard- and "
+                        "Perfetto-loadable)")
     c.add_argument("--trace-events",
                    help="Write a Chrome-trace-format event timeline "
                         "(stage spans, nvcc build spans, resilience "
@@ -468,11 +484,124 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Compare exactly two reports: per-stage "
                          "wall-clock, dispatch/funnel, and per-metric "
                          "deltas")
+    pf, fl, tp = _add_tool_parsers(sub)
     ft = _add_fleet_parser(sub)
     parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
                                  "dist": dd, "index": ix, "report": rp,
+                                 "perf": pf, "flow": fl, "top": tp,
                                  "fleet": ft}
     return parser
+
+
+def _add_tool_parsers(sub) -> Tuple[argparse.ArgumentParser, ...]:
+    """`perf`, `flow` and `top`: ``galah-tpu``'s file-reading tools, with
+    its flags, exit codes and help."""
+    pf = sub.add_parser(
+        "perf",
+        help="Record, inspect, and gate on the cross-run performance "
+             "ledger",
+        description="The append-only perf ledger (JSONL, fed "
+                    "automatically by runs with GALAH_OBS_LEDGER set) "
+                    "keys every entry by backend, device topology, "
+                    "workload fingerprint (N/K/P), and strategy. "
+                    "`record` appends a run report's metrics, "
+                    "`history` prints one metric's trajectory, and "
+                    "`check` compares the newest entry against a "
+                    "median±MAD noise band over the last entries of "
+                    "the same key, exiting 1 on regression")
+    _add_verbosity(pf)
+    pf.add_argument("--ledger", default=None,
+                    help="Ledger file (default: GALAH_OBS_LEDGER)")
+    pfsub = pf.add_subparsers(dest="perf_action")
+    pfr = pfsub.add_parser(
+        "record", help="Append a run report's metrics to the ledger")
+    pfr.add_argument("report", metavar="REPORT",
+                     help="run_report.json to ingest")
+    pfr.add_argument("--source", default="manual",
+                     help="Key component naming what produced the "
+                          "report (default: manual)")
+    pfh = pfsub.add_parser(
+        "history", help="Print one metric's cross-run trajectory")
+    pfh.add_argument("metric", metavar="METRIC",
+                     help="Metric name (e.g. run.duration_s, "
+                          "stage.profile_s)")
+    pfh.add_argument("--key", default=None,
+                     help="Only entries whose canonical key contains "
+                          "this substring")
+    pfc = pfsub.add_parser(
+        "check",
+        help="Gate: newest entry vs the same-key noise band "
+             "(exit 1 on regression)")
+    pfc.add_argument("--report", default=None,
+                     help="Check this run_report.json against the "
+                          "ledger instead of the ledger's own newest "
+                          "entry (nothing is appended)")
+    pfc.add_argument("--source", default="manual",
+                     help="Key source component for --report entries")
+    pfc.add_argument("--window", type=int, default=None,
+                     help="Same-key history window (default: "
+                          "GALAH_OBS_LEDGER_WINDOW)")
+    pfc.add_argument("--mad-k", type=float, default=None,
+                     help="Noise-band width in MADs (default: "
+                          "GALAH_OBS_LEDGER_MAD_K)")
+    pfc.add_argument("--min-history", type=int, default=None,
+                     help="Entries required before a verdict "
+                          "(default: 3)")
+    pfc.add_argument("--soft", action="store_true",
+                     help="Report regressions but exit 0: the CI mode "
+                          "while a key is still accumulating "
+                          "trustworthy history")
+    fl = sub.add_parser(
+        "flow",
+        help="Critical-path analysis of a run's flow telemetry",
+        description="Item-level flow tracing (GALAH_OBS_FLOW, on by "
+                    "default) records per-stage service/wait time and "
+                    "inter-stage queue latencies into the run report's "
+                    "`flow` section; `analyze` recomputes the critical "
+                    "path from a report and prints per-stage blame "
+                    "shares that sum to the end-to-end wall. Exit "
+                    "codes: 0 analysis printed, 1 unreadable report or "
+                    "no flow telemetry, 2 usage error")
+    _add_verbosity(fl)
+    flsub = fl.add_subparsers(dest="flow_action")
+    fla = flsub.add_parser(
+        "analyze",
+        help="Print the critical path of one run report's flow "
+             "telemetry")
+    fla.add_argument("report", metavar="REPORT",
+                     help="run_report.json carrying a `flow` section")
+    fla.add_argument("--json", action="store_true",
+                     help="Emit the critical-path attribution as JSON "
+                          "instead of the rendered table")
+    tp = sub.add_parser(
+        "top",
+        help="Live pipeline view from a run's heartbeat.jsonl (or a "
+             "whole fleet dir)",
+        description="Render the newest record of the heartbeat file a "
+                    "run with GALAH_OBS_HEARTBEAT_S set writes beside "
+                    "its run report: per-stage occupancy bars, queue "
+                    "depths, and item throughput. Pointed at a fleet "
+                    "dir (auto-detected from fleet_plan.json / "
+                    "fleet_events.jsonl) it renders the per-shard "
+                    "grid: state, attempt chain, beat age, occupancy, "
+                    "rss, plus the scheduler event tail. A torn tail "
+                    "line from a run killed mid-write is skipped, never "
+                    "an error. Exit codes: 0 rendered, 1 no "
+                    "heartbeat/fleet data, 2 usage error")
+    _add_verbosity(tp)
+    tp.add_argument("directory", metavar="DIR",
+                    help="Run artifact directory, a heartbeat.jsonl "
+                         "path directly, or a fleet dir")
+    tp.add_argument("--follow", action="store_true",
+                    help="Keep refreshing until interrupted")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="Refresh period in seconds with --follow "
+                         "(default: 2.0)")
+    tp.add_argument("--json", action="store_true",
+                    help="Emit the latest beat (or, for a fleet dir, "
+                         "the fleet grid) as JSON instead of the "
+                         "rendered page")
+    return pf, fl, tp
 
 
 def parse_args(argv: Optional[Sequence[str]],
@@ -572,6 +701,7 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
     from galah_tpu_torch.parallel import distributed
     from galah_tpu_torch.resilience.quarantine import (QuarantineManifest,
                                                        manifest_output_dir)
+    from galah_tpu_torch.timing import trace_context
 
     device = clock.device
     # join the process group when torchrun's variables say so (a no-op
@@ -642,7 +772,8 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
             clusterer.checkpoint = ckpt
         logger.info("Clustering %d genomes on %s ..", len(genomes), device)
         try:
-            clusters = clusterer.cluster()
+            with trace_context(args.profile_trace_dir, device):
+                clusters = clusterer.cluster()
         except interrupt.PreemptionRequested as e:
             # everything before the boundary is durable: record the stop
             # and leave without outputs
@@ -967,6 +1098,170 @@ def run_report_cmd(args: argparse.Namespace) -> int:
     return 0
 
 
+def run_perf_cmd(args: argparse.Namespace) -> int:
+    """`perf record|history|check` over the ledger (``--ledger``, else
+    ``GALAH_OBS_LEDGER``), with ``galah-tpu perf``'s output and exit
+    codes: 1 with no ledger, no action, an unreadable report or a
+    regression (``--soft``: reported, exit 0). File I/O only."""
+    from galah_tpu_torch.obs import ledger as ledger_mod
+    from galah_tpu_torch.obs import report as report_mod
+
+    ledger_path = args.ledger or env_value("GALAH_OBS_LEDGER")
+    if not ledger_path:
+        logger.error("no ledger: pass --ledger or set GALAH_OBS_LEDGER")
+        return 1
+    action = args.perf_action
+    if action is None:
+        logger.error("perf needs an action: record, history, or check")
+        return 1
+
+    if action == "record":
+        try:
+            rep = report_mod.load(args.report)
+        except (OSError, ValueError) as e:  # missing file, bad JSON
+            logger.error("%s: cannot read run report (%s)", args.report, e)
+            return 1
+        entry = ledger_mod.entry_from_report(rep, args.source)
+        ledger_mod.append(ledger_path, entry)
+        print(f"recorded {len(entry['metrics'])} metric(s) to "
+              f"{ledger_path}")
+        return 0
+
+    entries, skipped = ledger_mod.read(ledger_path)
+    if skipped:
+        logger.warning("%s: skipped %d torn/corrupt line(s)", ledger_path,
+                       skipped)
+
+    if action == "history":
+        rows = ledger_mod.history(entries, args.metric)
+        if args.key:
+            rows = [r for r in rows if args.key in r["key"]]
+        if not rows:
+            print(f"no entries carry metric {args.metric!r}")
+            return 0
+        for r in rows:
+            ts = time.strftime("%Y-%m-%d %H:%M",
+                               time.localtime(r["ts"] or 0))
+            print(f"{ts}  {r['sha'] or '-':>9}  {r['value']:<14.6g} "
+                  f"{r['key']}")
+        return 0
+
+    if args.report:
+        try:
+            rep = report_mod.load(args.report)
+        except (OSError, ValueError) as e:
+            logger.error("%s: cannot read run report (%s)", args.report, e)
+            return 1
+        current = ledger_mod.entry_from_report(rep, args.source)
+        history = entries
+    else:
+        if not entries:
+            print("ledger is empty; nothing to check")
+            return 0
+        current, history = entries[-1], entries[:-1]
+    window = (args.window if args.window is not None
+              else int(env_value("GALAH_OBS_LEDGER_WINDOW")))
+    mad_k = (args.mad_k if args.mad_k is not None
+             else float(env_value("GALAH_OBS_LEDGER_MAD_K")))
+    min_history = (args.min_history if args.min_history is not None
+                   else ledger_mod.MIN_HISTORY)
+    verdicts = ledger_mod.check(history, current, window=window,
+                                mad_k=mad_k, min_history=min_history)
+    bad = ledger_mod.regressions(verdicts)
+    counts: Dict[str, int] = {}
+    for v in verdicts:
+        counts[v["verdict"]] = counts.get(v["verdict"], 0) + 1
+    for v in verdicts:
+        if v["verdict"] in ("ok", "insufficient-history"):
+            continue
+        band = v.get("band")
+        band_s = (f" band=[{band[0]:.6g}, {band[1]:.6g}] "
+                  f"(median {v['median']:.6g}, n={v['n_history']})"
+                  if band else "")
+        print(f"{v['verdict'].upper()}: {v['metric']} = "
+              f"{v['value']:.6g}{band_s}")
+    summary = ", ".join(f"{k}={counts[k]}" for k in sorted(counts)) \
+        or "no comparable metrics"
+    print(f"perf check [{ledger_mod.key_of(current)}]: {summary}")
+    if bad and args.soft:
+        print(f"--soft: {len(bad)} regression(s) reported, not gated")
+        return 0
+    return 1 if bad else 0
+
+
+def run_flow_cmd(args: argparse.Namespace) -> int:
+    """`flow analyze REPORT [--json]`: the critical path of a report's
+    flow section, as ``galah-tpu flow analyze`` prints it; 1 on an
+    unreadable report or one with no flow telemetry. File I/O only."""
+    import json
+
+    from galah_tpu_torch.obs import flow as flow_mod
+    from galah_tpu_torch.obs import report as report_mod
+
+    if args.flow_action is None:
+        logger.error("flow needs an action: analyze")
+        return 1
+    try:
+        rep = report_mod.load(args.report)
+    except (OSError, ValueError) as e:  # missing file, bad JSON
+        logger.error("%s: cannot read run report (%s)", args.report, e)
+        return 1
+    snap = rep.get("flow") or {}
+    if not snap.get("stages"):
+        logger.error("%s: no flow telemetry (run a pipelined "
+                     "subcommand with GALAH_OBS_FLOW=1)", args.report)
+        return 1
+    wall = rep.get("run", {}).get("duration_s") or 0.0
+    cp = flow_mod.critical_path(snap, float(wall))
+    if args.json:
+        print(json.dumps(cp, indent=1, sort_keys=True))
+        return 0
+    for line in flow_mod.render_critical_path(cp):
+        print(line)
+    return 0
+
+
+def run_top_cmd(args: argparse.Namespace) -> int:
+    """`top DIR [--follow] [--interval S] [--json]`: the newest beat of
+    a run directory (or heartbeat file), or a fleet directory's
+    per-shard grid; 0 rendered, 1 no data. File I/O only; a torn tail
+    line is skipped."""
+    import json
+
+    from galah_tpu_torch.obs import fleet_view
+    from galah_tpu_torch.obs import heartbeat as heartbeat_mod
+
+    interval = max(float(args.interval or 2.0), 0.1)
+    fleet_mode = (os.path.isdir(args.directory)
+                  and fleet_view.is_fleet_dir(args.directory))
+    while True:
+        if fleet_mode:
+            grid = fleet_view.fleet_grid(args.directory)
+            ok = bool(grid and (grid["shards"] or grid["events"]))
+            if args.json:
+                sys.stdout.write(json.dumps(
+                    grid or {}, indent=1, sort_keys=True) + "\n")
+            else:
+                sys.stdout.write(fleet_view.render_fleet_grid(
+                    grid or {"fleet_dir": args.directory}))
+        else:
+            records, _torn = heartbeat_mod.load(args.directory)
+            ok = bool(records)
+            if args.json:
+                latest = records[-1] if records else None
+                sys.stdout.write(json.dumps(
+                    latest, indent=1, sort_keys=True) + "\n")
+            else:
+                sys.stdout.write(heartbeat_mod.render_latest(args.directory))
+        sys.stdout.flush()
+        if not args.follow:
+            return 0 if ok else 1
+        try:
+            time.sleep(interval)
+        except KeyboardInterrupt:
+            return 0
+
+
 def run_fleet(args: argparse.Namespace) -> int:
     """`fleet run`: shard, supervise and merge, with `run_cluster`'s
     telemetry lifecycle (the supervisor's own run report, with its
@@ -987,6 +1282,13 @@ def run_fleet(args: argparse.Namespace) -> int:
     report_path = args.run_report or env_value("GALAH_OBS_REPORT")
     obs.install_crash_hooks()
     obs.heartbeat.maybe_start(report_path, role="scheduler")
+    # every beat's OpenMetrics page carries the live cross-shard rollup
+    # (a dir not yet rollable omits the fleet series)
+    from galah_tpu_torch.obs import fleet_view
+
+    fleet_dir = args.fleet_dir
+    obs.openmetrics.set_rollup_provider(
+        lambda: fleet_view.rollup(fleet_dir))
     clock = None
     try:
         clock = StageClock(resolve_device(args.device))
@@ -1245,8 +1547,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         args.subcommand)
         return 0
     set_log_level(verbose=args.verbose, quiet=args.quiet)
-    if args.subcommand == "report":
-        return run_report_cmd(args)
+    # the file-reading tools: no device, no torch
+    tools = {"report": run_report_cmd, "perf": run_perf_cmd,
+             "flow": run_flow_cmd, "top": run_top_cmd}
+    if args.subcommand in tools:
+        return tools[args.subcommand](args)
     logger.info("galah_tpu_torch version %s", __version__)
     try:
         if args.subcommand == "cluster":

@@ -46,6 +46,7 @@ from galah_tpu_torch.cluster.cache import PairDistanceCache, pair_key
 from galah_tpu_torch.cluster.partition import partition_preclusters
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.obs import metrics as obs_metrics
+from galah_tpu_torch.obs import profile as obs_profile
 from galah_tpu_torch.ops import greedy_select
 from galah_tpu_torch.parallel import distributed
 from galah_tpu_torch.resilience import interrupt
@@ -88,6 +89,19 @@ def cluster(
     if skip_clusterer:
         logger.info("Preclustering and clustering methods are the same, "
                     "so reusing ANI values")
+    # the workload's N and sketch K: the perf ledger (obs/ledger.py)
+    # keys a run on them, so a run is compared only with runs of the
+    # same N and K (galah_tpu's gauges; only the finch store has a K)
+    obs_metrics.gauge(
+        "workload.n_genomes",
+        help="Genomes in this clustering run").set(float(len(genomes)))
+    sketch_k = getattr(getattr(preclusterer, "store", None),
+                       "sketch_size", None)
+    if sketch_k:
+        obs_metrics.gauge(
+            "workload.sketch_k",
+            help="MinHash sketch size of the precluster backend").set(
+            float(sketch_k))
     pre_cache = None
     if checkpoint:
         with clock.stage("checkpoint-read"):
@@ -97,9 +111,11 @@ def cluster(
         if checkpoint:
             with clock.stage("checkpoint-write"):
                 checkpoint.save_distances(pre_cache)
+    obs_profile.sample_memory("precluster-distances")
     # safe boundary: the distance pass, the largest recompute, is durable
     interrupt.check("distances-saved")
     preclusters = partition_preclusters(len(genomes), pre_cache.keys())
+    obs_profile.sample_memory("partition")
     logger.info("Found %d preclusters. The largest contained %d genomes",
                 len(preclusters), len(preclusters[0]) if preclusters else 0)
     done: Dict[int, List[List[int]]] = {}
@@ -123,6 +139,7 @@ def cluster(
     all_clusters: List[List[int]] = []
     for pc_index in range(len(preclusters)):
         all_clusters.extend(done[pc_index])
+    obs_profile.sample_memory("greedy-cluster")
     logger.info("Found %d clusters", len(all_clusters))
     return all_clusters
 

@@ -149,13 +149,55 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "nvcc build spans, resilience events; Perfetto-loadable) "
               "to this path; the --trace-events flag's env twin and "
               "loses to it"),
+    Flag("GALAH_OBS_PROFILE", kind="bool", default="1",
+         section="observability",
+         help="Per-kernel device costs (galah_tpu_torch/obs/profile.py): "
+              "launches, shapes, host dispatch and nvcc seconds, CUDA-"
+              "event device seconds, bytes and operations from the "
+              "launch shapes and their share of the card's peaks, and "
+              "the allocator's high-water, in the run report's "
+              "device_costs section. 0 skips the accounting; the "
+              "kernels launch either way"),
+    Flag("GALAH_OBS_FLOW", kind="bool", default="1",
+         section="observability",
+         help="Flow-level pipeline tracing (galah_tpu_torch/obs/flow.py): "
+              "flow ids on pipeline items, per-stage wait/service "
+              "histograms with blocked-on attribution, Chrome-trace "
+              "flow arrows, and the run report's flow section behind "
+              "`galah_tpu_torch flow analyze`; 0 turns every record "
+              "call into a no-op"),
     Flag("GALAH_OBS_HEARTBEAT_S", kind="float", default="0",
          section="observability",
          help="Period in seconds for the liveness heartbeat thread "
               "(galah_tpu_torch/obs/heartbeat.py): each beat durably "
-              "appends counters, gauges and occupancy to "
-              "heartbeat.jsonl beside the run report. 0 (the default) "
-              "disables it"),
+              "appends counters, gauges, queue depths and occupancy to "
+              "heartbeat.jsonl beside the run report, rendered by "
+              "`galah_tpu_torch top <dir>`. 0 (the default) disables "
+              "it"),
+    Flag("GALAH_OBS_OPENMETRICS", section="observability",
+         help="Render the metrics registry (and, in a fleet run, the "
+              "cross-shard blame rollup) to this path in Prometheus "
+              "text exposition format on every heartbeat tick "
+              "(galah_tpu_torch/obs/openmetrics.py; atomically "
+              "swapped, so a node-exporter textfile collector never "
+              "reads a torn page). Needs GALAH_OBS_HEARTBEAT_S > 0 to "
+              "tick; unset disables the exporter"),
+    Flag("GALAH_OBS_LEDGER", section="observability",
+         help="Append one entry per finalized run to this cross-run "
+              "perf ledger (JSONL, keyed by backend/topology/"
+              "workload/strategy; either package's ledger file); "
+              "inspect and gate with `galah_tpu_torch perf`. Unset "
+              "disables the ledger feed"),
+    Flag("GALAH_OBS_LEDGER_WINDOW", kind="int", default="8",
+         section="observability",
+         help="How many most-recent same-key ledger entries form the "
+              "`perf check` noise band"),
+    Flag("GALAH_OBS_LEDGER_MAD_K", kind="float", default="4",
+         section="observability",
+         help="Width of the `perf check` noise band, in MADs around "
+              "the window median (the MAD is floored at 1 percent of "
+              "the median so an all-identical history cannot gate on "
+              "epsilon)"),
 ) + _retry_family(
     "GALAH_IO_RETRY", "FASTA/IO retry policy (defaults: 3 attempts, "
     "0.1 s base delay)"

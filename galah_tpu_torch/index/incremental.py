@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.index import store as index_store
 from galah_tpu_torch.index.store import IndexState, IndexStore
 from galah_tpu_torch.io import diskcache
+from galah_tpu_torch.obs import flow as obs_flow
 from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops.minhash import sketch_rows
 from galah_tpu_torch.ops.pairwise import ani_to_jaccard, stats_to_ani_f64
@@ -93,6 +94,16 @@ def _sketch_store(params: Dict[str, Any], device: torch.device,
 
 
 # -- the plain host reference ------------------------------------------
+
+
+def iter_insert_sketches(paths: Sequence[str], sk_store, threads: int = 1
+                         ) -> Iterator[Tuple[str, Any]]:
+    """The insert and query sketch stage: (path, sketch) over the sketch
+    stream, each wait on it the ``index-sketch`` stage's upstream-empty
+    wait (``obs/flow.py``; ``galah_tpu/index/incremental
+    .iter_insert_sketches``)."""
+    return obs_flow.waited(iter_path_sketches(paths, sk_store, threads),
+                           "index-sketch")
 
 
 def merge_stats(a: np.ndarray, b: np.ndarray,
@@ -406,8 +417,8 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
     live[sorted(state.tombstones)] = False
     live_idx = np.flatnonzero(live).astype(np.int64)
     for b0 in range(0, len(fresh), batch):
-        got = list(iter_path_sketches(fresh[b0:b0 + batch], sk_store,
-                                      threads))
+        got = list(iter_insert_sketches(fresh[b0:b0 + batch], sk_store,
+                                        threads))
         g0 = state.n_genomes
         g1 = g0 + len(got)
         hashes = [np.asarray(sk.hashes, dtype=np.uint64) for _, sk in got]
@@ -464,7 +475,7 @@ def query(idx: IndexStore, paths: Sequence[str], device="cuda",
     sk_store = _sketch_store(params, device, cache_dir, clock)
     wanted = [os.path.abspath(p) for p in paths]
     sketches = {p: np.asarray(sk.hashes, dtype=np.uint64)
-                for p, sk in iter_path_sketches(wanted, sk_store, threads)}
+                for p, sk in iter_insert_sketches(wanted, sk_store, threads)}
     unique = list(sketches)
     with clock.stage("index-load"):
         mat = sketch_rows([state.sketches[r] for r in reps]

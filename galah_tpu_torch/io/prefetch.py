@@ -11,6 +11,9 @@ reads and waits out the running ones before it returns.
 
 Only the consumer thread touches CUDA tensors: the pool threads return
 host arrays, and the caller builds profiles and sketches from them.
+A read runs under the flow context of the thread that submitted it
+(``obs/flow.adopt``), and ``iter_ingest_batches`` hands each list to
+the next stage as a ``genome_batch`` flow item leaving ``ingest``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
                     Tuple, TypeVar)
+
+from galah_tpu_torch.obs import flow as obs_flow
 
 T = TypeVar("T")
 
@@ -37,6 +42,19 @@ def _settle(futures: Iterable[Future]) -> None:
             f.exception()
 
 
+def _adopting(fn: Callable[..., T]) -> Callable[..., T]:
+    """`fn` run under the flow context of the thread that wraps it, so
+    flow spans a read emits on a pool thread attribute to the stage
+    that submitted it (``galah_tpu/io/prefetch._adopting``)."""
+    token = obs_flow.token()
+
+    def wrapped(*a):
+        with obs_flow.adopt(token):
+            return fn(*a)
+
+    return wrapped
+
+
 def iter_prefetched(
     paths: Sequence[str],
     load_fn: Callable[[str], T],
@@ -47,6 +65,7 @@ def iter_prefetched(
     depth = max(1, int(depth))
     if not paths:
         return
+    load_fn = _adopting(load_fn)
     pending = []
     with ThreadPoolExecutor(max_workers=depth,
                             thread_name_prefix="galah-read") as pool:
@@ -89,3 +108,17 @@ def iter_batches(
             buf, total = [], 0
     if buf:
         yield buf
+
+
+def iter_ingest_batches(
+    items: Iterable[Tuple[str, T]],
+    size_fn: Callable[[T], int],
+    budget: int,
+    alone_above: Optional[int] = None,
+) -> Iterator[List[Tuple[str, T]]]:
+    """``iter_batches`` over a read stream: each list leaves stage
+    ``ingest`` as a ``genome_batch`` flow item (``obs/flow.emit``),
+    for the consumer to absorb."""
+    for batch in iter_batches(items, size_fn, budget, alone_above):
+        obs_flow.emit("ingest", obs_flow.begin("genome_batch"))
+        yield batch

@@ -7,7 +7,9 @@ The library's file name carries the content hash of the source and of
 every header (``*.cuh``) beside it, so an unchanged source is built
 once per checkout and an edited source or header anew.
 All requested sources compile in parallel, one ``nvcc`` each; with
-``--trace-events`` each build is a span of category ``nvcc``.
+``--trace-events`` each build is a span of category ``nvcc``, and its
+seconds are the kernel's ``compile_wall_s`` in the run report
+(``obs/profile.py``).
 
 A build failure raises with nvcc's output; nothing falls back.
 
@@ -27,7 +29,7 @@ import sys
 import time
 from typing import Dict, Iterable
 
-from galah_tpu_torch.obs import trace
+from galah_tpu_torch.obs import profile, trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -99,8 +101,10 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
         log, _ = proc.communicate()
         # the span ends when this build is reaped, after the ones
         # started before it
-        trace.emit_complete(f"nvcc {name}.cu", started,
-                            time.perf_counter() - started, cat="nvcc")
+        seconds = time.perf_counter() - started
+        trace.emit_complete(f"nvcc {name}.cu", started, seconds, cat="nvcc")
+        # the run that builds a kernel is charged its build
+        profile.profiled(name).add_compile(seconds)
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
             continue

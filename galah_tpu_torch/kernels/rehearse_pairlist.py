@@ -58,6 +58,8 @@ import time
 
 import numpy as np
 
+from galah_tpu_torch.kernels import costs
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 K = 1000
@@ -114,25 +116,27 @@ def finch_list(rng: np.random.Generator, families: int = 256,
     return mat, (base + a).reshape(-1), (base + b).reshape(-1)
 
 
-#: 32-bit operations a merged item: two to order two int64 values (low
-#: words unsigned, then high words with the carry) and one to step the
-#: row whose value merged
-OPS_PER_ITEM = 3
+#: 32-bit operations a merged item (``kernels/costs.py``)
+OPS_PER_ITEM = costs.PAIRLIST_OPS_PER_ITEM
 
 
 def work(pi: np.ndarray, pj: np.ndarray, k: int, common: np.ndarray,
          total: np.ndarray):
-    """(bytes, 32-bit operations) of a pair list and its results: each
-    row that a pair uses read once and 24 bytes a pair in and out;
-    OPS_PER_ITEM for each item that a merge of the two rows takes to
-    emit the union's first `total` values, total + common a pair (a
-    common value takes one item of each row). The co-rank searches that
-    split a merge across a warp's lanes are the kernel's cost, not the
-    function's, and are not counted."""
+    """(bytes, 32-bit operations) of a pair list and its results
+    (``kernels/costs.pairlist_bytes`` and ``pairlist_ops``): each row
+    that a pair uses read once and 24 bytes a pair in and out;
+    OPS_PER_ITEM operations (two to order two int64 values, low words
+    unsigned, then high words with the carry, and one to step the row
+    whose value merged) for each item that a merge of the two rows
+    takes to emit the union's first `total` values, total + common a
+    pair (a common value takes one item of each row). The co-rank
+    searches that split a merge across a warp's lanes are the kernel's
+    cost, not the function's, and are not counted."""
     rows = np.union1d(pi, pj).shape[0]
     items = (np.asarray(common, dtype=np.float64).sum()
              + np.asarray(total, dtype=np.float64).sum())
-    return 8 * k * rows + pi.shape[0] * (16 + 8), OPS_PER_ITEM * float(items)
+    return (costs.pairlist_bytes(rows, pi.shape[0], k),
+            costs.pairlist_ops(float(items)))
 
 
 def _variants(earlier):

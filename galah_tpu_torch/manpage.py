@@ -8,8 +8,9 @@ builder). Here, as in ``galah_tpu``, the page is built from the argparse
 parser plus section prose, as plain text (paged when stdout is a TTY)
 or as roff source. Every page equals ``galah_tpu``'s for the same
 parser but for its ENVIRONMENT section, which lists the variables the
-port itself reads, and for the ``dist`` and ``fleet`` epilogs, which
-``galah_tpu`` lacks; the pages keep its command name, ``galah-tpu``.
+port itself reads, and for the ``dist``, ``fleet``, ``perf``, ``flow``
+and ``top`` epilogs, which ``galah_tpu`` lacks; the pages keep its
+command name, ``galah-tpu``.
 """
 
 from __future__ import annotations
@@ -254,6 +255,44 @@ EXAMPLES
 
       galah_tpu_torch fleet status fl/
       galah_tpu_torch fleet analyze fl/
+""",
+    "perf": """\
+LEDGER
+   One crc-framed JSON line a run: `cluster` and `index` runs append
+   one when GALAH_OBS_LEDGER names the file, `perf record` one from a
+   run report. An entry's key is the backend, the card and device
+   count, the workload (genomes N, sketch K) and the strategy; its
+   metrics are the run wall, the stage walls, launches, the kernels'
+   dispatch and build seconds and the flow blame. galah-tpu's ledger
+   files read and write the same lines.
+
+EXIT STATUS
+   0 on success; 1 with no ledger, an unreadable report, or (`check`)
+   a regression outside the noise band; --soft reports and exits 0.
+
+EXAMPLES
+      GALAH_OBS_LEDGER=perf.jsonl galah_tpu_torch cluster -d genomes/ \\
+         -x fna --output-cluster-definition clusters.tsv
+      galah_tpu_torch perf --ledger perf.jsonl history run.duration_s
+      galah_tpu_torch perf --ledger perf.jsonl check
+""",
+    "flow": """\
+EXIT STATUS
+   0 analysis printed; 1 unreadable report or no flow telemetry.
+
+EXAMPLES
+      galah_tpu_torch flow analyze run_report.json
+      galah_tpu_torch flow analyze --json run_report.json
+""",
+    "top": """\
+EXIT STATUS
+   0 rendered; 1 no heartbeat or fleet data.
+
+EXAMPLES
+      GALAH_OBS_HEARTBEAT_S=1 galah_tpu_torch cluster -d genomes/ \\
+         -x fna --run-report run/report.json \\
+         --output-cluster-definition clusters.tsv &
+      galah_tpu_torch top run/ --follow
 """,
 }
 

@@ -7,12 +7,15 @@ appends one crc-framed record (``io/atomic.append_jsonl``, the
 torn-tail-tolerant framing of the checkpoints) per beat:
 
     {"beat": n, "ts": ..., "uptime_s": ..., "occupancy": {stage: v},
-     "gauges": {...}, "counters": {...}, "queue_depths": {},
-     "flow_items": {}, "rss_mb": ...}
+     "gauges": {...}, "counters": {...}, "queue_depths": {stage: n},
+     "flow_items": {stage: n}, "rss_mb": ...}
 
-``queue_depths`` and ``flow_items`` stay empty: the port has no flow
-tracing (``galah_tpu/obs/flow.py``) yet. The thread reads only the
-registry and ``/proc`` RSS, never the device.
+``queue_depths`` and ``flow_items`` are the flow recorder's live
+boundary backlogs and per-stage item counts (``obs/flow.py``). Each
+beat also exports the OpenMetrics page when ``GALAH_OBS_OPENMETRICS``
+is set (``obs/openmetrics.maybe_export``). The thread reads only the
+registries and ``/proc`` RSS, never the device. ``top DIR`` renders
+the newest beat (``render_latest``).
 
 A run whose heartbeat file stops advancing is wedged (``galah_tpu``'s
 fleet scheduler preempts a shard on that), and a SIGKILL mid-write
@@ -120,6 +123,7 @@ class Heartbeat:
     def _gather(self) -> dict:
         """Sample the registry, outside self._lock (the registry takes
         its own lock)."""
+        from galah_tpu_torch.obs import flow as obs_flow
         from galah_tpu_torch.obs import metrics as obs_metrics
 
         gauges: Dict[str, float] = {}
@@ -136,14 +140,17 @@ class Heartbeat:
                     match = OCC_RE.match(name)
                     if match:
                         occupancy[match.group(1) or "pipeline"] = v
+        fsnap = obs_flow.snapshot()
+        flow_items = {s: st.get("items", 0)
+                      for s, st in (fsnap.get("stages") or {}).items()}
         rec = {
             "ts": time.time(),
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "occupancy": occupancy,
             "gauges": gauges,
             "counters": counters,
-            "queue_depths": {},
-            "flow_items": {},
+            "queue_depths": obs_flow.queue_depths(),
+            "flow_items": flow_items,
         }
         if self.role is not None:
             rec["role"] = self.role
@@ -183,6 +190,14 @@ class Heartbeat:
                     self._rss[3] = max(self._rss[3], rss)
         atomic.append_jsonl(self.path, rec,
                             site="io.atomic.append[heartbeat]")
+        # the OpenMetrics page rides the beat: one atomically swapped
+        # .prom a beat when GALAH_OBS_OPENMETRICS is set
+        try:
+            from galah_tpu_torch.obs import openmetrics as obs_openmetrics
+
+            obs_openmetrics.maybe_export()
+        except Exception:  # telemetry never takes down the run
+            logger.debug("openmetrics export failed", exc_info=True)
 
     def stop(self, flush: bool = True, join_timeout: float = 5.0) -> None:
         """Stop the thread; with ``flush`` write one final beat (once,
@@ -312,3 +327,43 @@ def read_latest_beat(path: str) -> Optional[dict]:
         logger.debug("heartbeat read failed: %s", path, exc_info=True)
         return None
     return records[-1] if records else None
+
+
+def render_latest(directory: str) -> str:
+    """The newest beat of a run dir (or a heartbeat file), rendered: the
+    body of ``top`` (``galah_tpu/obs/heartbeat.render_latest``'s page)."""
+    path = (os.path.join(directory, HEARTBEAT_FILENAME)
+            if os.path.isdir(directory) else directory)
+    records, torn = load(directory)
+    if not records:
+        return (f"no heartbeat at {path} (run with "
+                "GALAH_OBS_HEARTBEAT_S=<seconds>)\n")
+    rec = records[-1]
+    age = max(0.0, time.time() - float(rec.get("ts") or 0.0))
+    who = ""
+    if rec.get("role") is not None:
+        who = f"  role {rec['role']}"
+        if rec.get("shard") is not None:
+            who += f" (shard {rec['shard']})"
+    rss = (f"  rss {rec['rss_mb']:.0f}MB"
+           if isinstance(rec.get("rss_mb"), (int, float)) else "")
+    lines = [f"heartbeat {path}",
+             f"  beat {rec.get('beat')}  age {age:.1f}s  uptime "
+             f"{rec.get('uptime_s')}s{who}{rss}  ({len(records)} beat(s)"
+             + (f", {torn} torn" if torn else "") + ")"]
+    occ = rec.get("occupancy") or {}
+    if occ:
+        lines.append("  occupancy:")
+        for stage in sorted(occ):
+            v = occ[stage]
+            bar = "#" * int(round(max(0.0, min(1.0, v)) * 20))
+            lines.append(f"    {stage:<10} {v:5.2f} {bar}")
+    depths = rec.get("queue_depths") or {}
+    if depths:
+        lines.append("  queue depths: " + "  ".join(
+            f"{s}={n}" for s, n in sorted(depths.items())))
+    items = rec.get("flow_items") or {}
+    if items:
+        lines.append("  flow items:   " + "  ".join(
+            f"{s}={n}" for s, n in sorted(items.items())))
+    return "\n".join(lines) + "\n"

@@ -14,11 +14,16 @@ and diffs the other's reports; the stage names differ (the README's
 port section maps them), so a cross-package diff lines up the counters
 and the funnel but not the stage rows.
 
-A fleet supervisor's report (``fleet run``) adds the ``fleet`` section
-(``fleet.snapshot()``) and the ``fleet_rollup`` section
-(``obs/fleet_view.rollup`` over the fleet directory).
-``galah_tpu``'s ``device_costs``, ``sanitizer`` and ``lint`` sections
-come from modules the port lacks; a report of either package that holds
+Every report holds ``device_costs`` (``obs/profile.snapshot``: each
+kernel's launches, shapes, dispatch and nvcc seconds, CUDA-event device
+seconds, bytes and operations and their shares of the card's peaks, the
+allocator's high-water) and, when flow tracing saw pipeline items or a
+heartbeat ran, ``flow`` (``obs/flow.snapshot`` with its
+``critical_path``, and the heartbeat's series). A fleet supervisor's
+report (``fleet run``) adds the ``fleet`` section (``fleet.snapshot()``)
+and the ``fleet_rollup`` section (``obs/fleet_view.rollup`` over the
+fleet directory). ``galah_tpu``'s ``sanitizer`` and ``lint`` sections
+come from tools the port lacks; a report of either package that holds
 them still renders and diffs here.
 """
 
@@ -211,15 +216,31 @@ def assemble(subcommand: str, clock=None,
     except Exception:  # additive sections; never lose a report
         logger.debug("fleet snapshot failed", exc_info=True)
     try:
+        from galah_tpu_torch.obs import profile as obs_profile
+
+        report["device_costs"] = obs_profile.snapshot(
+            clock.device if clock is not None else None)
+    except Exception:  # additive section; never lose a report
+        logger.debug("device-cost snapshot failed", exc_info=True)
+    try:
+        from galah_tpu_torch.obs import flow as obs_flow
         from galah_tpu_torch.obs import heartbeat as obs_heartbeat
 
+        # a run with no clock ran no stage: whatever the recorder holds
+        # is an earlier run's
+        flow_snap = obs_flow.snapshot() if clock is not None else {}
+        if flow_snap.get("stages"):
+            flow_snap["critical_path"] = obs_flow.critical_path(
+                flow_snap, report["run"]["duration_s"])
         hb_snap = obs_heartbeat.snapshot()
         if hb_snap is not None:
-            report["flow"] = {"heartbeat": hb_snap}
+            flow_snap["heartbeat"] = hb_snap
             if hb_snap.get("rss_series"):
                 report["memory"] = {"rss_mb": hb_snap["rss_series"]}
+        if flow_snap.get("stages") or hb_snap is not None:
+            report["flow"] = flow_snap
     except Exception:  # additive sections; never lose a report
-        logger.debug("heartbeat snapshot failed", exc_info=True)
+        logger.debug("flow snapshot failed", exc_info=True)
     return report
 
 
@@ -364,10 +385,12 @@ def render(report: dict) -> str:
         for stage, v in occ:
             bar = "#" * int(round(max(0.0, min(1.0, v)) * 20))
             lines.append(f"  {stage:<10} {v:5.2f} {bar}")
-    # (galah_tpu also renders the flow section's critical path here,
-    # through obs/flow.py, which the port lacks; the diff below still
-    # compares it)
     flow_sec = report.get("flow") or {}
+    cp = flow_sec.get("critical_path") or {}
+    if cp.get("stages"):
+        from galah_tpu_torch.obs import flow as obs_flow
+
+        lines += [""] + obs_flow.render_critical_path(cp)
     hb = flow_sec.get("heartbeat") or {}
     series = hb.get("occupancy_series") or {}
     if series:

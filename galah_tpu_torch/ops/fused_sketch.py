@@ -24,10 +24,11 @@ from typing import Sequence, Tuple
 
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.hashing import (MAX_KMER, canonical_key_words,
                                          masked_hashes)
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.murmur3_k21 import check_codes, plain_offsets
 
 CLASSES = 2048  # position classes per job (16 sublanes x 128 lanes)
@@ -35,6 +36,9 @@ REGS = 8        # distinct minima kept per class
 _MAX_JOBS = 65535  # jobs per kernel launch (CUDA grid y limit)
 
 Job = Tuple[int, int]  # (first window, window count) in the codes
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("fused_sketch")
 
 
 def _check(codes: torch.Tensor, starts: torch.Tensor, jobs: Sequence[Job],
@@ -58,8 +62,17 @@ def fused_sketch_candidates(codes: torch.Tensor, starts: torch.Tensor,
     """(jobs, REGS, CLASSES) biased int64 candidate files."""
     _check(codes, starts, jobs, k, algo)
     if codes.device.type == "cpu":
+        PROFILE.plain_call(
+            ("uint8", codes.shape[0], len(jobs), k, algo),
+            lambda: _cost(codes, starts, jobs, k, algo))
         return fused_candidates_plain(codes, starts, jobs, k, algo)
     return _launch(codes, starts, jobs, k, algo)
+
+
+def _cost(codes: torch.Tensor, starts: torch.Tensor, jobs: Sequence[Job],
+          k: int, algo: str) -> costs.Cost:
+    return costs.fused_sketch(codes.shape[0], starts.shape[0],
+                              sum(n for _, n in jobs), len(jobs), k, algo)
 
 
 def fused_candidates_plain(codes: torch.Tensor, starts: torch.Tensor,
@@ -106,12 +119,16 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, jobs: Sequence[Job],
     stream = torch.cuda.current_stream(device).cuda_stream
     for j0 in range(0, len(jobs), _MAX_JOBS):
         n = min(_MAX_JOBS, len(jobs) - j0)
-        # the library launches on the current device: make it `device`
-        with torch.cuda.device(device):
-            err = lib.fused_sketch_launch(
-                codes.data_ptr(), starts.data_ptr(), starts.shape[0],
-                meta[0, j0:].data_ptr(), meta[1, j0:].data_ptr(), n, k,
-                int(algo == "tpufast"), out[j0:].data_ptr(), stream)
-        build.check("fused_sketch", err)
+        part = jobs[j0:j0 + n]
+        with PROFILE.launch(device, ("uint8", codes.shape[0], n, k, algo),
+                            lambda: _cost(codes, starts, part, k, algo)):
+            # the library launches on the current device: make it
+            # `device`
+            with torch.cuda.device(device):
+                err = lib.fused_sketch_launch(
+                    codes.data_ptr(), starts.data_ptr(), starts.shape[0],
+                    meta[0, j0:].data_ptr(), meta[1, j0:].data_ptr(), n, k,
+                    int(algo == "tpufast"), out[j0:].data_ptr(), stream)
+            build.check("fused_sketch", err)
         LAUNCHES["fused_sketch"] += 1
     return out

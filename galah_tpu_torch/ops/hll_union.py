@@ -30,7 +30,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 
 # the kernel's block: ROWS rows x COLS columns, SPLIT threads a column
 ROWS = 8
@@ -38,6 +39,9 @@ COLS = 64
 SPLIT = 4
 # blocks a launch should have where m allows: 4 per SM of an H100
 TARGET_BLOCKS = 4 * 132
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("hll_union")
 
 
 class LaunchPlan(NamedTuple):
@@ -81,6 +85,10 @@ def hll_union_stats(rows: torch.Tensor, cols: torch.Tensor
     """(powsum, zeros) float32 (Br, Bc)."""
     _check(rows, cols)
     if rows.device.type == "cpu":
+        br, m = rows.shape
+        bc = cols.shape[0]
+        PROFILE.plain_call(("uint8", br, bc, m),
+                           lambda: costs.hll_union(br, bc, m))
         return hll_union_stats_plain(rows, cols)
     return run_launch(prepare_launch(rows, cols))
 
@@ -163,9 +171,13 @@ def run_launch(launch: Launch) -> Tuple[torch.Tensor, torch.Tensor]:
     # the kernel refuses more than 65535 * 8 rows (its grid's y limit);
     # the pair pass gives it one row block
     lib = build.load("hll_union")
-    # the library launches on the current device: make it the rows'
-    with torch.cuda.device(launch.rows.device):
-        err = lib.hll_union_launch(*launch_args(launch))
-    build.check("hll_union", err)
+    br, m = launch.rows.shape
+    bc = launch.cols.shape[0]
+    with PROFILE.launch(launch.rows.device, ("uint8", br, bc, m),
+                        lambda: costs.hll_union(br, bc, m)):
+        # the library launches on the current device: make it the rows'
+        with torch.cuda.device(launch.rows.device):
+            err = lib.hll_union_launch(*launch_args(launch))
+        build.check("hll_union", err)
     LAUNCHES["hll_union"] += 1
     return launch.powsum, launch.zeros

@@ -29,12 +29,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.hashing import canonical_key_words, hash_key_words
 from galah_tpu_torch.ops.u64 import bias
 
 K = 21
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("murmur3_k21")
 
 
 def check_codes(codes: torch.Tensor, starts: torch.Tensor,
@@ -82,8 +86,15 @@ def murmur3_k21(codes: torch.Tensor, starts: torch.Tensor, win0: int = 0,
     check_codes(codes, starts, "murmur3_k21")
     n_win = window_range(codes, K, win0, n_win, "murmur3_k21")
     if codes.device.type == "cpu":
+        PROFILE.plain_call(("uint8", n_win),
+                           lambda: _cost(n_win, starts.shape[0]))
         return murmur3_k21_plain(codes, starts, win0, n_win)
     return _launch(codes, starts, win0, n_win)
+
+
+def _cost(n_win: int, n_starts: int) -> costs.Cost:
+    return costs.window_hashes(n_win, K, n_starts,
+                               costs.MURMUR3_K21_OPS_PER_WINDOW)
 
 
 def murmur3_k21_plain(codes: torch.Tensor, starts: torch.Tensor,
@@ -112,11 +123,13 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, win0: int,
         return out
     lib = build.load("murmur3_k21")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    # the library launches on the current device: make it the codes'
-    with torch.cuda.device(codes.device):
-        err = lib.murmur3_k21_launch(codes.data_ptr(), starts.data_ptr(),
-                                     starts.shape[0], win0, n_win,
-                                     out.data_ptr(), stream)
-    build.check("murmur3_k21", err)
+    with PROFILE.launch(codes.device, ("uint8", n_win),
+                        lambda: _cost(n_win, starts.shape[0])):
+        # the library launches on the current device: make it the codes'
+        with torch.cuda.device(codes.device):
+            err = lib.murmur3_k21_launch(
+                codes.data_ptr(), starts.data_ptr(), starts.shape[0], win0,
+                n_win, out.data_ptr(), stream)
+        build.check("murmur3_k21", err)
     LAUNCHES["murmur3_k21"] += 1
     return out

@@ -18,11 +18,15 @@ from typing import Tuple
 
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
 # widest sketch a pair list may carry (galah_tpu's pairlist contract)
 MAX_K = 16384
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("pairlist")
 
 
 def _check(mat: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor) -> None:
@@ -96,22 +100,41 @@ def run_launch(mat: torch.Tensor, lens: torch.Tensor, pi: torch.Tensor,
     b = pi.shape[0]
     if b == 0:
         return common, total
+    signature = ("int64", mat.shape[0], mat.shape[1], b)
     if mat.device.type == "cpu":
         c, t = pair_stats_pairs_plain(mat, pi, pj, sketch_size)
         common.copy_(c)
         total.copy_(t)
+        PROFILE.plain_call(signature,
+                           lambda: _cost(mat, pi, pj, common, total))
         return common, total
     from galah_tpu_torch.kernels import build
 
     lib = build.load("pairlist")
     stream = torch.cuda.current_stream(mat.device).cuda_stream
-    # the library launches on the current device: make it the matrix's
-    with torch.cuda.device(mat.device):
-        err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1],
-                                  lens.data_ptr(), pi.data_ptr(),
-                                  pj.data_ptr(), b, int(sketch_size),
-                                  common.data_ptr(), total.data_ptr(),
-                                  stream)
-    build.check("pairlist", err)
+    with PROFILE.launch(mat.device, signature,
+                        lambda: _cost(mat, pi, pj, common, total)):
+        # the library launches on the current device: make it the
+        # matrix's
+        with torch.cuda.device(mat.device):
+            err = lib.pairlist_launch(mat.data_ptr(), mat.shape[1],
+                                      lens.data_ptr(), pi.data_ptr(),
+                                      pj.data_ptr(), b, int(sketch_size),
+                                      common.data_ptr(), total.data_ptr(),
+                                      stream)
+        build.check("pairlist", err)
     LAUNCHES["pairlist"] += 1
     return common, total
+
+
+def _cost(mat: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+          common: torch.Tensor, total: torch.Tensor) -> costs.Cost:
+    """(bytes, operations) of one launch as device scalars, queued after
+    it on its stream (no host wait): the distinct rows the list uses
+    and the merge items its results take."""
+    used = torch.zeros(mat.shape[0], dtype=torch.bool, device=mat.device)
+    used[pi] = True
+    used[pj] = True
+    items = common.sum(dtype=torch.int64) + total.sum(dtype=torch.int64)
+    return (costs.pairlist_bytes(used.sum(), pi.shape[0], mat.shape[1]),
+            costs.pairlist_ops(items))

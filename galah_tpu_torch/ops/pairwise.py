@@ -30,11 +30,13 @@ with the same result.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from galah_tpu_torch.obs import flow as obs_flow
 from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops import collision
 from galah_tpu_torch.ops.compact import iter_blocks
@@ -242,7 +244,11 @@ def threshold_pairs_streamed(
     rows; any other mesh leaves the stripe on one device, as in
     ``galah_tpu``.
     `clock` gets the `pair-stats` stage and the
-    `pairs-streamed-stripes` and `screen-possible-pairs` counts."""
+    `pairs-streamed-stripes` and `screen-possible-pairs` counts. Flow
+    (``obs/flow.py``): each wait for a block is the ``pairs`` stage's
+    upstream-empty wait on ``sketch``, each stripe's launch and download
+    a ``device-dispatch`` wait, the rest its service, and each stripe
+    leaves as an ``edge_stripe``."""
     clock = clock or StageClock(torch.device("cpu"))
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
     j_thr = ani_to_jaccard(min_ani, k)
@@ -257,7 +263,9 @@ def threshold_pairs_streamed(
     done: Optional[torch.Tensor] = None
     r1 = 0
     out: Dict[Tuple[int, int], float] = {}
-    for r0, rows in blocks:
+    for r0, rows in obs_flow.waited(blocks, "pairs"):
+        obs_flow.absorb("sketch", "pairs")
+        t_block = time.perf_counter()
         bsz = rows.shape[0]
         if r0 != r1 or bsz > block or r0 + bsz > n:
             raise ValueError(f"streamed sketch block of {bsz} rows at "
@@ -274,16 +282,20 @@ def threshold_pairs_streamed(
             cols = torch.full((block, rows.shape[1]), SENTINEL_BIASED,
                               dtype=torch.int64, device=rows.device)
             cols[:bsz] = rows
-            if mesh is not None:
-                from galah_tpu_torch.parallel.mesh import \
-                    sharded_stripe_stats
+            # the stripe's launch and its download: device time
+            with obs_flow.blocked("pairs", "device-dispatch") as bdev:
+                if mesh is not None:
+                    from galah_tpu_torch.parallel.mesh import \
+                        sharded_stripe_stats
 
-                common, total = sharded_stripe_stats(
-                    done[:r_pad], cols, sketch_size, mesh,
-                    row_tile=ROW_TILE, r_pad=r_pad)
-            else:
-                common, total = tile_stats(done[:r_pad], cols, sketch_size)
-                common, total = common.cpu().numpy(), total.cpu().numpy()
+                    common, total = sharded_stripe_stats(
+                        done[:r_pad], cols, sketch_size, mesh,
+                        row_tile=ROW_TILE, r_pad=r_pad)
+                else:
+                    common, total = tile_stats(done[:r_pad], cols,
+                                               sketch_size)
+                    common, total = (common.cpu().numpy(),
+                                     total.cpu().numpy())
             common = common.astype(np.int64)
             total = total.astype(np.int64)
         clock.count("pairs-streamed-stripes", 1)
@@ -294,6 +306,10 @@ def threshold_pairs_streamed(
         ki, kj = np.nonzero(keep)
         ani = stats_to_ani_f64(common[keep], total[keep], k)
         out.update(zip(zip(ki.tolist(), (r0 + kj).tolist()), ani.tolist()))
+        # the stripe's host work, its device bracket excluded
+        obs_flow.record_service(
+            "pairs", max(time.perf_counter() - t_block - bdev.seconds, 0.0))
+        obs_flow.emit("pairs", obs_flow.begin("edge_stripe"))
     if r1 != n:
         raise ValueError(f"streamed pair pass saw {r1} rows, expected {n}")
     return out

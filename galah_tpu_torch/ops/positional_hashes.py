@@ -24,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.hashing import (DEFAULT_CHUNK, _key_words,
                                          _window_chunks, masked_hashes)
 from galah_tpu_torch.ops.murmur3_k21 import (check_codes, plain_offsets,
@@ -33,6 +34,9 @@ from galah_tpu_torch.ops.murmur3_k21 import (check_codes, plain_offsets,
 K = 15
 
 _ALGOS = {"murmur3": 0, "tpufast": 1}
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("positional_hashes")
 
 
 def _check_algo(algo: str) -> None:
@@ -49,8 +53,15 @@ def positional_hashes(codes: torch.Tensor, starts: torch.Tensor,
     _check_algo(algo)
     n_win = window_range(codes, K, win0, n_win, "positional_hashes")
     if codes.device.type == "cpu":
+        PROFILE.plain_call(("uint8", n_win, algo),
+                           lambda: _cost(n_win, starts.shape[0], algo))
         return positional_hashes_plain(codes, starts, win0, n_win, algo)
     return _launch(codes, starts, win0, n_win, algo)
+
+
+def _cost(n_win: int, n_starts: int, algo: str) -> costs.Cost:
+    return costs.window_hashes(n_win, K, n_starts,
+                               costs.K15_OPS_PER_WINDOW[algo])
 
 
 def positional_hashes_plain(codes: torch.Tensor, starts: torch.Tensor,
@@ -85,11 +96,13 @@ def _launch(codes: torch.Tensor, starts: torch.Tensor, win0: int,
         return out
     lib = build.load("positional_hashes")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    # the library launches on the current device: make it the codes'
-    with torch.cuda.device(codes.device):
-        err = lib.positional_hashes_launch(
-            codes.data_ptr(), starts.data_ptr(), starts.shape[0], win0,
-            n_win, _ALGOS[algo], out.data_ptr(), stream)
-    build.check("positional_hashes", err)
+    with PROFILE.launch(codes.device, ("uint8", n_win, algo),
+                        lambda: _cost(n_win, starts.shape[0], algo)):
+        # the library launches on the current device: make it the codes'
+        with torch.cuda.device(codes.device):
+            err = lib.positional_hashes_launch(
+                codes.data_ptr(), starts.data_ptr(), starts.shape[0], win0,
+                n_win, _ALGOS[algo], out.data_ptr(), stream)
+        build.check("positional_hashes", err)
     LAUNCHES["positional_hashes"] += 1
     return out

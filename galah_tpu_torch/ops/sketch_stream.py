@@ -25,7 +25,9 @@ own windows, so the port groups genomes by a window budget alone.
 ``iter_path_sketches`` yields each unique path's sketch in path order,
 reading FASTA files ahead on ``ingest_depth(threads)`` worker threads
 (``io/prefetch.iter_prefetched``) and sketching them in budget-sized
-groups (``io/prefetch.iter_batches``); sketches enter the store on the consumer thread. The store
+groups (``io/prefetch.iter_ingest_batches``, which hands each group on
+as a flow item, ``obs/flow.py``); sketches enter the store on the
+consumer thread. The store
 decides what a sketch is: the finch ``SketchStore`` makes MinHash
 sketches, the dashing ``HLLStore`` HLL registers.
 ``iter_sketch_row_blocks`` turns the finch stream into blocks of
@@ -43,8 +45,10 @@ from galah_tpu_torch.config import Defaults
 from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.io.fasta import Genome, read_genome
 from galah_tpu_torch.io.group import host_layout, iter_groups, load_group
-from galah_tpu_torch.io.prefetch import (ingest_depth, iter_batches,
+from galah_tpu_torch.io.prefetch import (ingest_depth,
+                                         iter_ingest_batches,
                                          iter_prefetched)
+from galah_tpu_torch.obs import flow as obs_flow
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
                                               fused_sketch_candidates)
@@ -146,13 +150,25 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
 def _iter_computed(paths: Sequence[str], store, threads: int
                    ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for `paths` in order, sketched by
-    ``store.sketch_group`` in groups of at most FUSED_BUDGET bases."""
+    ``store.sketch_group`` in groups of at most FUSED_BUDGET bases.
+
+    Flow (``obs/flow.py``): each wait on the reads is the ``sketch``
+    stage's upstream-empty wait, each group a ``genome_batch`` from
+    ``ingest`` absorbed by ``sketch`` and a ``sketch`` service span;
+    the group's reads, their seconds summed over the threads, are
+    ``ingest``'s service."""
+    read_s = store.clock.work_seconds["read"]
     reads = iter_prefetched(paths, store.clock.timed(read_genome, "read"),
                             depth=ingest_depth(threads))
-    for batch in iter_batches(store.clock.waits(reads, "read",
-                                                "genomes-read"),
-                              lambda g: g.codes.shape[0], FUSED_BUDGET):
-        with store.clock.stage("sketch"):
+    for batch in iter_ingest_batches(
+            obs_flow.waited(store.clock.waits(reads, "read",
+                                              "genomes-read"), "sketch"),
+            lambda g: g.codes.shape[0], FUSED_BUDGET):
+        read_s, read_s0 = store.clock.work_seconds["read"], read_s
+        obs_flow.record_service("ingest", read_s - read_s0,
+                                items=len(batch))
+        obs_flow.absorb("ingest", "sketch")
+        with obs_flow.span("sketch"), store.clock.stage("sketch"):
             sketches = store.sketch_group([g for _, g in batch])
         yield from ((p, s) for (p, _), s in zip(batch, sketches))
 
@@ -193,8 +209,17 @@ def iter_sketch_row_blocks(paths: Sequence[str], store, threads: int = 1
     for _p, s in iter_path_sketches(paths, store, threads):
         buf.append(s)
         if len(buf) == ROW_BLOCK:
-            yield r0, sketch_matrix(buf, store.sketch_size, store.device)
+            yield r0, _row_block(buf, store)
             r0 += len(buf)
             buf = []
     if buf:
-        yield r0, sketch_matrix(buf, store.sketch_size, store.device)
+        yield r0, _row_block(buf, store)
+
+
+def _row_block(buf: List[MinHashSketch], store) -> torch.Tensor:
+    """The block's rows on the device, handed on as a ``sketch_block``
+    flow item leaving ``sketch``."""
+    fid = obs_flow.begin("sketch_block")
+    rows = sketch_matrix(buf, store.sketch_size, store.device)
+    obs_flow.emit("sketch", fid)
+    return rows

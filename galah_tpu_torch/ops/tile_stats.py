@@ -16,8 +16,12 @@ from typing import Tuple
 
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("tile_stats")
 
 
 def _check(rows: torch.Tensor, cols: torch.Tensor) -> None:
@@ -39,6 +43,9 @@ def tile_stats(rows: torch.Tensor, cols: torch.Tensor, sketch_size: int,
     """(common, total) int32 (Br, Bc)."""
     _check(rows, cols)
     if rows.device.type == "cpu":
+        br, k = rows.shape
+        PROFILE.plain_call(("int64", br, cols.shape[0], k, bool(intersect)),
+                           lambda: costs.tile_stats(br, cols.shape[0], k))
         if intersect:
             return (tile_intersect_plain(rows, cols),
                     _valid_counts(rows)[:, None].expand(
@@ -116,12 +123,14 @@ def run_launch(rows: torch.Tensor, cols: torch.Tensor, sketch_size: int,
         return common, total
     lib = build.load("tile_stats")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    # the library launches on the current device: make it the rows'
-    with torch.cuda.device(rows.device):
-        err = lib.tile_stats_launch(
-            rows.data_ptr(), cols.data_ptr(), br, bc, k, int(sketch_size),
-            int(bool(intersect)), common.data_ptr(), total.data_ptr(),
-            stream)
-    build.check("tile_stats", err)
+    with PROFILE.launch(rows.device, ("int64", br, bc, k, bool(intersect)),
+                        lambda: costs.tile_stats(br, bc, k)):
+        # the library launches on the current device: make it the rows'
+        with torch.cuda.device(rows.device):
+            err = lib.tile_stats_launch(
+                rows.data_ptr(), cols.data_ptr(), br, bc, k,
+                int(sketch_size), int(bool(intersect)), common.data_ptr(),
+                total.data_ptr(), stream)
+        build.check("tile_stats", err)
     LAUNCHES["tile_stats"] += 1
     return common, total

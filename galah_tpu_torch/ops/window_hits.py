@@ -17,7 +17,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from galah_tpu_torch.kernels import LAUNCHES
+from galah_tpu_torch.kernels import LAUNCHES, costs
+from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
 Pair = Tuple[torch.Tensor, torch.Tensor]  # (sorted query, sorted ref set)
@@ -25,6 +26,9 @@ Pair = Tuple[torch.Tensor, torch.Tensor]  # (sorted query, sorted ref set)
 # merged items (query and reference values) a block of the kernel
 # takes: 256 threads x 15 (kernels/window_hits.cu's kSegment)
 SEGMENT = 256 * 15
+
+#: the kernel's cost entry in the run report (``obs/profile.py``)
+PROFILE = profiled("window_hits")
 
 
 def _check(items: Sequence[Pair], device: torch.device) -> None:
@@ -50,8 +54,16 @@ def window_element_hits(items: Sequence[Pair],
     device = torch.device(device)
     _check(items, device)
     if device.type == "cpu":
+        PROFILE.plain_call(("int64", len(items)), lambda: _cost(items))
         return window_element_hits_plain(items, device)
     return _launch(items, device)
+
+
+def _cost(items: Sequence[Pair]) -> costs.Cost:
+    return costs.window_hits([q.numel() for q, _ in items],
+                             [r.numel() for _, r in items],
+                             [q.data_ptr() for q, _ in items],
+                             [r.data_ptr() for _, r in items])
 
 
 def window_element_hits_plain(items: Sequence[Pair],
@@ -74,11 +86,13 @@ def window_element_hits_plain(items: Sequence[Pair],
 
 class Launch(NamedTuple):
     """One planned launch: the (6, pairs) int64 plan on the card, the
-    flags it fills and its block count."""
+    flags it fills, its block count and its (bytes, operations)
+    (``kernels/costs.window_hits``)."""
 
     plan: torch.Tensor
     hits: torch.Tensor
     n_blocks: int
+    cost: costs.Cost
 
 
 def block_plan(q_len: np.ndarray, r_len: np.ndarray
@@ -112,7 +126,8 @@ def plan_launch(items: Sequence[Pair], device: torch.device) -> Launch:
     host[5] = blk_end
     hits = torch.empty(int(q_len.sum()), dtype=torch.int32, device=device)
     n_blocks = int(blk_end[-1]) if len(items) else 0
-    return Launch(plan.to(device, non_blocking=True), hits, n_blocks)
+    cost = costs.window_hits(q_len, r_len, host[0], host[2])
+    return Launch(plan.to(device, non_blocking=True), hits, n_blocks, cost)
 
 
 def run_launch(launch: Launch) -> torch.Tensor:
@@ -122,13 +137,16 @@ def run_launch(launch: Launch) -> torch.Tensor:
     if launch.n_blocks == 0:
         return launch.hits
     lib = build.load("window_hits")
-    stream = torch.cuda.current_stream(launch.hits.device).cuda_stream
-    # the library launches on the current device: make it the flags'
-    with torch.cuda.device(launch.hits.device):
-        err = lib.window_hits_launch(
-            launch.plan.data_ptr(), launch.plan.shape[1], launch.n_blocks,
-            SEGMENT, launch.hits.data_ptr(), stream)
-    build.check("window_hits", err)
+    device = launch.hits.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with PROFILE.launch(device, ("int64", launch.plan.shape[1]),
+                        lambda: launch.cost):
+        # the library launches on the current device: make it the flags'
+        with torch.cuda.device(device):
+            err = lib.window_hits_launch(
+                launch.plan.data_ptr(), launch.plan.shape[1],
+                launch.n_blocks, SEGMENT, launch.hits.data_ptr(), stream)
+        build.check("window_hits", err)
     LAUNCHES["window_hits"] += 1
     return launch.hits
 

@@ -14,17 +14,20 @@ tree, each stage path's inclusive seconds and count in the shape of
 run (the deltas of ``kernels.LAUNCHES`` since the clock was made),
 which the report reads as ``disp[<kernel>]`` counters. Each stage that
 closes is a trace span (``obs/trace.py``), emitted after its device
-synchronize.
+synchronize. ``trace_context`` is ``cluster --profile-trace-dir``'s
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import threading
 import time
 from collections import defaultdict
-from typing import (Callable, Dict, Iterable, Iterator, List, Tuple,
-                    TypeVar)
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple, TypeVar)
 
 import torch
 
@@ -33,6 +36,8 @@ from galah_tpu_torch.device import synchronize
 from galah_tpu_torch.obs import trace
 
 T = TypeVar("T")
+
+logger = logging.getLogger(__name__)
 
 
 class StageClock:
@@ -152,3 +157,50 @@ class StageClock:
         for name, n in self.launches().items():
             out[f"disp[{name}]"] = n
         return out
+
+
+@contextlib.contextmanager
+def trace_context(trace_dir: Optional[str],
+                  device: torch.device) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the block into `trace_dir` (no-op
+    when None): host ops and, on a CUDA `device`, kernels and copies
+    (activities only: no shapes, no stacks, no hardware counters),
+    synchronized before the profiler stops, written by
+    ``tensorboard_trace_handler`` as ``*.pt.trace.json``. A CUDA trace
+    with no kernel event is an ERROR naming the cause (CUPTI's activity
+    API unavailable), not a quiet success; the run goes on either way
+    (``galah_tpu``'s ``trace_context``, whose trace is XLA's)."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    before = set(os.listdir(trace_dir))
+    logger.info("Writing torch.profiler trace to %s", trace_dir)
+    with profile(activities=activities, record_shapes=False,
+                 with_stack=False,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        try:
+            yield
+        finally:
+            synchronize(device)
+    written = sorted(f for f in set(os.listdir(trace_dir)) - before
+                     if f.endswith(".pt.trace.json"))
+    for name in written:
+        path = os.path.join(trace_dir, name)
+        logger.info("Profiler trace %s: %d bytes", path,
+                    os.path.getsize(path))
+        if device.type == "cuda":
+            with open(path, "rb") as fh:
+                if b'"cat": "kernel"' not in fh.read():
+                    logger.error(
+                        "Profiler trace %s holds no kernel event: CUPTI "
+                        "recorded no device activity, so this run's "
+                        "kernels are not in the trace", path)
+    if not written:
+        logger.error("torch.profiler wrote no trace into %s", trace_dir)

@@ -141,7 +141,7 @@ def test_cli_directory_input(families, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--platform", "cpu"], ["--rep-scan-window", "8"],
-    ["--profile-trace-dir", "d"]])
+    ["--platform=tpu"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["cluster", "-f", "a.fna", *flag])

@@ -21,6 +21,7 @@ import torch
 from galah_tpu.obs import events as jevents
 from galah_tpu.obs import flow as jflow
 from galah_tpu.obs import heartbeat as jheartbeat
+from galah_tpu.obs import ledger as jledger
 from galah_tpu.obs import metrics as jmetrics
 from galah_tpu.obs import report as jreport
 from galah_tpu.obs import trace as jtrace
@@ -383,8 +384,9 @@ def test_schema_is_galah_tpus():
 def test_finalize_never_fails_the_run(fresh, monkeypatch, caplog,
                                       tmp_path):
     """An assembly failure logs a warning, returns None and still
-    closes the trace; without a report path no report is built;
-    GALAH_OBS_LEDGER, not ported, is named once."""
+    closes the trace; without a report path or a ledger no report is
+    built; with GALAH_OBS_LEDGER set the report is built and its entry
+    appended, with no warning."""
     ttrace.start(str(tmp_path / "t.json"))
 
     def broken(*a, **kw):
@@ -410,8 +412,10 @@ def test_finalize_never_fails_the_run(fresh, monkeypatch, caplog,
         rep = tobs.finalize("cluster", StageClock(CPU),
                             report_path=str(tmp_path / "r.json"))
     assert jreport.validate(rep) == []
-    assert caplog.text.count("GALAH_OBS_LEDGER") == 1
-    assert not os.path.exists(tmp_path / "ledger")
+    assert caplog.text == ""
+    entries, torn = jledger.read(str(tmp_path / "ledger"))
+    assert torn == 0 and len(entries) == 1
+    assert entries[0]["key"]["source"] == "cluster"
 
 
 def test_crash_hooks_register_the_heartbeat_flush():
