@@ -18,8 +18,10 @@ Phases, each of which exits nonzero when it fails:
    2,048 sketches at ~98% ANI and all 2,096,128 pairs i < j, through the
    survivor pass, at sketch sizes 1000 and 333; positional_hashes (the
    k=15 profile hash, murmur3 and tpufast) on edge groups (genome and
-   contig starts on its runs, tiles and 14-base halo, N runs, genomes
-   shorter than k and of exactly k, a 3 Mbp genome); and, once the
+   contig starts on its tiles and 14-base halo, N runs, genomes
+   shorter than k and of exactly k, an empty one, a 3 Mbp genome),
+   through the range entry and the group entry (a tensor a genome, at
+   --ani-subsample c = 1, 16 and 125); and, once the
    corpus is written, positional_hashes on phase 4's first profile
    group (8 x 2 Mbp) and that group's profiles built on the card
    against the CPU plain build, and the C FASTA parser against its
@@ -226,7 +228,10 @@ seconds of the worker threads summed, `read work`)
    and 10 Mbp genomes give (K = 6080, 10048), and the whole sketch of
    the first finch and dashing launch groups split into the group load
    (pinned write and copy), kernel and certificate or HLL fold;
-   positional_hashes at phase 4's first profile group, and that group's
+   positional_hashes at phase 4's first profile group (the kernel
+   alone through both entries, and the group's hash pass: the split
+   route of a range launch, per-genome clones and the cut against one
+   group call), and that group's
    whole profile build split into load, kernel and distinct sets, with
    the distinct sets also by a two-key sort over the group; the
    sorted queries of phase 4's 512 profiles beside its exact-ANI stage;
@@ -300,6 +305,8 @@ DIST_K = (16, 31)
 # --ani-subsample values of phase 4n: skani's own compression and a
 # light one
 SUBSAMPLE_C = (125, 16)
+# and those at which phase 3 holds positional_hashes' group entry
+GROUP_CUTS = (1, *SUBSAMPLE_C[::-1])
 
 # CoverM's names for the dereplication flags it embeds (phase 4m)
 COVERM_FLAGS = {
@@ -320,8 +327,9 @@ COVERM_FLAGS = {
 MURMUR3_OPS_PER_WINDOW = 170
 
 # 32-bit operations of one k=15 window of the positional_hashes kernel
-# (kernels/positional_hashes.cu's source note)
-K15_OPS_PER_WINDOW = {"murmur3": 150, "tpufast": 45}
+# at 67e12/s: 4 x the SASS window loop's integer-ALU instructions, the
+# pipe that binds it (kernels/positional_hashes.cu's source note)
+K15_OPS_PER_WINDOW = {"murmur3": 202, "tpufast": 116}
 HLL_UNION_OPS_PER_REGISTER = 4
 
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
@@ -655,21 +663,34 @@ def sketch_edge_groups(rng):
 
 def k15_edge_group(rng):
     """A launch group aimed at positional_hashes' codes input: ambiguous
-    bases and contig starts on its runs of 16 windows, its 4096-window
-    tiles and the 14-base halo; genomes of k - 1, k and k + 1 bases."""
+    bases and contig starts on its 8192-window tiles and their 14-base
+    halos, both those of the range entry (from the group's first window)
+    and those of the group entry (from each genome's first window, at
+    every alignment mod 16 of the genome's start); genomes of k - 1, k
+    and k + 1 bases, an empty one, one of exactly a tile's windows and
+    one of a tile and a window."""
     def rand(n):
         return rng.integers(0, 4, size=n).astype(np.uint8)
 
-    k = 15
-    edge = rand(3 * 4096 + 300)
-    for s, e in ((4090, 4100), (4096 + k - 1, 4096 + k), (15, 16),
-                 (8191, 8192), (3 * 4096 + 299, 3 * 4096 + 300)):
+    k, t = 15, 8192
+    edge = rand(3 * t + 300)
+    for s, e in ((t - 6, t + 4), (t + k - 1, t + k), (15, 16),
+                 (2 * t - 1, 2 * t), (3 * t + 299, 3 * t + 300)):
         edge[s:e] = 255
-    return [_genome("k15-tile-edge", edge, [4096, 4096 + k, 8192 - k + 1]),
+    own = rand(2 * t + 2 * k)
+    for s, e in ((t - 1, t), (t + k - 2, t + k),
+                 (2 * t + k - 2, 2 * t + k - 1)):
+        own[s:e] = 255
+    return [_genome("k15-tile-edge", edge, [t, t + k, 2 * t - k + 1]),
             _genome("k15-short", rand(k - 1)), _genome("k15-exact", rand(k)),
+            _genome("k15-empty", np.zeros(0, dtype=np.uint8)),
             _genome("k15-plus-1", rand(k + 1), [k]),
-            _genome("k15-contigs", rand(9000),
-                    [1, 2, 2 + k, 4095, 4097, 9000 - k])]
+            _genome("k15-contigs", rand(t + 900),
+                    [1, 2, 2 + k, t - 1, t + 1, t + 900 - k]),
+            _genome("k15-own-tiles", own, [t, t + k - 1, 2 * t + 1]),
+            _genome("k15-one-tile", rand(t + k - 1), [t + k - 2]),
+            *[_genome(f"k15-tile-plus-1-{i}", rand(t + k + i), [t])
+              for i in range(3)]]
 
 
 def two_key_distinct(torch, hashes, jobs, cut, sentinel):
@@ -759,6 +780,24 @@ def time_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """CUDA-event ms a call of `fn` on the card alone, for calls whose
+    host side takes about as long as their kernels: a ~5 ms spin
+    (torch.cuda._sleep) holds the stream while the host queues the
+    calls, so the host's launch overhead does not pace them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -3193,6 +3232,15 @@ def main(argv=None) -> int:
         positional_hashes as k15_hashes)
     from galah_tpu_torch.ops.positional_hashes import (
         positional_hashes_plain as k15_plain)
+    from galah_tpu_torch.ops.positional_hashes import apply_cut as \
+        k15_apply_cut
+    from galah_tpu_torch.ops.positional_hashes import group_hashes as \
+        k15_group
+    from galah_tpu_torch.ops.positional_hashes import plan_group as \
+        k15_plan
+    from galah_tpu_torch.ops.positional_hashes import run_group as k15_run
+    from galah_tpu_torch.ops.positional_hashes import subsample_cut as \
+        k15_cut
     from galah_tpu_torch.kernels.rehearse_pairlist import dense_list
     from galah_tpu_torch.kernels.rehearse_pairlist import work as pl_work
     from galah_tpu_torch.ops.pairlist import (pair_stats_pairs,
@@ -3404,10 +3452,12 @@ def main(argv=None) -> int:
           f"in 1 Mi-window chunks, exact {tag}")
     # positional_hashes: the sketch groups, the k=15 edge group and the
     # 3 Mbp genome alone, both hashes, whole and over window ranges (the
-    # range that starts at window 1 only on the small groups)
-    ph_cases = ph_windows = 0
+    # range that starts at window 1 only on the small groups), and the
+    # group entry (a tensor a genome) at each --ani-subsample c of
+    # GROUP_CUTS against the plain version's windows of each genome, cut
+    ph_cases = ph_windows = ph_group_cases = 0
     for group in [*sketch_groups, k15_edge_group(rng), [genomes[-1]]]:
-        codes, offsets, _ = host_layout(group, 15)
+        codes, offsets, jobs = host_layout(group, 15)
         hc, hs = torch.from_numpy(codes), torch.from_numpy(offsets)
         loaded = load_group(group, 15, device)
         n_win = max(codes.shape[0] - 14, 0)
@@ -3417,15 +3467,31 @@ def main(argv=None) -> int:
         if n_win < 100_000:
             ranges.append((min(1, n_win), max(n_win - 1, 0)))
         for algo in ("murmur3", "tpufast"):
+            whole = None
             for w0, n in ranges:
                 got = k15_hashes(loaded.codes, loaded.starts, w0, n,
                                  algo).cpu()
-                if not torch.equal(got, k15_plain(hc, hs, w0, n, algo)):
+                want = k15_plain(hc, hs, w0, n, algo)
+                if not torch.equal(got, want):
                     raise PhaseError(
                         f"positional_hashes ({algo}) disagrees with its "
                         f"plain version at windows [{w0}, {w0 + n}) of "
                         f"the group of {group[0].path}")
+                whole = want if (w0, n) == (0, n_win) else whole
                 ph_cases += 1
+            for c in GROUP_CUTS:
+                got = k15_group(loaded.codes, loaded.starts, loaded.jobs,
+                                algo, c)
+                cut = k15_cut(c)
+                for g, (w0, n), h in zip(group, jobs, got):
+                    want = (k15_apply_cut(whole[w0:w0 + n], cut) if n
+                            else torch.empty(0, dtype=torch.int64))
+                    if not h.is_cuda or not torch.equal(h.cpu(), want):
+                        raise PhaseError(
+                            f"positional_hashes' group entry ({algo}, c = "
+                            f"{c}) disagrees with its plain version at "
+                            f"{g.path}")
+                ph_group_cases += 1
     got = positional_hashes(genomes[-1], 15, device, chunk=1 << 20).cpu()
     if not torch.equal(got, positional_hashes(genomes[-1], 15, "cpu")):
         raise PhaseError("positional_hashes in 1 Mi-window chunks of a "
@@ -3434,8 +3500,10 @@ def main(argv=None) -> int:
     print(f"parity positional_hashes: murmur3 and tpufast, {ph_cases} "
           f"window ranges of {len(sketch_groups) + 2} groups ({ph_windows} "
           f"windows; the sketch groups, a k=15 edge group, a 3 Mbp "
-          f"genome) and the 3 Mbp genome in 1 Mi-window chunks, exact "
-          f"{tag}")
+          f"genome) and the 3 Mbp genome in 1 Mi-window chunks; the group "
+          f"entry over the same groups at c = "
+          f"{', '.join(map(str, GROUP_CUTS))} ({ph_group_cases} cases, a "
+          f"tensor a genome), exact {tag}")
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -3947,16 +4015,26 @@ def main(argv=None) -> int:
               f"{res.clock.seconds['exact-ani']:.3f} s {tag}")
         del profiles, fresh, mat, directed, wh_items, rows, c_k, ts_out
 
-        # positional_hashes: phase 4's first profile group (8 x 2 Mbp),
-        # the kernel alone and the whole group build split into its
-        # parts; the distinct sets also by a two-key sort over the group
+        # positional_hashes: phase 4's first profile group (8 x 2 Mbp):
+        # the kernel alone through the group entry (the main path's
+        # launch: a tensor a genome; its outputs and table planned once)
+        # and through the range entry (the group's windows in one
+        # tensor); the group's hash pass, the split route (a range
+        # launch, a clone a genome and, at c > 1, subsample_mask) against
+        # one group call with the cut, in turns; all on the
+        # card's clock with the host queued ahead (device_ms); the whole group build split into its parts; the
+        # distinct sets also by a two-key sort over the group
         ph_group = first_group(res.genomes, read_genome,
                                fragment_ani.PROFILE_BATCH_BUDGET)
         ph = time_group(torch, device, ph_group, 15)
         hc, hs, dc, ds, ph_jobs = ph["tensors"]
-        ph_ms = time_ms(torch, lambda: k15_hashes(dc, ds), 10)
-        ph_fast = time_ms(torch, lambda: k15_hashes(dc, ds,
-                                                    algo="tpufast"), 10)
+        ph_plan = k15_plan(dc, ph_jobs)
+        ph_t = {algo: {
+            "group": device_ms(torch, lambda: k15_run(
+                dc, ds, ph_plan, algo, k15_cut(1)), 10),
+            "range": device_ms(torch, lambda: k15_hashes(dc, ds, algo=algo),
+                               10)} for algo in ("murmur3", "tpufast")}
+        ph_ms, ph_fast = ph_t["murmur3"]["group"], ph_t["tpufast"]["group"]
         hashes = k15_hashes(dc, ds)
         t0 = time.perf_counter()
         want = k15_plain(hc, hs)
@@ -3964,15 +4042,45 @@ def main(argv=None) -> int:
         if not torch.equal(hashes.cpu(), want):
             raise PhaseError("positional_hashes disagrees with its plain "
                              "version at phase 4's profile group")
+        flats = k15_group(dc, ds, ph_jobs)
+        for (w0, n), flat in zip(ph_jobs, flats):
+            if not torch.equal(flat.cpu(), want[w0:w0 + n]):
+                raise PhaseError("positional_hashes' group entry disagrees "
+                                 "with its plain version at phase 4's "
+                                 "profile group")
         ph_err = 0.0
-        n_win = hashes.numel()
-        n_valid = int((hashes != SENTINEL_BIASED).sum())
-        ph_bytes = hc.numel() + 8 * hs.numel() + 8 * n_win
+        n_win = sum(n for _, n in ph_jobs)
+        n_valid = int(sum(int((f != SENTINEL_BIASED).sum()) for f in flats))
+        # the group entry's bytes: each genome's codes, the starts, a
+        # 32-byte table row a genome, a hash a window
+        live = sum(1 for _, n in ph_jobs if n > 0)
+        ph_bytes = (n_win + 14 * live + 8 * hs.numel() + 32 * live
+                    + 8 * n_win)
         ph_bound, ph_by = bound(ph_bytes, n_valid * K15_OPS_PER_WINDOW[
             "murmur3"])
         ph_fast_bound, ph_fast_by = bound(
             ph_bytes, n_valid * K15_OPS_PER_WINDOW["tpufast"])
-        flats = [hashes[w0:w0 + n].clone() for w0, n in ph_jobs]
+
+        def split_pass(c):
+            cut = fragment_ani.subsample_mask(k15_hashes(dc, ds), c)
+            return [cut[w0:w0 + n].clone() for w0, n in ph_jobs]
+
+        pass_ms = {}
+        for c in (1, SUBSAMPLE_C[0]):
+            def group_pass():
+                return k15_group(dc, ds, ph_jobs, "murmur3", c)
+
+            turns = [device_ms(torch, lambda: split_pass(c), 10),
+                     device_ms(torch, group_pass, 10),
+                     device_ms(torch, group_pass, 10),
+                     device_ms(torch, lambda: split_pass(c), 10)]
+            for x, y in zip(split_pass(c), group_pass()):
+                if not torch.equal(x, y):
+                    raise PhaseError(f"the group entry at c = {c} disagrees "
+                                     f"with the split route")
+            pass_ms[c] = {"split": (turns[0] + turns[3]) / 2,
+                          "group": (turns[1] + turns[2]) / 2,
+                          "turns": turns}
         per_genome = fragment_ani._distinct_sets(flats)
         two_key = two_key_distinct(torch, hashes, ph_jobs,
                                    fragment_ani.MARKER_CUT_BIASED,
@@ -3986,29 +4094,44 @@ def main(argv=None) -> int:
         two_key_ms = host_ms(torch, lambda: two_key_distinct(
             torch, hashes, ph_jobs, fragment_ani.MARKER_CUT_BIASED,
             SENTINEL_BIASED), 5)
-        clone_ms = time_ms(torch, lambda: [hashes[w0:w0 + n].clone()
-                                           for w0, n in ph_jobs], 5)
+        clone_ms = device_ms(torch, lambda: [hashes[w0:w0 + n].clone()
+                                             for w0, n in ph_jobs], 5)
         build_ms = host_ms(torch, lambda: (fragment_ani.build_profiles_batch(
             ph_group, 15, 3000, device), torch.cuda.synchronize()), 5)
+        # the build has no per-genome clones since the group entry: the
+        # split drops them, and the split route's clones are timed alone
         ph_split = {"group load (pinned write and copy)": ph["load_ms"],
-                    "kernel": ph_ms, "per-genome clones": clone_ms,
+                    "kernel (group entry)": ph_ms,
                     "distinct sets (per-genome sorts)": distinct_ms}
         p_stage = 1e3 * res.clock.seconds.get("profile", 0.0) / max(
             res.clock.counts.get("profile-groups", 0), 1)
         print(f"timing positional_hashes: {len(ph_group)} genomes, {n_win} "
               f"windows ({n_valid} valid) from {hc.numel()} codes, murmur3: "
-              f"kernel {ph_ms:.4f} ms, plain (CPU tensors, host clock) "
-              f"{ph_plain:.1f} ms, bound {ph_bound:.4f} ms ({ph_by}); "
-              f"tpufast: kernel {ph_fast:.4f} ms, bound {ph_fast_bound:.4f} "
-              f"ms ({ph_fast_by}) {tag}")
+              f"kernel {ph_ms:.4f} ms (group entry; range entry "
+              f"{ph_t['murmur3']['range']:.4f} ms), plain (CPU tensors, "
+              f"host clock) {ph_plain:.1f} ms, bound {ph_bound:.4f} ms "
+              f"({ph_by}); tpufast: kernel {ph_fast:.4f} ms (range entry "
+              f"{ph_t['tpufast']['range']:.4f} ms), bound "
+              f"{ph_fast_bound:.4f} ms ({ph_fast_by}) {tag}")
+        for c, v in pass_ms.items():
+            print(f"timing group hash pass, murmur3, c = {c}: the split "
+                  f"route (range launch, {len(ph_jobs)} per-genome clones"
+                  f"{', subsample_mask' if c > 1 else ''}) "
+                  f"{v['split']:.4f} ms, one group launch "
+                  f"{v['group']:.4f} ms ({v['group'] / v['split']:.3f} of "
+                  f"it; turns split, group, group, split: "
+                  + ", ".join(f"{x:.4f}" for x in v["turns"]) + f") {tag}")
         print(f"timing profile group build: whole {build_ms:.2f} ms (host "
               f"clock, median of 5) = "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ph_split.items())
-              + f" + the rest; host layout alone {ph['layout_ms']:.3f} ms; "
-              f"distinct sets by one two-key sort over the group "
-              f"{two_key_ms:.3f} ms; skani 512 profile stage per group "
-              f"{p_stage:.2f} ms {tag}")
+              + f" + the rest; no per-genome clones (dropped from the split: "
+              f"the group entry writes each genome's tensor; the split "
+              f"route's clones alone {clone_ms:.3f} ms); host layout alone "
+              f"{ph['layout_ms']:.3f} ms; distinct sets by one two-key sort "
+              f"over the group {two_key_ms:.3f} ms; skani 512 profile stage "
+              f"per group {p_stage:.2f} ms {tag}")
         del hashes, want, flats, per_genome, two_key, ph, hc, hs, dc, ds
+        del ph_plan
 
         # the intersect form at the screen's widths for corpora whose
         # largest genome is about 6 and 10 Mbp (synthetic rows, 64 x 512
@@ -4555,7 +4678,11 @@ def main(argv=None) -> int:
              "finch_streamed": launches_e["positional_hashes"],
              "fastani": launches_a["positional_hashes"]},
          "tpufast": {"ms": ph_fast, "bound_ms": ph_fast_bound,
-                     "bound_by": ph_fast_by},
+                     "bound_by": ph_fast_by,
+                     "range_ms": ph_t["tpufast"]["range"]},
+         "range_ms": ph_t["murmur3"]["range"],
+         "group_pass_ms": {str(c): v for c, v in pass_ms.items()},
+         "split_clones_ms": clone_ms,
          "group_build_ms": build_ms, "group_split_ms": ph_split,
          "distinct_two_key_ms": two_key_ms,
          "launches_4q": scale_launches("positional_hashes", mesh_out,

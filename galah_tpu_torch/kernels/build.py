@@ -57,6 +57,15 @@ SIGNATURES = {
                                                        _I, _P, _P]),
 }
 
+# the further C functions of a library, bound beside its launch
+# function: name -> [(function, argtypes)]
+MORE_SIGNATURES = {
+    "positional_hashes": [
+        ("positional_hashes_group_launch", [_P, _P, _L, _P, _L, _L, _I, _L,
+                                            _P]),
+        ("positional_hashes_tile", [])],
+}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -120,10 +129,11 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(_lib_path(name))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in [SIGNATURES[name],
+                                  *MORE_SIGNATURES.get(name, ())]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -26,7 +26,9 @@ from typing import Sequence, Tuple
 # source notes)
 FUSED_OPS_PER_WINDOW_TPUFAST = 70
 MURMUR3_K21_OPS_PER_WINDOW = 170
-K15_OPS_PER_WINDOW = {"murmur3": 150, "tpufast": 45}
+# positional_hashes: 4 x the SASS window loop's integer-ALU instructions
+# a window (kernels/positional_hashes.cu's source note), which bind it
+K15_OPS_PER_WINDOW = {"murmur3": 202, "tpufast": 116}
 HLL_UNION_OPS_PER_REGISTER = 4
 PAIRLIST_OPS_PER_ITEM = 3
 
@@ -103,6 +105,22 @@ def window_hashes(n_windows: int, k: int, n_starts: int,
         return 0.0, 0.0
     nbytes = (n_windows + k - 1) + 8 * n_starts + 8 * n_windows
     return float(nbytes), float(n_windows * ops_per_window)
+
+
+def group_hashes(counts: Sequence[int], k: int, n_starts: int,
+                 ops_per_window: int) -> Cost:
+    """A group hash launch over genomes of `counts` windows: each
+    genome's codes (count + k - 1; no window between two genomes is
+    hashed), the contig starts and the 32-byte table row of each genome
+    read once, an int64 hash a window written (the subsample cut adds
+    no bytes)."""
+    live = [int(n) for n in counts if n > 0]
+    if not live:
+        return 0.0, 0.0
+    n_win = sum(live)
+    nbytes = (n_win + (k - 1) * len(live) + 8 * n_starts + 32 * len(live)
+              + 8 * n_win)
+    return float(nbytes), float(n_win * ops_per_window)
 
 
 def hll_union(br: int, bc: int, m: int) -> Cost:

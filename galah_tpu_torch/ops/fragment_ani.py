@@ -116,11 +116,7 @@ def subsample_mask(hashes: torch.Tensor, subsample_c: int) -> torch.Tensor:
     by the sentinel: the FracMinHash subsample of skani's compression
     (reference: src/skani.rs:159-161). Positions keep their windows, so
     the per-window counts stay comparable; c = 1 keeps every hash."""
-    if subsample_c == 1:
-        return hashes
-    cut = biased_scalar((1 << 64) // subsample_c)
-    return torch.where(hashes < cut, hashes,
-                       torch.full_like(hashes, SENTINEL_BIASED))
+    return k15.apply_cut(hashes, k15.subsample_cut(subsample_c))
 
 
 def build_profile(genome: Genome, k: int, fraglen: int, device="cuda",
@@ -163,22 +159,17 @@ def _group_flat_hashes(group: Sequence[Genome], k: int,
                        subsample_c: int = 1) -> List[torch.Tensor]:
     """Each genome's positional hashes, subsampled. At k=15 the group's
     codes go to the device in one copy and through one launch of
-    ``ops/positional_hashes`` (its kernel on cuda), and one
-    ``subsample_mask`` covers the group; other k take
-    ``hashing.positional_hashes`` a genome. A genome's hashes are cloned
-    out of the group's, so a profile held in the LRU holds no other
-    genome's hashes."""
+    ``ops/positional_hashes.group_hashes`` (its kernel on cuda), which
+    writes each genome's hashes, cut, into a tensor of its own, so a
+    profile held in the LRU holds no other genome's hashes; other k take
+    ``hashing.positional_hashes`` a genome."""
     if k != k15.K:
         return [subsample_mask(hashing.positional_hashes(g, k, device,
                                                          algo=algo),
                                subsample_c) for g in group]
     loaded = load_group(group, k, device)
-    hashes = subsample_mask(
-        k15.positional_hashes(loaded.codes, loaded.starts, algo=algo),
-        subsample_c)
-    if len(group) == 1:
-        return [hashes]
-    return [hashes[w0:w0 + n].clone() for w0, n in loaded.jobs]
+    return k15.group_hashes(loaded.codes, loaded.starts, loaded.jobs,
+                            algo=algo, subsample_c=subsample_c)
 
 
 def _distinct_sets(flats: Sequence[torch.Tensor]

@@ -31,6 +31,7 @@ from galah_tpu_torch import kernels
 from galah_tpu_torch import obs as tobs
 from galah_tpu_torch.kernels import build as kbuild
 from galah_tpu_torch.obs import events as tevents
+from galah_tpu_torch.obs import flow as tflow
 from galah_tpu_torch.obs import heartbeat as theartbeat
 from galah_tpu_torch.obs import metrics as tmetrics
 from galah_tpu_torch.obs import report as treport
@@ -43,11 +44,11 @@ CPU = torch.device("cpu")
 
 @pytest.fixture
 def fresh():
-    """Both packages' registries, events and sinks (and galah_tpu's flow
-    registry, which its heartbeat reads) empty before and after the
+    """Both packages' registries, events and sinks (and both flow
+    registries, which the heartbeats read) empty before and after the
     test."""
     def clear():
-        for mod in (jmetrics, tmetrics, jevents, tevents, jflow):
+        for mod in (jmetrics, tmetrics, jevents, tevents, jflow, tflow):
             mod.reset()
         for mod in (jevents, tevents):
             mod.reset_warn_once()

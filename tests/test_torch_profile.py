@@ -55,7 +55,7 @@ def test_costs_equal_hand_reckonings_at_perf_md_shapes():
     assert round(b / 3.35e12 * 1e3, 4) == 0.0860
     n = 16_000_000 - 14
     b, f = costs.window_hashes(n, 15, 8, costs.K15_OPS_PER_WINDOW["murmur3"])
-    assert (b, f) == (16_000_000 + 8 * 8 + 8 * n, 150 * n)
+    assert (b, f) == (16_000_000 + 8 * 8 + 8 * n, 202 * n)
     assert round(b / 3.35e12 * 1e3, 4) == 0.0430
     jobs = [(g * 2_000_000, 2_000_000 - 20) for g in range(16)]
     b, f = costs.fused_sketch(32_000_000, 16, sum(n for _, n in jobs),
