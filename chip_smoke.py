@@ -211,6 +211,18 @@ Phases, each of which exits nonzero when it fails:
    rank's report must say its process index and count; each rank's
    process wall, stage walls, exchange seconds and launches are printed.
    A speed-up cannot show on one card and none is claimed;
+4s. ``--platform`` and the lint: (a) phase 4's genomes through ``main``
+   with ``--platform gpu`` and no ``--device``: the TSV must equal phase
+   4's byte for byte and each kernel's launches phase 4's, the wall
+   printed beside phase 4's; (b) ``dist`` over 4h's 256 genomes with
+   ``GALAH_TPU_PLATFORM=cuda`` and no flag: the TSV must equal 4h's;
+   (c) ``--platform tpu`` must exit 1 with ``--platform tpu: backend
+   failed to initialize (...)``, launch nothing and write no TSV,
+   ``--platform cpu --device cuda`` must exit 2, and ``--platform cuda``
+   in this one process must run on ``cuda:0``; (d) ``python -m
+   galah_tpu_torch lint --json`` on this tree must exit 0 with no
+   unsuppressed finding and hold the 9 bound C functions against their
+   prototypes; its files, C functions and wall are printed;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -328,8 +340,12 @@ MURMUR3_OPS_PER_WINDOW = 170
 
 # 32-bit operations of one k=15 window of the positional_hashes kernel
 # at 67e12/s: 4 x the SASS window loop's integer-ALU instructions, the
-# pipe that binds it (kernels/positional_hashes.cu's source note)
-K15_OPS_PER_WINDOW = {"murmur3": 202, "tpufast": 116}
+# pipe that binds it (kernels/positional_hashes.cu's source note), kept
+# with the kernels' other costs
+try:
+    from galah_tpu_torch.kernels.costs import K15_OPS_PER_WINDOW
+except ImportError:  # outside a checkout: main() stops at phase 1
+    K15_OPS_PER_WINDOW = {}
 HLL_UNION_OPS_PER_REGISTER = 4
 
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
@@ -1198,6 +1214,9 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
                              1000, device)
         plain_x = plain_pair_dict(torch, dmat, dk, 0.0, 1000)
         check_dist(d_tsv, sub, plain_x)
+        if what == "dist dense":
+            with open(d_tsv, "rb") as fh:
+                dist_dense = (list(sub), fh.read())
         lab = [label_of[p] for p in sub]
         within = sum(lab[i] == lab[j] for i, j in dres.pairs)
         want_within = len(sub) // family * family * (family - 1) // 2
@@ -1387,7 +1406,146 @@ def phases_cli(torch, cli, reset_launches, launches_now, kernels, root,
 
     return {"launches_g": launches_g, "validations": validations,
             "dist_runs": dist_runs, "cache_runs": cache_runs,
-            "cache_profile": cache_profile}
+            "cache_profile": cache_profile, "dist_dense": dist_dense}
+
+
+class LogRecords(logging.Handler):
+    """Keeps the records of the logger it is added to (main replaces
+    the root logger's handlers, not a named logger's)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def phase_platform(torch, cli, reset_launches, launches_now, kernels, root,
+                   skani_dir, tsv4, launches4, wall4, dist_dense, threads,
+                   tag):
+    """Phase 4s: --platform and GALAH_TPU_PLATFORM through main, the
+    refusals, and the lint on this tree. Returns what the kernel record
+    keeps of it."""
+    # (a) phase 4's run, the card named by --platform gpu
+    tsv_a = os.path.join(root, "clusters_platform.tsv")
+    wall_a, launches_a = run_main(
+        torch, cli, reset_launches, launches_now,
+        ["cluster", "-d", skani_dir, "--ani", "95", "--platform", "gpu",
+         "-q", *threads, "--output-cluster-definition", tsv_a])
+    with open(tsv_a, "rb") as fh:
+        if fh.read() != tsv4:
+            raise PhaseError("platform gpu: the TSV differs from phase 4's")
+    if any(launches_a[k] != launches4[k] for k in kernels):
+        raise PhaseError(f"platform gpu: launches {launches_a} are not "
+                         f"phase 4's {launches4}")
+    print(f"platform gpu: cluster over phase 4's genomes through main "
+          f"--platform gpu: TSV byte-identical to phase 4's, launches "
+          f"equal to phase 4's kernel for kernel; wall {wall_a:.2f} s "
+          f"against phase 4's {wall4:.2f} s {tag}")
+    for name in kernels:
+        print(f"platform gpu launches {name}: {launches_a[name]} {tag}")
+
+    # (b) 4h's 256-genome dist, the card named by GALAH_TPU_PLATFORM
+    genomes_b, tsv_4h = dist_dense
+    tsv_b = os.path.join(root, "dist_platform.tsv")
+    prior = os.environ.get("GALAH_TPU_PLATFORM")
+    os.environ["GALAH_TPU_PLATFORM"] = "cuda"
+    try:
+        wall_b, launches_b = run_main(
+            torch, cli, reset_launches, launches_now,
+            ["dist", "-f", *genomes_b, "-q", *threads, "--output", tsv_b])
+    finally:
+        if prior is None:
+            os.environ.pop("GALAH_TPU_PLATFORM", None)
+        else:
+            os.environ["GALAH_TPU_PLATFORM"] = prior
+    with open(tsv_b, "rb") as fh:
+        if fh.read() != tsv_4h:
+            raise PhaseError("platform env: the dist TSV differs from "
+                             "4h's")
+    require_launched(launches_b, ("fused_sketch", "tile_stats"),
+                     "platform env dist")
+    print(f"platform env: dist over 4h's {len(genomes_b)} genomes with "
+          f"GALAH_TPU_PLATFORM=cuda and no flag: TSV byte-identical to "
+          f"4h's; wall {wall_b:.2f} s {tag}")
+
+    # (c) the refusals
+    tsv_c = os.path.join(root, "clusters_refused.tsv")
+    records = LogRecords()
+    named = logging.getLogger("galah_tpu_torch")
+    named.addHandler(records)
+    try:
+        _, launches_c = run_main(
+            torch, cli, reset_launches, launches_now,
+            ["cluster", "-d", skani_dir, "-q", "--platform", "tpu",
+             "--output-cluster-definition", tsv_c], want_rc=1)
+    finally:
+        named.removeHandler(records)
+    said = [r.getMessage() for r in records.records
+            if r.getMessage().startswith(
+                "--platform tpu: backend failed to initialize (")]
+    if not said or any(launches_c.values()) or os.path.exists(tsv_c):
+        raise PhaseError(f"platform tpu: message {said}, launches "
+                         f"{launches_c}, TSV written "
+                         f"{os.path.exists(tsv_c)}")
+    try:
+        cli.main(["cluster", "-d", skani_dir, "--platform", "cpu",
+                  "--device", "cuda", "--output-cluster-definition",
+                  tsv_c])
+        rc_disagree = 0
+    except SystemExit as e:
+        rc_disagree = e.code
+    if rc_disagree != 2 or os.path.exists(tsv_c):
+        raise PhaseError(f"--platform cpu --device cuda exited "
+                         f"{rc_disagree}, not 2")
+    if int(os.environ.get("WORLD_SIZE") or 1) != 1:
+        raise PhaseError("phase 4s runs in one process, not under torchrun")
+    dev = cli.device_of(cli.parse_args(["cluster", "-d", skani_dir,
+                                        "--platform", "cuda"]))
+    placed = torch.empty(1, device=dev).device
+    if placed != torch.device("cuda", 0):
+        raise PhaseError(f"--platform cuda in one process runs on "
+                         f"{placed}, not cuda:0")
+    print(f"platform refusals: --platform tpu exited 1 with "
+          f"{said[0]!r}, launched nothing and wrote no TSV; --platform "
+          f"cpu --device cuda exited 2; --platform cuda in one process "
+          f"runs on {placed} {tag}")
+
+    # (d) the lint on this tree, on the card machine's host
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "galah_tpu_torch", "lint",
+                           "--json"], cwd=here, capture_output=True,
+                          text=True, timeout=300)
+    lint_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseError(f"lint exited {proc.returncode}:\n"
+                         f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    rep = json.loads(proc.stdout)
+    active = [f for f in rep["findings"] if not f["suppressed"]]
+    scanned = rep["scanned"]
+    if active or scanned["c_entries"] != 9:
+        raise PhaseError(f"lint: {len(active)} unsuppressed finding(s), "
+                         f"{scanned}")
+    print(f"lint: python -m galah_tpu_torch lint --json on this tree "
+          f"exited 0: {scanned['files']} files ({scanned['cuda_files']} "
+          f"CUDA), {scanned['c_entries']} bound C functions held against "
+          f"their extern \"C\" prototypes, 0 unsuppressed findings, "
+          f"{rep['summary']['suppressed']} suppressed; lint "
+          f"{scanned['wall_s']:.3f} s, process {lint_wall:.2f} s on the "
+          f"host {tag}")
+    return {"platform_gpu": {"wall_s": wall_a, "phase_4_wall_s": wall4,
+                             "launches": launches_a},
+            "platform_env_dist": {"wall_s": wall_b,
+                                  "genomes": len(genomes_b),
+                                  "launches": launches_b},
+            "lint": {"files": scanned["files"],
+                     "cuda_files": scanned["cuda_files"],
+                     "c_entries": scanned["c_entries"],
+                     "suppressed": rep["summary"]["suppressed"],
+                     "lint_wall_s": scanned["wall_s"],
+                     "process_wall_s": lint_wall}}
 
 
 def alloc_retries(torch) -> int:
@@ -3814,6 +3972,13 @@ def main(argv=None) -> int:
                              root, res.genomes, tsv4, paths, label_of,
                              n_dense, report, threads, family, device, tag)
 
+        # -- phase 4s: --platform and the lint -------------------------------
+        print(f"phase 4s starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        platform_out = phase_platform(
+            torch, cli, reset_launches, LAUNCHES, KERNELS, root, skani_dir,
+            tsv4, launches, wall, cli_out["dist_dense"], threads, tag)
+
         # -- phases 4j-4k: checkpoint and resume, quarantine ---------------
         print(f"phase 4j starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -4703,6 +4868,7 @@ def main(argv=None) -> int:
         "launches_phase_4l": index_out["launches"],
         "phase_4o_obs": obs_out,
         "phase_4p_fleet": fleet_out,
+        "phase_4s_platform": platform_out,
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],

@@ -35,7 +35,9 @@ help strings and output formats:
   signal and a stale heartbeat mean preemption; the shard is reassigned
   and resumes from its checkpoint) and merges the shard checkpoints
   into clusters byte-identical to one process's; ``status`` and
-  ``analyze`` read a fleet directory without a device.
+  ``analyze`` read a fleet directory without a device;
+* ``lint``: the port's static analysis (``analysis/``), with
+  ``galah-tpu lint``'s options and exit rule; it reads files only.
 
 ``cluster`` and ``index`` write a run report (``--run-report`` or
 ``GALAH_OBS_REPORT``), a Chrome trace (``--trace-events`` or
@@ -48,13 +50,21 @@ every kernel) as ``DIR/*.pt.trace.json``, for TensorBoard or Perfetto.
 ``report``, ``perf``, ``flow`` and ``top`` read files only and import
 no torch.
 
-Each takes ``-v``/``-q``, ``--full-help`` and ``--full-help-roff``, and
-each but ``report``, ``perf``, ``flow`` and ``top`` the device (``--device``, cuda unless the CPU is
-asked for; ``fleet`` takes it on ``run``, and passes it to every
-worker).
-Percentages parse as in ``galah-tpu``. A flag of ``galah-tpu``'s command
-line that the port does not support yet is an error that names it; no
-flag is silently ignored. A user error (a bad value, a missing file)
+Each but ``lint`` takes ``-v``/``-q``, ``--platform``, ``--full-help``
+and ``--full-help-roff``, as in ``galah-tpu``, and each but ``report``,
+``perf``, ``flow``, ``top`` and ``lint`` the device (``--device``, cuda
+unless the CPU is asked for; ``fleet`` takes it on ``run``, and passes
+the device it resolved to every worker). ``--platform`` (or
+``GALAH_TPU_PLATFORM``, which loses to it) names the device as
+``galah-tpu``'s JAX platform does: ``cpu``, or ``cuda`` / ``gpu`` for
+the card; it must agree with an explicit ``--device`` (else exit 2),
+and a platform that cannot start here exits 1 before any work, after
+``report``, ``perf``, ``flow``, ``top`` and ``fleet status|analyze``
+have returned, as in ``galah-tpu``.
+Percentages parse as in ``galah-tpu``. ``cluster``'s
+``--rep-scan-window``, the one flag of ``galah-tpu``'s command line that
+the port does not support yet, is an error that names it; no flag is
+silently ignored. A user error (a bad value, a missing file)
 exits 1 with a one-line message. A ``cluster`` run stopped by SIGTERM
 or SIGINT at a safe boundary exits 75 (``EXIT_PREEMPTED``) and writes
 no outputs, and an ``index insert`` stopped so exits 75 with the index
@@ -76,19 +86,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from galah_tpu_torch import __version__, obs
 from galah_tpu_torch.api import (add_cluster_arguments,
                                  generate_galah_clusterer)
-from galah_tpu_torch.config import (HASH_ALGORITHMS, QUALITY_FORMULAS,
-                                    Defaults, env_value, parse_percentage)
+from galah_tpu_torch.config import (HASH_ALGORITHMS, PLATFORMS,
+                                    QUALITY_FORMULAS, Defaults, env_value,
+                                    parse_percentage)
 from galah_tpu_torch.index import INDEX_DIR_ENV
 from galah_tpu_torch.io.fasta import CORRUPT_GZIP_ERRORS
 from galah_tpu_torch.obs import events
 from galah_tpu_torch.resilience import interrupt
 
 logger = logging.getLogger("galah_tpu_torch")
-
-# flags of `galah-tpu`'s subcommands that this port does not support
-# yet: the JAX platform (`cluster`'s --rep-scan-window parses, from the
-# library API, and is refused after parsing)
-UNSUPPORTED_FLAGS = ("--platform",)
 
 
 def set_log_level(verbose: bool = False, quiet: bool = False) -> None:
@@ -113,6 +119,12 @@ def _add_verbosity(p: argparse.ArgumentParser) -> None:
                    help="Print extra debugging information")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="Unless there is an error, do not print log messages")
+    p.add_argument("--platform", default=None,
+                   help="Force the platform: cpu, or cuda (gpu, JAX's "
+                        "name for it) for the card. Must agree with an "
+                        "explicit --device; a platform that cannot start "
+                        "here exits 1 before any work. Env equivalent: "
+                        "GALAH_TPU_PLATFORM. Default: --device's choice")
     p.add_argument("--full-help", action="store_true",
                    help="Display an extended man-style help page and exit")
     p.add_argument("--full-help-roff", action="store_true",
@@ -122,7 +134,9 @@ def _add_verbosity(p: argparse.ArgumentParser) -> None:
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     _add_verbosity(p)
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+    # None stands for cuda: an explicit --device is told from the
+    # default, so that it can be held against --platform
+    p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="Device to run on (default: cuda; asking for "
                         "cuda without a GPU is an error)")
 
@@ -281,7 +295,7 @@ def _add_fleet_parser(sub) -> argparse.ArgumentParser:
         help="Shard, supervise and merge one dereplication job")
     _add_genome_inputs(ftr)
     add_cluster_arguments(ftr)
-    ftr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+    ftr.add_argument("--device", default=None, choices=("cuda", "cpu"),
                      help="Device of the workers and the merge (default: "
                           "cuda; asking for cuda without a GPU is an "
                           "error)")
@@ -486,10 +500,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "deltas")
     pf, fl, tp = _add_tool_parsers(sub)
     ft = _add_fleet_parser(sub)
+    li = sub.add_parser(
+        "lint",
+        help="Static analysis of the port: CUDA kernel contracts, flag "
+             "registry, hardware-test markers, ad-hoc timing, durable "
+             "writes, suppression expiry",
+        description="Run the galah_tpu_torch static-analysis suite "
+                    "(equivalent to `python -m galah_tpu_torch.analysis`);"
+                    " exits 1 on any unsuppressed finding at WARNING or "
+                    "above")
+    from galah_tpu_torch.analysis import add_lint_arguments
+
+    add_lint_arguments(li)
     parser.subcommand_parsers = {"cluster": c, "cluster-validate": v,
                                  "dist": dd, "index": ix, "report": rp,
                                  "perf": pf, "flow": fl, "top": tp,
-                                 "fleet": ft}
+                                 "fleet": ft, "lint": li}
     return parser
 
 
@@ -608,19 +634,44 @@ def parse_args(argv: Optional[Sequence[str]],
                parser: Optional[argparse.ArgumentParser] = None
                ) -> argparse.Namespace:
     parser = parser or build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=", 1)[0]
-        if flag in UNSUPPORTED_FLAGS:
-            parser.error(f"{flag}: this flag of `galah-tpu "
-                         f"{args.subcommand}` is not supported by "
-                         "galah_tpu_torch yet")
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     if getattr(args, "rep_scan_window", None) is not None:
         parser.error("--rep-scan-window: this flag of `galah-tpu cluster` "
                      "is not supported by galah_tpu_torch yet")
+    platform = _platform(args)
+    device = getattr(args, "device", None)
+    if platform and device is not None and \
+            PLATFORMS.get(platform, device) != device:
+        given = (f"--platform {platform}" if args.platform
+                 else f"GALAH_TPU_PLATFORM={platform}")
+        parser.error(f"--device {device} disagrees with {given}")
     return args
+
+
+def _platform(args: argparse.Namespace) -> Optional[str]:
+    """``--platform``, else ``GALAH_TPU_PLATFORM``, else None."""
+    return getattr(args, "platform", None) or env_value("GALAH_TPU_PLATFORM")
+
+
+def device_type(args: argparse.Namespace) -> str:
+    """``cpu`` or ``cuda``, touching no device: the platform's when one
+    is given (one the port does not run on is ``main``'s exit 1), else
+    ``--device``'s, else the card's. ``fleet run`` gives it to its
+    workers as ``--device``."""
+    platform = _platform(args)
+    return (PLATFORMS.get(platform) if platform else None) or \
+        getattr(args, "device", None) or "cuda"
+
+
+def device_of(args: argparse.Namespace):
+    """The torch device of a parsed command line: the platform's when
+    one is given (``device.resolve_platform``, which raises for one
+    that cannot start here), else ``--device``'s, else the card's."""
+    from galah_tpu_torch.device import resolve_device, resolve_platform
+
+    platform = _platform(args)
+    return (resolve_platform(platform) if platform
+            else resolve_device(getattr(args, "device", None)))
 
 
 def _genome_inputs(args: argparse.Namespace, manifest=None) -> List[str]:
@@ -666,10 +717,10 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     is recorded in the checkpoint and ``PreemptionRequested`` raises,
     with no output written (``main`` exits 75). The run report and the
     trace are written however the run ends."""
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.timing import StageClock
 
-    started_at = time.time()  # a stamp for the report, not a duration
+    # galah-lint: ignore[GL701] a stamp for the report, not a duration
+    started_at = time.time()
     obs.reset_run()
     interrupt.reset()
     interrupt.install()
@@ -678,7 +729,7 @@ def run_cluster(args: argparse.Namespace) -> RunResult:
     try:
         if args.resume and not args.checkpoint_dir:
             raise ValueError("--resume requires --checkpoint-dir")
-        clock = StageClock(resolve_device(args.device))
+        clock = StageClock(device_of(args))
         return _run_cluster(args, clock)
     finally:
         interrupt.uninstall()
@@ -782,7 +833,8 @@ def _run_cluster(args: argparse.Namespace, clock) -> RunResult:
             if ckpt is not None:
                 ckpt.record_interruption({
                     "signal": e.signame, "boundary": e.boundary,
-                    "ts": time.time()})  # a stamp, not a duration
+                    # galah-lint: ignore[GL701] a stamp, not a duration
+                    "ts": time.time()})
             logger.warning(
                 "Preempted (%s): stopped at safe boundary %r. The "
                 "checkpoint%s is consistent; rerun with --resume to "
@@ -817,7 +869,6 @@ def run_cluster_validate(args: argparse.Namespace):
     the ``validate.Validation``. Violations are logged, not raised."""
     from galah_tpu_torch.backends import (FastANIEquivalentClusterer,
                                           ProfileStore)
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.validate import validate_clusters
 
     if not args.cluster_file:
@@ -828,7 +879,7 @@ def run_cluster_validate(args: argparse.Namespace):
     if not 1 <= args.ani_subsample <= 1000:
         raise ValueError(f"--ani-subsample must be in [1, 1000], got "
                          f"{args.ani_subsample}")
-    store = ProfileStore(resolve_device(args.device),
+    store = ProfileStore(device_of(args),
                          fraglen=args.fragment_length,
                          hash_algorithm=args.hash_algorithm,
                          threads=args.threads,
@@ -851,7 +902,6 @@ def run_dist(args: argparse.Namespace) -> DistResult:
     ``a<TAB>b<TAB>ani`` lines in sorted pair order to ``--output`` or
     stdout."""
     from galah_tpu_torch.backends import SketchStore
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.io import diskcache
     from galah_tpu_torch.ops.hashing import MAX_KMER
     from galah_tpu_torch.ops.minhash import sketch_matrix
@@ -865,7 +915,7 @@ def run_dist(args: argparse.Namespace) -> DistResult:
         raise ValueError(
             f"--kmer-length {args.kmer_length}: galah_tpu_torch sketches "
             f"k-mers of 1 to {MAX_KMER} bases")
-    device = resolve_device(args.device)
+    device = device_of(args)
     clock = StageClock(device)
     genomes = _genome_inputs(args)
     cache = diskcache.get_cache(args.sketch_cache, clock)
@@ -962,10 +1012,10 @@ def run_index(args: argparse.Namespace) -> IndexResult:
                          f"{INDEX_DIR_ENV}")
     if action == "fsck":
         return _run_index_fsck(index_dir)
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.timing import StageClock
 
-    started_at = time.time()  # a stamp for the report, not a duration
+    # galah-lint: ignore[GL701] a stamp for the report, not a duration
+    started_at = time.time()
     obs.reset_run()
     interrupt.reset()
     interrupt.install()
@@ -974,7 +1024,7 @@ def run_index(args: argparse.Namespace) -> IndexResult:
     try:
         genomes = _genome_inputs(args)
         if action != "remove":
-            clock = StageClock(resolve_device(args.device))
+            clock = StageClock(device_of(args))
         return _run_index(args, action, index_dir, genomes, clock)
     finally:
         interrupt.uninstall()
@@ -1030,7 +1080,8 @@ def _run_index(args: argparse.Namespace, action: str, index_dir: str,
                           boundary=e.boundary)
             idx.record_interruption({
                 "signal": e.signame, "boundary": e.boundary,
-                "ts": time.time()})  # a stamp, not a duration
+                # galah-lint: ignore[GL701] a stamp, not a duration
+                "ts": time.time()})
             logger.warning(
                 "Preempted (%s): stopped at safe boundary %r. The index "
                 "at %s is loadable at its last committed generation; "
@@ -1269,10 +1320,10 @@ def run_fleet(args: argparse.Namespace) -> int:
     ``scheduler``). Returns the exit code: 0, 1 on a user error or a
     shard that spent its retry budget, 75 when the supervisor was
     stopped (rerun to resume)."""
-    from galah_tpu_torch.device import resolve_device
     from galah_tpu_torch.timing import StageClock
 
-    started_at = time.time()  # a stamp for the report, not a duration
+    # galah-lint: ignore[GL701] a stamp for the report, not a duration
+    started_at = time.time()
     obs.reset_run()
     interrupt.reset()
     interrupt.install()
@@ -1291,7 +1342,7 @@ def run_fleet(args: argparse.Namespace) -> int:
         lambda: fleet_view.rollup(fleet_dir))
     clock = None
     try:
-        clock = StageClock(resolve_device(args.device))
+        clock = StageClock(device_of(args))
         return _run_fleet_inner(args, clock)
     finally:
         interrupt.uninstall()
@@ -1326,7 +1377,7 @@ def _fleet_worker_argv(args: argparse.Namespace, fleet_dir: str,
                 fleet_scheduler.shard_report_path(fleet_dir, sid),
                 "--output-cluster-definition",
                 fleet_scheduler.shard_tsv_path(fleet_dir, sid),
-                "--device", args.device]
+                "--device", device_type(args)]
         if cache_path:
             argv += ["--sketch-cache", cache_path]
         if resume:
@@ -1495,7 +1546,8 @@ def run_fleet_analyze(args: argparse.Namespace) -> int:
 
     from galah_tpu_torch.obs import fleet_view
 
-    started_at = time.time()  # a stamp for the report, not a duration
+    # galah-lint: ignore[GL701] a stamp for the report, not a duration
+    started_at = time.time()
     ru = fleet_view.rollup(args.fleet_dir)
     if ru is None:
         logger.error("%s: rollup-impossible — no fleet event log (run "
@@ -1533,6 +1585,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.subcommand is None:
         parser.print_help()
         return 1
+    if args.subcommand == "lint":
+        # reads files only: no logging setup, no device, no torch
+        from galah_tpu_torch.analysis import main as lint_main
+
+        return lint_main(args=args)
     # the help pages come before anything touches the device
     if args.full_help_roff:
         from galah_tpu_torch.manpage import render_full_help_roff
@@ -1552,6 +1609,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
              "flow": run_flow_cmd, "top": run_top_cmd}
     if args.subcommand in tools:
         return tools[args.subcommand](args)
+    if args.subcommand == "fleet" and args.fleet_action in ("status",
+                                                            "analyze"):
+        return run_fleet_cmd(args)
+    # the platform is tried before any work, as galah-tpu tries its JAX
+    # backend: one line and exit 1 when it cannot start
+    platform = _platform(args)
+    if platform:
+        from galah_tpu_torch.device import resolve_platform
+
+        try:
+            resolve_platform(platform)
+        except Exception as e:  # noqa: BLE001 - any failure is the same
+            msg = str(e).splitlines()[0] if str(e) else type(e).__name__
+            logger.error("--platform %s: backend failed to initialize "
+                         "(%s)", platform, msg)
+            return 1
     logger.info("galah_tpu_torch version %s", __version__)
     try:
         if args.subcommand == "cluster":

@@ -6,6 +6,8 @@ from typing import Union
 
 import torch
 
+from galah_tpu_torch.config import PLATFORMS
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -24,6 +26,22 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_platform(platform: str) -> torch.device:
+    """The device a ``--platform`` (or ``GALAH_TPU_PLATFORM``) name
+    selects, ready to run on: ``torch.device("cpu")`` or
+    ``torch.device("cuda")``, with no index, so a ``torchrun`` rank
+    still runs on ``cuda:LOCAL_RANK`` (``parallel/distributed.py``).
+    Raises RuntimeError with the reason when the platform cannot start
+    here: a name the port does not run on (``tpu``, ``rocm``), or the
+    card without one."""
+    kind = PLATFORMS.get(platform)
+    if kind is None:
+        raise RuntimeError(
+            f"galah_tpu_torch runs on {', '.join(sorted(PLATFORMS))}, "
+            f"not {platform!r}")
+    return resolve_device(kind)
 
 
 def synchronize(device: torch.device) -> None:

@@ -57,7 +57,8 @@ UNCHARGED_REASONS = frozenset({"fleet-interrupted", "orphaned"})
 
 
 def _wall() -> float:
-    return time.time()  # event timestamps and beat ages, not durations
+    # galah-lint: ignore[GL701] event timestamps and beat ages, not durations
+    return time.time()
 
 
 def append_stamp(fleet_dir: str, ev: str, **fields: Any) -> None:

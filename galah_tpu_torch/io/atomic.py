@@ -212,7 +212,8 @@ def sweep_tmp(directory: str, max_age_s: float = 0.0) -> int:
         names = os.listdir(directory)
     except OSError:
         return 0
-    now = time.time()  # an age gate on file mtimes, not a duration
+    # galah-lint: ignore[GL701] an age gate on file mtimes, not a duration
+    now = time.time()
     for name in names:
         if not name.endswith(".tmp"):
             continue

@@ -8,8 +8,8 @@ builder). Here, as in ``galah_tpu``, the page is built from the argparse
 parser plus section prose, as plain text (paged when stdout is a TTY)
 or as roff source. Every page equals ``galah_tpu``'s for the same
 parser but for its ENVIRONMENT section, which lists the variables the
-port itself reads, and for the ``dist``, ``fleet``, ``perf``, ``flow``
-and ``top`` epilogs, which ``galah_tpu`` lacks; the pages keep its
+port itself reads, and for the ``dist``, ``fleet``, ``perf``, ``flow``,
+``top`` and ``lint`` epilogs, which ``galah_tpu`` lacks; the pages keep its
 command name, ``galah-tpu``.
 """
 
@@ -275,6 +275,36 @@ EXAMPLES
          -x fna --output-cluster-definition clusters.tsv
       galah_tpu_torch perf --ledger perf.jsonl history run.duration_s
       galah_tpu_torch perf --ledger perf.jsonl check
+""",
+    "lint": """\
+CHECKER FAMILIES
+   kernels (GL111-GL115): each ctypes signature of kernels/build.py
+   against its extern "C" prototype, a .cu without a binding and a
+   binding without a .cu, launches that are not profiled, checked and
+   counted, asserted launch preconditions, torch.uint64. flags
+   (GL401-405): the GALAH_* registry against every env read and the
+   ENVIRONMENT section. markers (GL601): hardware-only tests carry a
+   slow or hardware marker. obs (GL701-703): durations through
+   timing.py and obs/, not raw clocks. fs (GL806): durable artifacts
+   only through io/atomic.py. suppressions (GL001): expired
+   `expires=` dates. galah-tpu's Pallas, JAX-tracing and shape
+   families have no counterpart; its concurrency, determinism,
+   pipeline and effects families wait for the annotations they read.
+
+SUPPRESSION
+   `# galah-lint: ignore[CODE] reason` on the flagged line or the line
+   above (`// galah-lint: ignore[CODE]` in a .cu), optionally with
+   `expires=YYYY-MM-DD`; or an entry in
+   galah_tpu_torch/analysis/baseline.json (--update-baseline), which
+   the repo keeps empty.
+
+EXIT STATUS
+   1 on any unsuppressed finding at WARNING or above, else 0.
+
+EXAMPLES
+      galah_tpu_torch lint
+      galah_tpu_torch lint --check kernels --json
+      python -m galah_tpu_torch.analysis --changed-only
 """,
     "flow": """\
 EXIT STATUS

@@ -79,7 +79,8 @@ def _shard_context(report_path: Optional[str]) -> Optional[int]:
 def finalize(subcommand: str, clock=None,
              report_path: Optional[str] = None,
              argv: Optional[List[str]] = None,
-             started_at: Optional[float] = None) -> Optional[dict]:
+             started_at: Optional[float] = None,
+             lint: Optional[dict] = None) -> Optional[dict]:
     """Stop the heartbeat (its final beat); with a `report_path` or a
     ledger (``GALAH_OBS_LEDGER``) assemble the run report from the
     run's `clock` (a ``timing.StageClock``, or None when the run
@@ -87,7 +88,8 @@ def finalize(subcommand: str, clock=None,
     write it to `report_path`, append its entry to the ledger (a fleet
     worker's under its shard's key); then close the trace. Returns the
     report, or None. Telemetry failures log and return None; they never
-    fail the run.
+    fail the run. `lint` attaches the static-analysis summary (lint runs
+    only).
 
     ``galah_tpu`` assembles and validates a report on every run; the
     port only when a report or a ledger entry is asked for (the schema
@@ -106,7 +108,7 @@ def finalize(subcommand: str, clock=None,
             from galah_tpu_torch.obs import report as report_mod
 
             out = report_mod.assemble(subcommand, clock, argv=argv,
-                                      started_at=started_at)
+                                      started_at=started_at, lint=lint)
             problems = report_mod.validate(out)
             if problems:  # a bug in assembly, not in the user's run
                 logger.warning("run report failed schema validation: %s",

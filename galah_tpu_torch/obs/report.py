@@ -22,9 +22,10 @@ heartbeat ran, ``flow`` (``obs/flow.snapshot`` with its
 ``critical_path``, and the heartbeat's series). A fleet supervisor's
 report (``fleet run``) adds the ``fleet`` section (``fleet.snapshot()``)
 and the ``fleet_rollup`` section (``obs/fleet_view.rollup`` over the
-fleet directory). ``galah_tpu``'s ``sanitizer`` and ``lint`` sections
-come from tools the port lacks; a report of either package that holds
-them still renders and diffs here.
+fleet directory). ``lint --run-report`` adds the ``lint`` section
+(``analysis.core.lint_summary``). ``galah_tpu``'s ``sanitizer`` section
+comes from a tool the port lacks; a report of either package that
+holds it still renders and diffs here.
 """
 
 from __future__ import annotations
@@ -115,12 +116,14 @@ def _split_dispatch_counters(
 
 def assemble(subcommand: str, clock=None,
              argv: Optional[List[str]] = None,
-             started_at: Optional[float] = None) -> dict:
+             started_at: Optional[float] = None,
+             lint: Optional[dict] = None) -> dict:
     """The full report dict from the run's `clock` (a
     ``timing.StageClock``, or None when the run stopped before it made
     one) and the process-wide telemetry (``obs.metrics``,
     ``obs.events``, the interruption state, the index snapshot, the
-    heartbeat)."""
+    heartbeat). `lint` is the static-analysis summary
+    (``analysis.core.lint_summary``), attached by ``lint`` only."""
     import galah_tpu_torch
     from galah_tpu_torch.obs import events as obs_events
     from galah_tpu_torch.obs import metrics as obs_metrics
@@ -241,6 +244,8 @@ def assemble(subcommand: str, clock=None,
             report["flow"] = flow_snap
     except Exception:  # additive sections; never lose a report
         logger.debug("flow snapshot failed", exc_info=True)
+    if lint is not None:
+        report["lint"] = lint
     return report
 
 

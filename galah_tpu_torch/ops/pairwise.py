@@ -30,7 +30,6 @@ with the same result.
 from __future__ import annotations
 
 import math
-import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -43,7 +42,7 @@ from galah_tpu_torch.ops.compact import iter_blocks
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 from galah_tpu_torch.ops.tile_stats import tile_stats
 from galah_tpu_torch.ops.u64 import from_biased
-from galah_tpu_torch.timing import StageClock
+from galah_tpu_torch.timing import StageClock, Stopwatch
 
 ROW_TILE = 64
 COL_TILE = 256
@@ -265,7 +264,7 @@ def threshold_pairs_streamed(
     out: Dict[Tuple[int, int], float] = {}
     for r0, rows in obs_flow.waited(blocks, "pairs"):
         obs_flow.absorb("sketch", "pairs")
-        t_block = time.perf_counter()
+        block_watch = Stopwatch()
         bsz = rows.shape[0]
         if r0 != r1 or bsz > block or r0 + bsz > n:
             raise ValueError(f"streamed sketch block of {bsz} rows at "
@@ -308,7 +307,7 @@ def threshold_pairs_streamed(
         out.update(zip(zip(ki.tolist(), (r0 + kj).tolist()), ani.tolist()))
         # the stripe's host work, its device bracket excluded
         obs_flow.record_service(
-            "pairs", max(time.perf_counter() - t_block - bdev.seconds, 0.0))
+            "pairs", max(block_watch.seconds() - bdev.seconds, 0.0))
         obs_flow.emit("pairs", obs_flow.begin("edge_stripe"))
     if r1 != n:
         raise ValueError(f"streamed pair pass saw {r1} rows, expected {n}")

@@ -193,8 +193,11 @@ def plan_group(codes: torch.Tensor, jobs: Jobs) -> GroupLaunch:
     live = [j for j, (_, n) in enumerate(jobs) if n > 0]
     if not live:
         return GroupLaunch(outs, None, 0, 0, 0)
-    # the kernel stores windows in 16-byte pairs
-    assert all(outs[j].data_ptr() % 16 == 0 for j in live)
+    # the kernel stores windows in 16-byte pairs, and the group entry
+    # cannot see the outputs' addresses (they are in the table)
+    if any(outs[j].data_ptr() % 16 for j in live):
+        raise ValueError("positional_hashes: a group output is not "
+                         "16-byte aligned")
     tile = build.load("positional_hashes").positional_hashes_tile()
     counts = np.array([jobs[j][1] for j in live], dtype=np.int64)
     table = np.stack([np.cumsum(-(-counts // tile)),

@@ -33,13 +33,13 @@ import datetime
 import hashlib
 import logging
 import os
-import time
 from typing import Callable, List, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
 
 from galah_tpu_torch.obs import metrics as obs_metrics
+from galah_tpu_torch.timing import Stopwatch
 
 logger = logging.getLogger(__name__)
 
@@ -136,7 +136,7 @@ def exchange(tag: str, value: np.ndarray, fill=0) -> np.ndarray:
     if process_count() == 1:
         return value[None].copy()
     dist = _dist()
-    t0 = time.perf_counter()
+    watch = Stopwatch()
     try:
         shape = torch.tensor([value.ndim, *value.shape], dtype=torch.int64)
         dims = [torch.empty_like(shape) for _ in range(process_count())]
@@ -159,7 +159,7 @@ def exchange(tag: str, value: np.ndarray, fill=0) -> np.ndarray:
         obs_metrics.counter(
             "distributed.exchange_seconds", unit="seconds",
             help="Seconds spent in process-group exchanges").inc(
-            time.perf_counter() - t0)
+            watch.seconds())
         obs_metrics.counter(
             "distributed.exchanges",
             help="Process-group exchanges (all-gathers)").inc()

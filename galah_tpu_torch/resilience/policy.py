@@ -93,14 +93,20 @@ def call_with_retry(
             d = policy.delay(attempt, site)
             if (policy.total_budget is not None
                     and time.monotonic() - t0 + d > policy.total_budget):
-                logger.warning("%s: retry budget %.1f s exhausted after "
-                               "attempt %d", site, policy.total_budget,
-                               attempt + 1)
+                logger.warning(
+                    # the budget is config, not a measurement
+                    # galah-lint: ignore[GL702]
+                    "%s: retry budget %.1f s exhausted after attempt %d",
+                    site, policy.total_budget, attempt + 1)
                 raise
             if on_retry is not None:
                 on_retry(attempt, e)
-            logger.warning("%s: attempt %d/%d failed (%s: %s); retrying "
-                           "in %.2f s", site, attempt + 1,
-                           policy.max_attempts, type(e).__name__, e, d)
+            logger.warning(
+                # the delay is the policy's schedule, not a measured
+                # duration
+                # galah-lint: ignore[GL702]
+                "%s: attempt %d/%d failed (%s: %s); retrying in %.2f s",
+                site, attempt + 1, policy.max_attempts, type(e).__name__,
+                e, d)
             (sleep or time.sleep)(d)
     raise AssertionError("unreachable: the last attempt returns or raises")

@@ -3,7 +3,10 @@
 A :class:`StageClock` is created by the caller (the CLI creates one per
 run) and handed to the stores, the backends and the engine. Each stage
 ends with a device synchronize, so its host-clock time covers the
-device work it queued, not only the enqueue. Stages may nest (the
+device work it queued, not only the enqueue. A :class:`Stopwatch` reads
+the same host clock for a duration that is no stage (a check's seconds,
+a flow span's service, a collective's seconds); the lint's GL701 holds
+the port's other modules to these two. Stages may nest (the
 greedy stage reads and profiles the genomes its exact ANIs need); a
 stage's ``seconds`` exclude the stages run inside it, so the stages of
 a run add up to at most its wall.
@@ -38,6 +41,19 @@ from galah_tpu_torch.obs import trace
 T = TypeVar("T")
 
 logger = logging.getLogger(__name__)
+
+
+class Stopwatch:
+    """Host-clock seconds since it was made: the duration of work that
+    is no stage, on the clock the stages use. It does not synchronize
+    the device; its caller reads it after the work's results are on
+    the host."""
+
+    def __init__(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def seconds(self) -> float:
+        return time.perf_counter() - self._t0
 
 
 class StageClock:

@@ -14,9 +14,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
-import time
 
 from galah_tpu_torch.outputs import read_cluster_file
+from galah_tpu_torch.timing import Stopwatch
 
 logger = logging.getLogger(__name__)
 
@@ -41,9 +41,9 @@ def validate_clusters(cluster_file: str, clusterer) -> Validation:
 
     member_pairs = [(cluster[0], member)
                     for cluster in clusters for member in cluster[1:]]
-    t0 = time.perf_counter()
+    watch = Stopwatch()
     anis = clusterer.calculate_ani_batch(member_pairs)
-    member_seconds = time.perf_counter() - t0
+    member_seconds = watch.seconds()
     for (rep, member), ani in zip(member_pairs, anis):
         if ani is None or ani < thr:
             violations += 1
@@ -53,9 +53,9 @@ def validate_clusters(cluster_file: str, clusterer) -> Validation:
 
     reps = [c[0] for c in clusters]
     rep_pairs = list(itertools.combinations(reps, 2))
-    t0 = time.perf_counter()
+    watch = Stopwatch()
     anis = clusterer.calculate_ani_batch(rep_pairs)
-    rep_seconds = time.perf_counter() - t0
+    rep_seconds = watch.seconds()
     for (r1, r2), ani in zip(rep_pairs, anis):
         if ani is not None and ani >= thr:
             violations += 1

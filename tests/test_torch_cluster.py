@@ -6,6 +6,7 @@ Tolerance: none — cluster lists equal, TSV bytes equal.
 
 import ast
 import json
+import logging
 import os
 import pathlib
 import subprocess
@@ -143,10 +144,29 @@ def test_cli_directory_input(families, tmp_path):
     ["--platform", "cpu"], ["--rep-scan-window", "8"],
     ["--platform=tpu"]])
 def test_cli_rejects_unsupported_flag_by_name(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.parse_args(["cluster", "-f", "a.fna", *flag])
-    assert e.value.code == 2
-    assert flag[0].split("=")[0] in capsys.readouterr().err
+    """--rep-scan-window is refused by name (exit 2); --platform, once
+    refused too, parses: cpu selects the CPU, and tpu cannot start, so
+    main exits 1 before any work."""
+    argv = ["cluster", "-f", "a.fna", *flag]
+    if flag[0] == "--rep-scan-window":
+        with pytest.raises(SystemExit) as e:
+            tcli.parse_args(argv)
+        assert e.value.code == 2
+        assert flag[0] in capsys.readouterr().err
+        return
+    args = tcli.parse_args(argv)
+    assert args.platform == flag[-1].split("=")[-1]
+    if args.platform == "cpu":
+        assert tcli.device_type(args) == "cpu"
+    else:
+        root = logging.getLogger()
+        handlers, level = root.handlers[:], root.level
+        try:
+            assert tcli.main(argv) == 1
+        finally:
+            root.handlers[:] = handlers
+            root.setLevel(level)
+        assert "--platform tpu: backend failed" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("sub", ["cluster", "index"])
@@ -240,7 +260,14 @@ def test_port_imports_neither_jax_nor_galah_tpu():
             "galah_tpu_torch/fleet/__init__.py",
             "galah_tpu_torch/fleet/plan.py",
             "galah_tpu_torch/fleet/scheduler.py",
-            "galah_tpu_torch/fleet/merge.py"} <= names
+            "galah_tpu_torch/fleet/merge.py",
+            "galah_tpu_torch/analysis/__init__.py",
+            "galah_tpu_torch/analysis/core.py",
+            "galah_tpu_torch/analysis/kernels_check.py",
+            "galah_tpu_torch/analysis/flags_check.py",
+            "galah_tpu_torch/analysis/markers_check.py",
+            "galah_tpu_torch/analysis/obs_check.py",
+            "galah_tpu_torch/analysis/fs_check.py"} <= names
     for f in files:
         for mod in _imports(ast.parse(f.read_text())):
             top = mod.split(".")[0]
@@ -255,7 +282,7 @@ def test_port_run_loads_no_jax(families, tmp_path):
     read-ahead, the genome inputs, the cache and its durable write, the
     outputs, the validation, the help pages, the sketch index (build,
     insert, query, remove, fsck), the library API with a subsampled
-    profile, and dist at another k."""
+    profile, dist at another k, --platform cpu and the lint."""
     paths, _ = families
     out = tmp_path / "o.tsv"
     listing = tmp_path / "genomes.txt"
@@ -287,12 +314,16 @@ def test_port_run_loads_no_jax(families, tmp_path):
         f" {str(tmp_path / 'q.tsv')!r}])\n"
         f"rc = rc or main([*ix, 'remove', '-f', {paths[0]!r}])\n"
         f"rc = rc or main([*ix, 'fsck'])\n"
+        "rc = rc or main(['index', '--platform', 'cpu', '--index-dir',"
+        f" {str(tmp_path / 'ix')!r}, 'fsck'])\n"
+        "rc = rc or main(['lint', '--check', 'kernels'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu')]\n"
         "new = [m for m in ('io._cingest', 'io.prefetch', 'io.atomic', "
         "'io.diskcache', 'genome_inputs', 'outputs', 'validate', "
         "'manpage', 'index', 'index.store', 'index.incremental', 'api', "
-        "'backends.base', 'obs.events') "
+        "'backends.base', 'obs.events', 'analysis', "
+        "'analysis.kernels_check') "
         "if 'galah_tpu_torch.' + m not in sys.modules]\n"
         "print('LOADED', bad, 'MISSING', new)\n"
         "sys.exit(rc or (1 if bad or new else 0))\n")

@@ -177,8 +177,10 @@ def _action_parser(parser, action):
 @pytest.mark.parametrize("action", ["run", "status", "analyze"])
 def test_fleet_parser_matches_galah_tpus(action, capsys):
     """`fleet run|status|analyze` take galah_tpu's options with its
-    defaults, and `run` also the port's --device (default cuda);
-    galah_tpu's --platform is refused by name."""
+    defaults, and `run` also the port's --device (its default None
+    stands for cuda); --platform, once refused by name, goes on `fleet`
+    before the action, as in galah_tpu, and after it is an
+    unrecognized argument in both packages."""
     from galah_tpu.cli import build_parser as jbuild_parser
 
     want = _actions(_action_parser(jbuild_parser()._subcommand_parsers[
@@ -186,15 +188,17 @@ def test_fleet_parser_matches_galah_tpus(action, capsys):
     got = _actions(_action_parser(tcli.build_parser().subcommand_parsers[
         "fleet"], action))
     if action == "run":
-        assert got.pop("--device") == ("cuda", False)
+        assert got.pop("--device") == (None, False)
     assert got == want
-    argv = (["fleet", "run", "--fleet-dir", "d"] if action == "run"
-            else ["fleet", action, "d"])
-    with pytest.raises(SystemExit) as e:
-        tcli.parse_args([*argv, "--platform", "cpu"])
-    assert e.value.code == 2
-    assert "--platform: this flag of `galah-tpu fleet`" in \
-        capsys.readouterr().err
+    rest = ["--fleet-dir", "d"] if action == "run" else ["d"]
+    for parse in (jbuild_parser().parse_args, tcli.parse_args):
+        assert parse(["fleet", "--platform", "cpu", action,
+                      *rest]).platform == "cpu"
+        with pytest.raises(SystemExit) as e:
+            parse(["fleet", action, *rest, "--platform", "cpu"])
+        assert e.value.code == 2
+        assert "unrecognized arguments: --platform cpu" in \
+            capsys.readouterr().err
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

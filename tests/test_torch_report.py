@@ -80,8 +80,9 @@ def _ported_routes(mp):
     its own), which the port lacks, off."""
     mp.setattr(jcollision, "SPARSE_SCREEN_MIN_N", 0)
     mp.setattr(tcollision, "SPARSE_SCREEN_MIN_N", 0)
-    mp.setenv("GALAH_TPU_HLL_BUCKETS", "0")
-    mp.setenv("GALAH_TPU_PREFILTER", "0")
+    # galah_tpu's own flags, for its side of the comparison
+    mp.setenv("GALAH_TPU_HLL_BUCKETS", "0")  # galah-lint: ignore[GL401]
+    mp.setenv("GALAH_TPU_PREFILTER", "0")  # galah-lint: ignore[GL401]
 
 
 def _pinned_hll(orig):
