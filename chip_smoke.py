@@ -222,7 +222,18 @@ Phases, each of which exits nonzero when it fails:
    in this one process must run on ``cuda:0``; (d) ``python -m
    galah_tpu_torch lint --json`` on this tree must exit 0 with no
    unsuppressed finding and hold the 9 bound C functions against their
-   prototypes; its files, C functions and wall are printed;
+   prototypes; its files, C functions, wall and each of its nine
+   checker families' seconds are printed;
+4t. the sanitizer on the card: phase 4's skani 512, 4e's finch 1000
+   streamed at --threads 8 and 4l's index insert (into a copy of its
+   base index) as ``python -m galah_tpu_torch`` processes with
+   GALAH_SAN=1, GALAH_SAN_REPORT, --run-report and
+   GALAH_OBS_HEARTBEAT_S=0.25: each must write its phase's TSV or index
+   byte for byte with its phase's launches kernel for kernel, and its
+   sanitizer section and report must hold zero undeclared acquisitions,
+   unordered edges, inversions and races; each process wall is printed
+   beside its phase's, with the acquisitions and the edges observed,
+   declared and unexercised;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -1525,7 +1536,8 @@ def phase_platform(torch, cli, reset_launches, launches_now, kernels, root,
     rep = json.loads(proc.stdout)
     active = [f for f in rep["findings"] if not f["suppressed"]]
     scanned = rep["scanned"]
-    if active or scanned["c_entries"] != 9:
+    families = scanned.get("families_s") or {}
+    if active or scanned["c_entries"] != 9 or len(families) != 9:
         raise PhaseError(f"lint: {len(active)} unsuppressed finding(s), "
                          f"{scanned}")
     print(f"lint: python -m galah_tpu_torch lint --json on this tree "
@@ -1535,6 +1547,8 @@ def phase_platform(torch, cli, reset_launches, launches_now, kernels, root,
           f"{rep['summary']['suppressed']} suppressed; lint "
           f"{scanned['wall_s']:.3f} s, process {lint_wall:.2f} s on the "
           f"host {tag}")
+    print(f"lint families: {len(families)}, seconds each: " + ", ".join(
+        f"{name} {s:.3f}" for name, s in families.items()) + f" {tag}")
     return {"platform_gpu": {"wall_s": wall_a, "phase_4_wall_s": wall4,
                              "launches": launches_a},
             "platform_env_dist": {"wall_s": wall_b,
@@ -1545,6 +1559,7 @@ def phase_platform(torch, cli, reset_launches, launches_now, kernels, root,
                      "c_entries": scanned["c_entries"],
                      "suppressed": rep["summary"]["suppressed"],
                      "lint_wall_s": scanned["wall_s"],
+                     "families_s": families,
                      "process_wall_s": lint_wall}}
 
 
@@ -2140,6 +2155,9 @@ def phases_index(torch, cli, reset_launches, launches_now, kernels, root,
     keep("build", wall, launches, res)
     require_launched(launches, ("fused_sketch", "tile_stats"),
                      "index build")
+    # phase 4t inserts the same genomes into a copy of this base
+    base_copy = os.path.join(root, "index_base")
+    shutil.copytree(grown, base_copy)
     res, wall, launches = index_run(
         ["index", "--index-dir", grown, *on, "insert", "-f", *new,
          *quality, "--batch", str(INDEX_BATCH)])
@@ -2150,6 +2168,9 @@ def phases_index(torch, cli, reset_launches, launches_now, kernels, root,
         raise PhaseError(f"index insert: {launches['pairlist']} pairlist "
                          f"launches for {batches} batches, "
                          f"{res.info['inserted']} genomes inserted")
+    out["insert_run"] = {"base": base_copy, "new": new,
+                         "quality": quality, "bytes": index_bytes(grown),
+                         "launches": launches, "wall": wall}
     # the grown index against a from-scratch build over all genomes
     res, wall, launches = index_run(
         ["index", "--index-dir", scratch, *on, "build", "-f", *ordered,
@@ -2871,6 +2892,77 @@ def phase_obs(root, runs, threads, tag):
     print(f"obs: all {len(KERNELS)} kernels launched across the observed "
           f"runs {tag}")
     out["nvcc_span_ms"] = nvcc_span(root, tag)
+    return out
+
+
+def phase_sanitizer(root, runs, tag):
+    """Phase 4t: GalahSan on the card. Each of `runs`, {what: (its argv
+    from (directory, report path), its output read from the directory,
+    the phase's output, the phase's launches, the phase's wall)}, as a
+    ``python -m galah_tpu_torch`` process with GALAH_SAN=1,
+    GALAH_SAN_REPORT, --run-report and GALAH_OBS_HEARTBEAT_S=0.25: its
+    output must equal the phase's byte for byte, its report's
+    dispatches the phase's launches kernel for kernel, and its sanitizer
+    section and report must hold zero undeclared acquisitions, unordered
+    edges, inversions and races; returns the record's entries."""
+    from galah_tpu_torch.analysis.concurrency_check import THREADED_MODULES
+    from galah_tpu_torch.obs import report as report_mod
+
+    out = {}
+    for what, (make_argv, read_output, want, launches, wall) in \
+            runs.items():
+        d = os.path.join(root, "san_" + what.replace(" ", "_"))
+        os.makedirs(d)
+        rep_path = os.path.join(d, "run_report.json")
+        san_path = os.path.join(d, "sanitizer_report.json")
+        env = dict(os.environ, GALAH_SAN="1", GALAH_SAN_REPORT=san_path,
+                   GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
+        wall_san = run_cli_process(make_argv(d, rep_path),
+                                   os.path.join(d, "log.txt"), env)
+        if read_output(d) != want:
+            raise PhaseError(f"sanitizer {what}: the output differs from "
+                             f"the phase's")
+        rep = report_mod.load(rep_path)
+        problems = report_mod.validate(rep)
+        if problems:
+            raise PhaseError(f"sanitizer {what}: the run report is not "
+                             f"valid: {problems[:3]}")
+        want_launches = {k: v for k, v in launches.items() if v}
+        if rep["dispatch"]["dispatches"] != want_launches:
+            raise PhaseError(f"sanitizer {what}: launches "
+                             f"{rep['dispatch']['dispatches']} are not the "
+                             f"phase's {want_launches}")
+        s = rep.get("sanitizer") or {}
+        bad = ("undeclared_acquisitions", "undeclared_edges",
+               "inversions", "races")
+        if (s.get("modules") != len(THREADED_MODULES)
+                or any(s.get(k) != 0 for k in bad)
+                or s.get("acquisitions", 0) <= 0):
+            raise PhaseError(f"sanitizer {what}: the report's section {s}")
+        with open(san_path) as fh:
+            full = json.load(fh)
+        errors = [f for f in full["findings"] if f["severity"] == "error"]
+        if errors or full["summary"]["races"]:
+            raise PhaseError(f"sanitizer {what}: {len(errors)} error "
+                             f"finding(s) in {san_path}: {errors[:3]}")
+        beats = ((rep.get("flow") or {}).get("heartbeat") or {}).get(
+            "beats", 0)
+        print(f"sanitizer {what}: output byte-identical to the phase's, "
+              f"launches the phase's kernel for kernel; 0 undeclared "
+              f"acquisitions, 0 unordered edges, 0 inversions, 0 races "
+              f"over {s['modules']} modules, {s['locks']} locks; "
+              f"{s['acquisitions']} acquisitions, edges "
+              f"{s['edges_observed']} observed / {s['edges_declared']} "
+              f"declared / {s['unexercised']} unexercised; {beats} beats "
+              f"{tag}")
+        print(f"sanitizer {what}: wall {wall_san:.2f} s as a process "
+              f"with GALAH_SAN=1 (the run {rep['run']['duration_s']:.2f} s "
+              f"of it) against {wall:.2f} s for the phase's run in this "
+              f"process without it {tag}")
+        out[what] = {"wall_s": wall_san, "run_s": rep["run"]["duration_s"],
+                     "phase_wall_s": wall, "sanitizer": s,
+                     "edges": full["edges"], "beats": beats,
+                     "dispatches": rep["dispatch"]["dispatches"]}
     return out
 
 
@@ -4015,13 +4107,49 @@ def main(argv=None) -> int:
                         tsv4d, launches_h, res_h.clock, wall_h)},
             threads, tag)
 
-        # -- phase 4r: profiled runs ----------------------------------------
-        print(f"phase 4r starts {time.perf_counter() - t_script:.1f} s "
+        # -- phase 4t: the sanitizer on the card ----------------------------
+        print(f"phase 4t starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
         gc.collect()
         torch.cuda.empty_cache()
         with open(tsv_e, "rb") as fh:
             tsv4e = fh.read()
+
+        def read_tsv(d):
+            with open(os.path.join(d, "clusters.tsv"), "rb") as fh:
+                return fh.read()
+
+        def cluster_argv(argv):
+            return lambda d, rep: [
+                *argv, "--output-cluster-definition",
+                os.path.join(d, "clusters.tsv"), "--run-report", rep]
+
+        ins = index_out["insert_run"]
+
+        def insert_argv(d, rep):
+            shutil.copytree(ins["base"], os.path.join(d, "index"))
+            return ["index", "--index-dir", os.path.join(d, "index"),
+                    "--device", "cuda", "--run-report", rep, "insert",
+                    "-f", *ins["new"], *ins["quality"], "--batch",
+                    str(INDEX_BATCH)]
+
+        san_out = phase_sanitizer(root, {
+            "skani 512": (cluster_argv(
+                ["cluster", "-d", skani_dir, "--ani", "95", "--device",
+                 "cuda", *threads]), read_tsv, tsv4, launches, wall),
+            "finch 1000 streamed": (cluster_argv([*finch_e, *threads]),
+                                    read_tsv, tsv4e, launches_e, wall_e),
+            "index insert": (insert_argv, lambda d: index_bytes(
+                os.path.join(d, "index")), ins["bytes"], ins["launches"],
+                ins["wall"])}, tag)
+        shutil.rmtree(ins["base"])
+        del index_out["insert_run"]
+
+        # -- phase 4r: profiled runs ----------------------------------------
+        print(f"phase 4r starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        gc.collect()
+        torch.cuda.empty_cache()
         prof_out = phase_profiled(root, {
             "skani 512": (["cluster", "-d", skani_dir, "--ani", "95",
                            "--device", "cuda", "--precluster-method",
@@ -4869,6 +4997,7 @@ def main(argv=None) -> int:
         "phase_4o_obs": obs_out,
         "phase_4p_fleet": fleet_out,
         "phase_4s_platform": platform_out,
+        "phase_4t_sanitizer": san_out,
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],

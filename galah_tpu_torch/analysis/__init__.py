@@ -20,9 +20,23 @@ Checker families (``--check`` names in brackets)
   GL4xx  GALAH_* config-flag registry consistency [flags]
   GL6xx  hardware-test marker audit [markers]
   GL7xx  observability discipline: ad-hoc timing and device-cost
-         reads outside timing.py and obs/ (GL701-703) [obs]
+         reads outside timing.py and obs/ (GL701-703), flow discipline
+         of ``PIPELINE_STAGE`` modules (GL704) [obs]
+  GL8xx  concurrency discipline: ``GUARDED_BY``/``LOCK_ORDER``
+         annotations of the threaded modules, lock order, cycles,
+         flow adoption of worker threads (GL801-805) [concurrency];
+         the runtime complement is the GalahSan sanitizer
+         (``analysis/sanitizer.py``, ``GALAH_SAN=1``)
   GL806  durable-write discipline: durable artifacts are written only
          through io/atomic.py [fs]
+  GL9xx  numeric determinism: ``DETERMINISM_CONTRACT`` annotations of
+         the strategy modules, masked zero-filled sums, f64->f32
+         narrowing, set-order iteration, unseeded RNG (numpy's and
+         torch's) [determinism]
+  GL10xx pipeline discipline: ``PIPELINE_STAGE`` annotations,
+         materialized streams, host syncs in streaming stages and
+         device-round bodies, unbounded queues/pools, the occupancy
+         gauge, paged-band retention [pipeline]
 
 No counterpart in the port: GL103-105 and GL107 (Pallas tiling quanta
 and the VMEM budget: CUDA blocks have no lane quanta, and registers and
@@ -30,11 +44,9 @@ shared memory are ptxas's to report, through ``python -m
 galah_tpu_torch.kernels.build --ptxas``); GL2xx, GL3xx and GL5xx (JAX
 tracing and abstract-eval shapes).
 
-Not yet in the port, each waiting for the annotations it reads, which
-no port module carries: GL704 and GL10xx (``PIPELINE_STAGE``), GL8xx
-concurrency (``GUARDED_BY``/``LOCK_ORDER``), GL9xx determinism
-(``DETERMINISM_CONTRACT``), GL11xx effects over the IR, and the
-``GALAH_SAN`` sanitizer.
+Not yet in the port: GL11xx, the effects family over galah-tpu's
+GalahIR (``ir.py``, ``effects_check.py``), and with it a real
+``--ir-cache-dir`` (accepted and unused).
 
 Suppression: ``# galah-lint: ignore[GL701]`` on the flagged line or
 the line above (``// galah-lint: ignore[GL111]`` in a CUDA source;
@@ -57,7 +69,8 @@ from galah_tpu_torch.analysis import core
 from galah_tpu_torch.analysis.core import (CudaFile, Finding, Severity,
                                            SourceFile)
 
-CHECK_NAMES = ("kernels", "flags", "markers", "obs", "fs", "suppressions")
+CHECK_NAMES = ("kernels", "flags", "markers", "obs", "concurrency", "fs",
+               "determinism", "pipeline", "suppressions")
 DEFAULT_BASELINE = os.path.join(os.path.dirname(__file__),
                                 "baseline.json")
 
@@ -119,9 +132,22 @@ def run_checks(sources: Dict[str, SourceFile],
     if "obs" in checks:
         from galah_tpu_torch.analysis.obs_check import check_obs_file
         timed("obs", per_file(check_obs_file))
+    if "concurrency" in checks:
+        from galah_tpu_torch.analysis.concurrency_check import \
+            check_concurrency
+        timed("concurrency", lambda: check_concurrency(
+            {s.path: s for s in python}))
     if "fs" in checks:
         from galah_tpu_torch.analysis.fs_check import check_fs_file
         timed("fs", per_file(check_fs_file))
+    if "determinism" in checks:
+        from galah_tpu_torch.analysis.determinism_check import \
+            check_determinism_file
+        timed("determinism", per_file(check_determinism_file))
+    if "pipeline" in checks:
+        from galah_tpu_torch.analysis.pipeline_check import \
+            check_pipeline_file
+        timed("pipeline", per_file(check_pipeline_file))
     if "suppressions" in checks:
         timed("suppressions", per_file(core.check_suppression_expiry,
                                        list(sources.values())))
@@ -293,6 +319,7 @@ def main(argv: Optional[Sequence[str]] = None,
         scanned["c_entries"] = entry_count(sources)
     dt = time.monotonic() - t0
     scanned["wall_s"] = round(dt, 3)
+    scanned["families_s"] = {k: round(v, 3) for k, v in timings.items()}
     if args.json:
         print(core.render_json(findings, extra={"scanned": scanned}))
     else:

@@ -38,9 +38,18 @@ Checks
          attribution belongs to ``obs/profile.py`` (the ``profiled``
          registry + ``sample_memory``), where the numbers reach the
          run report's ``device_costs`` section.
-
-GL704 (flow discipline of ``PIPELINE_STAGE`` modules) waits with the
-``PIPELINE_STAGE`` annotations, which no port module carries yet.
+  GL704  flow discipline for pipeline-stage modules: a module that
+         declares a ``PIPELINE_STAGE`` contract (``pipeline_check``)
+         must emit its queue telemetry through ``obs/flow.py``: (a)
+         the module never imports/calls ``galah_tpu_torch.obs.flow``
+         at all (anchored at the ``PIPELINE_STAGE`` line), or (b) it
+         hand-rolls queue-wait timing: an assignment to a ``*wait*``
+         name computed from a raw clock read (``time.monotonic``
+         included here: it is the sanctioned deadline clock, but a
+         wait accumulated from it bypasses the flow recorder's
+         blocked-on attribution and the report's critical path). Wrap
+         the dequeue in ``obs.flow.blocked(stage, reason)`` and read
+         ``.seconds``.
 
 Suppression: the usual inline comment on the flagged line or the line
 above, with a justification:
@@ -72,6 +81,12 @@ TIMING_CALLS = frozenset({
 # Device-cost introspection methods GL703 reserves for obs/profile.py,
 # matched as attribute calls (``<anything>.memory_stats()``).
 DEVICE_COST_CALLS = frozenset({"memory_stats", "cost_analysis"})
+
+# The clocks GL704 treats as hand-rolled queue timing when they feed a
+# ``*wait*`` accumulator in a PIPELINE_STAGE module. time.monotonic is
+# allowed everywhere else (deadline/budget accounting) but a wait
+# derived from it bypasses obs/flow.py's blocked-on attribution.
+_QUEUE_CLOCKS = TIMING_CALLS | frozenset({"time.monotonic"})
 
 _EXEMPT_PREFIXES = ("galah_tpu_torch/obs/", "galah_tpu_torch/analysis/",
                     "galah_tpu_torch/kernels/rehearse_")
@@ -205,4 +220,89 @@ def check_obs_file(src: SourceFile) -> List[Finding]:
                 "duration that lives only in the log; record it in "
                 "the obs.metrics registry (and log it too if useful) "
                 "so `galah_tpu_torch report --diff` can see it"))
+    findings.extend(_check_flow_discipline(src))
+    return findings
+
+
+def _flow_imports(tree: ast.Module):
+    """(module-alias names, directly imported function names) bound to
+    galah_tpu_torch.obs.flow anywhere in the file: module-level or the
+    lazy function-level imports the pipeline modules use."""
+    mod_names = set()
+    fn_names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == "galah_tpu_torch.obs.flow" and a.asname:
+                    mod_names.add(a.asname)
+        elif isinstance(node, ast.ImportFrom):
+            if node.module == "galah_tpu_torch.obs":
+                for a in node.names:
+                    if a.name == "flow":
+                        mod_names.add(a.asname or "flow")
+            elif node.module == "galah_tpu_torch.obs.flow":
+                for a in node.names:
+                    fn_names.add(a.asname or a.name)
+    return mod_names, fn_names
+
+
+def _check_flow_discipline(src: SourceFile) -> List[Finding]:
+    """GL704 over one in-scope file: only fires on modules declaring a
+    module-level ``PIPELINE_STAGE`` contract."""
+    stage_line = None
+    for node in src.tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "PIPELINE_STAGE"
+                for t in node.targets):
+            stage_line = node.lineno
+            break
+    if stage_line is None:
+        return []
+    findings: List[Finding] = []
+    mod_names, fn_names = _flow_imports(src.tree)
+    uses_flow = False
+    for node in src.walk():
+        if not isinstance(node, ast.Call):
+            continue
+        fn = node.func
+        if isinstance(fn, ast.Attribute):
+            if dotted_name(fn.value).partition(".")[0] in mod_names:
+                uses_flow = True
+                break
+        elif isinstance(fn, ast.Name) and fn.id in fn_names:
+            uses_flow = True
+            break
+    if not uses_flow:
+        findings.append(Finding(
+            "GL704", Severity.WARNING, src.path, stage_line,
+            "module declares PIPELINE_STAGE but never emits flow "
+            "spans — bracket its dequeues with obs.flow.blocked() and "
+            "its work with obs.flow.record_service()/span() so the "
+            "run report's critical path can attribute this stage"))
+    aliases = _time_aliases(src.tree, banned=_QUEUE_CLOCKS)
+    for node in src.walk():
+        if not isinstance(node, (ast.Assign, ast.AugAssign)):
+            continue
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target])
+        waitish = any(
+            "wait" in (t.id if isinstance(t, ast.Name) else
+                       t.attr if isinstance(t, ast.Attribute) else
+                       "").lower()
+            for t in targets)
+        if not waitish:
+            continue
+        clock = next(
+            (_resolve_clock(c, aliases, _QUEUE_CLOCKS)
+             for c in ast.walk(node.value)
+             if isinstance(c, ast.Call)
+             and _resolve_clock(c, aliases, _QUEUE_CLOCKS)), None)
+        if clock is not None:
+            findings.append(Finding(
+                "GL704", Severity.WARNING, src.path, node.lineno,
+                f"hand-rolled queue-wait timing ({clock}() feeding a "
+                "wait accumulator) in a PIPELINE_STAGE module — wrap "
+                "the dequeue in obs.flow.blocked(stage, reason) and "
+                "accumulate its .seconds so the wait carries blocked-"
+                "on attribution in the report's critical path"))
     return findings

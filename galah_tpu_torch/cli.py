@@ -1626,6 +1626,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "(%s)", platform, msg)
             return 1
     logger.info("galah_tpu_torch version %s", __version__)
+    # GALAH_SAN=1 arms the runtime concurrency sanitizer for this run
+    # (the tier-1 tests set it); its summary lands in the run report
+    # (obs/report.assemble), the full report at GALAH_SAN_REPORT
+    from galah_tpu_torch.analysis import sanitizer as galah_san
+
+    armed = galah_san.maybe_install()
+    try:
+        return _run_subcommand(args)
+    finally:
+        if armed:
+            galah_san.write_report_if_asked()
+
+
+def _run_subcommand(args: argparse.Namespace) -> int:
+    """`main`'s device subcommands: the exit status, 75 for a stop and
+    1 for a user error."""
     try:
         if args.subcommand == "cluster":
             run_cluster(args)

@@ -356,6 +356,7 @@ def _cluster_pending_rounds(
     # argmax reads every cached (non-rep, rep) pair, so a computed key
     # joining a rep and a non-rep was read
     computed_keys = {pair_key(*p) for p in computed}
+    # galah-lint: ignore[GL902] a set built from a set, read only for its size
     mem_consulted = {k for k in computed_keys
                      if (k[0] in rep_set) != (k[1] in rep_set)}
     live = consulted | mem_consulted

@@ -213,6 +213,21 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "the window median (the MAD is floored at 1 percent of "
               "the median so an all-identical history cannot gate on "
               "epsilon)"),
+    Flag("GALAH_SAN", kind="bool", section="observability",
+         help="1 arms GalahSan, the runtime concurrency sanitizer "
+              "(galah_tpu_torch/analysis/sanitizer.py), for the run: "
+              "wraps the threaded modules' declared locks, diffs the "
+              "observed acquisition graph against LOCK_ORDER, and "
+              "checks GUARDED_BY mutations for races. The tier-1 tests "
+              "set it; the summary lands in run_report.json's "
+              "sanitizer section"),
+    Flag("GALAH_SAN_REPORT", section="observability",
+         help="Path for the standalone sanitizer_report.json (full "
+              "lock graph + findings), written when a run armed by "
+              "GALAH_SAN ends; `python -m "
+              "galah_tpu_torch.analysis.sanitizer` writes "
+              "sanitizer_report.json in the working directory when it "
+              "is unset"),
 ) + _retry_family(
     "GALAH_IO_RETRY", "FASTA/IO retry policy (defaults: 3 attempts, "
     "0.1 s base delay)"

@@ -56,6 +56,14 @@ DISTANCES_FILENAME = "precluster_distances.npz"
 UNCHARGED_REASONS = frozenset({"fleet-interrupted", "orphaned"})
 
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
+# supervisor is a single-threaded poll loop on the main thread; worker
+# parallelism lives in subprocesses, not threads, so there is no locked
+# shared state to declare.
+GUARDED_BY = {}
+LOCK_ORDER = []
+
+
 def _wall() -> float:
     # galah-lint: ignore[GL701] event timestamps and beat ages, not durations
     return time.time()

@@ -63,6 +63,19 @@ from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
 
+# Concurrency contract (GL805 and the GALAH_SAN sanitizer): this module
+# holds no locked shared state of its own: mutation is serialized by
+# the single-writer IndexStore (index/store.py's GUARDED_BY), and the
+# streamed sketch stage's threads live in ops/sketch_stream.py.
+GUARDED_BY: Dict[str, str] = {}
+LOCK_ORDER: List[str] = []
+
+# The insert and query sketch stage (GL10xx, obs/flow.py). It feeds no
+# occupancy gauge of its own: the sketch stream below it does.
+PIPELINE_STAGE = {
+    "streaming": ["iter_insert_sketches"],
+}
+
 #: pairs per pass of the pair statistics: bounds the index lists and
 #: results of one pass on the device (2**24 pairs: 256 MB of indices)
 PAIR_CHUNK = 1 << 24
@@ -417,6 +430,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
     live[sorted(state.tombstones)] = False
     live_idx = np.flatnonzero(live).astype(np.int64)
     for b0 in range(0, len(fresh), batch):
+        # galah-lint: ignore[GL1001] one --batch of sketches, bounded; its pair pass needs all of them
         got = list(iter_insert_sketches(fresh[b0:b0 + batch], sk_store,
                                         threads))
         g0 = state.n_genomes

@@ -157,6 +157,13 @@ def _valid_frames(path: str) -> List[bytes]:
     return out
 
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
+# in-memory state is read and replaced under the store lock, so a query
+# service may share one IndexStore across threads.
+GUARDED_BY = {"IndexStore._state": "IndexStore._lock"}
+LOCK_ORDER = ["IndexStore._lock"]
+
+
 class IndexStore:
     """One index directory: the committed-state loader and the durable
     writer. Single-owner: opening for mutation sweeps ``*.tmp`` debris

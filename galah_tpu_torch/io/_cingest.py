@@ -51,6 +51,13 @@ _ERRORS = {-2: "no FASTA records found", -3: "out of memory"}
 _LIB = None
 _LOCK = threading.Lock()
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
+# read threads parse at once, so the first build and binding of the
+# library happen once, under _LOCK (which is never held while another
+# lock is taken).
+GUARDED_BY = {"_LIB": "_LOCK"}
+LOCK_ORDER = ["_LOCK"]
+
 
 def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
     """Compile `source` unless its library exists; returns the

@@ -26,6 +26,14 @@ from galah_tpu_torch.obs import flow as obs_flow
 
 T = TypeVar("T")
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): this
+# module spawns read threads but owns no locked shared state. Each
+# stream makes its own pool, its futures are per call, and a read's
+# result reaches the consumer through its Future. (``galah_tpu``'s
+# process-wide shared pool, guarded by its _POOL_LOCK, is not ported.)
+GUARDED_BY = {}
+LOCK_ORDER = []
+
 
 def ingest_depth(threads: int) -> int:
     """FASTA reads in flight ahead of the consumer: ``max(2, threads)``
@@ -65,18 +73,18 @@ def iter_prefetched(
     depth = max(1, int(depth))
     if not paths:
         return
-    load_fn = _adopting(load_fn)
     pending = []
     with ThreadPoolExecutor(max_workers=depth,
                             thread_name_prefix="galah-read") as pool:
         try:
             for idx in range(min(depth, len(paths))):
-                pending.append(pool.submit(load_fn, paths[idx]))
+                pending.append(pool.submit(_adopting(load_fn), paths[idx]))
             for i, path in enumerate(paths):
                 fut = pending.pop(0)
                 nxt = i + depth
                 if nxt < len(paths):
-                    pending.append(pool.submit(load_fn, paths[nxt]))
+                    pending.append(pool.submit(_adopting(load_fn),
+                                               paths[nxt]))
                 yield path, fut.result()
         finally:
             _settle(pending)

@@ -285,11 +285,25 @@ CHECKER FAMILIES
    (GL401-405): the GALAH_* registry against every env read and the
    ENVIRONMENT section. markers (GL601): hardware-only tests carry a
    slow or hardware marker. obs (GL701-703): durations through
-   timing.py and obs/, not raw clocks. fs (GL806): durable artifacts
-   only through io/atomic.py. suppressions (GL001): expired
-   `expires=` dates. galah-tpu's Pallas, JAX-tracing and shape
-   families have no counterpart; its concurrency, determinism,
-   pipeline and effects families wait for the annotations they read.
+   timing.py and obs/, not raw clocks; GL704, flow spans in
+   PIPELINE_STAGE modules. concurrency (GL801-805): GUARDED_BY and
+   LOCK_ORDER of the threaded modules, lock order and cycles, flow
+   adoption of worker threads. fs (GL806): durable artifacts only
+   through io/atomic.py. determinism (GL901-905): the strategy
+   modules' DETERMINISM_CONTRACT, masked zero-filled sums, f64->f32
+   narrowing, set order, unseeded numpy/torch RNG. pipeline
+   (GL1001-1007): PIPELINE_STAGE, materialized streams, host syncs in
+   streaming stages, unbounded pools, the occupancy gauge.
+   suppressions (GL001): expired `expires=` dates. galah-tpu's Pallas,
+   JAX-tracing and shape families have no counterpart; its effects
+   family (GL11xx, over its IR) is not ported yet.
+
+SANITIZER
+   GALAH_SAN=1 arms GalahSan for a run of any subcommand: the
+   threaded modules' declared locks are wrapped, and the run report's
+   sanitizer section counts undeclared acquisitions, unordered edges,
+   inversions and races (each must be 0). GALAH_SAN_REPORT=PATH also
+   writes the full lock graph there.
 
 SUPPRESSION
    `# galah-lint: ignore[CODE] reason` on the flagged line or the line

@@ -32,9 +32,15 @@ _EVENTS: List[dict] = []
 _WARN_ONCE_LOCK = threading.Lock()
 _WARNED: Set[Tuple[str, str]] = set()
 
-# _LOCK guards _EVENTS, _WARN_ONCE_LOCK guards _WARNED. The two are
-# never nested (record() is called after the warn-once lock is
-# released); were they ever, _WARN_ONCE_LOCK would be taken first.
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer). The
+# locks are never nested (record() is called after the warn-once lock
+# is released); the declared order says which way the nesting must go
+# if that ever changes.
+GUARDED_BY = {
+    "_EVENTS": "_LOCK",
+    "_WARNED": "_WARN_ONCE_LOCK",
+}
+LOCK_ORDER = ["_WARN_ONCE_LOCK", "_LOCK"]
 
 
 def record(kind: str, **fields) -> None:

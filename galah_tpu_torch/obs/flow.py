@@ -67,9 +67,23 @@ BOUNDARY_CAP = 4096
 # a 10k-item stream and a 1M-item stream cost the same memory.
 _BUCKET_EDGES = tuple(2.0 ** e for e in range(-20, 11))
 
-# Every FlowRecorder field is touched only under its _lock. The module
-# global GLOBAL is not guarded: reset() runs in the single-threaded run
-# lifecycle and every helper takes a local snapshot (`rec = GLOBAL`).
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): every
+# FlowRecorder field is touched only under its _lock (the _Hist and
+# _StageAgg values inside them too). The module global GLOBAL is not
+# guarded: reset() runs in the single-threaded run lifecycle and every
+# helper takes a local snapshot (`rec = GLOBAL`), the same idiom as
+# trace.RECORDER.
+GUARDED_BY = {
+    "FlowRecorder._next_id": "FlowRecorder._lock",
+    "FlowRecorder._kinds": "FlowRecorder._lock",
+    "FlowRecorder._created": "FlowRecorder._lock",
+    "FlowRecorder._completed": "FlowRecorder._lock",
+    "FlowRecorder._dropped": "FlowRecorder._lock",
+    "FlowRecorder._stages": "FlowRecorder._lock",
+    "FlowRecorder._edges": "FlowRecorder._lock",
+    "FlowRecorder._boundaries": "FlowRecorder._lock",
+}
+LOCK_ORDER = ["FlowRecorder._lock"]
 
 
 class _Hist:
@@ -432,17 +446,35 @@ def blocked(stage: str, reason: str):
     return GLOBAL.blocked(stage, reason)
 
 
-def waited(items: Iterable[T], stage: str) -> Iterator[T]:
+class WaitTotal:
+    """The seconds a :func:`waited` stream spent blocked, summed (a
+    stage's starvation, which its occupancy gauge reads)."""
+
+    __slots__ = ("seconds",)
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+
+
+_END = object()
+
+
+def waited(items: Iterable[T], stage: str,
+           total: Optional[WaitTotal] = None) -> Iterator[T]:
     """`items`, each wait for the next one bracketed as `stage`'s
     upstream-empty wait (the port's streams pull their producers
-    through it)."""
+    through it); `total`, when given, sums the waits' seconds."""
     it = iter(items)
     while True:
-        with blocked(stage, "upstream-empty"):
+        with blocked(stage, "upstream-empty") as b:
             try:
                 item = next(it)
             except StopIteration:
-                return
+                item = _END
+        if total is not None:
+            total.seconds += b.seconds
+        if item is _END:
+            return
         yield item
 
 

@@ -77,10 +77,17 @@ def _rss_mb() -> Optional[float]:
         pass
     return None
 
-# A Heartbeat's _lock guards its _beats, _occ, _rss and _final_done.
-# The module global GLOBAL is unguarded by the same lifecycle argument
-# as trace.RECORDER: start()/stop() run in the single-threaded CLI
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer). The
+# module global GLOBAL is unguarded by the same lifecycle argument as
+# trace.RECORDER: start()/stop() run in the single-threaded CLI
 # lifecycle; the beat thread only ever touches its own instance.
+GUARDED_BY = {
+    "Heartbeat._beats": "Heartbeat._lock",
+    "Heartbeat._occ": "Heartbeat._lock",
+    "Heartbeat._rss": "Heartbeat._lock",
+    "Heartbeat._final_done": "Heartbeat._lock",
+}
+LOCK_ORDER = ["Heartbeat._lock"]
 
 
 class Heartbeat:
@@ -107,6 +114,8 @@ class Heartbeat:
         self._rss: Optional[list] = None
         self._final_done = False
         # sampler thread: only reads the registry (behind its own lock)
+        # and emits no flow span, so it has no flow context to adopt
+        # galah-lint: ignore[GL804] the sampler thread emits no flow span
         self._thread = threading.Thread(
             target=self._run, name="galah-heartbeat", daemon=True)
 

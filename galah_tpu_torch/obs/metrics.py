@@ -24,9 +24,21 @@ from typing import Dict, Iterator, List, Optional, Union
 
 Number = Union[int, float]
 
-# Each metric's values are read and written under its _lock, and the
-# registry's _metrics under the registry's _lock; metrics made by a
-# registry share its lock (one lock for all of it).
+# Concurrency contract, machine-checked by `galah_tpu_torch lint`
+# (GL8xx) and held at run time by its sanitizer (GALAH_SAN=1). Metrics
+# made by a registry share its lock (one lock for all of it); the
+# per-class names below are how the checker sees that same object from
+# inside each class.
+GUARDED_BY = {
+    "Counter.value": "Counter._lock",
+    "Gauge.value": "Gauge._lock",
+    "Histogram.count": "Histogram._lock",
+    "Histogram.sum": "Histogram._lock",
+    "Histogram.min": "Histogram._lock",
+    "Histogram.max": "Histogram._lock",
+    "MetricsRegistry._metrics": "MetricsRegistry._lock",
+}
+LOCK_ORDER = ["MetricsRegistry._lock"]
 
 
 class Metric:

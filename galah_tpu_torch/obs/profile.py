@@ -65,6 +65,29 @@ PEAKS: Dict[str, Tuple[float, float]] = {
 #: ``Event.query()`` (never a synchronize)
 PENDING_POOL = 64
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer). Each
+# entry's counters live under the entry's own lock; the allocator
+# high-water under _LOCK; the entry registry under _REGISTRY_LOCK.
+# None of them nest (a caller copies the registry, releases its lock,
+# then takes each entry's); the declared order says which way the
+# nesting must go if that ever changes.
+GUARDED_BY = {
+    "ProfiledFunction.calls": "ProfiledFunction._lock",
+    "ProfiledFunction.plain_calls": "ProfiledFunction._lock",
+    "ProfiledFunction.signatures": "ProfiledFunction._lock",
+    "ProfiledFunction.dispatch_wall_s": "ProfiledFunction._lock",
+    "ProfiledFunction.compile_wall_s": "ProfiledFunction._lock",
+    "ProfiledFunction.flops_total": "ProfiledFunction._lock",
+    "ProfiledFunction.bytes_total": "ProfiledFunction._lock",
+    "ProfiledFunction.device_s": "ProfiledFunction._lock",
+    "ProfiledFunction._pending": "ProfiledFunction._lock",
+    "ProfiledFunction._deferred": "ProfiledFunction._lock",
+    "ProfiledFunction._devices": "ProfiledFunction._lock",
+    "_REGISTRY": "_REGISTRY_LOCK",
+    "_HBM": "_LOCK",
+}
+LOCK_ORDER = ["_REGISTRY_LOCK", "ProfiledFunction._lock", "_LOCK"]
+
 _REGISTRY_LOCK = threading.Lock()
 _REGISTRY: Dict[str, "ProfiledFunction"] = {}
 
@@ -126,14 +149,18 @@ class ProfiledFunction:
                 dev.append((i, v))
             else:
                 host[i] = float(v)
-        self.bytes_total += host[0]
-        self.flops_total += host[1]
+        pair = None
         if dev:
             pair = torch.zeros(2, dtype=torch.float64, device=device)
             for i, v in dev:
                 pair[i] = v
-            prev = self._deferred.get(device)
-            self._deferred[device] = pair if prev is None else prev + pair
+        with self._lock:
+            self.bytes_total += host[0]
+            self.flops_total += host[1]
+            if pair is not None:
+                prev = self._deferred.get(device)
+                self._deferred[device] = (pair if prev is None
+                                          else prev + pair)
 
     @contextmanager
     def launch(self, device, signature: tuple,
@@ -164,10 +191,11 @@ class ProfiledFunction:
             self.signatures.add(signature)
             self.dispatch_wall_s += wall
             self._devices.add(device)
-            self._add_cost(bytes_ops, device)
             self._pending.append((start, end))
-            if len(self._pending) >= PENDING_POOL:
-                self._poll()
+            poll = len(self._pending) >= PENDING_POOL
+        self._add_cost(bytes_ops, device)
+        if poll:
+            self._poll()
         if calls <= 4 or calls % 16 == 0:
             sample_memory(None)
 
@@ -180,18 +208,19 @@ class ProfiledFunction:
         with self._lock:
             self.plain_calls += 1
             self.signatures.add(signature)
-            self._add_cost(bytes_ops, None)
+        self._add_cost(bytes_ops, None)
 
     def add_compile(self, seconds: float) -> None:
         with self._lock:
             self.compile_wall_s += float(seconds)
 
     def _poll(self) -> None:
-        """Read the finished pairs at the head of the queue (under the
-        lock); stops at the first unfinished one."""
-        while self._pending and self._pending[0][1].query():
-            start, end = self._pending.popleft()
-            self.device_s += start.elapsed_time(end) / 1e3
+        """Read the finished pairs at the head of the queue; stops at
+        the first unfinished one."""
+        with self._lock:
+            while self._pending and self._pending[0][1].query():
+                start, end = self._pending.popleft()
+                self.device_s += start.elapsed_time(end) / 1e3
 
     def resolve(self) -> None:
         """Wait for this entry's devices once, then read every pending
@@ -200,14 +229,16 @@ class ProfiledFunction:
         with self._lock:
             if torch is None or not (self._pending or self._deferred):
                 return
-            for device in self._devices:
-                torch.cuda.synchronize(device)
-            self._poll()
-            for pair in self._deferred.values():
-                b, f = pair.tolist()
+            devices = list(self._devices)
+            deferred, self._deferred = self._deferred, {}
+        for device in devices:
+            torch.cuda.synchronize(device)
+        self._poll()
+        read = [pair.tolist() for pair in deferred.values()]
+        with self._lock:
+            for b, f in read:
                 self.bytes_total += b
                 self.flops_total += f
-            self._deferred = {}
 
     # -- reporting ----------------------------------------------------
 

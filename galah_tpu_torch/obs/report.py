@@ -23,9 +23,10 @@ heartbeat ran, ``flow`` (``obs/flow.snapshot`` with its
 report (``fleet run``) adds the ``fleet`` section (``fleet.snapshot()``)
 and the ``fleet_rollup`` section (``obs/fleet_view.rollup`` over the
 fleet directory). ``lint --run-report`` adds the ``lint`` section
-(``analysis.core.lint_summary``). ``galah_tpu``'s ``sanitizer`` section
-comes from a tool the port lacks; a report of either package that
-holds it still renders and diffs here.
+(``analysis.core.lint_summary``). A run armed by ``GALAH_SAN=1`` adds
+the ``sanitizer`` section (``analysis/sanitizer.summary_if_enabled``:
+the GalahSan counts over the port's threaded modules), as
+``galah_tpu``'s report does.
 """
 
 from __future__ import annotations
@@ -225,6 +226,14 @@ def assemble(subcommand: str, clock=None,
             clock.device if clock is not None else None)
     except Exception:  # additive section; never lose a report
         logger.debug("device-cost snapshot failed", exc_info=True)
+    try:
+        from galah_tpu_torch.analysis import sanitizer as galah_san
+
+        san_summary = galah_san.summary_if_enabled()
+        if san_summary is not None:
+            report["sanitizer"] = san_summary
+    except Exception:  # additive section; never lose a report
+        logger.debug("sanitizer summary failed", exc_info=True)
     try:
         from galah_tpu_torch.obs import flow as obs_flow
         from galah_tpu_torch.obs import heartbeat as obs_heartbeat

@@ -33,11 +33,16 @@ from typing import Optional
 
 logger = logging.getLogger(__name__)
 
-# A TraceRecorder's _lock guards its _fh and _closed. The module
-# global RECORDER is deliberately not guarded: start()/stop() run in the
-# single-threaded CLI lifecycle, and the emit_* helpers take a local
-# snapshot (`rec = RECORDER`) so a concurrent stop() cannot null the
-# reference mid-emit.
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer). The
+# module global RECORDER is deliberately not guarded: start()/stop()
+# run in the single-threaded CLI lifecycle, and the emit_* helpers take
+# a local snapshot (`rec = RECORDER`) so a concurrent stop() cannot
+# null the reference mid-emit.
+GUARDED_BY = {
+    "TraceRecorder._fh": "TraceRecorder._lock",
+    "TraceRecorder._closed": "TraceRecorder._lock",
+}
+LOCK_ORDER = ["TraceRecorder._lock"]
 
 
 class TraceRecorder:

@@ -34,6 +34,18 @@ from galah_tpu_torch.device import resolve_device
 from galah_tpu_torch.ops import positional_hashes as k15
 from galah_tpu_torch.ops.window_hits import window_element_hits
 
+# Numeric contract (GL9xx): the per-window counts are integers; the ANI
+# post-math accumulates in float64 over COMPRESSED segments (numpy's
+# reduceat order, as galah_tpu), whatever the launch cut.
+DETERMINISM_CONTRACT = {
+    "family": "fragment",
+    "dtype": "float64",
+    "functions": ["directed_ani_arrays", "directed_ani_batch",
+                  "bidirectional_ani_values", "_combine_bidirectional",
+                  "_directed_from_counts_arrays", "_seq_sum",
+                  "_segment_compressed_sums"],
+}
+
 # markers: hashes below 2^64 / MARKER_C, in the biased domain
 MARKER_CUT_BIASED = biased_scalar((1 << 64) // MARKER_C)
 

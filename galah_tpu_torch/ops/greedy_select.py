@@ -27,6 +27,14 @@ import torch
 
 from galah_tpu_torch.device import resolve_device
 
+# Numeric contract (GL9xx): selection and membership compare float64
+# ANIs exactly as the host's greedy loop does.
+DETERMINISM_CONTRACT = {
+    "family": "greedy_select",
+    "dtype": "float64",
+    "functions": ["window_select", "membership_argmax"],
+}
+
 #: Genomes speculatively taken per selection round.
 DEFAULT_ROUND_WIDTH = 1024
 

@@ -163,6 +163,7 @@ def hll_sketch_genomes(genomes: Sequence[Genome], p: int = DEFAULT_P,
     device = resolve_device(device)
     regs = torch.zeros(len(genomes), 1 << p, dtype=torch.int32,
                        device=device)
+    # galah-lint: ignore[GL1001] index lists of genomes already in memory; the count is reported
     groups = list(iter_groups(genomes, FUSED_BUDGET))
     for group in groups:
         if algo == "murmur3" and k == 21:

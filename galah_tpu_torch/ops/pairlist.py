@@ -22,6 +22,15 @@ from galah_tpu_torch.kernels import LAUNCHES, costs
 from galah_tpu_torch.obs.profile import profiled
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
+# Numeric contract (GL9xx): the pair statistics are int32 counts, the
+# kernel's and the plain version's equal (galah_tpu's pallas_pairlist).
+DETERMINISM_CONTRACT = {
+    "family": "pairlist",
+    "dtype": "int32",
+    "functions": ["pair_stats_pairs", "pair_stats_pairs_plain",
+                  "run_launch"],
+}
+
 # widest sketch a pair list may carry (galah_tpu's pairlist contract)
 MAX_K = 16384
 

@@ -44,6 +44,13 @@ from galah_tpu_torch.ops.tile_stats import tile_stats
 from galah_tpu_torch.ops.u64 import from_biased
 from galah_tpu_torch.timing import StageClock, Stopwatch
 
+# The streamed finch pass is a pipeline stage (GL10xx, obs/flow.py)
+# that feeds the pairs stage's occupancy gauge.
+PIPELINE_STAGE = {
+    "streaming": ["threshold_pairs_streamed"],
+    "occupancy_gauge": "workload.pipeline_occupancy",
+}
+
 ROW_TILE = 64
 COL_TILE = 256
 CAP_PER_ROW = 256
@@ -247,7 +254,12 @@ def threshold_pairs_streamed(
     (``obs/flow.py``): each wait for a block is the ``pairs`` stage's
     upstream-empty wait on ``sketch``, each stripe's launch and download
     a ``device-dispatch`` wait, the rest its service, and each stripe
-    leaves as an ``edge_stripe``."""
+    leaves as an ``edge_stripe``. The ``pairs`` stage's
+    ``workload.pipeline_occupancy`` gauge, one less its upstream-empty
+    wait over the pass's wall, is set after each stripe and at the end
+    (``galah_tpu``'s ``iter_threshold_pairs_streamed``)."""
+    watch = Stopwatch()
+    waits = obs_flow.WaitTotal()
     clock = clock or StageClock(torch.device("cpu"))
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
     j_thr = ani_to_jaccard(min_ani, k)
@@ -262,7 +274,7 @@ def threshold_pairs_streamed(
     done: Optional[torch.Tensor] = None
     r1 = 0
     out: Dict[Tuple[int, int], float] = {}
-    for r0, rows in obs_flow.waited(blocks, "pairs"):
+    for r0, rows in obs_flow.waited(blocks, "pairs", waits):
         obs_flow.absorb("sketch", "pairs")
         block_watch = Stopwatch()
         bsz = rows.shape[0]
@@ -309,6 +321,17 @@ def threshold_pairs_streamed(
         obs_flow.record_service(
             "pairs", max(block_watch.seconds() - bdev.seconds, 0.0))
         obs_flow.emit("pairs", obs_flow.begin("edge_stripe"))
+        _emit_pairs_occupancy(watch, waits)
     if r1 != n:
         raise ValueError(f"streamed pair pass saw {r1} rows, expected {n}")
+    if done is not None:
+        _emit_pairs_occupancy(watch, waits)
     return out
+
+
+def _emit_pairs_occupancy(watch: Stopwatch,
+                          waits: obs_flow.WaitTotal) -> None:
+    wall = watch.seconds()
+    if wall > 0:
+        obs_metrics.pipeline_occupancy(1.0 - waits.seconds / wall,
+                                       stage="pairs")

@@ -49,6 +49,7 @@ from galah_tpu_torch.io.prefetch import (ingest_depth,
                                          iter_ingest_batches,
                                          iter_prefetched)
 from galah_tpu_torch.obs import flow as obs_flow
+from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.ops.constants import SENTINEL_BIASED, SENTINEL_U64
 from galah_tpu_torch.ops.fused_sketch import (CLASSES, REGS,
                                               fused_sketch_candidates)
@@ -58,7 +59,32 @@ from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                          sketch_matrix)
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.u64 import from_biased
-from galah_tpu_torch.timing import StageClock
+from galah_tpu_torch.timing import StageClock, Stopwatch
+
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
+# reads run on io/prefetch.py's threads (which own no locked state),
+# the sketches are made and inserted on the consumer thread, and the
+# read seconds go through the clock's locked work_seconds; this module
+# owns no locked shared state. (``galah_tpu``'s fused demotion latch
+# has no counterpart: a failed launch raises.)
+GUARDED_BY = {}
+LOCK_ORDER = []
+
+# The streaming stages (GL10xx, obs/flow.py): the sketch stream and its
+# row blocks, and the occupancy gauges it feeds.
+PIPELINE_STAGE = {
+    "streaming": ["iter_path_sketches", "iter_sketch_row_blocks"],
+    "occupancy_gauge": "workload.pipeline_occupancy",
+}
+
+# Numeric contract (GL9xx): a fused sketch equals the exact one bit for
+# bit (suspect genomes are re-sketched), uint64 hashes end to end.
+DETERMINISM_CONTRACT = {
+    "family": "sketch",
+    "dtype": "uint64",
+    "functions": ["sketch_genomes_fused", "certify",
+                  "iter_path_sketches"],
+}
 
 #: bases per fused launch group: 32 MB of codes copied to the device a
 #: group; the HLL sketch's 8 B window hashes and its fold's int64
@@ -147,22 +173,24 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
     return out  # type: ignore[return-value]
 
 
-def _iter_computed(paths: Sequence[str], store, threads: int
+def _iter_computed(paths: Sequence[str], store, threads: int,
+                   waits: obs_flow.WaitTotal
                    ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for `paths` in order, sketched by
     ``store.sketch_group`` in groups of at most FUSED_BUDGET bases.
 
     Flow (``obs/flow.py``): each wait on the reads is the ``sketch``
-    stage's upstream-empty wait, each group a ``genome_batch`` from
-    ``ingest`` absorbed by ``sketch`` and a ``sketch`` service span;
-    the group's reads, their seconds summed over the threads, are
-    ``ingest``'s service."""
+    stage's upstream-empty wait (summed into `waits`), each group a
+    ``genome_batch`` from ``ingest`` absorbed by ``sketch`` and a
+    ``sketch`` service span; the group's reads, their seconds summed
+    over the threads, are ``ingest``'s service."""
     read_s = store.clock.work_seconds["read"]
     reads = iter_prefetched(paths, store.clock.timed(read_genome, "read"),
                             depth=ingest_depth(threads))
     for batch in iter_ingest_batches(
             obs_flow.waited(store.clock.waits(reads, "read",
-                                              "genomes-read"), "sketch"),
+                                              "genomes-read"), "sketch",
+                            waits),
             lambda g: g.codes.shape[0], FUSED_BUDGET):
         read_s, read_s0 = store.clock.work_seconds["read"], read_s
         obs_flow.record_service("ingest", read_s - read_s0,
@@ -173,6 +201,20 @@ def _iter_computed(paths: Sequence[str], store, threads: int
         yield from ((p, s) for (p, _), s in zip(batch, sketches))
 
 
+def _emit_occupancy(watch: Stopwatch, waits: obs_flow.WaitTotal,
+                    ingest_s: float) -> float:
+    """Set the ``sketch`` and ``ingest`` occupancy gauges of the stream
+    so far (the heartbeat samples them into its series) and return the
+    sketch stage's: one less its upstream-empty wait over the stream's
+    wall. Ingest's is the read threads' seconds, summed, over the wall
+    (``galah_tpu/ops/sketch_stream._emit_sketch_occupancy``)."""
+    wall = max(watch.seconds(), 1e-9)
+    occ = 1.0 - waits.seconds / wall
+    obs_metrics.pipeline_occupancy(occ, stage="sketch")
+    obs_metrics.pipeline_occupancy(ingest_s / wall, stage="ingest")
+    return occ
+
+
 def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
                        ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for the UNIQUE paths, in path order. The store
@@ -180,13 +222,22 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
     starts, in stage `cache-read` when the disk cache is on, so a cached
     genome is never read; the rest are computed (``store.sketch_group``:
     MinHash sketches for a ``SketchStore``, HLL registers for an
-    ``HLLStore``) and inserted on this thread."""
+    ``HLLStore``) and inserted on this thread.
+
+    When any genome is read, the ``workload.pipeline_occupancy`` gauges
+    of stages ``sketch`` and ``ingest`` are set every 64 computed
+    sketches and at the end, and the unlabelled gauge to the sketch
+    stage's at the end, as ``galah_tpu``'s stream does."""
+    watch = Stopwatch()
+    waits = obs_flow.WaitTotal()
+    work0 = store.clock.work_seconds["read"]
     unique = list(dict.fromkeys(paths))
     with (store.clock.stage("cache-read") if store.cache.enabled
           else contextlib.nullcontext()):
         held = {p: store.get_cached(p) for p in unique}
-    computed = _iter_computed([p for p in unique if held[p] is None],
-                              store, threads)
+    misses = [p for p in unique if held[p] is None]
+    computed = _iter_computed(misses, store, threads, waits)
+    n_computed = 0
     for p in unique:
         s = held[p]
         if s is None:
@@ -195,7 +246,14 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
                 raise RuntimeError(f"sketch stream out of order: {cp} "
                                    f"!= {p}")
             s = store.insert(p, s)
+            n_computed += 1
+            if n_computed % 64 == 0:
+                _emit_occupancy(watch, waits, store.clock
+                                .work_seconds["read"] - work0)
         yield p, s
+    if misses:
+        obs_metrics.pipeline_occupancy(_emit_occupancy(
+            watch, waits, store.clock.work_seconds["read"] - work0))
 
 
 def iter_sketch_row_blocks(paths: Sequence[str], store, threads: int = 1

@@ -29,6 +29,15 @@ from galah_tpu_torch.ops.pairwise import (ani_to_jaccard, note_survival,
 from galah_tpu_torch.ops.u64 import from_biased
 from galah_tpu_torch.timing import StageClock
 
+# Numeric contract (GL9xx): int32 pair statistics whatever the batch
+# cut, then the exact float64 check on the host.
+DETERMINISM_CONTRACT = {
+    "family": "pairlist",
+    "dtype": "int32",
+    "functions": ["pair_stats_for_pairs", "enqueue_pair_stats",
+                  "collect_pair_stats", "threshold_pairs_sparse"],
+}
+
 # candidate pairs per call of the plain version on the CPU (the card
 # takes the whole list in one launch)
 PAIR_BATCH = 1 << 16

@@ -23,6 +23,15 @@ from galah_tpu_torch.ops.constants import SENTINEL_BIASED
 
 Pair = Tuple[torch.Tensor, torch.Tensor]  # (sorted query, sorted ref set)
 
+# Numeric contract (GL9xx): one int32 hit flag a query element, the
+# kernel's and the plain version's equal whatever the block plan.
+DETERMINISM_CONTRACT = {
+    "family": "fragment",
+    "dtype": "int32",
+    "functions": ["window_element_hits", "window_element_hits_plain",
+                  "run_launch"],
+}
+
 # merged items (query and reference values) a block of the kernel
 # takes: 256 threads x 15 (kernels/window_hits.cu's kSegment)
 SEGMENT = 256 * 15

@@ -56,6 +56,15 @@ from galah_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
+# Numeric contract (GL9xx; module docstring): every sharded pass gives
+# one device's pair set bit for bit, its exact check in float64.
+DETERMINISM_CONTRACT = {
+    "family": "mesh",
+    "dtype": "float64",
+    "functions": ["sharded_threshold_pairs", "sharded_stripe_stats",
+                  "sharded_pair_stats_for_pairs"],
+}
+
 
 class Mesh:
     """Slots in a row: each slot's device (`devices`) and owning rank

@@ -164,6 +164,17 @@ _INSTALLED: Optional[FaultInjector] = None
 _ENV_CHECKED = False
 _LOCK = threading.Lock()
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): fault
+# draws arrive from the read threads; the fired counts and the
+# install/env-discovery globals each stay under their lock, and the
+# two locks never nest.
+GUARDED_BY = {
+    "FaultInjector._fired": "FaultInjector._lock",
+    "_INSTALLED": "_LOCK",
+    "_ENV_CHECKED": "_LOCK",
+}
+LOCK_ORDER = ["_LOCK", "FaultInjector._lock"]
+
 
 def install(injector: Optional[FaultInjector]) -> None:
     """Set (or with None, clear) the process-wide injector; an explicit

@@ -18,6 +18,13 @@ import random
 import time
 from typing import Callable, Optional, TypeVar
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): a
+# RetryPolicy is immutable once made and call_with_retry keeps its
+# state per call, so this module owns no locked shared state; the read
+# threads of io/prefetch.py call it at once.
+GUARDED_BY = {}
+LOCK_ORDER = []
+
 logger = logging.getLogger(__name__)
 
 T = TypeVar("T")
@@ -66,6 +73,7 @@ class RetryPolicy:
         d = min(self.max_delay, self.base_delay * (2.0 ** attempt))
         if self.jitter:
             u = (random.Random(f"{self.seed}:{site}:{attempt}").random()
+                 # galah-lint: ignore[GL904] unseeded jitter only de-synchronizes retries; seed= makes it reproducible
                  if self.seed is not None else random.random())
             d *= 1.0 - self.jitter + 2.0 * self.jitter * u
         return d

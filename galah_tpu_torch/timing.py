@@ -42,6 +42,14 @@ T = TypeVar("T")
 
 logger = logging.getLogger(__name__)
 
+# Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
+# read threads run ``timed`` callables, whose seconds land in
+# work_seconds under the clock's _work_lock. A clock's stages, counts
+# and tree belong to the thread that drives the run (only it opens
+# stages and counts), so they are no locked shared state.
+GUARDED_BY = {"StageClock.work_seconds": "StageClock._work_lock"}
+LOCK_ORDER = ["StageClock._work_lock"]
+
 
 class Stopwatch:
     """Host-clock seconds since it was made: the duration of work that

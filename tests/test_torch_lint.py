@@ -625,7 +625,8 @@ def test_scan_covers_the_port_and_skips_fixtures():
     assert f"{KDIR}/merge_walk.cuh" in sources
     assert not [p for p in sources if p.startswith("galah_tpu/")]
     assert set(CHECK_NAMES) == {"kernels", "flags", "markers", "obs",
-                                "fs", "suppressions"}
+                                "concurrency", "fs", "determinism",
+                                "pipeline", "suppressions"}
 
 
 def test_analysis_imports_neither_torch_nor_jax():
