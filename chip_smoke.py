@@ -220,10 +220,14 @@ Phases, each of which exits nonzero when it fails:
    failed to initialize (...)``, launch nothing and write no TSV,
    ``--platform cpu --device cuda`` must exit 2, and ``--platform cuda``
    in this one process must run on ``cuda:0``; (d) ``python -m
-   galah_tpu_torch lint --json`` on this tree must exit 0 with no
-   unsuppressed finding and hold the 9 bound C functions against their
-   prototypes; its files, C functions, wall and each of its nine
-   checker families' seconds are printed;
+   galah_tpu_torch lint --json --ir-cache-dir`` on this tree, cold on a
+   fresh directory and then warm on it, must exit 0 with no
+   unsuppressed finding, run ten checker families, hold the 9 bound C
+   functions against their prototypes and give equal findings; the
+   cold run must leave one ``ir-*.json`` a Python file scanned, and the
+   warm run must add and rewrite none; the files, C functions, each
+   run's wall and effects seconds and each family's seconds are
+   printed;
 4t. the sanitizer on the card: phase 4's skani 512, 4e's finch 1000
    streamed at --threads 8 and 4l's index insert (into a copy of its
    base index) as ``python -m galah_tpu_torch`` processes with
@@ -1523,44 +1527,94 @@ def phase_platform(torch, cli, reset_launches, launches_now, kernels, root,
           f"cpu --device cuda exited 2; --platform cuda in one process "
           f"runs on {placed} {tag}")
 
-    # (d) the lint on this tree, on the card machine's host
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "galah_tpu_torch", "lint",
-                           "--json"], cwd=here, capture_output=True,
-                          text=True, timeout=300)
-    lint_wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise PhaseError(f"lint exited {proc.returncode}:\n"
-                         f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
-    rep = json.loads(proc.stdout)
-    active = [f for f in rep["findings"] if not f["suppressed"]]
-    scanned = rep["scanned"]
-    families = scanned.get("families_s") or {}
-    if active or scanned["c_entries"] != 9 or len(families) != 9:
-        raise PhaseError(f"lint: {len(active)} unsuppressed finding(s), "
-                         f"{scanned}")
-    print(f"lint: python -m galah_tpu_torch lint --json on this tree "
-          f"exited 0: {scanned['files']} files ({scanned['cuda_files']} "
-          f"CUDA), {scanned['c_entries']} bound C functions held against "
-          f"their extern \"C\" prototypes, 0 unsuppressed findings, "
-          f"{rep['summary']['suppressed']} suppressed; lint "
-          f"{scanned['wall_s']:.3f} s, process {lint_wall:.2f} s on the "
-          f"host {tag}")
-    print(f"lint families: {len(families)}, seconds each: " + ", ".join(
-        f"{name} {s:.3f}" for name, s in families.items()) + f" {tag}")
+    # (d) the lint on this tree, cold and warm on one IR cache
+    lint = phase_lint(root, tag)
     return {"platform_gpu": {"wall_s": wall_a, "phase_4_wall_s": wall4,
                              "launches": launches_a},
             "platform_env_dist": {"wall_s": wall_b,
                                   "genomes": len(genomes_b),
                                   "launches": launches_b},
-            "lint": {"files": scanned["files"],
-                     "cuda_files": scanned["cuda_files"],
-                     "c_entries": scanned["c_entries"],
-                     "suppressed": rep["summary"]["suppressed"],
-                     "lint_wall_s": scanned["wall_s"],
-                     "families_s": families,
-                     "process_wall_s": lint_wall}}
+            "lint": lint}
+
+
+def phase_lint(root, tag):
+    """Phase 4s (d): ``lint --json --ir-cache-dir`` on this tree, on the
+    card machine's host: cold on a fresh cache under `root`, then warm
+    on it. Returns what the kernel record keeps of it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ir_cache = os.path.join(root, "ir_cache")
+    runs = {}
+    for run in ("cold", "warm"):
+        before = ir_cache_entries(ir_cache)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "galah_tpu_torch",
+                               "lint", "--json", "--ir-cache-dir", ir_cache],
+                              cwd=here, capture_output=True, text=True,
+                              timeout=300)
+        lint_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise PhaseError(f"lint ({run}) exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        rep = json.loads(proc.stdout)
+        active = [f for f in rep["findings"] if not f["suppressed"]]
+        scanned = rep["scanned"]
+        families = scanned.get("families_s") or {}
+        if active or scanned["c_entries"] != 9 or len(families) != 10 \
+                or "effects" not in families:
+            raise PhaseError(f"lint ({run}): {len(active)} unsuppressed "
+                             f"finding(s), {scanned}")
+        entries = ir_cache_entries(ir_cache)
+        n_python = scanned["files"] - scanned["cuda_files"]
+        if len(entries) != n_python:
+            raise PhaseError(f"lint ({run}): {len(entries)} IR cache "
+                             f"entries for {n_python} Python files")
+        if run == "warm" and entries != before:
+            raise PhaseError("lint (warm): the IR cache gained or rewrote "
+                             "entries")
+        runs[run] = {"findings": sorted(
+            (f["code"], f["path"], f["line"], f["suppressed"])
+            for f in rep["findings"]), "rep": rep, "process": lint_wall}
+    if runs["warm"]["findings"] != runs["cold"]["findings"]:
+        raise PhaseError("lint: the warm run's findings differ from the "
+                         "cold run's")
+    cold = runs["cold"]["rep"]
+    scanned = cold["scanned"]
+    print(f"lint: python -m galah_tpu_torch lint --json --ir-cache-dir on "
+          f"this tree exited 0 cold and warm with equal findings: "
+          f"{scanned['files']} files ({scanned['cuda_files']} CUDA), "
+          f"{scanned['c_entries']} bound C functions held against their "
+          f"extern \"C\" prototypes, 0 unsuppressed findings, "
+          f"{cold['summary']['suppressed']} suppressed; "
+          f"{scanned['files'] - scanned['cuda_files']} IR entries written "
+          f"cold, none added or rewritten warm {tag}")
+    for run in ("cold", "warm"):
+        rep = runs[run]["rep"]
+        fam = rep["scanned"]["families_s"]
+        print(f"lint {run}: lint {rep['scanned']['wall_s']:.3f} s, "
+              f"process {runs[run]['process']:.2f} s, effects "
+              f"{fam['effects']:.3f} s on the host {tag}")
+        print(f"lint {run} families: {len(fam)}, seconds each: "
+              + ", ".join(f"{name} {sec:.3f}" for name, sec in fam.items())
+              + f" {tag}")
+    return {"files": scanned["files"],
+            "cuda_files": scanned["cuda_files"],
+            "c_entries": scanned["c_entries"],
+            "suppressed": cold["summary"]["suppressed"],
+            **{run: {"lint_wall_s": runs[run]["rep"]["scanned"]["wall_s"],
+                     "families_s": runs[run]["rep"]["scanned"]
+                                   ["families_s"],
+                     "process_wall_s": runs[run]["process"]}
+               for run in ("cold", "warm")}}
+
+
+def ir_cache_entries(directory: str) -> dict:
+    """name -> mtime (ns) of the lint's IR cache entries in
+    `directory`."""
+    if not os.path.isdir(directory):
+        return {}
+    return {name: os.stat(os.path.join(directory, name)).st_mtime_ns
+            for name in os.listdir(directory)
+            if name.startswith("ir-") and name.endswith(".json")}
 
 
 def alloc_retries(torch) -> int:

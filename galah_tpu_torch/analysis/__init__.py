@@ -37,16 +37,23 @@ Checker families (``--check`` names in brackets)
          materialized streams, host syncs in streaming stages and
          device-round bodies, unbounded queues/pools, the occupancy
          gauge, paged-band retention [pipeline]
+  GL11xx interprocedural effect auditors over the port's GalahIR
+         (``analysis/ir.py``): the whole-program call graph with each
+         function's inferred effects propagated to a fixpoint, so the
+         contracts above hold through helpers too: a host sync reached
+         from a device-round body (GL1101), durable writes around
+         io/atomic.py (GL1102), stream materialization (GL1103), lock
+         leaks on raising paths (GL1104), effectful pool callbacks that
+         adopt no flow token (GL1105), and GL1007's interprocedural arm
+         [effects]. The per-file IR is cached by content under
+         ``--ir-cache-dir`` (or ``GALAH_TPU_IR_CACHE``), so a warm run
+         skips the extraction walk
 
 No counterpart in the port: GL103-105 and GL107 (Pallas tiling quanta
 and the VMEM budget: CUDA blocks have no lane quanta, and registers and
 shared memory are ptxas's to report, through ``python -m
 galah_tpu_torch.kernels.build --ptxas``); GL2xx, GL3xx and GL5xx (JAX
 tracing and abstract-eval shapes).
-
-Not yet in the port: GL11xx, the effects family over galah-tpu's
-GalahIR (``ir.py``, ``effects_check.py``), and with it a real
-``--ir-cache-dir`` (accepted and unused).
 
 Suppression: ``# galah-lint: ignore[GL701]`` on the flagged line or
 the line above (``// galah-lint: ignore[GL111]`` in a CUDA source;
@@ -70,7 +77,7 @@ from galah_tpu_torch.analysis.core import (CudaFile, Finding, Severity,
                                            SourceFile)
 
 CHECK_NAMES = ("kernels", "flags", "markers", "obs", "concurrency", "fs",
-               "determinism", "pipeline", "suppressions")
+               "determinism", "pipeline", "effects", "suppressions")
 DEFAULT_BASELINE = os.path.join(os.path.dirname(__file__),
                                 "baseline.json")
 
@@ -100,12 +107,14 @@ def load_sources(root: str) -> Dict[str, SourceFile]:
 
 def run_checks(sources: Dict[str, SourceFile],
                checks: Sequence[str] = CHECK_NAMES,
+               ir_cache_dir: Optional[str] = None,
                timings: Optional[Dict[str, float]] = None
                ) -> List[Finding]:
     """All requested checkers over the loaded tree (no suppression
     applied yet). The parse is shared: every family reads the same
-    ``SourceFile`` objects. ``timings``, when passed, is filled with
-    per-family wall seconds."""
+    ``SourceFile`` objects. ``ir_cache_dir`` enables the content-hash
+    IR cache of the effects family; ``timings``, when passed, is filled
+    with per-family wall seconds."""
     findings: List[Finding] = []
     python = [s for s in sources.values() if not isinstance(s, CudaFile)]
 
@@ -148,6 +157,11 @@ def run_checks(sources: Dict[str, SourceFile],
         from galah_tpu_torch.analysis.pipeline_check import \
             check_pipeline_file
         timed("pipeline", per_file(check_pipeline_file))
+    if "effects" in checks:
+        from galah_tpu_torch.analysis.effects_check import check_effects
+        from galah_tpu_torch.analysis.ir import IRCache
+        timed("effects", lambda: check_effects(
+            {s.path: s for s in python}, cache=IRCache(ir_cache_dir)))
     if "suppressions" in checks:
         timed("suppressions", per_file(core.check_suppression_expiry,
                                        list(sources.values())))
@@ -156,12 +170,13 @@ def run_checks(sources: Dict[str, SourceFile],
 
 def run_lint(root: Optional[str] = None,
              checks: Sequence[str] = CHECK_NAMES,
-             baseline_path: Optional[str] = None) -> List[Finding]:
+             baseline_path: Optional[str] = None,
+             ir_cache_dir: Optional[str] = None) -> List[Finding]:
     """Full lint pass with suppressions applied; the library entry
     point used by tests and the CLI."""
     root = root or repo_root()
     sources = load_sources(root)
-    findings = run_checks(sources, checks)
+    findings = run_checks(sources, checks, ir_cache_dir=ir_cache_dir)
     baseline = core.load_baseline(baseline_path or DEFAULT_BASELINE)
     core.apply_suppressions(findings, sources, baseline)
     return findings
@@ -241,9 +256,12 @@ def add_lint_arguments(parser: argparse.ArgumentParser) -> None:
                              "findings are carried with SARIF "
                              "suppressions rather than dropped)")
     parser.add_argument("--ir-cache-dir", default=None, metavar="DIR",
-                        help="galah-tpu's content-hash cache for the "
-                             "GL11xx effects family's IR; accepted and "
-                             "unused until the port has that family")
+                        help="content-hash cache directory for the "
+                             "GalahIR per-file entries of the effects "
+                             "family; a warm cache skips the per-file "
+                             "extraction walk. Env equivalent: "
+                             "GALAH_TPU_IR_CACHE. Unset disables "
+                             "caching")
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -267,6 +285,10 @@ def main(argv: Optional[Sequence[str]] = None,
 
     root = args.root or repo_root()
     checks = tuple(args.checks) if args.checks else CHECK_NAMES
+    ir_cache_dir = getattr(args, "ir_cache_dir", None)
+    if ir_cache_dir is None:
+        from galah_tpu_torch.analysis.ir import default_cache_dir
+        ir_cache_dir = default_cache_dir()
     changed: Optional[Set[str]] = None
     if getattr(args, "changed_only", False):
         changed = changed_files(root)
@@ -275,7 +297,8 @@ def main(argv: Optional[Sequence[str]] = None,
                              "a git checkout; scanning everything\n")
     sources = load_sources(root)
     timings: Dict[str, float] = {}
-    findings = run_checks(sources, checks, timings=timings)
+    findings = run_checks(sources, checks, ir_cache_dir=ir_cache_dir,
+                          timings=timings)
     baseline_path = args.baseline or DEFAULT_BASELINE
 
     if args.update_baseline:

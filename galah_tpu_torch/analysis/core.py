@@ -86,9 +86,12 @@ class SourceFile:
     _ignores: Dict[int, Tuple[frozenset, Optional[datetime.date],
                               str]] = \
         dataclasses.field(default_factory=dict)
-    # the preorder node list shared by every checker family (walk()),
+    # the preorder node list shared by every checker family (walk())
+    # and the text's digest the IR cache keys on (content_hash()), each
     # computed once per parse
     _walk_cache: Optional[list] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _hash_cache: Optional[str] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @classmethod
@@ -111,6 +114,15 @@ class SourceFile:
         if self._walk_cache is None:
             self._walk_cache = list(ast.walk(self.tree))
         return self._walk_cache
+
+    def content_hash(self) -> str:
+        """sha256 of the source text: the IR cache's key, so a
+        byte-identical file maps to the same cached per-file IR
+        wherever the checkout lives."""
+        if self._hash_cache is None:
+            self._hash_cache = hashlib.sha256(
+                self.text.encode("utf-8", "replace")).hexdigest()
+        return self._hash_cache
 
     _IGNORE_RE = re.compile(
         r"#\s*galah-lint:\s*ignore\[([A-Z0-9,\s*]+)\]"

@@ -126,26 +126,26 @@ _ARRAY_BUILDERS = frozenset({
     "numpy.asarray", "jnp.array", "jnp.asarray", "np.fromiter",
 })
 #: The stdlib `random` module's global-state functions.
-_RANDOM_GLOBAL_FNS = frozenset({
+RANDOM_GLOBAL_FNS = frozenset({
     "random", "randint", "randrange", "uniform", "choice", "choices",
     "shuffle", "sample", "gauss", "normalvariate", "expovariate",
     "betavariate", "triangular", "getrandbits", "randbytes",
 })
 #: torch's sampling functions, seeded only through ``generator=``.
-_TORCH_RANDOM_FNS = frozenset({
+TORCH_RANDOM_FNS = frozenset({
     "rand", "rand_like", "randn", "randn_like", "randint",
     "randint_like", "randperm", "normal", "bernoulli", "multinomial",
     "poisson",
 })
 #: torch calls that set or draw the process-global seed.
-_TORCH_GLOBAL_SEED = frozenset({
+TORCH_GLOBAL_SEED = frozenset({
     "torch.manual_seed", "torch.seed", "torch.cuda.manual_seed",
     "torch.cuda.manual_seed_all", "torch.cuda.seed",
     "torch.cuda.seed_all", "torch.random.manual_seed",
     "torch.random.seed",
 })
 #: numpy's legacy global-state RNG functions.
-_NP_RANDOM_GLOBAL_FNS = frozenset({
+NP_RANDOM_GLOBAL_FNS = frozenset({
     "random", "rand", "randn", "randint", "random_sample", "ranf",
     "choice", "shuffle", "permutation", "uniform", "normal", "beta",
     "binomial", "poisson", "exponential", "standard_normal",
@@ -317,7 +317,7 @@ def _check_hash_order(src: SourceFile) -> List[Finding]:
     return findings
 
 
-def _seeded_generators(src: SourceFile) -> set:
+def seeded_generators(src: SourceFile) -> set:
     """ids of the ``torch.Generator(...)`` calls that are seeded: the
     receiver of a chained ``.manual_seed(...)``, or bound to a name
     (or attribute) that has ``.manual_seed(...)`` called on it."""
@@ -347,7 +347,7 @@ def _seeded_generators(src: SourceFile) -> set:
 
 def _check_rng(src: SourceFile) -> List[Finding]:
     findings: List[Finding] = []
-    seeded_gens = _seeded_generators(src)
+    seeded_gens = seeded_generators(src)
     for node in src.walk():
         if not isinstance(node, ast.Call):
             continue
@@ -355,11 +355,11 @@ def _check_rng(src: SourceFile) -> List[Finding]:
         parts = name.split(".")
         unseeded = None
         if len(parts) == 2 and parts[0] == "random" \
-                and parts[1] in _RANDOM_GLOBAL_FNS:
+                and parts[1] in RANDOM_GLOBAL_FNS:
             unseeded = f"{name}() uses the global random state"
         elif len(parts) == 3 and parts[0] in ("np", "numpy") \
                 and parts[1] == "random" \
-                and parts[2] in _NP_RANDOM_GLOBAL_FNS:
+                and parts[2] in NP_RANDOM_GLOBAL_FNS:
             unseeded = f"{name}() uses numpy's legacy global state"
         elif name in ("random.Random", "np.random.RandomState",
                       "numpy.random.RandomState",
@@ -367,11 +367,11 @@ def _check_rng(src: SourceFile) -> List[Finding]:
                       "numpy.random.default_rng", "default_rng") \
                 and not node.args and not node.keywords:
             unseeded = f"{name}() constructed without a seed"
-        elif name in _TORCH_GLOBAL_SEED:
+        elif name in TORCH_GLOBAL_SEED:
             unseeded = (f"{name}() sets the process-global torch "
                         "generator")
         elif (len(parts) == 2 and parts[0] == "torch"
-              and parts[1] in _TORCH_RANDOM_FNS
+              and parts[1] in TORCH_RANDOM_FNS
               and not any(kw.arg == "generator"
                           for kw in node.keywords)):
             unseeded = (f"{name}() without generator= uses the global "

@@ -53,7 +53,7 @@ DURABLE_MODULES = (
 SANCTIONED = "galah_tpu_torch/io/atomic.py"
 
 #: Call fingerprints of a hand-rolled durable-write idiom.
-_IDIOM_CALLS = frozenset({
+IDIOM_CALLS = frozenset({
     "os.replace",
     "os.rename",
     "tempfile.mkstemp",
@@ -68,7 +68,7 @@ def in_scope(path: str) -> bool:
     return p in DURABLE_MODULES and p != SANCTIONED
 
 
-def _literal_mode(node: ast.Call) -> Optional[str]:
+def literal_mode(node: ast.Call) -> Optional[str]:
     """The mode argument of an open()/os.fdopen() call when it is a
     string literal (positional arg 1 or mode=...); None otherwise."""
     mode_node: Optional[ast.AST] = None
@@ -83,7 +83,7 @@ def _literal_mode(node: ast.Call) -> Optional[str]:
     return None
 
 
-def _is_write_mode(mode: Optional[str]) -> bool:
+def is_write_mode(mode: Optional[str]) -> bool:
     # no literal mode at all on an open() in a durable module is
     # treated as read-mode ("r" is the default)
     return mode is not None and any(c in _WRITE_MODE_CHARS
@@ -100,10 +100,10 @@ def check_fs_file(src: SourceFile) -> List[Finding]:
             continue
         name = dotted_name(node.func)
         offender = None
-        if name in _IDIOM_CALLS:
+        if name in IDIOM_CALLS:
             offender = f"{name}()"
-        elif name in ("open", "os.fdopen") and _is_write_mode(
-                _literal_mode(node)):
+        elif name in ("open", "os.fdopen") and is_write_mode(
+                literal_mode(node)):
             offender = f"write-mode {name}()"
         if offender is None:
             continue

@@ -112,6 +112,10 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
          help="Directory for the persistent sketch/profile cache; the "
               "--sketch-cache flag's env twin and loses to it. Unset "
               "disables caching"),
+    Flag("GALAH_TPU_IR_CACHE", section="runtime",
+         help="Directory for the lint IR cache (per-file GalahIR "
+              "entries, content-hash keyed); the `lint --ir-cache-dir` "
+              "flag's env twin and loses to it. Unset disables caching"),
     Flag("GALAH_TPU_INDEX_DIR", section="runtime",
          help="Index directory of `index`; the --index-dir flag's env "
               "twin and loses to it"),

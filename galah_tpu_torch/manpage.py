@@ -293,10 +293,24 @@ CHECKER FAMILIES
    modules' DETERMINISM_CONTRACT, masked zero-filled sums, f64->f32
    narrowing, set order, unseeded numpy/torch RNG. pipeline
    (GL1001-1007): PIPELINE_STAGE, materialized streams, host syncs in
-   streaming stages, unbounded pools, the occupancy gauge.
+   streaming stages, unbounded pools, the occupancy gauge. effects
+   (GL1101-1105, and GL1007's interprocedural arm): the same contracts
+   across calls, over GalahIR, the package's call graph with each
+   function's effects propagated to a fixpoint; a host sync reached
+   from a device-round body, durable writes around io/atomic.py,
+   stream materialization, lock leaks on raising paths, pool
+   callbacks with effects that adopt no flow token; each finding
+   carries its chain of calls down to the line at fault.
    suppressions (GL001): expired `expires=` dates. galah-tpu's Pallas,
-   JAX-tracing and shape families have no counterpart; its effects
-   family (GL11xx, over its IR) is not ported yet.
+   JAX-tracing and shape families have no counterpart.
+
+IR CACHE
+   --ir-cache-dir DIR (or GALAH_TPU_IR_CACHE=DIR; the flag wins) keeps
+   each file's GalahIR as one JSON entry, keyed by the file's path and
+   content and by the package, written through io/atomic.py; a warm
+   run skips the per-file extraction, a corrupt entry is dropped and
+   rebuilt. galah-tpu lint may share the directory: neither package
+   reads the other's entries. Unset, nothing is cached.
 
 SANITIZER
    GALAH_SAN=1 arms GalahSan for a run of any subcommand: the
@@ -318,6 +332,7 @@ EXIT STATUS
 EXAMPLES
       galah_tpu_torch lint
       galah_tpu_torch lint --check kernels --json
+      galah_tpu_torch lint --check effects --ir-cache-dir .ircache
       python -m galah_tpu_torch.analysis --changed-only
 """,
     "flow": """\

@@ -626,7 +626,7 @@ def test_scan_covers_the_port_and_skips_fixtures():
     assert not [p for p in sources if p.startswith("galah_tpu/")]
     assert set(CHECK_NAMES) == {"kernels", "flags", "markers", "obs",
                                 "concurrency", "fs", "determinism",
-                                "pipeline", "suppressions"}
+                                "pipeline", "effects", "suppressions"}
 
 
 def test_analysis_imports_neither_torch_nor_jax():

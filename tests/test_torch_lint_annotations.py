@@ -445,14 +445,14 @@ def test_stage_modules_declare_their_streams(rel, streaming, gauge):
 
 
 def test_check_names_and_empty_baseline():
-    for name in ("concurrency", "determinism", "pipeline"):
+    for name in ("concurrency", "determinism", "pipeline", "effects"):
         assert name in CHECK_NAMES
     with open(DEFAULT_BASELINE) as fh:
         assert json.load(fh)["findings"] == []
 
 
 @pytest.mark.parametrize("family", ["concurrency", "determinism",
-                                    "pipeline", "obs"])
+                                    "pipeline", "obs", "effects"])
 def test_port_tree_is_clean_per_family(family):
     """Each family over the port's tree, with its inline suppressions
     (each carries its reason) and the empty baseline."""

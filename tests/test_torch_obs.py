@@ -371,11 +371,13 @@ def test_flag_snapshot_shares_galah_tpu_flags(monkeypatch):
         assert snap == want[name], name
     assert got["GALAH_OBS_HEARTBEAT_S"]["value"] == "0.25"
     assert got["GALAH_OBS_HEARTBEAT_S"]["set"] is True
-    # a flag of galah_tpu's that the port does not read (its lint's IR
-    # cache; GALAH_TPU_PLATFORM, once this example, is read now)
+    # a flag of galah_tpu's that the port does not read (its paged
+    # sketch tier's; GALAH_TPU_PLATFORM and GALAH_TPU_IR_CACHE, once
+    # this example, are read now)
+    assert "GALAH_TPU_IR_CACHE" in got
     with pytest.raises(KeyError):
         # galah-lint: ignore[GL401] the read must raise: not registered
-        tconfig.env_value("GALAH_TPU_IR_CACHE")
+        tconfig.env_value("GALAH_TPU_PAGESTORE")
 
 
 def test_schema_is_galah_tpus():
