@@ -29,6 +29,14 @@ Phases, each of which exits nonzero when it fails:
    offsets and stats identical); fused_sketch also with murmur3 at
    k = 1, 7, 8, 9, 15, 16, 17, 24, 31 and 32 on the edge groups (the
    kernel's general key: k / 16 blocks and a tail of k mod 16 bytes);
+   slab_fold (the overlapped engine's slab folds) on seeded slabs
+   through the device pair queue, rep and undecided flags and
+   iterations exact: an empty queue, widths 1, 64, 1,024 and 16,384
+   (16 windows of 1,024), a queue filled to its capacity of 4,096, NaN
+   values and values equal to the threshold, already clustered
+   positions, chains of 1,024 and 4,096 that take every iteration of
+   the depth bound and one a step short; the 16-window slab is timed,
+   whole call and kernel alone, beside its bound;
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -51,7 +59,8 @@ Phases, each of which exits nonzero when it fails:
 4e. end to end, finch streamed: the first 1,000 genomes (250
    families, just under the crossover) through ``cluster
    --precluster-method finch``: the streamed pair pass in four stripes
-   of tile_stats' full form; the stripe count must show the route, and
+   of tile_stats' full form, consumed by the overlapped engine (its one
+   window of 1,024 decided in a slab_fold launch); the stripe count must show the route, and
    the same command with --threads 4 must write the same TSV byte for
    byte (its walls and stages are printed beside the 8-thread run's);
 4f. end to end, the fastani clusterer: phase 4's genomes through
@@ -156,7 +165,8 @@ Phases, each of which exits nonzero when it fails:
    each trace must load as JSON with one stage span for each stage the
    clock timed and no nvcc span (the kernels were built in phase 2);
    each heartbeat must hold at least two beats, the last the final
-   one; all seven kernels must appear in the three reports; each wall
+   one; all kernels but slab_fold (the overlapped route's, which none of
+   the three takes) must appear in the three reports; each wall
    is printed beside its phase's wall without observability (and
    finch's beside the same process without them), and each part's cost
    timed alone; a kernel built anew under a trace in this process must
@@ -222,7 +232,7 @@ Phases, each of which exits nonzero when it fails:
    in this one process must run on ``cuda:0``; (d) ``python -m
    galah_tpu_torch lint --json --ir-cache-dir`` on this tree, cold on a
    fresh directory and then warm on it, must exit 0 with no
-   unsuppressed finding, run ten checker families, hold the 9 bound C
+   unsuppressed finding, run ten checker families, hold the 10 bound C
    functions against their prototypes and give equal findings; the
    cold run must leave one ``ir-*.json`` a Python file scanned, and the
    warm run must add and rewrite none; the files, C functions, each
@@ -238,6 +248,19 @@ Phases, each of which exits nonzero when it fails:
    unordered edges, inversions and races; each process wall is printed
    beside its phase's, with the acquisitions and the edges observed,
    declared and unexercised;
+4u. the overlapped engine: 4e's 1,000 genomes through ``cluster`` (a)
+   as 4e runs them (the overlapped engine, its default route below the
+   crossover), (b) at ``--rep-rounds 64`` (16 windows), (c) the same
+   with GALAH_TPU_OVERLAP=0 (the stage-serial rounds) and (d) with
+   GALAH_TPU_QUEUE_CAP=8 (slabs spill); and phase 4's skani 512 with
+   GALAH_TPU_GREEDY_STRATEGY=host ``--rep-scan-window 32`` (e). Each
+   TSV must equal its phase's; in (b) at least 12 of the 16 windows
+   must be decided before the stream yields its last block, its exact
+   ANIs must be (c)'s, its slab folds at least 1 and its slab_fold
+   launches; (c) launches no slab_fold and (d) spills at least once.
+   Each run's wall, stages, eager rounds, speculative pairs and
+   batches, slab folds, spills and launches are printed, (b) beside
+   (c); each slab's edges are kept for phase 5;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -264,6 +287,10 @@ seconds of the worker threads summed, `read work`)
    sorted queries of phase 4's 512 profiles beside its exact-ANI stage;
    fused_sketch with murmur3 at k = 16 and 31 on the finch group of k =
    21, each with its bound (the key words and blocks of that k);
+   slab_fold at the largest slab of 4u (a) (4e's route) and of (b):
+   whole call, kernel alone, slab_select (enqueue, fold, flags back)
+   and the plain version on CPU tensors, beside the bound from its
+   bytes and its iterations;
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, and for the same 16 at
    ``--ani-subsample 125``, identical finch sketches
@@ -281,6 +308,7 @@ per-kernel JSON record. Every line holding a number names the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import filecmp
 import gc
@@ -362,6 +390,8 @@ try:
 except ImportError:  # outside a checkout: main() stops at phase 1
     K15_OPS_PER_WINDOW = {}
 HLL_UNION_OPS_PER_REGISTER = 4
+# the finch route's skani threshold, which the slab folds compare
+SLAB_THR = 0.95
 
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
 # phase 4b must reach and phase 4c must stay below
@@ -1559,7 +1589,7 @@ def phase_lint(root, tag):
         active = [f for f in rep["findings"] if not f["suppressed"]]
         scanned = rep["scanned"]
         families = scanned.get("families_s") or {}
-        if active or scanned["c_entries"] != 9 or len(families) != 10 \
+        if active or scanned["c_entries"] != 10 or len(families) != 10 \
                 or "effects" not in families:
             raise PhaseError(f"lint ({run}): {len(active)} unsuppressed "
                              f"finding(s), {scanned}")
@@ -2939,12 +2969,14 @@ def phase_obs(root, runs, threads, tag):
         seen.update(out[what]["dispatches"])
     from galah_tpu_torch.kernels import KERNELS
 
-    missing = [k for k in KERNELS if k not in seen]
+    # slab_fold folds the overlapped engine's rounds (finch below the
+    # crossover), a route none of these three takes
+    missing = [k for k in KERNELS if k not in seen and k != "slab_fold"]
     if missing:
         raise PhaseError(f"obs: kernels {missing} launched in none of the "
                          f"three observed runs")
-    print(f"obs: all {len(KERNELS)} kernels launched across the observed "
-          f"runs {tag}")
+    print(f"obs: all {len(KERNELS) - 1} kernels but slab_fold launched "
+          f"across the observed runs {tag}")
     out["nvcc_span_ms"] = nvcc_span(root, tag)
     return out
 
@@ -3457,6 +3489,339 @@ def phase_ranks(root, runs, tag):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slab_fold (phase 3 and 5) and the overlapped engine (phase 4u)
+# ---------------------------------------------------------------------------
+
+
+def random_slab(rng, w: int, n_edges: int, ext_rate: float = 0.2):
+    """(ei, ej, ev, ext) of a seeded slab of width w: `n_edges` edges
+    i < j (i ascending, as the engine enqueues them), j within 64 of i,
+    ANIs in [0.90, 0.99) with a tenth exactly at the threshold and a
+    twentieth NaN, a fifth of the positions already clustered."""
+    ei = np.sort(rng.integers(0, max(w - 1, 1), size=n_edges))
+    ej = np.minimum(ei + rng.integers(1, 65, size=n_edges), w - 1)
+    keep = ei < ej
+    ei, ej = ei[keep], ej[keep]
+    ev = rng.uniform(0.90, 0.99, size=ei.shape[0])
+    pick = rng.random(ei.shape[0])
+    ev[pick < 0.1] = SLAB_THR
+    ev[(pick >= 0.1) & (pick < 0.15)] = np.nan
+    return (ei.astype(np.int32), ej.astype(np.int32), ev,
+            rng.random(w) < ext_rate)
+
+
+def chain_slab(w: int):
+    """A chain k -> k + 1 of passing edges: one decision an iteration,
+    so the fold takes all w iterations of its bound."""
+    ei = np.arange(w - 1, dtype=np.int32)
+    return ei, ei + 1, np.full(w - 1, 0.97), np.zeros(w, dtype=bool)
+
+
+def slab_fold_cases(rng):
+    """(label, (ei, ej, ev, ext), queue capacity, max_iters) of phase 3:
+    an empty queue, widths 1, 64, 1,024 and 16,384 (16 windows of
+    1,024), a queue filled to its capacity, every position already
+    clustered, and deep chains at the depth bound and one short."""
+    full = random_slab(rng, 1024, 6000)
+    full = tuple(a[:4096] for a in full[:3]) + (full[3],)
+    all_ext = random_slab(rng, 64, 300)
+    all_ext = all_ext[:3] + (np.ones(64, dtype=bool),)
+    return [
+        ("empty queue, width 64", random_slab(rng, 64, 0), 8, None),
+        ("width 1", random_slab(rng, 1, 0), 8, None),
+        ("width 64", random_slab(rng, 64, 200), 256, None),
+        ("width 1024", random_slab(rng, 1024, 1500), 4096, None),
+        ("count == cap 4096, width 1024", full, 4096, None),
+        ("width 16384 (16 windows)", random_slab(rng, 16384, 4096), 4096,
+         None),
+        ("every position clustered", all_ext, 512, None),
+        ("chain of 1024 at the bound", chain_slab(1024), 1024, None),
+        ("chain of 1024, one iteration short", chain_slab(1024), 1024,
+         1023),
+        ("chain of 4096 at the bound", chain_slab(4096), 4096, None),
+    ]
+
+
+def slab_fold_parity(torch, device, rng, tag):
+    """Each phase 3 case through the kernel and the plain version, bit
+    for bit (rep and undecided flags, iterations); the largest
+    |difference| of the flags over all cases, and the 16-window case's
+    (queue, ext) on the card for its timing."""
+    from galah_tpu_torch.ops.device_queue import PairQueue
+    from galah_tpu_torch.ops.megakernel import slab_fold, slab_fold_plain
+
+    err = 0
+    timed = None
+    for label, (ei, ej, ev, ext), cap, iters in slab_fold_cases(rng):
+        qd, qh = PairQueue(cap, device), PairQueue(cap, "cpu")
+        if qd.enqueue(ei, ej, ev) != len(ei) or qh.enqueue(ei, ej, ev) \
+                != len(ei):
+            raise PhaseError(f"slab_fold {label}: the queue did not hold "
+                             f"its {len(ei)} edges")
+        ext_d = torch.from_numpy(ext).to(device)
+        rep, und, it = slab_fold(qd.records, qd.count, ext_d, SLAB_THR,
+                                 iters)
+        prep, pund, pit = slab_fold_plain(
+            qh.records, qh.count, torch.from_numpy(ext), SLAB_THR,
+            iters if iters is not None else len(ext))
+        rep, und, it = rep.cpu(), und.cpu(), int(it)
+        diff = int((rep != prep).sum() + (und != pund).sum())
+        err = max(err, int((rep.to(torch.int8) - prep.to(torch.int8))
+                           .abs().max()) if rep.numel() else 0,
+                  int((und.to(torch.int8) - pund.to(torch.int8)).abs()
+                      .max()) if und.numel() else 0)
+        if diff or it != int(pit):
+            raise PhaseError(f"slab_fold disagrees with its plain version "
+                             f"on {label}: {diff} flags, {it} against "
+                             f"{int(pit)} iterations")
+        if label.startswith("chain") and iters is None and \
+                (it != len(ext) or bool(und.any())):
+            raise PhaseError(f"slab_fold {label}: {it} iterations, "
+                             f"{int(und.sum())} undecided")
+        print(f"parity slab_fold: {label}, {len(ei)} edges (queue "
+              f"{qd.cap}), {it} iterations, {int(rep.sum())} reps, "
+              f"{int(und.sum())} undecided, exact {tag}")
+        if label.startswith("width 16384"):
+            timed = (qd, ext_d)
+    return err, timed
+
+
+def time_slab(torch, device, slab, tag, what):
+    """slab_fold at one slab's shape: the whole call (the wrapper, its
+    buffers allocated, as the main path calls it), the kernel alone
+    (run_launch into held buffers, cost accounting off, the card's time
+    behind a spin), slab_select (enqueue, fold, flags read back; host
+    clock) and the plain version on CPU tensors (host clock); its bound
+    from the bytes and this slab's iterations."""
+    from galah_tpu_torch.ops.device_queue import PairQueue
+    from galah_tpu_torch.ops.megakernel import (run_launch, slab_fold,
+                                                slab_fold_plain,
+                                                slab_select)
+
+    ei, ej, ev, ext, thr = slab
+    w, n = len(ext), len(ei)
+    qd, qh, qs = (PairQueue(max(n, 1), d)
+                  for d in (device, "cpu", device))
+    qd.enqueue(ei, ej, ev)
+    qh.enqueue(ei, ej, ev)
+    ext_d = torch.from_numpy(ext).to(device)
+    ext_h = torch.from_numpy(ext)
+    held = (torch.empty(w, dtype=torch.bool, device=device),
+            torch.empty(w, dtype=torch.bool, device=device),
+            torch.empty(2 * w, dtype=torch.uint8, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+    whole_ms = time_ms(torch, lambda: slab_fold(qd.records, n, ext_d, thr),
+                       50)
+    # the kernel alone without the launch's cost accounting, whose
+    # device-scalar operations (obs/profile.py) would be timed with it
+    with env_set({"GALAH_OBS_PROFILE": "0"}):
+        kernel_ms = device_ms(torch, lambda: run_launch(
+            qd.records, n, ext_d, thr, w, *held), 50)
+    select_ms = host_ms(torch, lambda: slab_select(qs, ei, ej, ev, ext,
+                                                   thr), 20)
+    plain_ms = host_ms(torch, lambda: slab_fold_plain(
+        qh.records, n, ext_h, thr, w), 5)
+    rep, und, it = slab_fold(qd.records, n, ext_d, thr)
+    prep, pund, pit = slab_fold_plain(qh.records, n, ext_h, thr, w)
+    err = int((rep.cpu() != prep).sum() + (und.cpu() != pund).sum())
+    if err or int(it) != int(pit):
+        raise PhaseError(f"slab_fold disagrees with its plain version at "
+                         f"{what}'s slab")
+    iters = int(it)
+    nbytes = 16 * n + 3 * w
+    ops = iters * (6 * n + 6 * w)
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"timing slab_fold at {what}: width {w}, {n} edges, {iters} "
+          f"iterations: whole call {whole_ms:.4f} ms, kernel alone "
+          f"{kernel_ms:.4f} ms, slab_select (enqueue + fold + flags "
+          f"back, host clock) {select_ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms (CPU tensors, host clock), bound {b_ms:.6f} ms ({b_by}: "
+          f"{nbytes} B, {ops} operations) {tag}")
+    return {"width": w, "edges": n, "iterations": iters, "ms": whole_ms,
+            "kernel_only_ms": kernel_ms, "select_ms": select_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err}
+
+
+@contextlib.contextmanager
+def env_set(values):
+    """os.environ with `values` set for the block, put back after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+OVERLAP_COUNTS = ("overlap-engaged", "overlap-eager-rounds",
+                  "overlap-spec-pairs", "overlap-spec-batches",
+                  "greedy-rounds", "greedy-select-dispatches",
+                  "megakernel-slab-folds", "megakernel-overflow-spills",
+                  "exact-ani-computed", "exact-ani-wasted")
+
+
+def phase_overlap(torch, cli, reset_launches, launches_now, kernels, root,
+                  finch_e, n_e, threads, tsv4e, skani_dir, tsv4, tag,
+                  width=64):
+    """Phase 4u: 4e's genomes through `cluster` (a) as 4e runs them, (b)
+    at --rep-rounds 64, (c) the same with GALAH_TPU_OVERLAP=0, (d) the
+    same with GALAH_TPU_QUEUE_CAP=8; and phase 4's skani 512 with
+    GALAH_TPU_GREEDY_STRATEGY=host --rep-scan-window 32. Each TSV must
+    equal its phase's. The finch stream is observed at each yield (the
+    windows decided so far) and each slab's edges are kept for phase
+    5's timing."""
+    from galah_tpu_torch.backends import minhash_backend as mb
+    from galah_tpu_torch.ops import megakernel as mk
+
+    streamed = mb.MinHashPreclusterer.distances_streamed
+    select = mk.slab_select
+    trace, slabs = [], []
+
+    def traced(self, paths):
+        stream = streamed(self, paths)
+        if stream is None:
+            return None
+
+        def gen():
+            for r1, inc in stream:
+                trace.append((r1, self.store.clock.counts.get(
+                    "overlap-eager-rounds", 0)))
+                yield r1, inc
+
+        return gen()
+
+    def recorded(queue, ei, ej, ev, ext, thr, clock=None):
+        slabs.append((np.array(ei), np.array(ej), np.array(ev),
+                      np.array(ext), thr))
+        return select(queue, ei, ej, ev, ext, thr, clock)
+
+    runs = {}
+    cases = [("a", "default", [], {}),
+             ("b", f"--rep-rounds {width}", ["--rep-rounds", str(width)], {}),
+             ("c", f"--rep-rounds {width}, GALAH_TPU_OVERLAP=0",
+              ["--rep-rounds", str(width)], {"GALAH_TPU_OVERLAP": "0"}),
+             ("d", f"--rep-rounds {width}, GALAH_TPU_QUEUE_CAP=8",
+              ["--rep-rounds", str(width)], {"GALAH_TPU_QUEUE_CAP": "8"})]
+    for key, what, extra, env in cases:
+        tsv = os.path.join(root, f"overlap_{key}.tsv")
+        trace.clear()
+        slabs.clear()
+        with env_set(env), patched(mb.MinHashPreclusterer,
+                                   "distances_streamed", traced), \
+                patched(mk, "slab_select", recorded):
+            res, wall, launches = run_path(
+                torch, cli, reset_launches, launches_now,
+                [*finch_e, *threads, *extra,
+                 "--output-cluster-definition", tsv])
+        with open(tsv, "rb") as fh:
+            if fh.read() != tsv4e:
+                raise PhaseError(f"overlap ({key}) {what}: the TSV differs "
+                                 f"from phase 4e's")
+        counts = {k: res.clock.counts.get(k, 0) for k in OVERLAP_COUNTS}
+        before_last = trace[-1][1] if trace and trace[-1][0] == n_e else -1
+        biggest = max(slabs, key=lambda s: (len(s[0]), len(s[3])),
+                      default=None)
+        runs[key] = {"what": what, "wall_s": wall, "counts": counts,
+                     "launches": launches, "stages_s": dict(
+                         res.clock.seconds),
+                     "blocks": [r1 for r1, _ in trace],
+                     "eager_before_last_block": before_last,
+                     "slabs": len(slabs), "slab": biggest}
+        print(f"overlap ({key}) {what}: wall {wall:.2f} s, TSV equal to "
+              f"4e's; eager rounds {counts['overlap-eager-rounds']} "
+              f"({before_last} before the stream's last block), "
+              f"speculative pairs {counts['overlap-spec-pairs']} in "
+              f"{counts['overlap-spec-batches']} batches, slab folds "
+              f"{counts['megakernel-slab-folds']}, spills "
+              f"{counts['megakernel-overflow-spills']}, greedy-select "
+              f"dispatches {counts['greedy-select-dispatches']}, exact "
+              f"ANIs {counts['exact-ani-computed']} {tag}")
+        print_run(f"overlap ({key})", res, launches, kernels, tag)
+        # each run's profile store holds up to 128 profiles on the card
+        res.store = res.preclusterer = None
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b, c, d = (runs[k] for k in "abcd")
+    n_windows = -(-n_e // width)
+    if a["counts"]["overlap-engaged"] != 1 or \
+            b["counts"]["overlap-engaged"] != 1 or \
+            c["counts"]["overlap-engaged"] != 0:
+        raise PhaseError("overlap: (a) and (b) must take the overlapped "
+                         "engine and (c) the stage-serial one")
+    # every window that ends before the last block starts is final by
+    # then: 12 of 16 at 1,000 genomes in blocks of 256
+    blocks = b["blocks"]
+    want = blocks[-2] // width if len(blocks) > 1 else 0
+    if b["counts"]["overlap-eager-rounds"] != n_windows or \
+            b["eager_before_last_block"] < want:
+        raise PhaseError(f"overlap (b): {b['eager_before_last_block']} of "
+                         f"{n_windows} windows decided before the stream's "
+                         f"last block (want at least {want})")
+    if b["counts"]["exact-ani-computed"] != \
+            c["counts"]["exact-ani-computed"]:
+        raise PhaseError("overlap: (b) computed other exact ANIs than "
+                         "the stage-serial (c)")
+    folds = b["counts"]["megakernel-slab-folds"]
+    if folds < 1 or folds != b["launches"]["slab_fold"]:
+        raise PhaseError(f"overlap (b): {folds} slab folds against "
+                         f"{b['launches']['slab_fold']} slab_fold launches")
+    if c["launches"]["slab_fold"]:
+        raise PhaseError("overlap (c): the stage-serial rounds launched "
+                         "slab_fold")
+    if d["counts"]["megakernel-overflow-spills"] < 1:
+        raise PhaseError("overlap (d): no slab spilled at a queue of 8")
+    print(f"overlap (b) beside (c), --rep-rounds {width}: wall "
+          f"{b['wall_s']:.2f} s against {c['wall_s']:.2f} s; greedy "
+          f"{b['stages_s'].get('greedy', 0.0):.3f} s against "
+          f"{c['stages_s'].get('greedy', 0.0):.3f} s; "
+          f"{b['eager_before_last_block']} of {n_windows} windows decided "
+          f"before the last of {len(b['blocks'])} blocks; exact ANIs "
+          f"{b['counts']['exact-ani-computed']} both; greedy-select "
+          f"dispatches {b['counts']['greedy-select-dispatches']} against "
+          f"{c['counts']['greedy-select-dispatches']} {tag}")
+
+    tsv = os.path.join(root, "overlap_host.tsv")
+    with env_set({"GALAH_TPU_GREEDY_STRATEGY": "host"}):
+        res, wall, launches = run_path(
+            torch, cli, reset_launches, launches_now,
+            ["cluster", "-d", skani_dir, "--ani", "95", "--device", "cuda",
+             *threads, "--rep-scan-window", "32",
+             "--output-cluster-definition", tsv])
+    with open(tsv, "rb") as fh:
+        if fh.read() != tsv4:
+            raise PhaseError("overlap (e): the host scan's TSV differs "
+                             "from phase 4's")
+    if res.clock.counts.get("greedy-strategy-host") != 1:
+        raise PhaseError("overlap (e): the host strategy did not run")
+    runs["e"] = {"what": "skani 512, GALAH_TPU_GREEDY_STRATEGY=host "
+                         "--rep-scan-window 32", "wall_s": wall,
+                 "launches": launches,
+                 "counts": {k: res.clock.counts.get(k, 0)
+                            for k in OVERLAP_COUNTS}}
+    print(f"overlap (e) {runs['e']['what']}: wall {wall:.2f} s, TSV equal "
+          f"to phase 4's {tag}")
+    print_run("overlap (e)", res, launches, kernels, tag)
+    res.store = res.preclusterer = None
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3808,6 +4173,35 @@ def main(argv=None) -> int:
           f"entry over the same groups at c = "
           f"{', '.join(map(str, GROUP_CUTS))} ({ph_group_cases} cases, a "
           f"tensor a genome), exact {tag}")
+    # slab_fold: the seeded slabs, bit for bit, and the 16-window slab's
+    # time, the kernel alone and the whole call
+    from galah_tpu_torch.ops.megakernel import run_launch as run_slab_fold
+    from galah_tpu_torch.ops.megakernel import slab_fold
+
+    sf_err, (sf_q, sf_ext) = slab_fold_parity(torch, device, rng, tag)
+    sf_w = sf_ext.shape[0]
+    sf_held = (torch.empty(sf_w, dtype=torch.bool, device=device),
+               torch.empty(sf_w, dtype=torch.bool, device=device),
+               torch.empty(2 * sf_w, dtype=torch.uint8, device=device),
+               torch.zeros((), dtype=torch.int32, device=device))
+    sf16_ms = time_ms(torch, lambda: slab_fold(sf_q.records, sf_q.count,
+                                               sf_ext, SLAB_THR), 20)
+    # the kernel alone without the launch's cost accounting, whose
+    # device-scalar operations (obs/profile.py) would be timed with it
+    with env_set({"GALAH_OBS_PROFILE": "0"}):
+        sf16_kernel = device_ms(torch, lambda: run_slab_fold(
+            sf_q.records, sf_q.count, sf_ext, SLAB_THR, sf_w, *sf_held),
+            20)
+    sf16_iters = int(sf_held[3])
+    sf16_bound, sf16_by = bound(
+        16 * sf_q.count + 3 * sf_w,
+        sf16_iters * (6 * sf_q.count + 6 * sf_w))
+    print(f"timing slab_fold: the 16-window slab (width {sf_w}, "
+          f"{sf_q.count} edges, {sf16_iters} iterations): whole call "
+          f"{sf16_ms:.4f} ms, kernel alone {sf16_kernel:.4f} ms, bound "
+          f"{sf16_bound:.6f} ms ({sf16_by}, bytes over 3.35 TB/s and "
+          f"operations over 67e12/s) {tag}")
+    del sf_q, sf_ext, sf_held
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -4041,8 +4435,8 @@ def main(argv=None) -> int:
         require_counts(res_e.clock.counts, {"pairs-streamed-stripes": stripes},
                        "finch streamed")
         require_launched(launches_e, ("fused_sketch", "tile_stats",
-                                      "window_hits", "positional_hashes"),
-                         "finch streamed")
+                                      "window_hits", "positional_hashes",
+                                      "slab_fold"), "finch streamed")
         res_t, wall_t, launches_t = run_path(
             torch, cli, reset_launches, LAUNCHES,
             [*finch_e, "--threads", str(TWIN_THREADS),
@@ -4080,6 +4474,7 @@ def main(argv=None) -> int:
               f"families, wall {wall_a:.2f} s {tag}")
         print_run("fastani", res_a, launches_a, KERNELS, tag)
 
+
         # -- phases 4g-4i: galah's command line, dist, the cache -----------
         # each run's profile store holds up to 128 profiles (~60 MB a
         # genome with its sorted queries); the later phases read only
@@ -4092,6 +4487,17 @@ def main(argv=None) -> int:
         print(f"device memory before phase 4g: "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
               f"{tag}")
+
+        # -- phase 4u: the overlapped engine ------------------------------
+        print(f"phase 4u starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        with open(tsv_e, "rb") as fh:
+            tsv4e = fh.read()
+        overlap_out = phase_overlap(torch, cli, reset_launches, LAUNCHES,
+                                    KERNELS, root, finch_e, n_e, threads,
+                                    tsv4e, skani_dir, tsv4, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
         # -- phase 4m: the library API as CoverM embeds it ---------------
         print(f"phase 4m starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -4166,8 +4572,6 @@ def main(argv=None) -> int:
               f"after the device check {tag}")
         gc.collect()
         torch.cuda.empty_cache()
-        with open(tsv_e, "rb") as fh:
-            tsv4e = fh.read()
 
         def read_tsv(d):
             with open(os.path.join(d, "clusters.tsv"), "rb") as fh:
@@ -4814,6 +5218,12 @@ def main(argv=None) -> int:
               f"sketch stage per launch group {hstage_group:.2f} ms {tag}")
         del hashes, want, hregs, group, hh, hc, hs, dc, ds
 
+        # slab_fold at the main path's slabs: the largest of 4u (a), the
+        # default route (4e's), and of (b) at --rep-rounds 64
+        sf_main = {key: time_slab(torch, device, overlap_out[key]["slab"],
+                                  tag, f"4u ({key})'s largest slab")
+                   for key in ("a", "b")}
+
         # -- phase 6: kernel path vs plain path on the card ---------------
         print(f"phase 6 starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -5008,6 +5418,28 @@ def main(argv=None) -> int:
          "group_split_ms": mm_split,
          "launches_4q": scale_launches("murmur3_k21", mesh_out,
                                        ranks_out)},
+        {"name": "slab_fold", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/slab_fold.cu",
+         "replaces": "galah_tpu/ops/megakernel.py:107",
+         "replaces_note": "no TPU kernel: galah_tpu folds a slab in XLA "
+                          "(_slab_fold_jit, a lax.while_loop)",
+         "launches": launches_e["slab_fold"],
+         "max_abs_err": max(sf_err, sf_main["a"]["max_abs_err"],
+                            sf_main["b"]["max_abs_err"]),
+         "ms": sf_main["a"]["ms"], "plain_ms": sf_main["a"]["plain_ms"],
+         "bound_ms": sf_main["a"]["bound_ms"],
+         "bound_by": sf_main["a"]["bound_by"], "library_ms": None,
+         "kernel_only_ms": sf_main["a"]["kernel_only_ms"],
+         "plain_on": "CPU tensors, host clock",
+         "shape": {k: sf_main["a"][k] for k in ("width", "edges",
+                                                "iterations")},
+         "select_ms": sf_main["a"]["select_ms"],
+         "rep_rounds_64": sf_main["b"],
+         "slab_16_windows": {"ms": sf16_ms, "kernel_only_ms": sf16_kernel,
+                             "iterations": sf16_iters,
+                             "bound_ms": sf16_bound, "bound_by": sf16_by},
+         "launches_4u": {k: v["launches"]["slab_fold"]
+                         for k, v in overlap_out.items()}},
         {"name": "positional_hashes", "route": "cuda",
          "source": "galah_tpu_torch/kernels/positional_hashes.cu",
          "replaces": "galah_tpu/ops/hashing.py:308",
@@ -5052,6 +5484,9 @@ def main(argv=None) -> int:
         "phase_4p_fleet": fleet_out,
         "phase_4s_platform": platform_out,
         "phase_4t_sanitizer": san_out,
+        "phase_4u_overlap": {k: {kk: vv for kk, vv in v.items()
+                                 if kk != "slab"}
+                             for k, v in overlap_out.items()},
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],

@@ -74,6 +74,8 @@ STRATEGY_MODULES = (
     "galah_tpu_torch/ops/fragment_ani.py",
     "galah_tpu_torch/ops/window_hits.py",
     "galah_tpu_torch/ops/greedy_select.py",
+    "galah_tpu_torch/ops/megakernel.py",
+    "galah_tpu_torch/ops/device_queue.py",
     "galah_tpu_torch/ops/sketch_stream.py",
     "galah_tpu_torch/parallel/mesh.py",
 )

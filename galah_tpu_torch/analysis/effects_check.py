@@ -42,10 +42,10 @@ Checks
           escape stage attribution (the interprocedural completion of
           GL804).
 
-No port module declares a ``device_round`` and ``PAGED_MODULES`` is
-empty until the megakernel, the device queue and the paged sketch tier
-are ported, so GL1101 and the GL1007 arm run on fixtures only, as the
-lexical GL1006 and GL1007 do.
+GL1101 checks the port's one ``device_round``, the slab fold's launch
+wrapper (``ops/megakernel.run_launch``). ``PAGED_MODULES`` is empty
+until the paged sketch tier is ported, so the GL1007 arm runs on
+fixtures only, as the lexical GL1007 does.
 
 Scope of GL1104/GL1105: ``galah_tpu_torch/`` without
 ``galah_tpu_torch/analysis/`` (the sanitizer implements lock plumbing

@@ -20,11 +20,10 @@ Annotation: a pipeline module opts in with a module-level literal
 ``streaming`` names this module's generator stages (GL1002 scope);
 ``occupancy_gauge`` contracts the module to emit that gauge (GL1004);
 ``device_round`` names functions that must stay device-resident
-(GL1006 scope): ``galah_tpu``'s persistent greedy round and megakernel
-bodies. No port module declares one, and none falls under
-``PAGED_MODULES`` (GL1007), until the overlapped engine, the
-megakernel and the paged sketch tier are ported; both rules run on
-fixtures.
+(GL1006 scope): the slab fold's launch wrapper
+(``ops/megakernel.run_launch``), as ``galah_tpu``'s megakernel bodies.
+No port module falls under ``PAGED_MODULES`` (GL1007) until the paged
+sketch tier is ported; that rule runs on fixtures.
 
 Checks
   GL1001  full materialization of a streaming iterator:

@@ -131,10 +131,14 @@ def add_cluster_arguments(
                              "less membership work with a noisier "
                              "per-fragment identity (default: 1)")
     parser.add_argument(f"--{d.rep_scan_window}", type=int, default=None,
-                        help="Speculative representative-scan batch "
-                             "width of galah-tpu's overlapped engine "
-                             "(not supported by galah_tpu_torch yet: "
-                             "any value is refused)")
+                        help="Speculative rep-scan batch width of the host "
+                             "greedy strategy (GALAH_TPU_GREEDY_STRATEGY="
+                             "host): genomes per window evaluated against "
+                             "all current representatives in one backend "
+                             "call (default: 128). Wider = fewer round "
+                             "trips, more speculative ANIs; the waste is "
+                             "the exact-ani-wasted counter of the run "
+                             "report")
     parser.add_argument(f"--{d.rep_rounds}", type=int, default=None,
                         help="Device greedy-selection round width: genomes "
                              "speculatively taken per round of the "
@@ -172,6 +176,8 @@ class GalahClusterer:
     #: the sketch settings a checkpoint's fingerprint holds, equal to
     #: galah_tpu's for the same values
     backend_params: Dict = dataclasses.field(default_factory=dict)
+    #: host-scan speculative window (None = the engine's)
+    rep_scan_window: Optional[int] = None
     #: device greedy-selection round width (None = the engine's)
     rep_rounds: Optional[int] = None
     #: genomes quarantined by the --on-bad-genome skip preflight (None
@@ -183,7 +189,8 @@ class GalahClusterer:
 
         return run(self.genome_paths, self.preclusterer, self.clusterer,
                    self.device, rep_rounds=self.rep_rounds,
-                   clock=self.clock, checkpoint=self.checkpoint)
+                   clock=self.clock, checkpoint=self.checkpoint,
+                   rep_scan_window=self.rep_scan_window)
 
 
 def _get(values: Dict, definition: ClustererCommandDefinition,
@@ -288,10 +295,11 @@ def generate_galah_clusterer(
         raise ValueError(
             f"--{d.ani_subsample} must be in [1, {MARKER_C}], "
             f"got {ani_subsample}")
-    if _get(values, d, d.rep_scan_window) is not None:
+    raw_window = _get(values, d, d.rep_scan_window)
+    rep_scan_window = int(raw_window) if raw_window is not None else None
+    if rep_scan_window is not None and rep_scan_window < 1:
         raise ValueError(
-            f"--{d.rep_scan_window}: the overlapped engine's scan window "
-            "is not supported by galah_tpu_torch yet")
+            f"--{d.rep_scan_window} must be >= 1, got {rep_scan_window}")
     raw_rounds = _get(values, d, d.rep_rounds)
     rep_rounds = int(raw_rounds) if raw_rounds is not None else None
     if rep_rounds is not None and rep_rounds < 1:
@@ -367,4 +375,5 @@ def generate_galah_clusterer(
     return GalahClusterer(genome_paths=genome_paths, preclusterer=pre,
                           clusterer=cl, device=device, clock=clock,
                           backend_params=backend_params,
+                          rep_scan_window=rep_scan_window,
                           rep_rounds=rep_rounds, quarantine=quarantine)

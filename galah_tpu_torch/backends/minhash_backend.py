@@ -10,7 +10,9 @@ held in memory by a ``SketchStore`` and, with a disk cache
 ``minhash``. Below the sparse crossover, with
 unique paths, the all-pairs pass is streamed: it takes the sketch rows
 in blocks, one stripe at a time, while later genomes are still read
-and sketched (``ops/pairwise.threshold_pairs_streamed``). Otherwise the
+and sketched (``distances_streamed``, a generator over
+``ops/pairwise.iter_threshold_pairs_streamed`` that the overlapped
+engine consumes block by block and ``distances`` drains). Otherwise the
 whole sketch matrix goes through ``ops/pairwise.threshold_pairs`` (the
 collision screen plus the pairlist kernel from the crossover up). In a
 multi-process job (``parallel/distributed.py``) each rank sketches its
@@ -36,8 +38,8 @@ from galah_tpu_torch.ops import collision, sketch_stream
 from galah_tpu_torch.ops.constants import SENTINEL_U64
 from galah_tpu_torch.ops.minhash import sketch_matrix, sketch_rows
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
-from galah_tpu_torch.ops.pairwise import (threshold_pairs,
-                                          threshold_pairs_streamed)
+from galah_tpu_torch.ops.pairwise import (iter_threshold_pairs_streamed,
+                                          threshold_pairs)
 from galah_tpu_torch.ops.sketch_stream import (iter_path_sketches,
                                                iter_sketch_row_blocks,
                                                sketch_genomes_fused)
@@ -131,30 +133,48 @@ class MinHashPreclusterer(PreclusterBackend):
         return to_biased(full[[index[p] for p in genome_paths]],
                          self.store.device)
 
+    def distances_streamed(self, genome_paths: Sequence[str]):
+        """The pair pass as a stream: a generator of ``(r1,
+        increment)``, one a block of arriving sketch rows
+        (``ops/pairwise.iter_threshold_pairs_streamed``), the pair
+        neighbourhood of the prefix [0, r1) complete at each yield; the
+        overlapped engine (``cluster/engine.py``) decides greedy windows
+        over it while later genomes are still read and sketched. Taken
+        where the staged pass streams, and so gives the same pairs: one
+        process, unique paths, below the sparse crossover; None
+        otherwise. The stripes go over ``parallel/mesh.auto_mesh`` of
+        the store's device, as the staged pass's do."""
+        store = self.store
+        n = len(genome_paths)
+        if (distributed.process_count() > 1
+                or n >= collision.SPARSE_SCREEN_MIN_N
+                or len(dict.fromkeys(genome_paths)) != n):
+            return None
+        logger.info("Streaming all-pairs Mash ANI behind the reads ..")
+        blocks = iter_sketch_row_blocks(genome_paths, store, self.threads)
+        return iter_threshold_pairs_streamed(
+            blocks, n, store.k, self.min_ani, store.sketch_size,
+            store.clock, block=sketch_stream.ROW_BLOCK,
+            mesh=pmesh.auto_mesh(store.device))
+
     def distances(self, genome_paths: Sequence[str]) -> PairDistanceCache:
         store = self.store
         logger.info("Sketching MinHash representations of %d genomes "
                     "on %s ..", len(genome_paths), store.device)
-        n = len(genome_paths)
         # the stream's rows are the unique paths, and the sparse pass
         # from the crossover up needs the whole matrix, as does a
         # multi-process job's exchange of sketch rows
-        if distributed.process_count() > 1:
+        stream = self.distances_streamed(genome_paths)
+        if stream is not None:
+            pairs: Dict = {}
+            for _r1, inc in stream:
+                pairs.update(inc)
+        elif distributed.process_count() > 1:
             mat = self._sketch_matrix_multihost(genome_paths)
             logger.info("Computing all-pairs Mash ANI over %d ranks ..",
                         distributed.process_count())
             pairs = threshold_pairs(mat, store.k, self.min_ani,
                                     store.sketch_size, store.clock)
-        elif (n < collision.SPARSE_SCREEN_MIN_N
-                and len(dict.fromkeys(genome_paths)) == n):
-            logger.info("Streaming all-pairs Mash ANI behind the reads ..")
-            blocks = iter_sketch_row_blocks(genome_paths, store,
-                                            self.threads)
-            pairs = threshold_pairs_streamed(
-                blocks, n, store.k, self.min_ani,
-                store.sketch_size, store.clock,
-                block=sketch_stream.ROW_BLOCK,
-                mesh=pmesh.auto_mesh(store.device))
         else:
             by_path = dict(iter_path_sketches(genome_paths, store,
                                               self.threads))

@@ -61,10 +61,10 @@ the card; it must agree with an explicit ``--device`` (else exit 2),
 and a platform that cannot start here exits 1 before any work, after
 ``report``, ``perf``, ``flow``, ``top`` and ``fleet status|analyze``
 have returned, as in ``galah-tpu``.
-Percentages parse as in ``galah-tpu``. ``cluster``'s
-``--rep-scan-window``, the one flag of ``galah-tpu``'s command line that
-the port does not support yet, is an error that names it; no flag is
-silently ignored. A user error (a bad value, a missing file)
+Percentages parse as in ``galah-tpu``. Every flag of ``galah-tpu``'s
+command line is taken (``cluster --rep-scan-window`` sets the host
+greedy strategy's speculative width); no flag is silently ignored. A
+user error (a bad value, a missing file)
 exits 1 with a one-line message. A ``cluster`` run stopped by SIGTERM
 or SIGINT at a safe boundary exits 75 (``EXIT_PREEMPTED``) and writes
 no outputs, and an ``index insert`` stopped so exits 75 with the index
@@ -635,9 +635,6 @@ def parse_args(argv: Optional[Sequence[str]],
                ) -> argparse.Namespace:
     parser = parser or build_parser()
     args = parser.parse_args(argv)
-    if getattr(args, "rep_scan_window", None) is not None:
-        parser.error("--rep-scan-window: this flag of `galah-tpu cluster` "
-                     "is not supported by galah_tpu_torch yet")
     platform = _platform(args)
     device = getattr(args, "device", None)
     if platform and device is not None and \

@@ -77,7 +77,8 @@ class Flag:
     help: str                       # one-line doc (manpage ENVIRONMENT)
     default: Optional[str] = None   # None == unset; always the string form
     kind: str = "str"               # str | int | float | bool | grammar
-    section: str = "runtime"        # runtime | resilience | observability
+    section: str = "runtime"        # runtime | kernel | resilience |
+                                    # observability
     choices: Tuple[str, ...] = ()
     # who reads a flag that no literal read site names (an f-string
     # family, C code): the lint's GL403 then does not call it stale
@@ -119,6 +120,48 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
     Flag("GALAH_TPU_INDEX_DIR", section="runtime",
          help="Index directory of `index`; the --index-dir flag's env "
               "twin and loses to it"),
+    Flag("GALAH_TPU_GREEDY_STRATEGY", section="kernel",
+         choices=("device", "host"),
+         help="Pin the greedy representative scan to the round-based "
+              "device path (the default) or the per-precluster host "
+              "scan, whose speculative width is cluster "
+              "--rep-scan-window (decisions are bit-identical; a "
+              "failure raises under either)"),
+    Flag("GALAH_TPU_OVERLAP", section="kernel", default="auto",
+         choices=("auto", "0", "1"),
+         help="Overlapped end-to-end dataflow: the finch sketch stream, "
+              "the pair stripes, speculative fragment-ANI batches and "
+              "eager greedy rounds run as one pipeline instead of "
+              "sequential drains. auto engages it where it is "
+              "bit-identical to the stage-serial engine (a fresh run, "
+              "finch below the sparse crossover, unique paths, one "
+              "process, the device greedy strategy) and a failure "
+              "raises; 1 forces it (ineligibility raises too); 0 "
+              "disables it"),
+    Flag("GALAH_TPU_OVERLAP_DEPTH", kind="int", default="512",
+         section="kernel",
+         help="Survivor pairs buffered before a speculative "
+              "fragment-ANI batch launches in the overlapped "
+              "dataflow; bounds the in-flight window (memory stays "
+              "O(depth))"),
+    Flag("GALAH_TPU_MEGAKERNEL", section="kernel", default="auto",
+         choices=("auto", "0", "1"),
+         help="Fused greedy rounds: consecutive round windows fuse "
+              "into one slab whose hit edges enqueue into the pair "
+              "queue on the device and resolve in one slab_fold.cu "
+              "launch (2 dispatches a slab instead of one window fold "
+              "each, bit-identical decisions). auto engages it inside "
+              "the overlapped engine's rounds and a failure raises; 1 "
+              "engages it in every device round (the host greedy "
+              "strategy raises); 0 disables it"),
+    Flag("GALAH_TPU_QUEUE_CAP", kind="int", default="4096",
+         section="kernel",
+         help="Capacity (pairs) of the device pair queue of the slab "
+              "fold, rounded up to a power of two. A slab whose hit "
+              "edges exceed it takes the exact per-window dense path "
+              "(megakernel-overflow-spills counter): results are "
+              "exact at any value; the knob only moves the spill "
+              "boundary"),
     Flag("GALAH_FI", kind="grammar", section="resilience",
          help="Deterministic fault injection at the durable-write "
               "sites, e.g. 'site=io.atomic.append[ckpt.greedy];kind=kill;"

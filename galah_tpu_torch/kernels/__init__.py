@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("window_hits", "tile_stats", "fused_sketch", "pairlist",
-           "hll_union", "murmur3_k21", "positional_hashes")
+           "hll_union", "murmur3_k21", "positional_hashes", "slab_fold")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -8,13 +8,15 @@ the kernels' source notes (``chip_smoke.py`` holds the same numbers for
 its bounds). Where the work depends on the data, the shape's count is
 taken: every window of a hash launch as valid (ambiguous bases and
 contig starts drop a few), every sketch row of a ``tile_stats`` launch
-as full. ``pairlist`` is the exception: its items are the sums of its
-own outputs, so its count is two device scalars that ``obs/profile.py``
-reads once the run has synchronized (``rehearse_pairlist.work``'s
-formula, with no host wait at the launch).
+as full. ``pairlist`` and ``slab_fold`` are the exceptions: ``pairlist``'s items
+are the sums of its own outputs, and ``slab_fold``'s iterations an
+output of the launch, so their operations are device scalars that
+``obs/profile.py`` reads once the run has synchronized
+(``rehearse_pairlist.work``'s formula; no host wait at the launch).
 
 ``obs/profile.py`` adds these up per kernel into the run report's
-``device_costs``; none of them touch the device but ``pairlist``'s.
+``device_costs``; none of them touch the device but ``pairlist``'s and
+``slab_fold``'s.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ MURMUR3_K21_OPS_PER_WINDOW = 170
 K15_OPS_PER_WINDOW = {"murmur3": 202, "tpufast": 116}
 HLL_UNION_OPS_PER_REGISTER = 4
 PAIRLIST_OPS_PER_ITEM = 3
+# slab_fold, an iteration: an edge's compare and two flag reads and
+# stores, a position's clear, tests and update
+SLAB_FOLD_OPS_PER_EDGE = 6
+SLAB_FOLD_OPS_PER_POSITION = 6
 
 # fused_sketch's candidate file: REGS x CLASSES int64 a job, and the
 # job's (first window, count) pair read
@@ -129,3 +135,16 @@ def hll_union(br: int, bc: int, m: int) -> Cost:
     pair."""
     return (float(m * (br + bc) + 2 * 4 * br * bc),
             float(HLL_UNION_OPS_PER_REGISTER * br * bc * m))
+
+
+def slab_fold_bytes(count: int, width: int) -> int:
+    """The queue's `count` 16-byte records and the ext flags read once,
+    the rep and undecided flags written once."""
+    return 16 * count + 3 * width
+
+
+def slab_fold_ops(iters, count: int, width: int):
+    """Every iteration run passes over the edges and the positions.
+    `iters` may be a device scalar: the result is one too."""
+    return iters * (SLAB_FOLD_OPS_PER_EDGE * count
+                    + SLAB_FOLD_OPS_PER_POSITION * width)

@@ -359,6 +359,7 @@ EXAMPLES
 # section titles of the ENVIRONMENT page, in galah_tpu's order
 _ENV_SECTION_TITLES = [
     ("runtime", "Runtime and IO"),
+    ("kernel", "Kernel and device policy"),
     ("resilience", "Resilience"),
     ("observability", "Observability"),
 ]

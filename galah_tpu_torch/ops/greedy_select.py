@@ -20,6 +20,7 @@ power-of-two buckets, as in ``galah_tpu``.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -35,6 +36,12 @@ DETERMINISM_CONTRACT = {
     "functions": ["window_select", "membership_argmax"],
 }
 
+#: Greedy representative-selection strategies (GALAH_TPU_GREEDY_STRATEGY):
+#: ``device``, the round-based selection of this module (the default),
+#: and ``host``, the per-precluster host-order scan
+#: (``cluster/engine.find_representatives``). Decisions are the same.
+GREEDY_STRATEGIES = ("device", "host")
+
 #: Genomes speculatively taken per selection round.
 DEFAULT_ROUND_WIDTH = 1024
 
@@ -43,6 +50,16 @@ DEFAULT_ROUND_WIDTH = 1024
 FOLD_ITERS = 32
 
 _MIN_BUCKET = 8
+
+
+def resolve_greedy_strategy() -> Tuple[str, bool]:
+    """(strategy, explicit) from GALAH_TPU_GREEDY_STRATEGY: a valid
+    value pins it; anything else, unset included, is the device
+    rounds, not explicit. A failure raises under either."""
+    env = (os.environ.get("GALAH_TPU_GREEDY_STRATEGY") or "").lower()
+    if env in GREEDY_STRATEGIES:
+        return env, True
+    return "device", False
 
 
 def _bucket(n: int) -> int:

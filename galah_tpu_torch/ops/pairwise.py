@@ -14,7 +14,9 @@ column at or right of the block's diagonal tile comes from
 ``tile_stats``' intersect form (the CUDA kernel on the card), a
 conservative float64 mask and the compaction run on the device, and the
 host applies the exact float64 check. The finch pass runs
-``threshold_pairs_streamed``: per block of sketch rows, which may still
+``iter_threshold_pairs_streamed`` (drained by
+``threshold_pairs_streamed``, or consumed block by block by the
+overlapped engine): per block of sketch rows, which may still
 be arriving (``ops/sketch_stream.iter_sketch_row_blocks``), one stripe
 of every row seen so far against the block's columns through
 ``tile_stats``' full form, and the exact float64 check on the host.
@@ -30,7 +32,7 @@ with the same result.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +49,8 @@ from galah_tpu_torch.timing import StageClock, Stopwatch
 # The streamed finch pass is a pipeline stage (GL10xx, obs/flow.py)
 # that feeds the pairs stage's occupancy gauge.
 PIPELINE_STAGE = {
-    "streaming": ["threshold_pairs_streamed"],
+    "streaming": ["iter_threshold_pairs_streamed",
+                  "threshold_pairs_streamed"],
     "occupancy_gauge": "workload.pipeline_occupancy",
 }
 
@@ -232,11 +235,38 @@ def threshold_pairs_streamed(
     block: int = COL_TILE,
     mesh=None,
 ) -> Dict[Tuple[int, int], float]:
-    """``threshold_pairs`` below the sparse crossover, over ``(r0,
-    rows)`` blocks of at most `block` biased sketch rows on the device
-    that may still be arriving (``ops/sketch_stream
-    .iter_sketch_row_blocks``): the rows come in order, r0 = 0, then
-    each block's end.
+    """``threshold_pairs`` below the sparse crossover over arriving
+    sketch blocks: ``iter_threshold_pairs_streamed`` drained into one
+    dict, which equals ``threshold_pairs`` over the whole matrix."""
+    out: Dict[Tuple[int, int], float] = {}
+    for _r1, inc in iter_threshold_pairs_streamed(
+            blocks, n, k, min_ani, sketch_size, clock, block=block,
+            mesh=mesh):
+        out.update(inc)
+    return out
+
+
+def iter_threshold_pairs_streamed(
+    blocks: Iterable[Tuple[int, torch.Tensor]],
+    n: int,
+    k: int,
+    min_ani: float,
+    sketch_size: int,
+    clock: Optional[StageClock] = None,
+    block: int = COL_TILE,
+    mesh=None,
+) -> Iterator[Tuple[int, Dict[Tuple[int, int], float]]]:
+    """The streamed finch pass as a generator (``galah_tpu``'s
+    ``iter_threshold_pairs_streamed``): over ``(r0, rows)`` blocks of
+    at most `block` biased sketch rows on the device that may still be
+    arriving (``ops/sketch_stream.iter_sketch_row_blocks``; rows in
+    order, r0 = 0, then each block's end), it yields ``(r1, increment)``
+    per block, `increment` holding the pairs (i, j), j in [r0, r1),
+    that pass. At each yield the pair neighbourhood of the prefix
+    [0, r1) is complete, which lets the overlapped engine
+    (``cluster/engine.py``) decide greedy windows over it while later
+    genomes are still read and sketched; the increments together equal
+    ``threshold_pairs`` over the whole matrix.
 
     Per block, one stripe: every row seen so far, padded with sentinel
     rows to a power of two (at least ``ROW_TILE``), against the block
@@ -256,8 +286,8 @@ def threshold_pairs_streamed(
     a ``device-dispatch`` wait, the rest its service, and each stripe
     leaves as an ``edge_stripe``. The ``pairs`` stage's
     ``workload.pipeline_occupancy`` gauge, one less its upstream-empty
-    wait over the pass's wall, is set after each stripe and at the end
-    (``galah_tpu``'s ``iter_threshold_pairs_streamed``)."""
+    wait over the pass's wall, is set after each stripe and at the
+    end."""
     watch = Stopwatch()
     waits = obs_flow.WaitTotal()
     clock = clock or StageClock(torch.device("cpu"))
@@ -273,7 +303,6 @@ def threshold_pairs_streamed(
         r_cap <<= 1
     done: Optional[torch.Tensor] = None
     r1 = 0
-    out: Dict[Tuple[int, int], float] = {}
     for r0, rows in obs_flow.waited(blocks, "pairs", waits):
         obs_flow.absorb("sketch", "pairs")
         block_watch = Stopwatch()
@@ -316,17 +345,19 @@ def threshold_pairs_streamed(
                 & (common.astype(np.float64) >= j_thr * total))
         ki, kj = np.nonzero(keep)
         ani = stats_to_ani_f64(common[keep], total[keep], k)
-        out.update(zip(zip(ki.tolist(), (r0 + kj).tolist()), ani.tolist()))
+        inc = dict(zip(zip(ki.tolist(), (r0 + kj).tolist()),
+                       ani.tolist()))
         # the stripe's host work, its device bracket excluded
         obs_flow.record_service(
             "pairs", max(block_watch.seconds() - bdev.seconds, 0.0))
         obs_flow.emit("pairs", obs_flow.begin("edge_stripe"))
+        yield r1, inc
+        # set after the consumer's turn too: the heartbeat samples it
         _emit_pairs_occupancy(watch, waits)
     if r1 != n:
         raise ValueError(f"streamed pair pass saw {r1} rows, expected {n}")
     if done is not None:
         _emit_pairs_occupancy(watch, waits)
-    return out
 
 
 def _emit_pairs_occupancy(watch: Stopwatch,

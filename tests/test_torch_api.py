@@ -184,12 +184,24 @@ def test_out_of_range_values_name_the_renamed_flag(argv, field, tmp_path):
 
 
 def test_rep_scan_window_is_refused_by_its_renamed_name():
-    """The port has no overlapped engine yet: any scan window is refused,
-    named as the embedding tool spelled it."""
-    _, td = _definitions(True)
+    """The scan window is taken at 8, as galah_tpu takes it, and handed
+    to the engine; at 0 it is refused with galah_tpu's message, named
+    as the embedding tool spelled it."""
+    jd, td = _definitions(True)
     values = _parse(tapi, td, ["--dereplication-scan-window", "8"])
-    with pytest.raises(ValueError, match="--dereplication-scan-window"):
-        tapi.generate_galah_clusterer(["x.fna"], values, td, device="cpu")
+    got = tapi.generate_galah_clusterer(["x.fna"], values, td, device="cpu")
+    want = japi.generate_galah_clusterer(
+        ["x.fna"], _parse(japi, jd, ["--dereplication-scan-window", "8"]),
+        jd)
+    assert got.rep_scan_window == want.rep_scan_window == 8
+    zero = ["--dereplication-scan-window", "0"]
+    with pytest.raises(ValueError) as je:
+        japi.generate_galah_clusterer(["x.fna"], _parse(japi, jd, zero), jd)
+    with pytest.raises(ValueError, match="--dereplication-scan-window") \
+            as te:
+        tapi.generate_galah_clusterer(["x.fna"], _parse(tapi, td, zero), td,
+                                      device="cpu")
+    assert str(te.value) == str(je.value)
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):

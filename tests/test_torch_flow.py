@@ -170,7 +170,8 @@ def test_read_threads_adopt_the_submitters_flow_context(monkeypatch):
 @pytest.fixture(scope="module")
 def finch_runs(tmp_path_factory):
     """The port's `cluster --precluster-method finch` on 24 genomes (the
-    streamed pass, one stripe), with GALAH_OBS_FLOW unset (on) and 0."""
+    streamed pass, one stripe, on the overlapped engine), with
+    GALAH_OBS_FLOW unset (on) and 0."""
     root = tmp_path_factory.mktemp("flowruns")
     paths, _ = _families(root, 7, 8, 3, 30_000, 0.02)
     out = {}
@@ -196,16 +197,23 @@ def finch_runs(tmp_path_factory):
 
 
 def test_finch_run_reports_ingest_sketch_pairs(finch_runs):
+    """The overlapped route (finch's default below the crossover, as in
+    galah_tpu): ingest -> sketch -> pairs -> greedy, with the engine's
+    speculative fragment batches, one eager round and one stripe."""
     rep = json.loads((finch_runs["1"] / "report.json").read_text())
+    assert rep["counters"]["overlap-engaged"] == 1
     flow = rep["flow"]
-    assert {"ingest", "sketch", "pairs"} <= set(flow["stages"])
+    stages = {"ingest", "sketch", "pairs", "greedy", "fragment"}
+    assert set(flow["stages"]) == stages
     assert {(e["from"], e["to"]) for e in flow["edges"]} == \
-        {("ingest", "sketch"), ("sketch", "pairs")}
+        {("ingest", "sketch"), ("sketch", "pairs"), ("pairs", "greedy")}
     assert flow["stages"]["ingest"]["items"] == 24
-    assert flow["flows"]["kinds"] == {"genome_batch": 1, "sketch_block": 1,
-                                      "edge_stripe": 1}
+    kinds = flow["flows"]["kinds"]
+    assert kinds.pop("fragment_batch") >= 1
+    assert kinds == {"genome_batch": 1, "sketch_block": 1,
+                     "edge_stripe": 1, "greedy_round": 1}
     cp = flow["critical_path"]
-    assert set(cp["stages"]) == {"ingest", "sketch", "pairs"}
+    assert set(cp["stages"]) == stages
     assert abs(sum(e["blame_s"] for e in cp["stages"].values())
                - rep["run"]["duration_s"]) < 1e-4
     assert "device-dispatch" in flow["stages"]["pairs"]["wait_s"]

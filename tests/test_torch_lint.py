@@ -310,7 +310,7 @@ def _lint_process(*argv):
 
 def test_lint_cli_json_contract():
     """galah_tpu's JSON schema (test_analysis.py), with the port's
-    `scanned` block: the kernel family reads the nine C functions."""
+    `scanned` block: the kernel family reads the ten C functions."""
     proc = _lint_process("--json", "--check", "kernels", "--check",
                          "markers", "--check", "flags")
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -319,7 +319,7 @@ def test_lint_cli_json_contract():
     assert set(report["summary"]) == {"errors", "warnings", "notes",
                                       "suppressed", "by_family"}
     assert report["summary"]["errors"] == 0
-    assert report["scanned"]["c_entries"] == 9
+    assert report["scanned"]["c_entries"] == 10
 
 
 def test_lint_run_report_carries_summary(tmp_path):
@@ -592,7 +592,7 @@ def test_lint_subcommand_exits_0_on_the_repo():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "0 error(s), 0 warning(s)" in proc.stdout
-    assert "checked 9 bound C functions" in proc.stdout
+    assert "checked 10 bound C functions" in proc.stdout
 
 
 def test_kernel_family_reads_the_nine_c_functions():
@@ -603,8 +603,8 @@ def test_kernel_family_reads_the_nine_c_functions():
         "window_hits_launch", "tile_stats_launch", "fused_sketch_launch",
         "pairlist_launch", "hll_union_launch", "murmur3_k21_launch",
         "positional_hashes_launch", "positional_hashes_group_launch",
-        "positional_hashes_tile"])
-    assert kernels_check.entry_count(sources) == 9
+        "positional_hashes_tile", "slab_fold_launch"])
+    assert kernels_check.entry_count(sources) == 10
     from galah_tpu_torch.kernels import KERNELS
 
     assert {e.library for e in entries} == set(KERNELS)

@@ -384,7 +384,9 @@ def _port_source(rel):
 
 def test_registries_name_the_ports_modules():
     assert len(conc.THREADED_MODULES) == len(jconc.THREADED_MODULES) == 15
-    assert len(det.STRATEGY_MODULES) == 7
+    # the seven strategy families, and ops/megakernel.py and
+    # ops/device_queue.py
+    assert len(det.STRATEGY_MODULES) == 9
     for rel in conc.THREADED_MODULES + det.STRATEGY_MODULES:
         assert (REPO / rel).is_file(), rel
         assert rel.startswith("galah_tpu_torch/")
@@ -432,10 +434,13 @@ def test_strategy_module_contract_names_its_functions(rel):
     ("galah_tpu_torch/ops/sketch_stream.py",
      ["iter_path_sketches", "iter_sketch_row_blocks"],
      "workload.pipeline_occupancy"),
-    ("galah_tpu_torch/ops/pairwise.py", ["threshold_pairs_streamed"],
+    ("galah_tpu_torch/ops/pairwise.py",
+     ["iter_threshold_pairs_streamed", "threshold_pairs_streamed"],
      "workload.pipeline_occupancy"),
     ("galah_tpu_torch/index/incremental.py", ["iter_insert_sketches"],
      None),
+    ("galah_tpu_torch/cluster/engine.py", ["_cluster_overlapped"],
+     "workload.pipeline_occupancy"),
 ])
 def test_stage_modules_declare_their_streams(rel, streaming, gauge):
     stage = harvest_literal(_port_source(rel).tree, "PIPELINE_STAGE")

@@ -311,8 +311,9 @@ def _rep(d):
 
 @pytest.mark.parametrize("what,kernels", [
     ("skani", {"tile_stats", "window_hits", "positional_hashes"}),
+    # finch takes the overlapped route, whose slabs fold in slab_fold
     ("finch", {"tile_stats", "window_hits", "positional_hashes",
-               "fused_sketch"})])
+               "fused_sketch", "slab_fold"})])
 def test_cpu_report_counts_plain_calls(cpu_runs, what, kernels):
     rep = _rep(cpu_runs[what])
     dc = rep["device_costs"]

@@ -614,7 +614,8 @@ def test_finch_report_carries_galah_tpus_occupancy_gauges(corpus, tmp_path,
     takes a device sketch strategy and the stage-serial engine), each
     in [0, 1]."""
     monkeypatch.setenv("GALAH_TPU_SKETCH_STRATEGY", "xla")  # galah-lint: ignore[GL401] galah_tpu's flag, for its side
-    monkeypatch.setenv("GALAH_TPU_OVERLAP", "0")  # galah-lint: ignore[GL401] galah_tpu's flag, for its side
+    # both packages read it: the stage-serial engine on both sides
+    monkeypatch.setenv("GALAH_TPU_OVERLAP", "0")
     names = {}
     for side, main, extra in (("jax", jmain, []),
                               ("port", tcli.main, ["--device", "cpu"])):

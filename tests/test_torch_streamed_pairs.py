@@ -4,11 +4,12 @@ galah_tpu's overlapped dataflow.
 * ``ops/pairwise.threshold_pairs_streamed`` against the port's
   ``threshold_pairs``, galah_tpu's streamed and dense passes, and a
   pair dict from the plain pair statistics;
-* the port's engine on table-driven stubs (its copies of
-  tests/test_overlap.py's ``TablePre``/``TableCl``) against galah_tpu's
-  ``cluster`` with ``GALAH_TPU_OVERLAP=1`` (its streaming
-  ``StreamTablePre``), the route galah_tpu takes by default for finch
-  below the sparse crossover;
+* the port's stage-serial rounds on table-driven stubs (its copies of
+  tests/test_overlap.py's ``TablePre``/``TableCl``, which stream
+  nothing) against galah_tpu's ``cluster`` with ``GALAH_TPU_OVERLAP=1``
+  (its streaming ``StreamTablePre``), the route galah_tpu takes by
+  default for finch below the sparse crossover (the port's own
+  overlapped engine: tests/test_torch_overlap.py);
 * the finch CLI with ``--threads``, streamed in several stripes,
   against galah_tpu's TSV and its own one-thread run.
 
@@ -263,17 +264,16 @@ def _port(n, pre, table, **kw):
 
 
 def _galah_tpu_overlapped(monkeypatch, n, pre, table, block=7, **kw):
-    # galah_tpu's own flags (the port has no overlapped engine):
-    # galah-lint: ignore[GL401]
+    # set for galah_tpu's run only: the port reads them too, and its
+    # runs here (TablePre streams nothing) take the stage-serial rounds
     monkeypatch.setenv("GALAH_TPU_GREEDY_STRATEGY", "device")
-    monkeypatch.setenv("GALAH_TPU_OVERLAP", "1")  # galah-lint: ignore[GL401]
+    monkeypatch.setenv("GALAH_TPU_OVERLAP", "1")
     try:
         return jcluster(g(n), _JStreamPre(pre, n, block),
                         _JTableCl(table, 0.95), **kw)
     finally:
-        # galah-lint: ignore[GL401]
         monkeypatch.delenv("GALAH_TPU_GREEDY_STRATEGY")
-        monkeypatch.delenv("GALAH_TPU_OVERLAP")  # galah-lint: ignore[GL401]
+        monkeypatch.delenv("GALAH_TPU_OVERLAP")
 
 
 @pytest.mark.parametrize("workload", ["families_250x4", "dense_96"])
