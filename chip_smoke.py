@@ -31,12 +31,17 @@ Phases, each of which exits nonzero when it fails:
    kernel's general key: k / 16 blocks and a tail of k mod 16 bytes);
    slab_fold (the overlapped engine's slab folds) on seeded slabs
    through the device pair queue, rep and undecided flags and
-   iterations exact: an empty queue, widths 1, 64, 1,024 and 16,384
-   (16 windows of 1,024), a queue filled to its capacity of 4,096, NaN
-   values and values equal to the threshold, already clustered
-   positions, chains of 1,024 and 4,096 that take every iteration of
-   the depth bound and one a step short; the 16-window slab is timed,
-   whole call and kernel alone, beside its bound;
+   iterations exact, each in the tier megakernel.fold_plan picks (one
+   block, a cluster of 2, 4 or 8, or global memory; each case prints
+   it, and every tier must have run): an empty queue, widths 1, 64,
+   1,024 and 16,384 (16 windows of 1,024), a queue filled to its
+   capacity of 4,096, NaN values and values equal to the threshold,
+   already clustered positions, chains of 1,024 and 4,096 that take
+   every iteration of the depth bound and one a step short; widths
+   65,536, 131,072 and 262,144 (clusters of 2, 4 and 8) with edges near
+   the diagonal and edges reaching across blocks, each with a chain
+   spread over every block at its bound and one iteration short, and
+   width 524,288 (global memory);
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -287,10 +292,14 @@ seconds of the worker threads summed, `read work`)
    sorted queries of phase 4's 512 profiles beside its exact-ANI stage;
    fused_sketch with murmur3 at k = 16 and 31 on the finch group of k =
    21, each with its bound (the key words and blocks of that k);
-   slab_fold at the largest slab of 4u (a) (4e's route) and of (b):
-   whole call, kernel alone, slab_select (enqueue, fold, flags back)
-   and the plain version on CPU tensors, beside the bound from its
-   bytes and its iterations;
+   slab_fold (kernels/rehearse_slab_fold.py) at the largest slab of 4u
+   (a) (4e's route) and of (b), the 16-window slab, chains of 1,024
+   and 4,096 and a cluster-tier slab: the tier fold_plan picks and the
+   global-memory tier (the first design) in turns, each as the kernel
+   alone, the whole call and slab_select (edges and ext up in one copy,
+   fold, the packed output back in one), beside an empty kernel's
+   launch on the same stream and the bound from the bytes and the
+   iterations; the plain version on CPU tensors at the 4u slabs;
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, and for the same 16 at
    ``--ani-subsample 125``, identical finch sketches
@@ -3495,27 +3504,34 @@ def phase_ranks(root, runs, tag):
 
 
 def random_slab(rng, w: int, n_edges: int, ext_rate: float = 0.2):
-    """(ei, ej, ev, ext) of a seeded slab of width w: `n_edges` edges
-    i < j (i ascending, as the engine enqueues them), j within 64 of i,
-    ANIs in [0.90, 0.99) with a tenth exactly at the threshold and a
-    twentieth NaN, a fifth of the positions already clustered."""
-    ei = np.sort(rng.integers(0, max(w - 1, 1), size=n_edges))
-    ej = np.minimum(ei + rng.integers(1, 65, size=n_edges), w - 1)
-    keep = ei < ej
-    ei, ej = ei[keep], ej[keep]
-    ev = rng.uniform(0.90, 0.99, size=ei.shape[0])
-    pick = rng.random(ei.shape[0])
+    """(ei, ej, ev, ext) of a seeded slab of width w at SLAB_THR:
+    edges i < j, j within 64 of i (kernels/rehearse_slab_fold.py)."""
+    from galah_tpu_torch.kernels import rehearse_slab_fold as rsf
+
+    return rsf.random_slab(rng, w, n_edges, SLAB_THR, ext_rate)
+
+
+def spread_slab(rng, w: int, n_edges: int):
+    """(ei, ej, ev, ext) of a seeded slab of width w whose edges reach
+    anywhere above their source (so, in a cluster, into any block):
+    ANIs as random_slab's, a fifth of the positions clustered."""
+    ei = rng.integers(0, w - 1, size=n_edges)
+    ej = ei + 1 + rng.integers(0, 2**31, size=n_edges) % (w - 1 - ei)
+    ev = rng.uniform(0.90, 0.99, size=n_edges)
+    pick = rng.random(n_edges)
     ev[pick < 0.1] = SLAB_THR
     ev[(pick >= 0.1) & (pick < 0.15)] = np.nan
     return (ei.astype(np.int32), ej.astype(np.int32), ev,
-            rng.random(w) < ext_rate)
+            rng.random(w) < 0.2)
 
 
-def chain_slab(w: int):
-    """A chain k -> k + 1 of passing edges: one decision an iteration,
-    so the fold takes all w iterations of its bound."""
-    ei = np.arange(w - 1, dtype=np.int32)
-    return ei, ei + 1, np.full(w - 1, 0.97), np.zeros(w, dtype=bool)
+def chain_slab(w: int, positions=None):
+    """A chain of passing edges (k -> k + 1, or through `positions` of a
+    slab of w): one decision an iteration, so the fold takes as many
+    iterations as the chain has positions."""
+    from galah_tpu_torch.kernels import rehearse_slab_fold as rsf
+
+    return rsf.chain_slab(w, positions)
 
 
 def slab_fold_cases(rng):
@@ -3540,19 +3556,44 @@ def slab_fold_cases(rng):
         ("chain of 1024, one iteration short", chain_slab(1024), 1024,
          1023),
         ("chain of 4096 at the bound", chain_slab(4096), 4096, None),
-    ]
+    ] + cluster_cases(rng)
+
+
+def cluster_cases(rng):
+    """Phase 3's slabs for the tiers past one block, each chosen by
+    megakernel.fold_plan from its width at a queue of 4,096: two seeded
+    slabs a cluster size (2, 4, 8; one with edges near the diagonal,
+    one reaching across blocks), one of the global-memory tier, and a
+    chain through positions spread over every block of each cluster at
+    its depth bound and one iteration short."""
+    cases = []
+    for width, chain in ((65536, 1024), (131072, 512), (262144, 512)):
+        cases.append((f"width {width} near", random_slab(rng, width, 4096),
+                      4096, None))
+        cases.append((f"width {width} spread",
+                      spread_slab(rng, width, 4096), 4096, None))
+        positions = np.arange(chain) * (width // chain)
+        ch = chain_slab(width, positions)
+        cases.append((f"chain of {chain} across width {width} at the "
+                      f"bound", ch, 4096, chain))
+        cases.append((f"chain of {chain} across width {width}, one "
+                      f"iteration short", ch, 4096, chain - 1))
+    cases.append(("width 524288 (global-memory tier)",
+                  random_slab(rng, 524288, 4096), 4096, None))
+    return cases
 
 
 def slab_fold_parity(torch, device, rng, tag):
-    """Each phase 3 case through the kernel and the plain version, bit
-    for bit (rep and undecided flags, iterations); the largest
-    |difference| of the flags over all cases, and the 16-window case's
-    (queue, ext) on the card for its timing."""
+    """Each phase 3 case through the kernel, in the tier
+    megakernel.fold_plan picks, and the plain version, bit for bit (rep
+    and undecided flags, iterations); the largest |difference| of the
+    flags over all cases and the tiers the cases took."""
     from galah_tpu_torch.ops.device_queue import PairQueue
-    from galah_tpu_torch.ops.megakernel import slab_fold, slab_fold_plain
+    from galah_tpu_torch.ops.megakernel import (fold_plan, slab_fold,
+                                                slab_fold_plain)
 
     err = 0
-    timed = None
+    tiers = set()
     for label, (ei, ej, ev, ext), cap, iters in slab_fold_cases(rng):
         qd, qh = PairQueue(cap, device), PairQueue(cap, "cpu")
         if qd.enqueue(ei, ej, ev) != len(ei) or qh.enqueue(ei, ej, ev) \
@@ -3560,6 +3601,8 @@ def slab_fold_parity(torch, device, rng, tag):
             raise PhaseError(f"slab_fold {label}: the queue did not hold "
                              f"its {len(ei)} edges")
         ext_d = torch.from_numpy(ext).to(device)
+        tier = fold_plan(len(ext), qd.cap).tier
+        tiers.add(tier)
         rep, und, it = slab_fold(qd.records, qd.count, ext_d, SLAB_THR,
                                  iters)
         prep, pund, pit = slab_fold_plain(
@@ -3572,76 +3615,23 @@ def slab_fold_parity(torch, device, rng, tag):
                   int((und.to(torch.int8) - pund.to(torch.int8)).abs()
                       .max()) if und.numel() else 0)
         if diff or it != int(pit):
-            raise PhaseError(f"slab_fold disagrees with its plain version "
-                             f"on {label}: {diff} flags, {it} against "
-                             f"{int(pit)} iterations")
-        if label.startswith("chain") and iters is None and \
-                (it != len(ext) or bool(und.any())):
-            raise PhaseError(f"slab_fold {label}: {it} iterations, "
-                             f"{int(und.sum())} undecided")
+            raise PhaseError(f"slab_fold ({tier}) disagrees with its plain "
+                             f"version on {label}: {diff} flags, {it} "
+                             f"against {int(pit)} iterations")
+        if label.startswith("chain"):
+            bound = iters if iters is not None else len(ext)
+            short = "short" in label
+            if it != bound or int(und.sum()) != int(short):
+                raise PhaseError(f"slab_fold {label}: {it} iterations, "
+                                 f"{int(und.sum())} undecided")
         print(f"parity slab_fold: {label}, {len(ei)} edges (queue "
-              f"{qd.cap}), {it} iterations, {int(rep.sum())} reps, "
-              f"{int(und.sum())} undecided, exact {tag}")
-        if label.startswith("width 16384"):
-            timed = (qd, ext_d)
-    return err, timed
-
-
-def time_slab(torch, device, slab, tag, what):
-    """slab_fold at one slab's shape: the whole call (the wrapper, its
-    buffers allocated, as the main path calls it), the kernel alone
-    (run_launch into held buffers, cost accounting off, the card's time
-    behind a spin), slab_select (enqueue, fold, flags read back; host
-    clock) and the plain version on CPU tensors (host clock); its bound
-    from the bytes and this slab's iterations."""
-    from galah_tpu_torch.ops.device_queue import PairQueue
-    from galah_tpu_torch.ops.megakernel import (run_launch, slab_fold,
-                                                slab_fold_plain,
-                                                slab_select)
-
-    ei, ej, ev, ext, thr = slab
-    w, n = len(ext), len(ei)
-    qd, qh, qs = (PairQueue(max(n, 1), d)
-                  for d in (device, "cpu", device))
-    qd.enqueue(ei, ej, ev)
-    qh.enqueue(ei, ej, ev)
-    ext_d = torch.from_numpy(ext).to(device)
-    ext_h = torch.from_numpy(ext)
-    held = (torch.empty(w, dtype=torch.bool, device=device),
-            torch.empty(w, dtype=torch.bool, device=device),
-            torch.empty(2 * w, dtype=torch.uint8, device=device),
-            torch.zeros((), dtype=torch.int32, device=device))
-    whole_ms = time_ms(torch, lambda: slab_fold(qd.records, n, ext_d, thr),
-                       50)
-    # the kernel alone without the launch's cost accounting, whose
-    # device-scalar operations (obs/profile.py) would be timed with it
-    with env_set({"GALAH_OBS_PROFILE": "0"}):
-        kernel_ms = device_ms(torch, lambda: run_launch(
-            qd.records, n, ext_d, thr, w, *held), 50)
-    select_ms = host_ms(torch, lambda: slab_select(qs, ei, ej, ev, ext,
-                                                   thr), 20)
-    plain_ms = host_ms(torch, lambda: slab_fold_plain(
-        qh.records, n, ext_h, thr, w), 5)
-    rep, und, it = slab_fold(qd.records, n, ext_d, thr)
-    prep, pund, pit = slab_fold_plain(qh.records, n, ext_h, thr, w)
-    err = int((rep.cpu() != prep).sum() + (und.cpu() != pund).sum())
-    if err or int(it) != int(pit):
-        raise PhaseError(f"slab_fold disagrees with its plain version at "
-                         f"{what}'s slab")
-    iters = int(it)
-    nbytes = 16 * n + 3 * w
-    ops = iters * (6 * n + 6 * w)
-    b_ms, b_by = bound(nbytes, ops)
-    print(f"timing slab_fold at {what}: width {w}, {n} edges, {iters} "
-          f"iterations: whole call {whole_ms:.4f} ms, kernel alone "
-          f"{kernel_ms:.4f} ms, slab_select (enqueue + fold + flags "
-          f"back, host clock) {select_ms:.4f} ms, plain {plain_ms:.3f} "
-          f"ms (CPU tensors, host clock), bound {b_ms:.6f} ms ({b_by}: "
-          f"{nbytes} B, {ops} operations) {tag}")
-    return {"width": w, "edges": n, "iterations": iters, "ms": whole_ms,
-            "kernel_only_ms": kernel_ms, "select_ms": select_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err}
+              f"{qd.cap}), tier {tier}, {it} iterations, {int(rep.sum())} "
+              f"reps, {int(und.sum())} undecided, exact {tag}")
+    want = {"cluster 1", "cluster 2", "cluster 4", "cluster 8", "global"}
+    if tiers != want:
+        raise PhaseError(f"slab_fold's phase 3 cases took the tiers "
+                         f"{sorted(tiers)}, not {sorted(want)}")
+    return err, sorted(tiers)
 
 
 @contextlib.contextmanager
@@ -4173,35 +4163,9 @@ def main(argv=None) -> int:
           f"entry over the same groups at c = "
           f"{', '.join(map(str, GROUP_CUTS))} ({ph_group_cases} cases, a "
           f"tensor a genome), exact {tag}")
-    # slab_fold: the seeded slabs, bit for bit, and the 16-window slab's
-    # time, the kernel alone and the whole call
-    from galah_tpu_torch.ops.megakernel import run_launch as run_slab_fold
-    from galah_tpu_torch.ops.megakernel import slab_fold
-
-    sf_err, (sf_q, sf_ext) = slab_fold_parity(torch, device, rng, tag)
-    sf_w = sf_ext.shape[0]
-    sf_held = (torch.empty(sf_w, dtype=torch.bool, device=device),
-               torch.empty(sf_w, dtype=torch.bool, device=device),
-               torch.empty(2 * sf_w, dtype=torch.uint8, device=device),
-               torch.zeros((), dtype=torch.int32, device=device))
-    sf16_ms = time_ms(torch, lambda: slab_fold(sf_q.records, sf_q.count,
-                                               sf_ext, SLAB_THR), 20)
-    # the kernel alone without the launch's cost accounting, whose
-    # device-scalar operations (obs/profile.py) would be timed with it
-    with env_set({"GALAH_OBS_PROFILE": "0"}):
-        sf16_kernel = device_ms(torch, lambda: run_slab_fold(
-            sf_q.records, sf_q.count, sf_ext, SLAB_THR, sf_w, *sf_held),
-            20)
-    sf16_iters = int(sf_held[3])
-    sf16_bound, sf16_by = bound(
-        16 * sf_q.count + 3 * sf_w,
-        sf16_iters * (6 * sf_q.count + 6 * sf_w))
-    print(f"timing slab_fold: the 16-window slab (width {sf_w}, "
-          f"{sf_q.count} edges, {sf16_iters} iterations): whole call "
-          f"{sf16_ms:.4f} ms, kernel alone {sf16_kernel:.4f} ms, bound "
-          f"{sf16_bound:.6f} ms ({sf16_by}, bytes over 3.35 TB/s and "
-          f"operations over 67e12/s) {tag}")
-    del sf_q, sf_ext, sf_held
+    # slab_fold: the seeded slabs in every tier, bit for bit (phase 5
+    # times them)
+    sf_err, sf_tiers = slab_fold_parity(torch, device, rng, tag)
     # the per-kernel record near the end is the one {"kernels": ...}
     # object the output holds; this line only lists what passed parity
     print(f"parity kernels: {json.dumps(list(KERNELS))} {tag}")
@@ -5218,11 +5182,33 @@ def main(argv=None) -> int:
               f"sketch stage per launch group {hstage_group:.2f} ms {tag}")
         del hashes, want, hregs, group, hh, hc, hs, dc, ds
 
-        # slab_fold at the main path's slabs: the largest of 4u (a), the
-        # default route (4e's), and of (b) at --rep-rounds 64
-        sf_main = {key: time_slab(torch, device, overlap_out[key]["slab"],
-                                  tag, f"4u ({key})'s largest slab")
-                   for key in ("a", "b")}
+        # slab_fold at the main path's slabs, the largest of 4u (a), the
+        # default route (4e's), and of (b) at --rep-rounds 64, and at
+        # the fixed slabs of kernels/rehearse_slab_fold.py: the chosen
+        # tier and the global-memory tier (the first design) in turns
+        from galah_tpu_torch.kernels import rehearse_slab_fold as rsf
+
+        sf_floor = rsf.empty_floor_ms(torch)
+        print(f"timing slab_fold: an empty kernel of the fold's block "
+              f"shape, {sf_floor:.4f} ms a launch on the same stream (the "
+              f"floor beside the bound) {tag}")
+        # at the main path's queue capacity (GALAH_TPU_QUEUE_CAP's default)
+        sf_slabs = {"4e's slab (4u (a)'s largest)":
+                    (*overlap_out["a"]["slab"], 4096),
+                    "4u (b)'s largest slab": (*overlap_out["b"]["slab"], 4096),
+                    **rsf.phase5_slabs(np.random.default_rng(args.seed + 25),
+                                       SLAB_THR)}
+        sf_times = []
+        for i, (what, slab) in enumerate(sf_slabs.items()):
+            rec = rsf.time_slab(torch, device, slab, 20, plain=i < 2,
+                                label=what)
+            rec["floor_ms"] = sf_floor
+            sf_times.append(rec)
+            print(f"{rsf.describe(rec)}"
+                  + (f", plain {rec['plain_ms']:.3f} ms (CPU tensors, host "
+                     f"clock)" if "plain_ms" in rec else "")
+                  + f" {tag}")
+        sf_main = sf_times[0]
 
         # -- phase 6: kernel path vs plain path on the card ---------------
         print(f"phase 6 starts {time.perf_counter() - t_script:.1f} s "
@@ -5424,20 +5410,20 @@ def main(argv=None) -> int:
          "replaces_note": "no TPU kernel: galah_tpu folds a slab in XLA "
                           "(_slab_fold_jit, a lax.while_loop)",
          "launches": launches_e["slab_fold"],
-         "max_abs_err": max(sf_err, sf_main["a"]["max_abs_err"],
-                            sf_main["b"]["max_abs_err"]),
-         "ms": sf_main["a"]["ms"], "plain_ms": sf_main["a"]["plain_ms"],
-         "bound_ms": sf_main["a"]["bound_ms"],
-         "bound_by": sf_main["a"]["bound_by"], "library_ms": None,
-         "kernel_only_ms": sf_main["a"]["kernel_only_ms"],
+         "max_abs_err": max([sf_err] + [r["max_abs_err"]
+                                        for r in sf_times]),
+         "ms": sf_main["whole_ms"], "plain_ms": sf_main["plain_ms"],
+         "bound_ms": sf_main["bound_ms"],
+         "bound_by": sf_main["bound_by"], "library_ms": None,
+         "kernel_only_ms": sf_main["kernel_ms"],
+         "select_ms": sf_main["select_ms"], "tier": sf_main["tier"],
+         "parent": {k: sf_main[f"parent_{k}"]
+                    for k in ("kernel_ms", "whole_ms", "select_ms")},
+         "floor_ms": sf_floor, "tiers_checked": sf_tiers,
          "plain_on": "CPU tensors, host clock",
-         "shape": {k: sf_main["a"][k] for k in ("width", "edges",
-                                                "iterations")},
-         "select_ms": sf_main["a"]["select_ms"],
-         "rep_rounds_64": sf_main["b"],
-         "slab_16_windows": {"ms": sf16_ms, "kernel_only_ms": sf16_kernel,
-                             "iterations": sf16_iters,
-                             "bound_ms": sf16_bound, "bound_by": sf16_by},
+         "shape": {k: sf_main[k] for k in ("width", "edges",
+                                           "iterations")},
+         "slabs": sf_times,
          "launches_4u": {k: v["launches"]["slab_fold"]
                          for k, v in overlap_out.items()}},
         {"name": "positional_hashes", "route": "cuda",

@@ -56,8 +56,8 @@ SIGNATURES = {
     "murmur3_k21": ("murmur3_k21_launch", [_P, _P, _L, _L, _L, _P, _P]),
     "positional_hashes": ("positional_hashes_launch", [_P, _P, _L, _L, _L,
                                                        _I, _P, _P]),
-    "slab_fold": ("slab_fold_launch", [_P, _I, _P, _I, _L, _I, _P, _P, _P,
-                                       _P, _P]),
+    "slab_fold": ("slab_fold_launch", [_P, _I, _P, _I, _L, _I, _I, _I, _I,
+                                       _P, _I, _I, _P, _P]),
 }
 
 # the further C functions of a library, bound beside its launch

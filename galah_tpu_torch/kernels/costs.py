@@ -9,14 +9,15 @@ its bounds). Where the work depends on the data, the shape's count is
 taken: every window of a hash launch as valid (ambiguous bases and
 contig starts drop a few), every sketch row of a ``tile_stats`` launch
 as full. ``pairlist`` and ``slab_fold`` are the exceptions: ``pairlist``'s items
-are the sums of its own outputs, and ``slab_fold``'s iterations an
-output of the launch, so their operations are device scalars that
-``obs/profile.py`` reads once the run has synchronized
-(``rehearse_pairlist.work``'s formula; no host wait at the launch).
+are the sums of its own outputs, so its operations are device scalars
+that ``obs/profile.py`` reads once the run has synchronized
+(``rehearse_pairlist.work``'s formula; no host wait at the launch);
+``slab_fold``'s iterations are an output of the launch, which
+``ops/megakernel.slab_select`` reads back with the flags and then adds
+its operations on the host.
 
 ``obs/profile.py`` adds these up per kernel into the run report's
-``device_costs``; none of them touch the device but ``pairlist``'s and
-``slab_fold``'s.
+``device_costs``; none of them touch the device but ``pairlist``'s.
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def slab_fold_bytes(count: int, width: int) -> int:
 
 
 def slab_fold_ops(iters, count: int, width: int):
-    """Every iteration run passes over the edges and the positions.
-    `iters` may be a device scalar: the result is one too."""
+    """Every iteration run passes over the edges and the positions (the
+    recurrence's work: the kernel's live-edge compaction skips some)."""
     return iters * (SLAB_FOLD_OPS_PER_EDGE * count
                     + SLAB_FOLD_OPS_PER_POSITION * width)

@@ -50,7 +50,7 @@ import sys
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Deque, Dict, Iterator, Optional, Tuple
 
 #: the card's name -> (peak 32-bit operations/s, peak bytes/s): the
@@ -110,6 +110,16 @@ def enabled() -> bool:
 
 def _torch():
     return sys.modules.get("torch")
+
+
+def on_device(device):
+    """A context in which CUDA `device` is the current device: a switch
+    only where it is not already (a switch costs microseconds a
+    launch)."""
+    torch = _torch()
+    if device.index is None or device.index == torch.cuda.current_device():
+        return nullcontext()
+    return torch.cuda.device(device)
 
 
 class ProfiledFunction:
@@ -177,12 +187,12 @@ class ProfiledFunction:
         stream = torch.cuda.current_stream(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.device(device):
+        with on_device(device):
             start.record(stream)
         t0 = time.perf_counter()
         yield
         wall = time.perf_counter() - t0
-        with torch.cuda.device(device):
+        with on_device(device):
             end.record(stream)
             bytes_ops = cost()
         with self._lock:
@@ -209,6 +219,15 @@ class ProfiledFunction:
             self.plain_calls += 1
             self.signatures.add(signature)
         self._add_cost(bytes_ops, None)
+
+    def add_operations(self, ops: float) -> None:
+        """Operations of a launch that the host learns after it (the
+        slab fold's, from the iterations it reads back with the flags);
+        nothing touches the device."""
+        if not enabled():
+            return
+        with self._lock:
+            self.flops_total += float(ops)
 
     def add_compile(self, seconds: float) -> None:
         with self._lock:

@@ -21,6 +21,16 @@ from pinned memory of the batch's records, at the end of the prefix.
 The host knows each batch's length, so ``count`` and ``overflow`` live
 on the host: an enqueue reads nothing back from the device. There is
 no padding to buckets, since nothing recompiles for a new length.
+
+The queue also holds the slab fold's buffers, so that a slab costs one
+upload and one readback and allocates nothing: the records lie at the
+head of one device buffer with room for a slab's ``ext`` flags behind
+them, and an enqueue given ``ext`` stages the batch's records and the
+flags side by side in one pinned buffer and carries both in one copy
+(``ext`` then lies right after the records, ``self.ext``); the fold's
+device workspace (``workspace``) and a pinned host mirror
+(``read_back``: one copy and one event wait). Each grows by powers of
+two as slabs widen.
 """
 
 from __future__ import annotations
@@ -87,18 +97,22 @@ class PairQueue:
             cap = resolve_queue_cap()
         self.cap = pow2_at_least(int(cap))
         self.device = resolve_device(device)
-        # (cap, 2) int64: each row one record's 16 bytes
-        self.records = torch.zeros(self.cap, 2, dtype=torch.int64,
-                                   device=self.device)
-        words = self.records.view(torch.int32)
-        self.qi = words[:, 0]
-        self.qj = words[:, 1]
-        self.qv = self.records.view(torch.float64)[:, 1]
-        self.qv.fill_(float("nan"))
         self._count = 0
         self._overflow = 0
+        # the device buffer: the (cap, 2) int64 records, then _ext_cap
+        # bytes of room for a slab's ext flags
+        self._ext_cap = 0
+        self._buf: Optional[torch.Tensor] = None
+        self._grow(0)
+        #: the ext flags of the last enqueue given them (bool, on the
+        #: device), right after its records; until the next enqueue
+        self.ext: Optional[torch.Tensor] = None
         self._staging: Optional[torch.Tensor] = None
-        self._copied: Optional[torch.cuda.Event] = None
+        # a copy out of the staging buffer may still be running
+        self._in_flight = False
+        self._work: Optional[torch.Tensor] = None
+        self._mirror: Optional[torch.Tensor] = None
+        self._read: Optional[torch.cuda.Event] = None
 
     @property
     def count(self) -> int:
@@ -108,44 +122,107 @@ class PairQueue:
     def overflow(self) -> int:
         return self._overflow
 
-    def _stage(self, m: int) -> np.ndarray:
-        """A host array of `m` records: on the card a view of a pinned
-        buffer, once the copy out of it has finished."""
-        if self.device.type != "cuda":
-            return np.empty(m, dtype=RECORD)
-        if self._staging is None:
-            self._staging = torch.empty(self.cap, 2, dtype=torch.int64,
-                                        pin_memory=True)
-        if self._copied is not None:
-            self._copied.synchronize()
-            self._copied = None
-        return self._staging.numpy().view(RECORD).reshape(-1)[:m]
+    def _grow(self, ext_bytes: int) -> None:
+        """Room for `ext_bytes` of flags behind a full queue; the stored
+        records keep their contents."""
+        if self._buf is not None and self._ext_cap >= ext_bytes:
+            return
+        ext_cap = pow2_at_least(ext_bytes) if ext_bytes else 0
+        rec_bytes = 16 * self.cap
+        buf = torch.empty(rec_bytes + ext_cap, dtype=torch.uint8,
+                          device=self.device)
+        first = self._buf is None
+        if not first:
+            buf[:rec_bytes].copy_(self._buf[:rec_bytes])
+        self._buf, self._ext_cap = buf, ext_cap
+        # (cap, 2) int64: each row one record's 16 bytes
+        self.records = buf[:rec_bytes].view(torch.int64).view(self.cap, 2)
+        words = self.records.view(torch.int32)
+        self.qi = words[:, 0]
+        self.qj = words[:, 1]
+        self.qv = self.records.view(torch.float64)[:, 1]
+        if first:
+            self.records.zero_()
+            self.qv.fill_(float("nan"))
 
-    def enqueue(self, i: np.ndarray, j: np.ndarray, v: np.ndarray) -> int:
+    def _stage(self, nbytes: int) -> torch.Tensor:
+        """The staging buffer's first `nbytes` (uint8): on the card
+        pinned, once the copy out of it has finished."""
+        size = 16 * self.cap + self._ext_cap
+        if self._in_flight:
+            torch.cuda.synchronize(self.device)
+            self._in_flight = False
+        if self._staging is None or self._staging.numel() < size:
+            self._staging = torch.empty(
+                size, dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+        return self._staging[:nbytes]
+
+    def enqueue(self, i: np.ndarray, j: np.ndarray, v: np.ndarray,
+                ext: Optional[np.ndarray] = None) -> int:
         """Append one batch of pairs; returns how many were stored.
         Below ``len(i)`` the queue reached its capacity: the stored
-        prefix is in the queue and the rest counted in ``overflow``."""
+        prefix is in the queue and the rest counted in ``overflow``.
+        With `ext` (a slab's bool flags) the flags go up in the same
+        copy, into ``self.ext``."""
         m = len(i)
-        if m == 0:
-            return 0
         k = min(m, self.cap - self._count)
-        if k > 0:
-            host = self._stage(k)
-            host["i"] = np.asarray(i[:k], dtype=np.int32)
-            host["j"] = np.asarray(j[:k], dtype=np.int32)
-            host["v"] = np.asarray(v[:k], dtype=np.float64)
-            src = torch.from_numpy(host.view(np.int64).reshape(k, 2))
-            dst = self.records[self._count:self._count + k]
+        w = 0 if ext is None else len(ext)
+        if ext is not None:
+            self._grow(w)
+        if k > 0 or ext is not None:
+            nbytes = 16 * k + w
+            staged = self._stage(nbytes)
+            host = staged.numpy()
+            if k > 0:
+                rec = host[:16 * k].view(RECORD)
+                rec["i"] = np.asarray(i[:k], dtype=np.int32)
+                rec["j"] = np.asarray(j[:k], dtype=np.int32)
+                rec["v"] = np.asarray(v[:k], dtype=np.float64)
+            if ext is not None:
+                host[16 * k:] = np.asarray(
+                    ext, dtype=bool).view(np.uint8)
+            start = 16 * self._count
+            dst = self._buf[start:start + nbytes]
             if self.device.type == "cuda":
-                dst.copy_(src, non_blocking=True)
-                self._copied = torch.cuda.Event()
-                self._copied.record(
-                    torch.cuda.current_stream(self.device))
+                dst.copy_(staged, non_blocking=True)
+                self._in_flight = True
             else:
-                dst.copy_(src)
+                dst.copy_(staged)
+            if ext is not None:
+                self.ext = dst[nbytes - w:].view(torch.bool)
         self._count += k
         self._overflow += m - k
         return k
+
+    def workspace(self, nbytes: int) -> torch.Tensor:
+        """A held uint8 buffer of at least `nbytes` on the queue's
+        device (the slab fold's packed output and scratch)."""
+        if self._work is None or self._work.numel() < nbytes:
+            self._work = torch.empty(pow2_at_least(nbytes),
+                                     dtype=torch.uint8, device=self.device)
+        return self._work
+
+    def read_back(self, src: torch.Tensor, nbytes: int) -> np.ndarray:
+        """The first `nbytes` of `src` (a uint8 tensor on the queue's
+        device) on the host: one copy into a held pinned mirror and one
+        event wait; on the CPU `src` itself. The array is the mirror's
+        until the next call."""
+        if self.device.type != "cuda":
+            return src[:nbytes].numpy()
+        if self._mirror is None or self._mirror.numel() < nbytes:
+            self._mirror = torch.empty(pow2_at_least(nbytes),
+                                       dtype=torch.uint8, pin_memory=True)
+        mirror = self._mirror[:nbytes]
+        mirror.copy_(src[:nbytes], non_blocking=True)
+        if self._read is None:
+            self._read = torch.cuda.Event()
+        self._read.record(torch.cuda.current_stream(self.device))
+        self._read.synchronize()
+        # the stream's earlier work, an upload from the staging buffer
+        # included, has finished
+        self._in_flight = False
+        return mirror.numpy()
 
     def drain(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The stored ``(i, j, ani)`` as host arrays; empties the

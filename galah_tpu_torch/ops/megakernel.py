@@ -25,6 +25,24 @@ runs ``slab_fold_plain`` beside it (``scatter_reduce_`` amax, a Python
 loop to the fixpoint). A CUDA failure raises; nothing falls back.
 ``GALAH_TPU_MEGAKERNEL`` (auto/0/1) is read by ``resolve_megakernel``;
 the engine decides where it engages.
+
+The kernel holds a slab in shared memory: ``fold_plan`` picks, from the
+slab's width and the queue's capacity alone, the smallest thread-block
+cluster (1, 2, 4 or 8 blocks of 1024 threads) whose per-block state
+fits one SM's 227 KB: the block's share of 4 flag bytes a position and
+of the records, each kept as a (source, target) pair of 4 bytes (two
+uint16, width <= 65,536) or 8, sized as if every record passed. A slab
+beyond 8 blocks takes the global-memory tier, the first design. The
+tier follows from the sizes only, never from a failed launch.
+
+The whole call (``slab_select``) holds its buffers in the queue: the
+records and the ``ext`` flags go up in one copy from one pinned staging
+buffer, the kernel writes one packed output (``packed_layout``: rep and
+undecided flags, the iterations and the undecided count) into a held
+device workspace, and one copy into a held pinned mirror and one event
+wait bring it back. The operations of a fold are added to its cost
+entry from the iterations read back, so the accounting puts nothing on
+the device.
 """
 
 from __future__ import annotations
@@ -32,13 +50,13 @@ from __future__ import annotations
 import logging
 import os
 import struct
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from galah_tpu_torch.kernels import LAUNCHES, costs
-from galah_tpu_torch.obs.profile import profiled
+from galah_tpu_torch.obs.profile import on_device, profiled
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +69,16 @@ SLAB_WINDOWS = 16
 
 #: the kernel's cost entry in the run report (``obs/profile.py``)
 PROFILE = profiled("slab_fold")
+
+#: the kernel's block (``kernels/slab_fold.cu``) and one SM's opt-in
+#: shared memory a block on the H100 (227 KB)
+FOLD_WARPS = 32
+SMEM_PER_BLOCK = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: the kernel's shared-memory header: two "changed" words and a count
+SMEM_HEAD = 16
+#: the widest slab whose positions fit uint16
+MAX_U16_WIDTH = 65_536
 
 # Numeric contract (GL9xx): the slab fold picks the representatives the
 # dense window fold and the host scan pick; it compares stored float64
@@ -81,6 +109,81 @@ def resolve_megakernel() -> Tuple[str, bool]:
     return "auto", False
 
 
+class FoldPlan(NamedTuple):
+    """How the kernel holds one slab: a cluster of `cluster` blocks (0:
+    the global-memory tier), each owning `per_block` positions (a
+    multiple of 16) and `per_warp` edge slots a warp of `edge_bytes`,
+    in `smem` bytes of shared memory a block."""
+
+    cluster: int
+    per_block: int
+    per_warp: int
+    edge_bytes: int
+    smem: int
+
+    @property
+    def tier(self) -> str:
+        return "global" if self.cluster == 0 else f"cluster {self.cluster}"
+
+
+#: the global-memory tier (the first design), whatever the slab
+GLOBAL_TIER = FoldPlan(0, 0, 0, 0, 0)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cluster_plan(width: int, cap: int, cluster: int) -> FoldPlan:
+    """The shared-memory tier's plan over `cluster` blocks: positions
+    in contiguous ranges of a multiple of 16, each block room for its
+    share of the `cap` records as edges (every record counted as
+    passing), whose chunks of 32 its warps take in turn."""
+    edge_bytes = 4 if width <= MAX_U16_WIDTH else 8
+    per_block = 16 * _ceil_div(_ceil_div(width, cluster), 16)
+    per_warp = 32 * _ceil_div(_ceil_div(cap, cluster), 32 * FOLD_WARPS)
+    smem = SMEM_HEAD + 4 * per_block + FOLD_WARPS * per_warp * edge_bytes
+    return FoldPlan(cluster, per_block, per_warp, edge_bytes, smem)
+
+
+def fold_plan(width: int, cap: int) -> FoldPlan:
+    """The smallest cluster of ``CLUSTER_SIZES`` whose per-block state
+    (``cluster_plan``) fits ``SMEM_PER_BLOCK``; ``GLOBAL_TIER`` when
+    none does."""
+    for c in CLUSTER_SIZES:
+        plan = cluster_plan(width, cap, c)
+        if plan.smem <= SMEM_PER_BLOCK:
+            return plan
+    return GLOBAL_TIER
+
+
+def packed_layout(width: int) -> Tuple[int, int, int]:
+    """(und_off, tail_off, nbytes) of the kernel's packed output: the
+    rep flags (a byte a position) at 0, the undecided flags at
+    `und_off`, the int32 iterations and int32 undecided count at
+    `tail_off`; offsets 16-byte aligned."""
+    u = 16 * _ceil_div(width, 16)
+    return u, 2 * u, 2 * u + 16
+
+
+def fold_bytes(width: int) -> int:
+    """The fold's device workspace: the packed output, then the
+    global-memory tier's 2 x width bytes of scatter flags."""
+    und_off, _, nbytes = packed_layout(width)
+    return nbytes + 2 * und_off
+
+
+def unpack(packed: np.ndarray, width: int
+           ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """(rep, undecided, iterations, undecided count) of a packed output
+    on the host (uint8): the flags as bool views of `packed`."""
+    und_off, tail_off, _ = packed_layout(width)
+    iters, left = packed[tail_off:tail_off + 8].view(np.int32)
+    return (packed[:width].view(bool),
+            packed[und_off:und_off + width].view(bool), int(iters),
+            int(left))
+
+
 def _check(records: torch.Tensor, count: int, ext: torch.Tensor) -> None:
     if records.dtype != torch.int64 or records.dim() != 2 \
             or records.shape[1] != 2 or not records.is_contiguous():
@@ -99,24 +202,51 @@ def _check(records: torch.Tensor, count: int, ext: torch.Tensor) -> None:
 
 
 def slab_fold(records: torch.Tensor, count: int, ext: torch.Tensor,
-              thr: float, max_iters: Optional[int] = None
+              thr: float, max_iters: Optional[int] = None,
+              out: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(rep, undecided, iterations) of the fold over the first `count`
     queue records (``PairQueue.records``) with the slab's
     already-clustered flags `ext`: two bool (width,) tensors and an
     int32 scalar, on the records' device. `max_iters` defaults to the
-    slab width."""
+    slab width. `out`: a uint8 workspace of at least
+    ``fold_bytes(width)`` that receives the packed output (the queue's
+    held one; allocated when None)."""
     _check(records, count, ext)
     width = ext.shape[0]
     iters = width if max_iters is None else int(max_iters)
     if records.device.type == "cpu":
-        out = slab_fold_plain(records, count, ext, thr, iters)
+        rep, und, it = slab_fold_plain(records, count, ext, thr, iters)
         PROFILE.plain_call(("int64", count, width),
                            lambda: (costs.slab_fold_bytes(count, width),
-                                    costs.slab_fold_ops(int(out[2]),
-                                                        count, width)))
-        return out
-    return _launch(records, count, ext, thr, iters)
+                                    costs.slab_fold_ops(int(it), count,
+                                                        width)))
+        if out is not None:
+            _pack_plain(out, rep, und, int(it))
+        return rep, und, it
+    if out is None:
+        out = torch.empty(fold_bytes(width), dtype=torch.uint8,
+                          device=records.device)
+    run_launch(records, count, ext, thr, iters, out)
+    und_off, tail_off, _ = packed_layout(width)
+    return (out[:width].view(torch.bool),
+            out[und_off:und_off + width].view(torch.bool),
+            out[tail_off:tail_off + 4].view(torch.int32)[0])
+
+
+def _pack_plain(out: torch.Tensor, rep: torch.Tensor, und: torch.Tensor,
+                iters: int) -> None:
+    """The plain fold's result in the kernel's packed layout."""
+    width = rep.shape[0]
+    und_off, tail_off, _ = packed_layout(width)
+    if out.numel() < fold_bytes(width):
+        raise ValueError(f"slab_fold workspace of {out.numel()} bytes "
+                         f"under the {fold_bytes(width)} a width of "
+                         f"{width} takes")
+    out[:width] = rep.view(torch.uint8)
+    out[und_off:und_off + width] = und.view(torch.uint8)
+    out[tail_off:tail_off + 8].view(torch.int32)[:] = torch.tensor(
+        [iters, int(und.sum())], dtype=torch.int32)
 
 
 def slab_fold_plain(records: torch.Tensor, count: int, ext: torch.Tensor,
@@ -153,66 +283,68 @@ def slab_fold_plain(records: torch.Tensor, count: int, ext: torch.Tensor,
     return rep, und, torch.tensor(it, dtype=torch.int32)
 
 
-def _launch(records: torch.Tensor, count: int, ext: torch.Tensor,
-            thr: float, max_iters: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    width = ext.shape[0]
-    rep = torch.empty(width, dtype=torch.bool, device=records.device)
-    und = torch.empty_like(rep)
-    scratch = torch.empty(2 * width, dtype=torch.uint8,
-                          device=records.device)
-    iters = torch.zeros((), dtype=torch.int32, device=records.device)
-    return run_launch(records, count, ext, thr, max_iters, rep, und,
-                      scratch, iters)
-
-
 def run_launch(records: torch.Tensor, count: int, ext: torch.Tensor,
-               thr: float, max_iters: int, rep: torch.Tensor,
-               und: torch.Tensor, scratch: torch.Tensor,
-               iters: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel alone: one launch that fills the bool (width,) `rep`
-    and `und` and the int32 scalar `iters`, with `scratch` (2 x width
-    bytes) for the scatter flags. Reads nothing back from the device."""
+               thr: float, max_iters: int, out: torch.Tensor,
+               plan: Optional[FoldPlan] = None) -> torch.Tensor:
+    """The kernel alone: one launch that writes the packed output
+    (``packed_layout``) into `out` (uint8, at least
+    ``fold_bytes(width)``, 16-byte aligned, like the records and `ext`)
+    and returns it, in the tier `plan` gives (default
+    ``fold_plan(width, capacity)``). Reads nothing back from the
+    device."""
     from galah_tpu_torch.kernels import build
 
     width = ext.shape[0]
-    if count > records.shape[0] or rep.shape[0] != width \
-            or und.shape[0] != width or scratch.numel() < 2 * width:
+    cap = records.shape[0]
+    if count > cap or out.dtype != torch.uint8 or out.dim() != 1 \
+            or out.device != records.device \
+            or out.numel() < fold_bytes(width):
         raise ValueError(
             f"slab_fold launch of {count} records over a width of "
             f"{width} does not fit its buffers")
+    if (records.data_ptr() | ext.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("slab_fold takes 16-byte aligned records, ext "
+                         "and workspace")
+    und_off, tail_off, nbytes = packed_layout(width)
     if width == 0:
-        return rep, und, iters
+        out[tail_off:tail_off + 8].zero_()
+        return out
+    if plan is None:
+        plan = fold_plan(width, cap)
     lib = build.load("slab_fold")
-    stream = torch.cuda.current_stream(records.device).cuda_stream
+    device = records.device
+    stream = torch.cuda.current_stream(device).cuda_stream
     thr_bits = struct.unpack("<q", struct.pack("<d", float(thr)))[0]
-    with PROFILE.launch(records.device, ("int64", count, width),
-                        lambda: (costs.slab_fold_bytes(count, width),
-                                 costs.slab_fold_ops(
-                                     iters.to(torch.float64), count,
-                                     width))):
+    args = (records.data_ptr(), int(count), ext.data_ptr(), width,
+            thr_bits, int(max_iters), plan.cluster, plan.per_block,
+            plan.per_warp, out.data_ptr(), und_off, tail_off,
+            out.data_ptr() + nbytes, stream)
+    # the operations follow from the iterations, which slab_select
+    # reads back with the flags (add_operations); none are counted here
+    with PROFILE.launch(device, ("int64", count, width),
+                        lambda: (costs.slab_fold_bytes(count, width), 0)):
         # the library launches on the current device: make it the queue's
-        with torch.cuda.device(records.device):
-            err = lib.slab_fold_launch(
-                records.data_ptr(), int(count), ext.data_ptr(), width,
-                thr_bits, int(max_iters), rep.data_ptr(), und.data_ptr(),
-                scratch.data_ptr(), iters.data_ptr(), stream)
+        with on_device(device):
+            err = lib.slab_fold_launch(*args)
         build.check("slab_fold", err)
     LAUNCHES["slab_fold"] += 1
-    return rep, und, iters
+    return out
 
 
 def slab_select(queue, ei: np.ndarray, ej: np.ndarray, ev: np.ndarray,
-                ext: np.ndarray, thr: float, clock=None
+                ext: np.ndarray, thr: float, clock=None,
+                plan: Optional[FoldPlan] = None
                 ) -> Tuple[Optional[np.ndarray], bool]:
     """One fused slab round: enqueue the slab's edges (slab positions
-    ``ei < ej``, their float64 ANIs `ev`), fold them in one launch, and
-    empty the queue. Returns ``(rep_flags, converged)``, or ``(None,
-    False)`` when the edges do not fit `queue`
-    (``device_queue.PairQueue``); the caller then takes the dense
-    path. `clock` counts ``greedy-select-dispatches`` (the enqueue and
-    the fold, as ``galah_tpu`` counts them)."""
+    ``ei < ej``, their float64 ANIs `ev`) and its `ext` flags in one
+    copy, fold them in one launch into the queue's held workspace, read
+    the packed output back in one copy and one wait, and empty the
+    queue. Returns ``(rep_flags, converged)``, or ``(None, False)`` when
+    the edges do not fit `queue` (``device_queue.PairQueue``); the
+    caller then takes the dense path. `clock` counts
+    ``greedy-select-dispatches`` (the enqueue and the fold, as
+    ``galah_tpu`` counts them). `plan`: the kernel's tier, by default
+    ``fold_plan``'s."""
     w = len(ext)
     n = len(ei)
     if n and (int(np.min(ei)) < 0 or int(np.max(ej)) >= w
@@ -222,16 +354,25 @@ def slab_select(queue, ei: np.ndarray, ej: np.ndarray, ev: np.ndarray,
     if n > queue.cap:
         queue.reset()
         return None, False
-    stored = queue.enqueue(ei, ej, ev)
+    stored = queue.enqueue(ei, ej, ev, ext=np.ascontiguousarray(ext,
+                                                                dtype=bool))
     if clock is not None and n:
         clock.count("greedy-select-dispatches", 1)
     if stored < n:
         queue.reset()
         return None, False
-    ext_t = torch.from_numpy(np.ascontiguousarray(ext, dtype=bool)).to(
-        queue.device)
     if clock is not None:
         clock.count("greedy-select-dispatches", 1)
-    rep, und, _iters = slab_fold(queue.records, queue.count, ext_t, thr)
+    count = queue.count
+    out = queue.workspace(fold_bytes(w))
+    if queue.device.type == "cpu":
+        slab_fold(queue.records, count, queue.ext, thr, out=out)
+    else:
+        run_launch(queue.records, count, queue.ext, thr, w, out, plan)
+    packed = queue.read_back(out, packed_layout(w)[2])
+    rep, _und, iters, left = unpack(packed, w)
+    if queue.device.type == "cuda":
+        PROFILE.add_operations(costs.slab_fold_ops(iters, count, w))
+    rep = rep.copy()
     queue.reset()
-    return rep.cpu().numpy(), not bool(und.any())
+    return rep, left == 0
