@@ -76,8 +76,9 @@ Phases, each of which exits nonzero when it fails:
    ``add_cluster_arguments`` under CoverM's flag names
    (``--dereplication-ani`` and the like), and
    ``generate_galah_clusterer(..., device="cuda").cluster()`` runs over
-   phase 4's genomes (default values), phase 4b's (finch) and phase
-   4d's (dashing with the CheckM2 report): each must return the CLI
+   the first 256 genomes (default values; skani), phase 4b's (finch)
+   and the first 256 again (dashing with the CheckM2 report), each
+   beside the same run through the CLI in this process: each must return the CLI
    run's clusters in its genome order and launch that route's kernels;
    each wall is printed beside the CLI run's; ``--dereplication-ani
    101`` must raise a ValueError naming that flag;
@@ -158,8 +159,9 @@ Phases, each of which exits nonzero when it fails:
    (u, g) u < g, 5,152,640 pairs, in one pass; the kernel's integers
    equal the plain version's on 200,000 sampled pairs and the host
    merge_stats on 2,000, timed beside the host loop;
-4o. observability: the runs of phases 4 (skani 512), 4b (finch 1024)
-   and 4d (dashing 1024) again, each as ``python -m galah_tpu_torch
+4o. observability: skani and dashing over the first 256 genomes (their
+   runs in this process come before 4m) and phase 4b's finch 1024 run
+   again, each as ``python -m galah_tpu_torch
    cluster`` in a process of its own with ``--run-report``,
    ``--trace-events`` and ``GALAH_OBS_HEARTBEAT_S=0.25``: each TSV must
    equal its phase's byte for byte; each report must pass the port's
@@ -173,13 +175,14 @@ Phases, each of which exits nonzero when it fails:
    one; all kernels but slab_fold (the overlapped route's, which none of
    the three takes) must appear in the three reports; each wall
    is printed beside its phase's wall without observability (and
-   finch's beside the same process without them), and each part's cost
+   dashing's beside the same process without them), and each part's cost
    timed alone; a kernel built anew under a trace in this process must
    give one nvcc span. Phase
    4j's stopped run (b) also writes a report and a trace: the report
    must say stop requested by SIGTERM at ``greedy-round-saved``;
-4r. profiled runs: phases 4 (skani 512), 4b (finch 1024), 4d (dashing
-   1024) and 4e (finch 1000 streamed) again as ``python -m
+4r. profiled runs: skani and dashing over the first 256 genomes (4o's
+   twins), 4b (finch 1024) and 4c (finch 256
+   streamed) again as ``python -m
    galah_tpu_torch cluster`` processes with ``--profile-trace-dir``,
    ``--run-report``, ``GALAH_OBS_LEDGER``, ``GALAH_OBS_OPENMETRICS`` and
    ``GALAH_OBS_HEARTBEAT_S=0.25``: each TSV must equal its phase's; each
@@ -195,7 +198,7 @@ Phases, each of which exits nonzero when it fails:
    parse. It prints each kernel's in-run device ms a launch (beside
    phase 5's isolated time at the end), the card's busy share of each
    run wall from the trace's kernel, memcpy and memset spans, the trace
-   bytes, and finch 1024's wall beside a control process with
+   bytes, and finch 256 streamed's wall beside a control process with
    ``GALAH_OBS_PROFILE=0 GALAH_OBS_FLOW=0`` and no profiler trace (same
    TSV, same launches, no device_costs entry, no flow stage);
 4p. the fleet: phase 4's genomes through ``python -m galah_tpu_torch
@@ -243,8 +246,8 @@ Phases, each of which exits nonzero when it fails:
    warm run must add and rewrite none; the files, C functions, each
    run's wall and effects seconds and each family's seconds are
    printed;
-4t. the sanitizer on the card: phase 4's skani 512, 4e's finch 1000
-   streamed at --threads 8 and 4l's index insert (into a copy of its
+4t. the sanitizer on the card: skani over the first 256 genomes, 4c's
+   finch 256 streamed at --threads 8 and 4l's index insert (into a copy of its
    base index) as ``python -m galah_tpu_torch`` processes with
    GALAH_SAN=1, GALAH_SAN_REPORT, --run-report and
    GALAH_OBS_HEARTBEAT_S=0.25: each must write its phase's TSV or index
@@ -266,6 +269,21 @@ Phases, each of which exits nonzero when it fails:
    Each run's wall, stages, eager rounds, speculative pairs and
    batches, slab folds, spills and launches are printed, (b) beside
    (c); each slab's edges are kept for phase 5;
+4v. the out-of-core finch tier: (a) 4b's run is the AUTO route, now
+   the bucketed one (HLL cardinalities through murmur3_k21, the band
+   walk); the same command with GALAH_TPU_HLL_BUCKETS=0 and with
+   GALAH_TPU_PAGESTORE=1 GALAH_TPU_SKETCH_RAM_MB=4 must write 4b's TSV,
+   and the pair dicts its ``MinHashPreclusterer.distances`` made on cuda
+   must be 4b's; the paged run's register rows give the bands from the
+   card's cardinalities and from the CPU's, and any band that differs
+   is printed; the bands, pruned pairs, murmur3_k21 launches, page-ins
+   and -outs, peak resident bytes and ``precluster-hll-cards`` seconds
+   are printed; (b) the first 256 genomes with 32 byte copies under
+   other paths and 4 degenerate genomes (all N, or shorter than k) with
+   ``--sketch-cache``, prefilter AUTO against GALAH_TPU_PREFILTER=0:
+   equal TSVs, 36 skips and pre-warmed HLL rows; (c) ``index build`` of
+   256 genomes with paging forced: the unpaged build's bytes, and its
+   paged load's rows;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -303,11 +321,11 @@ seconds of the worker threads summed, `read work`)
 6. kernel path against plain torch path on the card: identical
    bidirectional ANI floats for 16 genomes, and for the same 16 at
    ``--ani-subsample 125``, identical finch sketches
-   and pair-dict ANI floats for 64 genomes (the streamed pass in blocks
+   and pair-dict ANI floats for 32 genomes (the streamed pass in blocks
    of 256 and of 16 rows, and the pairlist pass), the streamed pass
    over phase 4e's 1,000 sketches (last stripe 232 rows) against the
    plain pair statistics of all 499,500 pairs, and identical HLL
-   registers and dashing pair dicts for 64 genomes.
+   registers and dashing pair dicts for 32 genomes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the line before that the
@@ -317,6 +335,7 @@ per-kernel JSON record. Every line holding a number names the card.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import filecmp
@@ -504,24 +523,36 @@ def make_corpus(root: str, n_genomes: int, length: int, family: int,
     stats), stats[path] the genome's (contig count, N count)."""
     rng = np.random.default_rng(seed)
     paths, labels, stats = [], [], {}
-    for fam in range(n_genomes // family):
-        base = rng.integers(0, 4, size=length).astype(np.uint8)
-        for m in range(family):
-            codes = base.copy()
-            sites = np.flatnonzero(rng.random(length) < 0.01)
-            codes[sites] = (codes[sites] + rng.integers(
-                1, 4, size=sites.shape[0]).astype(np.uint8)) % 4
-            seq = _ACGT[codes]
-            for _ in range(int(rng.integers(2, 6))):
-                s = int(rng.integers(0, length - 100))
-                seq[s:s + int(rng.integers(5, 100))] = ord("N")
-            p = os.path.join(root, f"fam{fam:03d}_m{m}.fna")
-            body, n_contigs = _fasta_bytes(f"fam{fam}_m{m}", seq, rng)
-            with open(p, "wb") as fh:
-                fh.write(body)
-            paths.append(p)
-            labels.append(fam)
-            stats[p] = (n_contigs, int((seq == ord("N")).sum()))
+
+    def write(path, body):
+        with open(path, "wb") as fh:
+            fh.write(body)
+
+    # the draws stay in order on this thread; the files are written on
+    # four others, at most eight bodies in flight
+    pending = []
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for fam in range(n_genomes // family):
+            base = rng.integers(0, 4, size=length).astype(np.uint8)
+            for m in range(family):
+                codes = base.copy()
+                sites = np.flatnonzero(rng.random(length) < 0.01)
+                codes[sites] = (codes[sites] + rng.integers(
+                    1, 4, size=sites.shape[0]).astype(np.uint8)) % 4
+                seq = _ACGT[codes]
+                for _ in range(int(rng.integers(2, 6))):
+                    s = int(rng.integers(0, length - 100))
+                    seq[s:s + int(rng.integers(5, 100))] = ord("N")
+                p = os.path.join(root, f"fam{fam:03d}_m{m}.fna")
+                body, n_contigs = _fasta_bytes(f"fam{fam}_m{m}", seq, rng)
+                pending.append(pool.submit(write, p, body))
+                if len(pending) > 8:
+                    pending.pop(0).result()
+                paths.append(p)
+                labels.append(fam)
+                stats[p] = (n_contigs, int((seq == ord("N")).sum()))
+        for fut in pending:
+            fut.result()
     return paths, labels, stats
 
 
@@ -2874,12 +2905,12 @@ def phase_fleet(root, skani_dir, tsv4, wall4, dev, tag):
             "blame": {k: c["blame_s"] for k, c in ru["components"].items()}}
 
 
-def phase_obs(root, runs, threads, tag):
+def phase_obs(root, runs, threads, tag, control="finch"):
     """Phase 4o: each of `runs`, {what: (argv, phase TSV bytes, phase
     launches, phase clock, phase wall)}, through ``python -m
     galah_tpu_torch cluster`` with --run-report, --trace-events and
-    GALAH_OBS_HEARTBEAT_S=0.25, and finch's also without them (the
-    control: the same process start, CUDA context and first-run
+    GALAH_OBS_HEARTBEAT_S=0.25, and the `control` run's also without
+    them (the same process start, CUDA context and first-run
     allocations); returns the record's entries."""
     env = dict(os.environ, GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
     out = {}
@@ -2946,8 +2977,8 @@ def phase_obs(root, runs, threads, tag):
                               for n in rep["stages"]["tree"]},
                  "phase_stages_s": {n["name"]: n["total_s"]
                                     for n in clock.tree()}}
-        control = ""
-        if what == "finch":
+        control_note = ""
+        if what == control:
             c_dir = os.path.join(d, "control")
             os.makedirs(c_dir)
             c_tsv = os.path.join(c_dir, "clusters.tsv")
@@ -2959,10 +2990,10 @@ def phase_obs(root, runs, threads, tag):
             with open(c_tsv, "rb") as fh:
                 if fh.read() != tsv_want:
                     raise PhaseError("obs control: the TSV differs")
-            control = (f", {entry['control_wall_s']:.2f} s for the same "
-                       f"process without them")
+            control_note = (f", {entry['control_wall_s']:.2f} s for the "
+                            f"same process without them")
         print(f"obs {what}: wall {wall_obs:.2f} s as a process with "
-              f"report, trace and heartbeat{control} (the run "
+              f"report, trace and heartbeat{control_note} (the run "
               f"{rep['run']['duration_s']:.2f} s of it) against "
               f"{wall:.2f} s for the phase's run in this process without "
               f"them; report {entry['report_bytes']} B, trace "
@@ -3117,15 +3148,15 @@ def run_tool(argv):
     return proc.returncode, proc.stdout
 
 
-def phase_profiled(root, runs, threads, tag):
+def phase_profiled(root, runs, threads, tag, control="finch 1024"):
     """Phase 4r: each of `runs`, {what: (argv, phase TSV bytes, phase
     launches, phase wall)}, as a ``python -m galah_tpu_torch cluster``
     process with
     --profile-trace-dir, --run-report, GALAH_OBS_LEDGER,
     GALAH_OBS_OPENMETRICS and GALAH_OBS_HEARTBEAT_S; then the tools
     (``flow analyze``, ``perf record|check``, ``top --json``) over its
-    files, and finch 1024 again with GALAH_OBS_PROFILE=0 and
-    GALAH_OBS_FLOW=0 as the control. Returns the record's entries."""
+    files, and the `control` run again with GALAH_OBS_PROFILE=0 and
+    GALAH_OBS_FLOW=0. Returns the record's entries."""
     from galah_tpu_torch.kernels import KERNELS
     from galah_tpu_torch.obs import heartbeat as obs_heartbeat
     from galah_tpu_torch.obs import report as report_mod
@@ -3281,9 +3312,10 @@ def phase_profiled(root, runs, threads, tag):
     if missing:
         raise PhaseError(f"profiled: kernels {missing} launched in none "
                          "of the runs")
-    # the control: finch 1024 with the accounting and flow tracing off
-    # (and no profiler trace): same TSV, same launches, no fallback
-    argv, tsv_want, _launches, _wall = runs["finch 1024"]
+    # the control: the `control` run with the accounting and flow
+    # tracing off (and no profiler trace): same TSV, same launches, no
+    # fallback
+    argv, tsv_want, _launches, _wall = runs[control]
     d = os.path.join(root, "prof_control")
     os.makedirs(d)
     tsv = os.path.join(d, "clusters.tsv")
@@ -3299,20 +3331,20 @@ def phase_profiled(root, runs, threads, tag):
     with open(tsv, "rb") as fh:
         same = fh.read() == tsv_want
     disp = rep["dispatch"]["dispatches"]
-    if not same or disp != out["finch 1024"]["dispatches"] \
+    if not same or disp != out[control]["dispatches"] \
             or rep["device_costs"]["entries"] \
             or (rep.get("flow") or {}).get("stages"):
         raise PhaseError(f"profiled control: TSV equal {same}, dispatches "
                          f"{disp}, device_costs "
                          f"{sorted(rep['device_costs']['entries'])}, flow "
                          f"stages {(rep.get('flow') or {}).get('stages')}")
-    out["control_finch_1024"] = {"wall_s": wall,
-                                 "run_s": rep["run"]["duration_s"]}
-    print(f"profiled control: finch 1024 with GALAH_OBS_PROFILE=0 "
+    out["control_" + control.replace(" ", "_")] = {
+        "wall_s": wall, "run_s": rep["run"]["duration_s"]}
+    print(f"profiled control: {control} with GALAH_OBS_PROFILE=0 "
           f"GALAH_OBS_FLOW=0 and no profiler trace: TSV and launches "
           f"equal; process {wall:.2f} s, run {rep['run']['duration_s']:.3f}"
-          f" s, against {out['finch 1024']['wall_s']:.2f} s / "
-          f"{out['finch 1024']['run_s']:.3f} s profiled {tag}")
+          f" s, against {out[control]['wall_s']:.2f} s / "
+          f"{out[control]['run_s']:.3f} s profiled {tag}")
     return out
 
 
@@ -3657,6 +3689,318 @@ def patched(owner, name, value):
         yield
     finally:
         setattr(owner, name, saved)
+
+
+# phase 4v: the RAM budget of the paged run (MiB; a page of 256 sketch
+# rows is 2 MiB, so bands page in and out), and (b)'s corpus: the first
+# genomes, byte duplicates of the first of them under other paths, and
+# degenerate genomes (all N, or shorter than k)
+TIER_RAM_MB = 4
+# phase 6: the genomes (whole families, in input order) whose finch
+# sketches and dashing registers are made again through the plain k=21
+# hash on the host and held against the kernel path's
+PLAIN_PATH_GENOMES = 32
+BAND_FIGURES = ("precluster.bucket_count", "precluster.bucket_pruned_pairs",
+                "precluster.bucket_pruned_fraction")
+TIER_GENOMES = 256
+TIER_DUPLICATES = 32
+
+
+def metric_values(names):
+    """The current values of the named metrics (0 where unset)."""
+    from galah_tpu_torch.obs import metrics as obs_metrics
+
+    snap = obs_metrics.snapshot()
+    return {n: (snap.get(n) or {}).get("value") or 0 for n in names}
+
+
+@contextlib.contextmanager
+def recording_distances(out):
+    """Append each ``MinHashPreclusterer.distances`` result (its pair
+    dict) made inside the block to `out`; the runs go on unchanged."""
+    from galah_tpu_torch.backends import minhash_backend
+
+    cls = minhash_backend.MinHashPreclusterer
+    real = cls.distances
+
+    def distances(self, genome_paths):
+        cache = real(self, genome_paths)
+        out.append(dict(cache.items()))
+        return cache
+
+    with patched(cls, "distances", distances):
+        yield
+
+
+def stage_total(clock, name):
+    """The inclusive seconds of the first stage called `name` in the
+    clock's stage tree (its nested reads and sketches included), or
+    None when it did not run."""
+    todo = list(clock.tree())
+    while todo:
+        node = todo.pop(0)
+        if node["name"] == name:
+            return node["total_s"]
+        todo.extend(node["children"])
+    return None
+
+
+def tier_corpus(root, paths, n, n_dup):
+    """(b)'s inputs: the first `n` genomes, `n_dup` byte copies of the
+    first of them under other paths, and four degenerate genomes, one
+    after every 64 paths."""
+    d = os.path.join(root, "tier_inputs")
+    os.makedirs(d)
+    extra = []
+    for i in range(n_dup):
+        p = os.path.join(d, f"dup{i:03d}.fna")
+        shutil.copyfile(paths[i], p)
+        extra.append(p)
+    for name, body in (("all_n_long", b">a\n" + b"N" * 100_000 + b"\n"),
+                       ("all_n_short", b">b\n" + b"N" * 500 + b"\n"),
+                       ("tiny", b">c\nACGTACGTAC\n"),
+                       ("fragments", b"".join(
+                           b">f%d\n" % i + b"ACGTTGCAACGTTGCAACG\n"
+                           for i in range(40)))):
+        p = os.path.join(d, f"degenerate_{name}.fna")
+        with open(p, "wb") as fh:
+            fh.write(body)
+        extra.append(p)
+    out = list(paths[:n])
+    for i, p in enumerate(extra):
+        out.insert(min(len(out), (i + 1) * (n + len(extra)) // len(extra)
+                       - 1), p)
+    return out
+
+
+def phase_tiered(torch, cli, reset_launches, launches_now, root, paths,
+                 tsv4b, res_f, wall_f, launches_f, pairs4b, band_figures_4b,
+                 threads, tag, dev="cuda"):
+    """Phase 4v: the out-of-core finch tier on the card.
+
+    (a) 4b's corpus: its run is the AUTO route (bucketed), and
+    `pairs4b` the pair dict its ``MinHashPreclusterer.distances`` made
+    on cuda; the same command again with GALAH_TPU_HLL_BUCKETS=0 and
+    with GALAH_TPU_PAGESTORE=1 GALAH_TPU_SKETCH_RAM_MB=TIER_RAM_MB must
+    write 4b's TSV, and its ``distances`` the same pair dict; the bands
+    from the paged run's cardinalities on the card are held against the
+    CPU's from the same registers. (b) the first
+    TIER_GENOMES genomes with TIER_DUPLICATES byte duplicates and four
+    degenerate genomes, with --sketch-cache, prefilter AUTO against
+    GALAH_TPU_PREFILTER=0: equal TSVs, all the copies and degenerate
+    genomes skipped, registers pre-warmed. (c) ``index build`` of
+    TIER_GENOMES genomes with paging forced: the unpaged build's
+    bytes, and its paged load's rows. Returns the walls, launches and
+    figures."""
+    from galah_tpu_torch.backends import minhash_backend
+    from galah_tpu_torch.index.store import IndexStore, PagedSketchList
+    from galah_tpu_torch.ops import bucketing
+    from galah_tpu_torch.ops.hll import DEFAULT_P
+
+    out = {"a": {}, "b": {}, "c": {}}
+    tsv = os.path.join(root, "tier.tsv")
+    finch = ["--precluster-method", "finch", "--cluster-method", "skani",
+             "--ani", "95", "--device", dev, *threads,
+             "--output-cluster-definition", tsv]
+    page_figures = ("pagestore.page_ins", "pagestore.page_outs")
+    routes = {"auto": {},
+              "unbucketed": {"GALAH_TPU_HLL_BUCKETS": "0"},
+              "paged": {"GALAH_TPU_PAGESTORE": "1",
+                        "GALAH_TPU_SKETCH_RAM_MB": str(TIER_RAM_MB)}}
+
+    # (a) the cluster runs: 4b's is AUTO's; the distances of each run
+    # are recorded, and the paged run's register rows
+    runs = {"auto": (res_f, wall_f, launches_f)}
+    pairs = {"auto": pairs4b}
+    captured = []
+    real_cards = minhash_backend.hll_cardinality
+
+    def recording(regs):
+        captured.append(regs)
+        return real_cards(regs)
+
+    for what, env in routes.items():
+        if what == "auto":
+            r, wall, launches = runs[what]
+            figures = dict(band_figures_4b)
+        else:
+            got = []
+            with env_set(env), recording_distances(got), patched(
+                    minhash_backend, "hll_cardinality",
+                    recording if what == "paged" else real_cards):
+                r, wall, launches = run_path(
+                    torch, cli, reset_launches, launches_now,
+                    ["cluster", "-f", *paths, *finch])
+            figures = metric_values(BAND_FIGURES + page_figures)
+            with open(tsv, "rb") as fh:
+                if fh.read() != tsv4b:
+                    raise PhaseError(f"tiered (a) {what}: the TSV differs "
+                                     "from 4b's")
+            runs[what] = (r, wall, launches)
+            pairs[what] = got[0]
+        store = r.preclusterer.store
+        peak = (store.pagestore.peak_resident_bytes
+                if store.pagestore is not None else None)
+        hll_s = stage_total(r.clock, "precluster-hll-cards")
+        bucketed = "precluster-hll-cards" in r.clock.seconds
+        print(f"tiered (a) {what}: TSV byte-identical to 4b's, "
+              f"{len(pairs[what])} precluster pairs; wall {wall:.2f} s (4b "
+              f"{wall_f:.2f} s); precluster-hll-cards "
+              f"{'not run' if hll_s is None else f'{hll_s:.3f} s'}; "
+              f"launches murmur3_k21 {launches['murmur3_k21']}, "
+              f"fused_sketch {launches['fused_sketch']}, pairlist "
+              f"{launches['pairlist']}"
+              + (f"; bands {figures['precluster.bucket_count']:.0f}, "
+                 f"pruned pairs {figures['precluster.bucket_pruned_pairs']:.0f}"
+                 f" ({100 * figures['precluster.bucket_pruned_fraction']:.2f}"
+                 f"% of the lattice)" if bucketed else "")
+              + (f"; page-ins {figures['pagestore.page_ins']:.0f}, "
+                 f"page-outs {figures['pagestore.page_outs']:.0f}, peak "
+                 f"resident {peak} B" if peak is not None else "")
+              + f" {tag}")
+        out["a"][what] = {
+            "wall_s": wall, "pairs": len(pairs[what]), "hll_cards_s": hll_s,
+            "stages": dict(r.clock.seconds), "launches": launches,
+            "peak_resident_bytes": peak, **figures}
+        if what == "paged" and not figures.get("pagestore.page_ins"):
+            raise PhaseError("tiered (a): the paged run paged nothing in")
+    if runs["auto"][2]["murmur3_k21"] == 0 or \
+            "precluster-hll-cards" not in runs["auto"][0].clock.seconds:
+        raise PhaseError("tiered (a): 4b's run did not take the bucketed "
+                         "route")
+    if runs["unbucketed"][2]["murmur3_k21"] or \
+            "precluster-hll-cards" in runs["unbucketed"][0].clock.seconds:
+        raise PhaseError("tiered (a): GALAH_TPU_HLL_BUCKETS=0 still ran "
+                         "the cardinalities")
+    if not pairs["auto"] == pairs["unbucketed"] == pairs["paged"] \
+            or not pairs["auto"]:
+        raise PhaseError("tiered (a): the pair dicts differ: "
+                         + ", ".join(f"{w} {len(p)}"
+                                     for w, p in pairs.items()))
+    print(f"tiered (a): the precluster pair dicts of AUTO (bucketed), "
+          f"GALAH_TPU_HLL_BUCKETS=0 and GALAH_TPU_PAGESTORE=1 "
+          f"GALAH_TPU_SKETCH_RAM_MB={TIER_RAM_MB}, from "
+          f"MinHashPreclusterer.distances on {dev}, are equal "
+          f"({len(pairs['auto'])} pairs) {tag}")
+    for what, (r, _w, _l) in runs.items():
+        if what != "auto":  # 4b's store serves phase 5's sketch matrix
+            r.store = None
+            r.preclusterer = None
+    # the bands from the card's cardinalities against the CPU's
+    regs = torch.cat(captured)
+    dev_cards = real_cards(regs).cpu().numpy().astype(np.float64)
+    cpu_cards = real_cards(regs.cpu()).numpy().astype(np.float64)
+    dev_bands = bucketing.assign_bands(dev_cards, 0.90, 21, DEFAULT_P, 1000)
+    cpu_bands = bucketing.assign_bands(cpu_cards, 0.90, 21, DEFAULT_P, 1000)
+    differ = np.flatnonzero(dev_bands != cpu_bands)
+    for i in differ.tolist():
+        print(f"tiered (a) band differs: genome {i} card {dev_cards[i]!r} "
+              f"on the card, {cpu_cards[i]!r} on the CPU: band "
+              f"{dev_bands[i]} against {cpu_bands[i]} {tag}")
+    print(f"tiered (a): bands from the card's cardinalities against the "
+          f"CPU's from the same {regs.shape[0]} register rows: "
+          f"{differ.shape[0]} differ; cards differ in "
+          f"{int((dev_cards != cpu_cards).sum())} rows (max relative "
+          f"{float(np.max(np.abs(dev_cards - cpu_cards) / cpu_cards)):.3e}"
+          f"); bands {sorted(set(dev_bands.tolist()))} {tag}")
+    out["a"]["band_differences"] = int(differ.shape[0])
+    del captured[:], regs
+    pairs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the ingest prefilter
+    inputs = tier_corpus(root, paths, TIER_GENOMES, TIER_DUPLICATES)
+    tsvs = {}
+    want_skips = TIER_DUPLICATES + 4
+    for what, env in (("prefilter", {}),
+                      ("no prefilter", {"GALAH_TPU_PREFILTER": "0"})):
+        cdir = os.path.join(root, f"tier_cache_{what.replace(' ', '_')}")
+        with env_set(env):
+            r, wall, launches = run_path(
+                torch, cli, reset_launches, launches_now,
+                ["cluster", "-f", *inputs, *finch, "--sketch-cache", cdir])
+        figures = metric_values(("prefilter.skipped",
+                                 "prefilter.skipped_duplicate",
+                                 "prefilter.skipped_degenerate",
+                                 "prefilter.hll_prewarmed"))
+        with open(tsv, "rb") as fh:
+            tsvs[what] = fh.read()
+        n_hll = sum(n.startswith("hll-") for n in os.listdir(cdir))
+        print(f"tiered (b) {what}: {len(inputs)} genomes, {len(r.clusters)}"
+              f" clusters, wall {wall:.2f} s; skipped "
+              f"{figures['prefilter.skipped']:.0f} (duplicates "
+              f"{figures['prefilter.skipped_duplicate']:.0f}, degenerate "
+              f"{figures['prefilter.skipped_degenerate']:.0f}), HLL rows "
+              f"pre-warmed {figures['prefilter.hll_prewarmed']:.0f} ({n_hll}"
+              f" hll entries); launches fused_sketch "
+              f"{launches['fused_sketch']} murmur3_k21 "
+              f"{launches['murmur3_k21']}; sketch stage "
+              f"{r.clock.seconds.get('sketch', 0.0):.3f} s {tag}")
+        out["b"][what] = {"wall_s": wall, "launches": launches,
+                          "hll_entries": n_hll, **figures}
+        if what == "prefilter" and (
+                figures["prefilter.skipped"] != want_skips
+                or figures["prefilter.hll_prewarmed"] <= 0
+                or not launches["murmur3_k21"]):
+            raise PhaseError(f"tiered (b): skipped "
+                             f"{figures['prefilter.skipped']} (want "
+                             f"{want_skips}), pre-warmed "
+                             f"{figures['prefilter.hll_prewarmed']}, "
+                             f"murmur3_k21 {launches['murmur3_k21']}")
+        r.store = r.preclusterer = None
+    if tsvs["prefilter"] != tsvs["no prefilter"]:
+        raise PhaseError("tiered (b): the TSVs with and without the "
+                         "prefilter differ")
+    print(f"tiered (b): TSVs with the prefilter (AUTO) and "
+          f"GALAH_TPU_PREFILTER=0 byte-identical {tag}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the paged index
+    built = {}
+    for what, env in (("unpaged", {"GALAH_TPU_PAGESTORE": "0"}),
+                      ("paged", {"GALAH_TPU_PAGESTORE": "1",
+                                 "GALAH_TPU_SKETCH_RAM_MB":
+                                     str(TIER_RAM_MB)})):
+        d = os.path.join(root, f"tier_index_{what}")
+        with env_set(env):
+            wall, launches = run_main(
+                torch, cli, reset_launches, launches_now,
+                ["index", "--index-dir", d, "--device", dev, "-q",
+                 "build", "-f", *paths[:TIER_GENOMES], *threads])
+            before = metric_values(page_figures)
+            t0 = time.perf_counter()
+            state = IndexStore(d).load()
+            load_s = time.perf_counter() - t0
+            rows = [np.array(h) for h in state.sketches]
+            paged = isinstance(state.sketches, PagedSketchList)
+            moved = {n: v - before[n]
+                     for n, v in metric_values(page_figures).items()}
+        built[what] = (index_bytes(d), rows)
+        print(f"tiered (c) index build {what}: {TIER_GENOMES} genomes, "
+              f"wall {wall:.2f} s, load {load_s:.3f} s with "
+              f"{'a paged' if paged else 'an in-memory'} sketch list "
+              f"(page-ins {moved['pagestore.page_ins']:.0f}, page-outs "
+              f"{moved['pagestore.page_outs']:.0f}); launches fused_sketch "
+              f"{launches['fused_sketch']} tile_stats "
+              f"{launches['tile_stats']} {tag}")
+        out["c"][what] = {"wall_s": wall, "load_s": load_s,
+                          "paged": paged, **moved}
+        if paged != (what == "paged"):
+            raise PhaseError(f"tiered (c) {what}: sketch list paged "
+                             f"{paged}")
+        state = None
+    if built["paged"][0] != built["unpaged"][0]:
+        raise PhaseError("tiered (c): the paged index build's bytes differ")
+    if len(built["paged"][1]) != len(built["unpaged"][1]) or any(
+            not np.array_equal(a, b)
+            for a, b in zip(built["paged"][1], built["unpaged"][1])):
+        raise PhaseError("tiered (c): the paged load's rows differ")
+    print(f"tiered (c): the paged build's {len(built['paged'][0])} files "
+          f"are the unpaged build's byte for byte, and its load's "
+          f"{len(built['paged'][1])} rows equal {tag}")
+    return out
 
 
 OVERLAP_COUNTS = ("overlap-engaged", "overlap-eager-rounds",
@@ -4272,9 +4616,12 @@ def main(argv=None) -> int:
         finch = ["--precluster-method", "finch", "--cluster-method",
                  "skani", "--ani", "95", "--device", "cuda", *threads,
                  "--output-cluster-definition", out_tsv]
-        res_f, wall_f, launches_f = run_path(
-            torch, cli, reset_launches, LAUNCHES,
-            ["cluster", "-f", *paths, *finch])
+        pairs4b = []  # its precluster pair dict, for phase 4v
+        with recording_distances(pairs4b):
+            res_f, wall_f, launches_f = run_path(
+                torch, cli, reset_launches, LAUNCHES,
+                ["cluster", "-f", *paths, *finch])
+        bands4b = metric_values(BAND_FIGURES)
         n_fam = check_families(res_f, label_of, args.finch_genomes,
                                family, out_tsv, "finch")
         print(f"finch end to end: {args.finch_genomes} genomes, "
@@ -4297,7 +4644,14 @@ def main(argv=None) -> int:
               f"group at most {tag}")
         need = ["fused_sketch", "window_hits", "positional_hashes"]
         if args.finch_genomes >= FINCH_MIN_GENOMES:
-            need.append("pairlist")
+            # from the crossover up the finch pass is the bucketed one
+            # (ops/bucketing.py): HLL cardinalities through murmur3_k21,
+            # then the bands' collision screen and pairlist
+            need += ["pairlist", "murmur3_k21"]
+            print(f"finch stage precluster-hll-cards (inclusive of its "
+                  f"reads and register sketches): "
+                  f"{stage_total(res_f.clock, 'precluster-hll-cards')} s "
+                  f"{tag}")
         else:
             print(f"finch cut: {args.finch_genomes} genomes stay below "
                   f"the {FINCH_MIN_GENOMES}-genome crossover, so the "
@@ -4462,13 +4816,53 @@ def main(argv=None) -> int:
                                     tsv4e, skani_dir, tsv4, tag)
         gc.collect()
         torch.cuda.empty_cache()
+        # -- phase 4v: the out-of-core finch tier ---------------------------
+        print(f"phase 4v starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        tier_out = phase_tiered(torch, cli, reset_launches, LAUNCHES, root,
+                                paths, tsv4b, res_f, wall_f, launches_f,
+                                pairs4b[0], bands4b, threads, tag)
+        del pairs4b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # skani and dashing on the first n_dense genomes in this process:
+        # the runs that 4m's API runs and 4o's, 4r's and 4t's processes of
+        # them are held against (4c is finch's)
+        skani_small = ["cluster", "-f", *paths[:n_dense], "--ani", "95",
+                       "--device", "cuda", "--precluster-method", "skani"]
+        dashing_small = ["cluster", "-f", *paths[:n_dense],
+                         "--precluster-method", "dashing",
+                         "--cluster-method", "skani", "--ani", "95",
+                         "--checkm2-quality-report", report, "--device",
+                         "cuda"]
+        finch_small = ["cluster", "-f", *paths[:n_dense],
+                       "--precluster-method", "finch", "--cluster-method",
+                       "skani", "--ani", "95", "--device", "cuda"]
+        small = {}
+        for what, argv in (("skani", skani_small),
+                           ("dashing", dashing_small)):
+            r, wall_x, launches_x = run_path(
+                torch, cli, reset_launches, LAUNCHES,
+                [*argv, *threads, "--output-cluster-definition", out_tsv])
+            check_families(r, label_of, n_dense, family, out_tsv,
+                           f"{what} {n_dense}")
+            r.store = r.preclusterer = None
+            with open(out_tsv, "rb") as fh:
+                small[what] = (fh.read(), launches_x, wall_x, r)
+            print(f"{what} {n_dense} (4m's, 4o's, 4r's and 4t's twin in "
+                  f"this process): wall {wall_x:.2f} s {tag}")
+            r = None
+
         # -- phase 4m: the library API as CoverM embeds it ---------------
         print(f"phase 4m starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
         api_out = phases_api(torch, reset_launches, LAUNCHES, KERNELS,
-                             {"skani": (res.genomes, res, wall),
+                             {"skani": (paths[:n_dense], small["skani"][3],
+                                        small["skani"][2]),
                               "finch": (paths, res_f, wall_f),
-                              "dashing": (paths, res_h, wall_h)},
+                              "dashing": (paths[:n_dense],
+                                          small["dashing"][3],
+                                          small["dashing"][2])},
                              report, tag)
 
         # -- phase 4n: --ani-subsample -------------------------------------
@@ -4517,19 +4911,16 @@ def main(argv=None) -> int:
         print(f"phase 4o starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
         obs_out = phase_obs(root, {
-            "skani": (["cluster", "-d", skani_dir, "--ani", "95",
-                       "--device", "cuda", "--precluster-method", "skani"],
-                      tsv4, launches, res.clock, wall),
+            "skani": (skani_small, small["skani"][0], small["skani"][1],
+                      small["skani"][3].clock, small["skani"][2]),
             "finch": (["cluster", "-f", *paths, "--precluster-method",
                        "finch", "--cluster-method", "skani", "--ani", "95",
                        "--device", "cuda"],
                       tsv4b, launches_f, res_f.clock, wall_f),
-            "dashing": (["cluster", "-f", *paths, "--precluster-method",
-                         "dashing", "--cluster-method", "skani", "--ani",
-                         "95", "--checkm2-quality-report", report,
-                         "--device", "cuda"],
-                        tsv4d, launches_h, res_h.clock, wall_h)},
-            threads, tag)
+            "dashing": (dashing_small, small["dashing"][0],
+                        small["dashing"][1], small["dashing"][3].clock,
+                        small["dashing"][2])},
+            threads, tag, control="dashing")
 
         # -- phase 4t: the sanitizer on the card ----------------------------
         print(f"phase 4t starts {time.perf_counter() - t_script:.1f} s "
@@ -4556,11 +4947,12 @@ def main(argv=None) -> int:
                     str(INDEX_BATCH)]
 
         san_out = phase_sanitizer(root, {
-            "skani 512": (cluster_argv(
-                ["cluster", "-d", skani_dir, "--ani", "95", "--device",
-                 "cuda", *threads]), read_tsv, tsv4, launches, wall),
-            "finch 1000 streamed": (cluster_argv([*finch_e, *threads]),
-                                    read_tsv, tsv4e, launches_e, wall_e),
+            f"skani {n_dense}": (cluster_argv([*skani_small, *threads]),
+                                 read_tsv, *small["skani"][:3]),
+            f"finch {n_dense} streamed": (cluster_argv([*finch_small,
+                                                        *threads]),
+                                          read_tsv, tsv4c, launches_d,
+                                          wall_d),
             "index insert": (insert_argv, lambda d: index_bytes(
                 os.path.join(d, "index")), ins["bytes"], ins["launches"],
                 ins["wall"])}, tag)
@@ -4573,21 +4965,15 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         prof_out = phase_profiled(root, {
-            "skani 512": (["cluster", "-d", skani_dir, "--ani", "95",
-                           "--device", "cuda", "--precluster-method",
-                           "skani"], tsv4, launches, wall),
+            f"skani {n_dense}": (skani_small, *small["skani"][:3]),
             "finch 1024": (["cluster", "-f", *paths, "--precluster-method",
                             "finch", "--cluster-method", "skani", "--ani",
                             "95", "--device", "cuda"], tsv4b, launches_f,
                            wall_f),
-            "dashing 1024": (["cluster", "-f", *paths,
-                              "--precluster-method", "dashing",
-                              "--cluster-method", "skani", "--ani", "95",
-                              "--checkm2-quality-report", report,
-                              "--device", "cuda"], tsv4d, launches_h,
-                             wall_h),
-            "finch 1000 streamed": (finch_e, tsv4e, launches_e, wall_e)},
-            threads, tag)
+            f"dashing {n_dense}": (dashing_small, *small["dashing"][:3]),
+            f"finch {n_dense} streamed": (finch_small, tsv4c, launches_d,
+                                          wall_d)},
+            threads, tag, control=f"finch {n_dense} streamed")
 
         # -- phase 4p: the fleet on the card --------------------------------
         print(f"phase 4p starts {time.perf_counter() - t_script:.1f} s "
@@ -5247,7 +5633,7 @@ def main(argv=None) -> int:
                                                   threshold_pairs_streamed)
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
-        sub_paths = res_f.genomes[:64]
+        sub_paths = res_f.genomes[:PLAIN_PATH_GENOMES]
         n_sub = len(sub_paths)
         kern = [sk_store.get_cached(p) for p in sub_paths]
         for p, s in zip(sub_paths, kern):
@@ -5295,12 +5681,13 @@ def main(argv=None) -> int:
               f"{n_e * (n_e - 1) // 2} pairs, {len(plain_e)} "
               f"passing, identical keys and ANI floats {tag}")
 
-        # whole families: the corpus' first 64 genomes in input order
-        sub_h = [read_genome(p) for p in paths[:64]]
+        # whole families: the corpus' first genomes in input order
+        sub_h = [read_genome(p) for p in paths[:PLAIN_PATH_GENOMES]]
         regs_k = hll_sketch_genomes(sub_h, device=device)
         regs_p = hll_sketch_genomes(sub_h, device=device,
                                     k21_hash=plain_hook)
-        stored = torch.stack([h_store.get_cached(p) for p in paths[:64]])
+        stored = torch.stack([h_store.get_cached(p)
+                              for p in paths[:PLAIN_PATH_GENOMES]])
         if not (torch.equal(regs_k, regs_p) and torch.equal(regs_k,
                                                              stored)):
             raise PhaseError("HLL registers differ between the kernel "
@@ -5402,6 +5789,10 @@ def main(argv=None) -> int:
          "bound_by": mm_by, "library_ms": None,
          "plain_on": "CPU tensors, host clock", "group_ms": hgroup_ms,
          "group_split_ms": mm_split,
+         "launches_finch_1024": launches_f["murmur3_k21"],
+         "launches_4v": {k: v["launches"]["murmur3_k21"]
+                         for k, v in tier_out["a"].items()
+                         if isinstance(v, dict) and "launches" in v},
          "launches_4q": scale_launches("murmur3_k21", mesh_out,
                                        ranks_out)},
         {"name": "slab_fold", "route": "cuda",
@@ -5474,6 +5865,7 @@ def main(argv=None) -> int:
                                  if kk != "slab"}
                              for k, v in overlap_out.items()},
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
+        "phase_4v_tiered": tier_out,
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}

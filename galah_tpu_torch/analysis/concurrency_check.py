@@ -72,6 +72,8 @@ THREADED_MODULES = (
     "galah_tpu_torch/obs/heartbeat.py",
     "galah_tpu_torch/io/prefetch.py",
     "galah_tpu_torch/io/_cingest.py",
+    "galah_tpu_torch/io/pagestore.py",
+    "galah_tpu_torch/ops/_ccollision.py",
     "galah_tpu_torch/resilience/policy.py",
     "galah_tpu_torch/resilience/faults.py",
     "galah_tpu_torch/timing.py",

@@ -67,8 +67,8 @@ from galah_tpu_torch.analysis.obs_check import in_scope
 
 #: Modules that MUST declare a DETERMINISM_CONTRACT (GL905 if absent):
 #: the strategy families whose variants must stay bit-identical.
-#: (``galah_tpu``'s ``ops/bucketing.py`` has no counterpart.)
 STRATEGY_MODULES = (
+    "galah_tpu_torch/ops/bucketing.py",
     "galah_tpu_torch/ops/pairlist.py",
     "galah_tpu_torch/ops/sparse_device.py",
     "galah_tpu_torch/ops/fragment_ani.py",

@@ -43,9 +43,10 @@ Checks
           GL804).
 
 GL1101 checks the port's one ``device_round``, the slab fold's launch
-wrapper (``ops/megakernel.run_launch``). ``PAGED_MODULES`` is empty
-until the paged sketch tier is ported, so the GL1007 arm runs on
-fixtures only, as the lexical GL1007 does.
+wrapper (``ops/megakernel.run_launch``). The GL1007 arm follows a
+gathered band out of the functions ``pipeline_check.PAGED_MODULES``
+names (the band walks of ``ops/bucketing.py``, the finch backend and
+the index load), as the lexical GL1007 does inside them.
 
 Scope of GL1104/GL1105: ``galah_tpu_torch/`` without
 ``galah_tpu_torch/analysis/`` (the sanitizer implements lock plumbing

@@ -22,8 +22,8 @@ Annotation: a pipeline module opts in with a module-level literal
 ``device_round`` names functions that must stay device-resident
 (GL1006 scope): the slab fold's launch wrapper
 (``ops/megakernel.run_launch``), as ``galah_tpu``'s megakernel bodies.
-No port module falls under ``PAGED_MODULES`` (GL1007) until the paged
-sketch tier is ported; that rule runs on fixtures.
+``PAGED_MODULES`` (GL1007) names the band walks over the paged sketch
+store: ``ops/bucketing.py``, the finch backend and the index load.
 
 Checks
   GL1001  full materialization of a streaming iterator:
@@ -117,14 +117,17 @@ _EXEMPT_PREFIXES = ("galah_tpu_torch/obs/",
                     "galah_tpu_torch/analysis/")
 _EXEMPT_FILES = ("galah_tpu_torch/timing.py",)
 
-#: GL1007 scope: module -> the band-walk functions that consume a
-#: paged sketch store and must release each band's gathered submatrix
-#: before the next band pages in. Empty: the port has no paged tier
-#: (``galah_tpu``'s registry names ``ops/bucketing.py``,
-#: ``backends/minhash_backend.py`` and ``index/store.py``); a module
-#: joins when it grows a path that drives ``gather()`` /
-#: ``band_gather()`` over a paged view.
-PAGED_MODULES: Dict[str, List[str]] = {}
+#: GL1007 scope: module -> the band-walk functions that consume the
+#: paged sketch store (``io/pagestore.py``) and must release each
+#: band's gathered submatrix before the next band pages in, as
+#: ``galah_tpu``'s registry. A module joins when it grows a path that
+#: drives ``gather()`` / ``band_gather()`` over a paged view.
+PAGED_MODULES: Dict[str, List[str]] = {
+    "galah_tpu_torch/ops/bucketing.py": ["bucketed_threshold_pairs"],
+    "galah_tpu_torch/backends/minhash_backend.py": [
+        "distances", "_bucketed_pairs", "_paged_sketch_rows"],
+    "galah_tpu_torch/index/store.py": ["_load_generation"],
+}
 
 #: The calls whose results GL1007 tracks (``galah_tpu``'s names).
 GATHER_NAMES = frozenset({"gather", "band_gather"})

@@ -162,6 +162,49 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "(megakernel-overflow-spills counter): results are "
               "exact at any value; the knob only moves the spill "
               "boundary"),
+    Flag("GALAH_TPU_HLL_BUCKETS", section="kernel", default="auto",
+         choices=("auto", "0", "1"),
+         help="HLL cardinality-bucketed finch precluster "
+              "(ops/bucketing.py): bucket genomes into overlapping "
+              "log-cardinality bands sized so no pair that could "
+              "reach the precluster threshold lands in disjoint "
+              "bands, and schedule only same- and adjacent-band "
+              "pairs (the same pair dict). auto engages from the "
+              "sparse-screen crossover; 1 forces it at any N (and so "
+              "declines the streamed pair pass); 0 disables it"),
+    Flag("GALAH_TPU_PAGESTORE", section="kernel", default="auto",
+         choices=("auto", "0", "1"),
+         help="Out-of-core sketch memory (io/pagestore.py): sketch "
+              "rows live in an mmap-backed page store under the cache "
+              "dir and only the active band window is resident, "
+              "bounding peak RSS while clusterings stay bit-identical "
+              "to the all-resident path. auto engages when the "
+              "bucketed precluster is engaged and the projected "
+              "sketch matrix exceeds half the RAM budget (and loads a "
+              "large index's sketches into pages); 1 forces paging "
+              "whenever bucketing is engaged; 0 disables it"),
+    Flag("GALAH_TPU_SKETCH_RAM_MB", kind="int", default="512",
+         section="kernel",
+         help="Hard byte budget, in MiB, for the resident (mmapped "
+              "and LRU-pinned) page set of the out-of-core sketch "
+              "store. Band-pinned pages are never evicted, so the "
+              "effective floor is two bands' pages; malformed values "
+              "are logged and ignored"),
+    Flag("GALAH_TPU_PREFILTER", section="kernel", default="auto",
+         choices=("auto", "0", "1"),
+         help="Ingest prefilter of the finch sketch stream "
+              "(ops/prefilter.py): screens byte-identical duplicate "
+              "and degenerate (no valid k-mer window) genomes before "
+              "the fused sketch under a provably conservative skip "
+              "rule, and with a disk cache pre-warms the HLL register "
+              "entries the bucketed pass reads (one murmur3_k21 "
+              "launch a read group) — pair sets and clusterings are "
+              "bit-identical with the prefilter off. auto engages in "
+              "a single-process run; 1 forces it; 0 disables it"),
+    Flag("GALAH_TPU_NO_CCOLLISION", kind="bool", section="kernel",
+         help="Count collisions with the numpy version instead of the "
+              "C collision counter (csrc/collision.c, built with $CC "
+              "at first use; a failed build raises)"),
     Flag("GALAH_FI", kind="grammar", section="resilience",
          help="Deterministic fault injection at the durable-write "
               "sites, e.g. 'site=io.atomic.append[ckpt.greedy];kind=kill;"

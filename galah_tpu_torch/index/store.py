@@ -34,9 +34,13 @@ truncates the uncommitted tails, so an interrupted and resumed
 mutation writes the bytes an uninterrupted one writes. No committed
 file holds a timestamp.
 
-``galah_tpu``'s out-of-core sketch list (its pagestore tier) is not
-ported: the port loads the live sketches into memory and, for insert
-and query, into one matrix on the card.
+Above the page store's gate (``io/pagestore.pagestore_engaged``:
+``GALAH_TPU_PAGESTORE``, or an (N, K) matrix over half of
+``GALAH_TPU_SKETCH_RAM_MB``) a load spills the parsed sketch rows into
+an mmap-backed page store (``PagedSketchList``, as ``galah_tpu``'s
+load does) instead of holding N arrays; every consumer of
+``IndexState.sketches`` reads it as a list. Insert and query still put
+the rows they need into one matrix on the card.
 """
 
 from __future__ import annotations
@@ -131,6 +135,53 @@ def _empty_state() -> IndexState:
                       pairs={}, reps=[], membership={}, tombstones=set())
 
 
+class PagedSketchList:
+    """A list over an mmap-backed page store (``io/pagestore.py``):
+    ``[i]``, ``append``, ``len`` and iteration, the surface the
+    consumers of ``IndexState.sketches`` use, while only the budgeted
+    resident pages take memory. Reads return views of the true
+    (unpadded) hash arrays, equal to the loaded list's."""
+
+    def __init__(self, store) -> None:
+        self._ps = store
+
+    def __len__(self) -> int:
+        return len(self._ps)
+
+    def __getitem__(self, i):
+        n = len(self._ps)
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(n))]
+        if i < 0:
+            i += n
+        return self._ps.hashes(i)
+
+    def append(self, hashes) -> None:
+        self._ps.append("", np.asarray(hashes, dtype=np.uint64))
+
+    def __iter__(self):
+        for i in range(len(self._ps)):
+            yield self._ps.hashes(i)
+
+
+def _paged_sketch_spill(n_genomes: int, sketch_size: int
+                        ) -> Optional[PagedSketchList]:
+    """A fresh page-store sketch list, in a directory under TMPDIR
+    removed at exit, when the page store's gate engages for this index
+    size; else None (a plain list)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from galah_tpu_torch.io import pagestore
+
+    if not pagestore.pagestore_engaged(n_genomes, sketch_size):
+        return None
+    d = tempfile.mkdtemp(prefix="galah-index-pages-")
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    return PagedSketchList(pagestore.SketchPageStore(d, cols=sketch_size))
+
+
 def _valid_frames(path: str) -> List[bytes]:
     """The raw bytes of each checksum-valid framed line, in file order:
     truncation keeps the committed bytes as they are, never
@@ -161,7 +212,14 @@ def _valid_frames(path: str) -> List[bytes]:
 # in-memory state is read and replaced under the store lock, so a query
 # service may share one IndexStore across threads.
 GUARDED_BY = {"IndexStore._state": "IndexStore._lock"}
-LOCK_ORDER = ["IndexStore._lock"]
+# a load under the lock may open a page store for the sketches, whose
+# counters register and whose pages commit (io/atomic.py's fault
+# sites) under it
+LOCK_ORDER = ["IndexStore._lock",
+              "galah_tpu_torch/io/pagestore.py:SketchPageStore._lock",
+              "galah_tpu_torch/obs/metrics.py:MetricsRegistry._lock",
+              "galah_tpu_torch/resilience/faults.py:_LOCK",
+              "galah_tpu_torch/resilience/faults.py:FaultInjector._lock"]
 
 
 class IndexStore:
@@ -287,7 +345,12 @@ class IndexStore:
         srecs = self._committed(_SKETCHES, n_genomes)
         precs = self._committed(_PAIRS, n_pairs)
 
-        genomes, keys, sketches = [], [], []
+        genomes, keys = [], []
+        # above the page store's gate the rows go to pages as they are
+        # parsed, not into N resident arrays
+        spill = _paged_sketch_spill(n_genomes,
+                                    int(self.params["sketch_size"]))
+        sketches = spill if spill is not None else []
         for n, (g, s) in enumerate(zip(grecs, srecs)):
             if int(g["i"]) != n or int(s["i"]) != n:
                 raise IndexCorrupt(

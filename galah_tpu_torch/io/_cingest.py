@@ -59,18 +59,21 @@ GUARDED_BY = {"_LIB": "_LOCK"}
 LOCK_ORDER = ["_LOCK"]
 
 
-def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
-    """Compile `source` unless its library exists; returns the
-    library's path. Raises RuntimeError with the compiler's output."""
+def build(source: str = SOURCE, build_dir: str = BUILD_DIR,
+          stem: str = "ingest", what: str = "C parser") -> str:
+    """Compile `source` into ``lib<stem>-<hash>.so`` unless that library
+    exists; returns the library's path. Raises RuntimeError, naming
+    `what`, with the compiler's output. ``ops/_ccollision.py`` builds
+    the collision counter through it too."""
     try:
         with open(source, "rb") as fh:
             text = fh.read()
     except OSError as e:
-        raise RuntimeError(f"C parser source unreadable: {e}") from e
+        raise RuntimeError(f"{what} source unreadable: {e}") from e
     cc = os.environ.get("CC", "gcc")
     digest = hashlib.sha256(
         " ".join([cc, *CFLAGS]).encode() + b"\0" + text).hexdigest()[:16]
-    lib = os.path.join(build_dir, f"libingest-{digest}.so")
+    lib = os.path.join(build_dir, f"lib{stem}-{digest}.so")
     if os.path.isfile(lib):
         return lib
     os.makedirs(build_dir, exist_ok=True)
@@ -80,13 +83,13 @@ def build(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
     except OSError as e:
-        raise RuntimeError(f"C parser build could not run "
+        raise RuntimeError(f"{what} build could not run "
                            f"{' '.join(cmd)}: {e}") from e
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"C parser build failed ({proc.returncode}): {' '.join(cmd)}"
+            f"{what} build failed ({proc.returncode}): {' '.join(cmd)}"
             f"\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib

@@ -247,15 +247,46 @@ def assemble(subcommand: str, clock=None,
         hb_snap = obs_heartbeat.snapshot()
         if hb_snap is not None:
             flow_snap["heartbeat"] = hb_snap
-            if hb_snap.get("rss_series"):
-                report["memory"] = {"rss_mb": hb_snap["rss_series"]}
         if flow_snap.get("stages") or hb_snap is not None:
             report["flow"] = flow_snap
     except Exception:  # additive sections; never lose a report
         logger.debug("flow snapshot failed", exc_info=True)
+    try:
+        mem = _memory_section(report)
+        if mem:
+            report["memory"] = mem
+    except Exception:  # additive section; never lose a report
+        logger.debug("memory section failed", exc_info=True)
     if lint is not None:
         report["lint"] = lint
     return report
+
+
+def _memory_section(report: dict) -> dict:
+    """The host-memory summary, as ``galah_tpu``'s: the heartbeat's
+    per-beat RSS series (min/mean/peak), the page store's resident
+    bytes and page-ins and -outs when the paged sketch path ran
+    (``io/pagestore.py``), and the ingest prefilter's skips
+    (``ops/prefilter.py``)."""
+    mem: dict = {}
+    rss = (((report.get("flow") or {}).get("heartbeat") or {})
+           .get("rss_series"))
+    if rss:
+        mem["rss_mb"] = rss
+    mets = report.get("metrics") or {}
+    resident = (mets.get("pagestore.resident_bytes") or {}).get("value")
+    if resident is not None:
+        mem["pagestore"] = {
+            "resident_bytes": resident,
+            "page_ins": (mets.get("pagestore.page_ins") or {})
+            .get("value", 0),
+            "page_outs": (mets.get("pagestore.page_outs") or {})
+            .get("value", 0),
+        }
+    skipped = (mets.get("prefilter.skipped") or {}).get("value")
+    if skipped is not None:
+        mem["prefilter_skipped"] = skipped
+    return mem
 
 
 def write(path: str, report: dict) -> None:

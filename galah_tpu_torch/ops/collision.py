@@ -1,8 +1,7 @@
 """Inverted-index collision counting over sketch and marker matrices:
-the port of ``galah_tpu/ops/collision.py`` (its numpy reference,
-``_collision_pair_counts_np``).
+the port of ``galah_tpu/ops/collision.py``.
 
-Host numpy, as in ``galah_tpu``: sort the (hash, genome) multiset of
+On the host, as in ``galah_tpu``: sort the (hash, genome) multiset of
 every valid entry; each run of equal hashes adds one collision to every
 genome pair in the run. Rows hold distinct values, so a pair's count is
 exactly ``|A ∩ B|``. That makes it the exact marker-containment
@@ -14,12 +13,19 @@ screens take this path instead of the dense O(N^2) tiles.
 A hash shared by more than ``_BIG_RUN`` genomes (a near-duplicate
 mega-family) is handled once per distinct genome group, with its
 occurrences as the weight, so the work stays O(K m + output pairs).
+
+``collision_pair_counts`` takes the compiled counter
+(``ops/_ccollision.py`` over ``csrc/collision.c``) on every device, as
+``galah_tpu``'s does, and raises if it does not build;
+``GALAH_TPU_NO_CCOLLISION=1`` asks for the numpy version
+(``_collision_pair_counts_np``), which tests hold the C one against.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from galah_tpu_torch import config
 from galah_tpu_torch.ops.constants import SENTINEL_U64
 
 _BIG_RUN = 64
@@ -67,7 +73,18 @@ class _CountAccum:
 def collision_pair_counts(mat: np.ndarray, lens: np.ndarray):
     """Exact |A ∩ B| for every colliding row pair of a sentinel-padded
     sorted uint64 matrix with per-row valid lengths: (pi, pj, counts),
-    int64, pi < pj, row-major. Pairs that share nothing are absent."""
+    int64, pi < pj, row-major. Pairs that share nothing are absent.
+    The C counter computes them unless ``GALAH_TPU_NO_CCOLLISION`` is
+    set (to any value, as ``galah_tpu`` reads it)."""
+    if config.env_value("GALAH_TPU_NO_CCOLLISION"):
+        return _collision_pair_counts_np(mat, lens)
+    from galah_tpu_torch.ops._ccollision import collision_pair_counts_c
+
+    return collision_pair_counts_c(mat, lens, _BIG_RUN)
+
+
+def _collision_pair_counts_np(mat: np.ndarray, lens: np.ndarray):
+    """The numpy version of ``collision_pair_counts``."""
     n = mat.shape[0]
     ids = np.repeat(np.arange(n, dtype=np.int64), lens)
     hv = mat[mat != SENTINEL_U64]

@@ -174,30 +174,45 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
 
 
 def _iter_computed(paths: Sequence[str], store, threads: int,
-                   waits: obs_flow.WaitTotal
+                   waits: obs_flow.WaitTotal, pre=None
                    ) -> Iterator[Tuple[str, object]]:
     """(path, sketch) for `paths` in order, sketched by
     ``store.sketch_group`` in groups of at most FUSED_BUDGET bases.
+    With an ingest prefilter (`pre`, ``ops/prefilter.py``) the read
+    threads also take each genome's digest and window test, and each
+    read group is screened before its sketch: the paths it skips are
+    not yielded (the merge walk resolves them), and with a disk cache
+    the group's HLL registers are pre-warmed in the ``sketch`` stage.
 
     Flow (``obs/flow.py``): each wait on the reads is the ``sketch``
     stage's upstream-empty wait (summed into `waits`), each group a
     ``genome_batch`` from ``ingest`` absorbed by ``sketch`` and a
     ``sketch`` service span; the group's reads, their seconds summed
     over the threads, are ``ingest``'s service."""
+    from galah_tpu_torch.ops import prefilter
+
     read_s = store.clock.work_seconds["read"]
-    reads = iter_prefetched(paths, store.clock.timed(read_genome, "read"),
+    if pre is None:
+        read, bases = read_genome, (lambda g: g.codes.shape[0])
+    else:
+        read = prefilter.screening(read_genome, store.k)
+        bases = (lambda r: r.genome.codes.shape[0])
+    reads = iter_prefetched(paths, store.clock.timed(read, "read"),
                             depth=ingest_depth(threads))
     for batch in iter_ingest_batches(
             obs_flow.waited(store.clock.waits(reads, "read",
                                               "genomes-read"), "sketch",
                             waits),
-            lambda g: g.codes.shape[0], FUSED_BUDGET):
+            bases, FUSED_BUDGET):
         read_s, read_s0 = store.clock.work_seconds["read"], read_s
         obs_flow.record_service("ingest", read_s - read_s0,
                                 items=len(batch))
         obs_flow.absorb("ingest", "sketch")
         with obs_flow.span("sketch"), store.clock.stage("sketch"):
-            sketches = store.sketch_group([g for _, g in batch])
+            if pre is not None:
+                batch = pre.screen(batch)
+            sketches = (store.sketch_group([g for _, g in batch])
+                        if batch else [])
         yield from ((p, s) for (p, _), s in zip(batch, sketches))
 
 
@@ -224,10 +239,18 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
     MinHash sketches for a ``SketchStore``, HLL registers for an
     ``HLLStore``) and inserted on this thread.
 
+    A MinHash store's reads go through the ingest prefilter when its
+    gate engages (``ops/prefilter.maybe_prefilter``): a path it skipped
+    takes the sketch it resolves to (``store.insert_prefiltered``).
+    The computed sketches then arrive ahead of the walk, so the next one
+    waits in a one-slot pushback until its path comes up.
+
     When any genome is read, the ``workload.pipeline_occupancy`` gauges
     of stages ``sketch`` and ``ingest`` are set every 64 computed
     sketches and at the end, and the unlabelled gauge to the sketch
     stage's at the end, as ``galah_tpu``'s stream does."""
+    from galah_tpu_torch.ops import prefilter
+
     watch = Stopwatch()
     waits = obs_flow.WaitTotal()
     work0 = store.clock.work_seconds["read"]
@@ -236,20 +259,37 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
           else contextlib.nullcontext()):
         held = {p: store.get_cached(p) for p in unique}
     misses = [p for p in unique if held[p] is None]
-    computed = _iter_computed(misses, store, threads, waits)
+    # the HLL store's registers are never prefiltered, as in galah_tpu
+    pre = (prefilter.maybe_prefilter(store)
+           if misses and hasattr(store, "insert_prefiltered") else None)
+    computed = _iter_computed(misses, store, threads, waits, pre)
+    parked: Optional[Tuple[str, object]] = None
     n_computed = 0
     for p in unique:
         s = held[p]
+        if s is None and pre is not None:
+            ps = pre.resolve(p)
+            if ps is not None:
+                s = store.insert_prefiltered(p, ps)
         if s is None:
-            cp, s = next(computed)
-            if cp != p:
-                raise RuntimeError(f"sketch stream out of order: {cp} "
-                                   f"!= {p}")
-            s = store.insert(p, s)
-            n_computed += 1
-            if n_computed % 64 == 0:
-                _emit_occupancy(watch, waits, store.clock
-                                .work_seconds["read"] - work0)
+            if parked is None:
+                parked = next(computed, None)
+            if parked is not None and parked[0] == p:
+                s = store.insert(p, parked[1])
+                parked = None
+                n_computed += 1
+                if n_computed % 64 == 0:
+                    _emit_occupancy(watch, waits, store.clock
+                                    .work_seconds["read"] - work0)
+            else:
+                # the group that held p screened it while the stream
+                # ran ahead to the parked path (or to its end)
+                ps = pre.resolve(p) if pre is not None else None
+                if ps is None:
+                    raise RuntimeError(
+                        f"sketch stream out of order: "
+                        f"{parked[0] if parked else None} != {p}")
+                s = store.insert_prefiltered(p, ps)
         yield p, s
     if misses:
         obs_metrics.pipeline_occupancy(_emit_occupancy(

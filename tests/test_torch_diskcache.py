@@ -59,10 +59,13 @@ def _jax_fill(kind, cache_dir, paths):
     return c
 
 
-def _port_fill(kind, cache_dir, paths):
+def _port_fill(kind, cache_dir, paths, monkeypatch):
     """The port's store of `kind` over `paths` on the CPU, with its
     disk cache at `cache_dir`; returns (the values as numpy dicts, the
-    run's clock)."""
+    run's clock). The ingest prefilter is off, as in galah_tpu's fill
+    (its pre-warmed hll entries are held against galah_tpu's in
+    tests/test_torch_prefilter.py)."""
+    monkeypatch.setenv("GALAH_TPU_PREFILTER", "0")
     clock = StageClock(CPU)
     c = tdiskcache.CacheDir(str(cache_dir), clock)
     if kind == "profile":
@@ -96,7 +99,8 @@ def _assert_same_entries(a, b):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_entries_interchangeable_with_galah_tpu(corpus, tmp_path, kind):
+def test_entries_interchangeable_with_galah_tpu(corpus, tmp_path, kind,
+                                                monkeypatch):
     """An entry galah_tpu's CacheDir wrote is found by the port under
     the same name, with equal arrays, and the port computes nothing;
     the entries the port writes are galah_tpu's, name for name and
@@ -105,12 +109,12 @@ def test_entries_interchangeable_with_galah_tpu(corpus, tmp_path, kind):
     paths, _ = corpus
     jdir, tdir = tmp_path / "jax", tmp_path / "port"
     _jax_fill(kind, jdir, paths)
-    cold, cold_clock = _port_fill(kind, tdir, paths)
+    cold, cold_clock = _port_fill(kind, tdir, paths, monkeypatch)
     assert cold_clock.counts["cache-misses"] == len(paths)
     assert cold_clock.counts["cache-bytes-written"] > 0
     _assert_same_entries(_entries(tdir), _entries(jdir))
 
-    warm, clock = _port_fill(kind, jdir, paths)
+    warm, clock = _port_fill(kind, jdir, paths, monkeypatch)
     assert clock.counts["cache-hits"] == len(paths)
     assert clock.counts["cache-misses"] == 0
     assert clock.counts["genomes-read"] == 0

@@ -26,6 +26,7 @@ import pytest
 from galah_tpu.analysis import core as jcore
 from galah_tpu.analysis import effects_check as jeff
 from galah_tpu.analysis import ir as jir
+from galah_tpu.analysis import pipeline_check as jpipe
 from galah_tpu_torch.analysis import load_sources, main, repo_root
 from galah_tpu_torch.analysis import effects_check as eff
 from galah_tpu_torch.analysis import core, fs_check
@@ -103,14 +104,13 @@ def _fixture_pair(name, jpath):
 def test_fixture_findings_match_galah_tpu(case, monkeypatch):
     """Code for code, line for line, symbol for symbol, message for
     message; galah_tpu's findings are those its own tests pin. The
-    paged fixture runs once the port's empty PAGED_MODULES names the
-    band walk (no port module is paged yet)."""
+    paged fixture runs as the port's ops/bucketing.py, whose band walk
+    the port's PAGED_MODULES names as galah_tpu's does."""
     name, jpath, pinned = FIXTURE_CASES[case]
     jsrc, tsrc = _fixture_pair(name, jpath)
     if case == "paged_bad":
-        assert pipe.PAGED_MODULES == {}
-        monkeypatch.setitem(pipe.PAGED_MODULES, tsrc.path,
-                            ["bucketed_threshold_pairs"])
+        assert pipe.PAGED_MODULES[tsrc.path] == \
+            jpipe.PAGED_MODULES[jsrc.path] == ["bucketed_threshold_pairs"]
     want = jeff.check_effects({jsrc.path: jsrc})
     got = eff.check_effects({tsrc.path: tsrc})
     assert sorted((f.code, f.line, f.symbol) for f in want) == \

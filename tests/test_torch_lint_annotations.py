@@ -152,12 +152,11 @@ def test_fixture_findings_match_galah_tpu(case):
 
 
 def test_paged_fixture_lexical_arm_matches_galah_tpu(monkeypatch):
-    """GL1007's lexical arm on paged_bad.py once the port's empty
-    registry names the band walk (no port module is paged yet)."""
+    """GL1007's lexical arm on paged_bad.py as the port's
+    ops/bucketing.py, whose band walk both registries name."""
     path = "galah_tpu_torch/ops/bucketing.py"
-    assert pipe.PAGED_MODULES == {}
-    monkeypatch.setitem(pipe.PAGED_MODULES, path,
-                        ["bucketed_threshold_pairs"])
+    assert pipe.PAGED_MODULES[path] == \
+        jpipe.PAGED_MODULES["galah_tpu/ops/bucketing.py"]
     want = jpipe.check_pipeline_file(
         _load(jcore.SourceFile, "paged_bad.py", "galah_tpu/ops/bucketing.py"))
     got = pipe.check_pipeline_file(_load(SourceFile, "paged_bad.py", path))
@@ -383,10 +382,13 @@ def _port_source(rel):
 
 
 def test_registries_name_the_ports_modules():
-    assert len(conc.THREADED_MODULES) == len(jconc.THREADED_MODULES) == 15
-    # the seven strategy families, and ops/megakernel.py and
-    # ops/device_queue.py
-    assert len(det.STRATEGY_MODULES) == 9
+    # galah_tpu's 15 less resilience/dispatch.py (not ported), and the
+    # port's C parser, C collision counter and page store
+    assert len(jconc.THREADED_MODULES) == 15
+    assert len(conc.THREADED_MODULES) == 17
+    # the eight strategy families (bucketing's among them), and
+    # ops/megakernel.py and ops/device_queue.py
+    assert len(det.STRATEGY_MODULES) == 10
     for rel in conc.THREADED_MODULES + det.STRATEGY_MODULES:
         assert (REPO / rel).is_file(), rel
         assert rel.startswith("galah_tpu_torch/")
@@ -413,6 +415,17 @@ def test_threaded_module_declares_its_locks(rel):
                                and c.lineno <= node.lineno <= c.end_lineno)
                     name = f"{cls}.{name[5:]}"
                 made.add(name)
+    # a cross-module entry ("path.py:NAME", a lock taken while one of
+    # this module's is held) names a lock its own module declares
+    for entry in sorted(d for d in declared if ":" in d):
+        other, name = entry.split(":", 1)
+        assert other in conc.THREADED_MODULES, (rel, entry)
+        osrc = _port_source(other)
+        assert name in (set(harvest_literal(osrc.tree, "GUARDED_BY")
+                            .values())
+                        | set(harvest_literal(osrc.tree, "LOCK_ORDER"))), \
+            (rel, entry)
+    declared = {d for d in declared if ":" not in d}
     # metrics' per-metric `_lock or threading.Lock()` is a BoolOp, and
     # each metric is declared by its class
     assert declared <= made | {f"{c}._lock" for c in

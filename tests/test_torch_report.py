@@ -74,15 +74,14 @@ def corpus(tmp_path_factory):
 
 
 def _ported_routes(mp):
-    """Both packages' collision routes at any size; galah_tpu's HLL
-    cardinality bucketing (which would engage from its crossover) and
-    its ingest prefilter (whose HLL pre-warm looks up cache entries of
-    its own), which the port lacks, off."""
+    """Both packages' collision routes at any size, with the HLL
+    cardinality bucketing (which would engage from the crossover) and
+    the ingest prefilter off in both: their own figures are compared in
+    tests/test_torch_tiered.py."""
     mp.setattr(jcollision, "SPARSE_SCREEN_MIN_N", 0)
     mp.setattr(tcollision, "SPARSE_SCREEN_MIN_N", 0)
-    # galah_tpu's own flags, for its side of the comparison
-    mp.setenv("GALAH_TPU_HLL_BUCKETS", "0")  # galah-lint: ignore[GL401]
-    mp.setenv("GALAH_TPU_PREFILTER", "0")  # galah-lint: ignore[GL401]
+    mp.setenv("GALAH_TPU_HLL_BUCKETS", "0")
+    mp.setenv("GALAH_TPU_PREFILTER", "0")
 
 
 def _pinned_hll(orig):
