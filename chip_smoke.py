@@ -180,15 +180,18 @@ Phases, each of which exits nonzero when it fails:
    give one nvcc span. Phase
    4j's stopped run (b) also writes a report and a trace: the report
    must say stop requested by SIGTERM at ``greedy-round-saved``;
-4r. profiled runs: skani and dashing over the first 256 genomes (4o's
-   twins), 4b (finch 1024) and 4c (finch 256
-   streamed) again as ``python -m
+4r. profiled runs: finch over 1024 genomes of 20 kb (the crossover
+   route, pairlist's, at a small cost; its TSV and launches from a run
+   in this process, its clusters the planted families), dashing over
+   the first 256 genomes (4o's twin) and 4c (finch 256 streamed; skani
+   256 and 4b until phase 4w came in) again as ``python -m
    galah_tpu_torch cluster`` processes with ``--profile-trace-dir``,
    ``--run-report``, ``GALAH_OBS_LEDGER``, ``GALAH_OBS_OPENMETRICS`` and
    ``GALAH_OBS_HEARTBEAT_S=0.25``: each TSV must equal its phase's; each
    report's ``device_costs`` calls, its dispatches and the
    ``torch.profiler`` trace's kernel events (named ``<kernel>_kernel``)
-   must be the phase's launches, kernel for kernel; the kernels' summed
+   must be the phase's launches, kernel for kernel, and every kernel
+   must launch in one of the runs; the kernels' summed
    device seconds must lie within the run wall and no bandwidth or
    operations share exceed 1.05; the streamed run's flow critical path
    must name ingest, sketch and pairs with blame summing to the wall
@@ -284,6 +287,23 @@ Phases, each of which exits nonzero when it fails:
    equal TSVs, 36 skips and pre-warmed HLL rows; (c) ``index build`` of
    256 genomes with paging forced: the unpaged build's bytes, and its
    paged load's rows;
+4w. dispatch faults on the card (GALAH_FI, resilience/dispatch.py): (a)
+   raise, device-lost and garbage once (prob=1;max=1) at dispatch.ani
+   and dispatch.sketch-minhash on finch 256 streamed (4c's run),
+   dispatch.fragment-ani on skani 256 and dispatch.sketch-hll on
+   dashing 256: each TSV must equal the run's without faults, its run
+   report show retries[<site>] == 1 and no demotion, and its launches
+   equal the run's (raise, device-lost: the fault fires before the
+   dispatch) or exceed them by exactly the retried batch's (garbage,
+   printed); (b) a 5 s hang at dispatch.ani under
+   GALAH_RETRY_ATTEMPT_DEADLINE=2: the TSV, one retry and launches equal
+   to the run's, read again once the abandoned attempt woke; (c) prob=1
+   with no max at dispatch.ani under --checkpoint-dir: the run raises
+   naming the site after 3 attempts, no plain version runs, and
+   --resume without GALAH_FI writes the TSV; (d) ``python -m
+   galah_tpu_torch.resilience.chaos --iterations 2 --device cuda`` with
+   a kill at a dispatch site and a torn write, a process started before
+   (a) and waited for after 4n. The phase prints its walls;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -335,6 +355,7 @@ per-kernel JSON record. Every line holding a number names the card.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -424,6 +445,9 @@ SLAB_THR = 0.95
 # the sparse-screen crossover of galah_tpu_torch.ops.collision, which
 # phase 4b must reach and phase 4c must stay below
 FINCH_MIN_GENOMES = 1024
+#: the genome length of 4r's crossover corpus (FINCH_MIN_GENOMES of
+#: them): the pairlist route under the profiler at a small cost
+CROSSOVER_LENGTH = 20_000
 
 # phase 4e's corpus: just under the crossover, so the streamed pair pass
 # runs, in four stripes
@@ -3030,21 +3054,34 @@ def phase_sanitizer(root, runs, tag):
     output must equal the phase's byte for byte, its report's
     dispatches the phase's launches kernel for kernel, and its sanitizer
     section and report must hold zero undeclared acquisitions, unordered
-    edges, inversions and races; returns the record's entries."""
+    edges, inversions and races. The processes run at once (the lock
+    discipline does not depend on the pace, and each has its own
+    directory and report), so their walls include each other's load;
+    returns the record's entries."""
     from galah_tpu_torch.analysis.concurrency_check import THREADED_MODULES
     from galah_tpu_torch.obs import report as report_mod
 
     out = {}
+    started = {}
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        for what, (make_argv, *_rest) in runs.items():
+            d = os.path.join(root, "san_" + what.replace(" ", "_"))
+            os.makedirs(d)
+            env = dict(os.environ, GALAH_SAN="1",
+                       GALAH_SAN_REPORT=os.path.join(
+                           d, "sanitizer_report.json"),
+                       GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
+            started[what] = pool.submit(
+                run_cli_process,
+                make_argv(d, os.path.join(d, "run_report.json")),
+                os.path.join(d, "log.txt"), env)
+        walls = {what: f.result() for what, f in started.items()}
     for what, (make_argv, read_output, want, launches, wall) in \
             runs.items():
         d = os.path.join(root, "san_" + what.replace(" ", "_"))
-        os.makedirs(d)
         rep_path = os.path.join(d, "run_report.json")
         san_path = os.path.join(d, "sanitizer_report.json")
-        env = dict(os.environ, GALAH_SAN="1", GALAH_SAN_REPORT=san_path,
-                   GALAH_OBS_HEARTBEAT_S=str(OBS_HEARTBEAT_S))
-        wall_san = run_cli_process(make_argv(d, rep_path),
-                                   os.path.join(d, "log.txt"), env)
+        wall_san = walls[what]
         if read_output(d) != want:
             raise PhaseError(f"sanitizer {what}: the output differs from "
                              f"the phase's")
@@ -3082,9 +3119,10 @@ def phase_sanitizer(root, runs, tag):
               f"declared / {s['unexercised']} unexercised; {beats} beats "
               f"{tag}")
         print(f"sanitizer {what}: wall {wall_san:.2f} s as a process "
-              f"with GALAH_SAN=1 (the run {rep['run']['duration_s']:.2f} s "
-              f"of it) against {wall:.2f} s for the phase's run in this "
-              f"process without it {tag}")
+              f"with GALAH_SAN=1 beside the others (the run "
+              f"{rep['run']['duration_s']:.2f} s of it) against "
+              f"{wall:.2f} s for the phase's run in this process without "
+              f"it {tag}")
         out[what] = {"wall_s": wall_san, "run_s": rep["run"]["duration_s"],
                      "phase_wall_s": wall, "sanitizer": s,
                      "edges": full["edges"], "beats": beats,
@@ -3156,7 +3194,8 @@ def phase_profiled(root, runs, threads, tag, control="finch 1024"):
     GALAH_OBS_OPENMETRICS and GALAH_OBS_HEARTBEAT_S; then the tools
     (``flow analyze``, ``perf record|check``, ``top --json``) over its
     files, and the `control` run again with GALAH_OBS_PROFILE=0 and
-    GALAH_OBS_FLOW=0. Returns the record's entries."""
+    GALAH_OBS_FLOW=0. Every kernel must launch in some run. Returns the
+    record's entries."""
     from galah_tpu_torch.kernels import KERNELS
     from galah_tpu_torch.obs import heartbeat as obs_heartbeat
     from galah_tpu_torch.obs import report as report_mod
@@ -4156,6 +4195,284 @@ def phase_overlap(torch, cli, reset_launches, launches_now, kernels, root,
     return runs
 
 
+# phase 4w: each guarded dispatch site, the 256-genome run that reaches
+# it, the kinds injected once at each, and the hang (b) against its
+# attempt deadline, seconds
+DISPATCH_FAULT_SITES = (("dispatch.ani", "finch"),
+                        ("dispatch.sketch-minhash", "finch"),
+                        ("dispatch.fragment-ani", "skani"),
+                        ("dispatch.sketch-hll", "dashing"))
+DISPATCH_FAULT_KINDS = ("raise", "device-lost", "garbage")
+HANG_S = 5
+HANG_DEADLINE_S = 2
+
+
+def _report_resilience(path):
+    with open(path) as fh:
+        return json.load(fh)["resilience"]
+
+
+def counting_plain_versions(counts):
+    """Patches (owner, name, wrapper) that count each call of a kernel's
+    plain version, or of the host route of a whole group, into
+    `counts`: on the card none of them may run."""
+    from galah_tpu_torch.ops import (fused_sketch, hll_union, megakernel,
+                                     murmur3_k21, pairlist,
+                                     positional_hashes, tile_stats,
+                                     window_hits)
+
+    out = []
+    for mod, name in ((window_hits, "window_element_hits_plain"),
+                      (tile_stats, "tile_stats_plain"),
+                      (tile_stats, "tile_intersect_plain"),
+                      (fused_sketch, "fused_candidates_plain"),
+                      (pairlist, "pair_stats_pairs_plain"),
+                      (hll_union, "hll_union_stats_plain"),
+                      (murmur3_k21, "murmur3_k21_plain"),
+                      (positional_hashes, "positional_hashes_plain"),
+                      (positional_hashes, "group_hashes_plain"),
+                      (megakernel, "slab_fold_plain")):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        out.append((mod, name, wrapper))
+    return out
+
+
+def phase_dispatch_faults(torch, cli, reset_launches, launches_now, root,
+                          runs, tag):
+    """Phase 4w: dispatch faults on the card. `runs` maps finch, skani
+    and dashing to (argv without outputs, the TSV of the run without
+    faults, its launches). (a) each of raise, device-lost and garbage
+    once (prob=1;max=1) at each guarded site of DISPATCH_FAULT_SITES:
+    the TSV, retries[<site>] == 1 in the run report, and the launches
+    equal (raise, device-lost) or higher by the retried batch's
+    (garbage); (b) a hang of HANG_S at dispatch.ani under an attempt
+    deadline of HANG_DEADLINE_S: the TSV, one retry and equal launches,
+    read again after the abandoned attempt woke; (c) prob=1 with no max
+    at dispatch.ani under --checkpoint-dir: the run raises naming the
+    site, no plain version ran, and --resume without faults writes the
+    TSV; (d) the chaos harness, 2 iterations on cuda (a kill at a
+    dispatch site, a torn write), started after (b) as a process of its
+    own and finished by ``finish_dispatch_chaos`` after phases 4m and
+    4n, beside which it runs (its children are separate processes: no
+    launch count or TSV of this process can see them)."""
+    from galah_tpu_torch.resilience import dispatch as rdispatch
+    from galah_tpu_torch.resilience import faults
+    from galah_tpu_torch.resilience.policy import TransientDispatchError
+
+    watch = time.perf_counter()
+    out = {"a": {}, "b": {}, "c": {}, "d": {}}
+    calls = []  # (site, launches) of each guarded primary call
+    run_site = rdispatch.run
+
+    def recording(site, primary, validate=None, policy=None):
+        def counted():
+            before = dict(launches_now)
+            try:
+                return primary()
+            finally:
+                calls.append((site, {k: launches_now[k] - before[k]
+                                     for k in before}))
+        return run_site(site, counted, validate=validate, policy=policy)
+
+    def faulted(name, argv, fi, env=None):
+        tsv = os.path.join(root, f"dispatch_{name}.tsv")
+        rep = os.path.join(root, f"dispatch_{name}.json")
+        calls.clear()
+        faults.reset()
+        try:
+            with env_set({"GALAH_FI": fi, **(env or {})}), \
+                    patched(rdispatch, "run", recording):
+                res, wall, launches = run_path(
+                    torch, cli, reset_launches, launches_now,
+                    [*argv, "--output-cluster-definition", tsv,
+                     "--run-report", rep])
+        finally:
+            faults.reset()  # GALAH_FI is gone again: no injector
+        res.store = res.preclusterer = None
+        with open(tsv, "rb") as fh:
+            got = fh.read()
+        return got, _report_resilience(rep), wall, launches
+
+    # -- (b) a hang past its attempt deadline ------------------------------
+    argv, want_tsv, want_launches = runs["finch"]
+    t_run = time.perf_counter()
+    tsv, res, wall, launches = faulted(
+        "finch_hang", argv,
+        f"site=dispatch.ani;kind=hang;hang={HANG_S};prob=1;max=1",
+        env={"GALAH_RETRY_ATTEMPT_DEADLINE": str(HANG_DEADLINE_S)})
+    # the abandoned attempt wakes HANG_S after its fault at the latest
+    time.sleep(max(0.0, t_run + HANG_S + 0.5 - time.perf_counter()))
+    late = {k: launches_now[k] - launches[k] for k in launches
+            if launches_now[k] != launches[k]}
+    if tsv != want_tsv or res["retries"] != {"dispatch.ani": 1}:
+        raise PhaseError(f"4w (b) hang: TSV equal {tsv == want_tsv}, "
+                         f"resilience {res}")
+    if launches != want_launches or late:
+        raise PhaseError(
+            f"4w (b) hang: launches {launches} (after the abandoned "
+            f"attempt woke: +{late}) against {want_launches} without "
+            f"faults")
+    out["b"] = {"wall": wall}
+    print(f"4w (b) hang of {HANG_S} s at dispatch.ani under "
+          f"GALAH_RETRY_ATTEMPT_DEADLINE={HANG_DEADLINE_S}: TSV "
+          f"byte-identical, 1 retry, launches equal to the run without "
+          f"faults, none after the abandoned attempt woke (it never "
+          f"dispatched); wall {wall:.2f} s {tag}")
+
+    # -- (d) starts: the chaos harness as a process of its own, after
+    # (b), whose attempt deadline holds every dispatch of its run ------
+    chaos_log = os.path.join(root, "chaos.log")
+    with open(chaos_log, "wb") as log:
+        chaos = subprocess.Popen(
+            [sys.executable, "-m", "galah_tpu_torch.resilience.chaos",
+             "--iterations", "2", "--device", "cuda", "--modes",
+             "kill-dispatch,torn-write", "--workdir",
+             os.path.join(root, "chaos")],
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    # a failing phase ends the script before (d) is waited for: its
+    # process group (the harness and its cluster runs) goes with it
+    atexit.register(stop_group, chaos)
+
+    # -- (a) one retry per kind and site ----------------------------------
+    for site, method in DISPATCH_FAULT_SITES:
+        argv, want_tsv, want_launches = runs[method]
+        for kind in DISPATCH_FAULT_KINDS:
+            what = f"{kind} at {site} ({method} 256)"
+            tsv, res, wall, launches = faulted(
+                f"{method}_{site}_{kind}", argv,
+                f"site={site};kind={kind};prob=1;max=1")
+            if tsv != want_tsv:
+                raise PhaseError(f"4w (a) {what}: the TSV differs from "
+                                 f"the run without faults")
+            if res["retries"] != {site: 1} or res["demotions"]:
+                raise PhaseError(f"4w (a) {what}: the report's resilience "
+                                 f"is {res}, not one retry at {site}")
+            extra = {k: launches[k] - want_launches[k] for k in launches
+                     if launches[k] != want_launches[k]}
+            if kind == "garbage":
+                at_site = [d for s, d in calls if s == site]
+                batch = {k: v for k, v in at_site[1].items() if v} \
+                    if len(at_site) > 1 else None
+                if not extra or extra != batch:
+                    raise PhaseError(
+                        f"4w (a) {what}: launches {extra} above the run "
+                        f"without faults, not the retried batch's {batch}")
+                note = (f"launches higher by the retried batch's: "
+                        + ", ".join(f"{k} +{v}" for k, v in extra.items()))
+            else:
+                if extra:
+                    raise PhaseError(f"4w (a) {what}: launches differ from "
+                                     f"the run without faults: {extra}")
+                note = "launches equal the run without faults"
+            out["a"][f"{site} {kind}"] = {"wall": wall, "extra": extra}
+            print(f"4w (a) {what}: TSV byte-identical, retries[{site}] = 1, "
+                  f"demotions none; {note}; wall {wall:.2f} s {tag}")
+
+    # -- (c) retries run out, then --resume --------------------------------
+    argv, want_tsv, want_launches = runs["finch"]
+    ck = os.path.join(root, "dispatch_ckpt")
+    tsv_c = os.path.join(root, "dispatch_exhausted.tsv")
+    rep_c = os.path.join(root, "dispatch_exhausted.json")
+    argv_c = [*argv, "--checkpoint-dir", ck, "--output-cluster-definition",
+              tsv_c, "--run-report", rep_c]
+    plain = {}
+    faults.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with env_set({"GALAH_FI": "site=dispatch.ani;kind=raise;prob=1"}), \
+                contextlib.ExitStack() as stack:
+            for owner, name, fn in counting_plain_versions(plain):
+                stack.enter_context(patched(owner, name, fn))
+            cli.run_cluster(cli.parse_args(argv_c))
+    except TransientDispatchError as e:
+        error = " ".join([str(e), *getattr(e, "__notes__", [])])
+    else:
+        raise PhaseError("4w (c): the run did not raise when dispatch.ani's "
+                         "retries ran out")
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = dict(launches_now)
+    res = _report_resilience(rep_c)
+    if "dispatch.ani" not in error or "3 attempt" not in error:
+        raise PhaseError(f"4w (c): the error does not name the site and "
+                         f"its attempts: {error}")
+    if plain or res["demotions"] or res["retries"] != {"dispatch.ani": 2}:
+        raise PhaseError(f"4w (c): plain versions {plain}, resilience "
+                         f"{res}")
+    res_r, wall_r, launches_r = run_path(
+        torch, cli, reset_launches, launches_now,
+        [*argv, "--checkpoint-dir", ck, "--resume",
+         "--output-cluster-definition", tsv_c])
+    res_r.store = res_r.preclusterer = None
+    with open(tsv_c, "rb") as fh:
+        if fh.read() != want_tsv:
+            raise PhaseError("4w (c): the resumed TSV differs from the run "
+                             "without faults")
+    out["c"] = {"wall": wall_c, "launches": launches_c,
+                "resume_wall": wall_r, "resume_launches": launches_r}
+    print(f"4w (c) prob=1 at dispatch.ani: the run raised after 3 attempts "
+          f"({error.splitlines()[0][:160]}), 2 retries, no plain version "
+          f"or CPU route, launches before it {launches_c}, wall "
+          f"{wall_c:.2f} s; --resume without faults: TSV byte-identical, "
+          f"wall {wall_r:.2f} s {tag}")
+
+    out["wall_a_c"] = time.perf_counter() - watch
+    out["d"] = {"proc": chaos, "log": chaos_log, "t0": watch}
+    print(f"phase 4w (a)-(c): wall {out['wall_a_c']:.1f} s, (d) running "
+          f"beside them and phases 4m and 4n {tag}")
+    return out
+
+
+def stop_group(proc):
+    """SIGKILL `proc`'s process group (a session it leads) if it still
+    runs."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def finish_dispatch_chaos(out, tag):
+    """Phase 4w (d): wait for the chaos harness `phase_dispatch_faults`
+    started, check it passed 2 of 2 iterations, print its lines, its
+    own wall and how long the script waited for it; `out["d"]` becomes
+    its record."""
+    d = out["d"]
+    t0 = time.perf_counter()
+    try:
+        rc = d["proc"].wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        stop_group(d["proc"])
+        raise PhaseError("4w (d): the chaos harness did not end in 900 s")
+    waited = time.perf_counter() - t0
+    with open(d["log"], "rb") as fh:
+        text = fh.read().decode(errors="replace")
+    for line in text.splitlines():
+        if line.startswith(("[", "chaos", "reference", "      ")):
+            print(f"4w (d) {line.rstrip()} {tag}")
+    m = re.search(r"chaos wall: ([0-9.]+) s", text)
+    if rc != 0 or "chaos: 2/2 iterations passed" not in text or not m:
+        raise PhaseError(f"4w (d): the chaos harness exited {rc}:\n"
+                         f"{text[-3000:]}")
+    out["d"] = {"wall": float(m.group(1)), "waited": waited}
+    print(f"4w (d) chaos on cuda, 2 iterations (kill at a dispatch site, "
+          f"torn write): passed, wall {float(m.group(1)):.1f} s beside "
+          f"(a), (c), 4m and 4n {tag}")
+    print(f"phase 4w: (a)-(c) {out['wall_a_c']:.1f} s, then {waited:.1f} s "
+          f"waiting for (d) after 4n {tag}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4853,6 +5170,20 @@ def main(argv=None) -> int:
                   f"this process): wall {wall_x:.2f} s {tag}")
             r = None
 
+        # -- phase 4w: dispatch faults on the card (its chaos harness, (d),
+        # runs on beside 4m and 4n) ----------------------------------------
+        print(f"phase 4w starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        fault_out = phase_dispatch_faults(
+            torch, cli, reset_launches, LAUNCHES, root,
+            {"finch": ([*finch_small, *threads], tsv4c, launches_d),
+             "skani": ([*skani_small, *threads], small["skani"][0],
+                       small["skani"][1]),
+             "dashing": ([*dashing_small, *threads], small["dashing"][0],
+                         small["dashing"][1])}, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # -- phase 4m: the library API as CoverM embeds it ---------------
         print(f"phase 4m starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -4875,6 +5206,7 @@ def main(argv=None) -> int:
                                    tag)
         gc.collect()
         torch.cuda.empty_cache()
+        finish_dispatch_chaos(fault_out, tag)
 
         print(f"phase 4g starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
@@ -4964,12 +5296,35 @@ def main(argv=None) -> int:
               f"after the device check {tag}")
         gc.collect()
         torch.cuda.empty_cache()
+        # finch's crossover route (the collision screen and pairlist)
+        # at a small width: 1024 genomes of 20 kb, their TSV and
+        # launches from a run in this process (the profiled finch 1024
+        # of 2 Mbp genomes and skani 256 were cut when 4w came in)
+        cross_dir = os.path.join(root, "crossover")
+        os.makedirs(cross_dir)
+        cross_paths, cross_labels, _ = make_corpus(
+            cross_dir, FINCH_MIN_GENOMES, CROSSOVER_LENGTH, family,
+            args.seed + 27)
+        finch_cross = ["cluster", "-f", *cross_paths, "--precluster-method",
+                       "finch", "--cluster-method", "skani", "--ani", "95",
+                       "--device", "cuda"]
+        cross_tsv = os.path.join(cross_dir, "clusters.tsv")
+        r, wall_x, launches_x = run_path(
+            torch, cli, reset_launches, LAUNCHES,
+            [*finch_cross, *threads, "--output-cluster-definition",
+             cross_tsv])
+        check_families(r, dict(zip(cross_paths, cross_labels)),
+                       FINCH_MIN_GENOMES, family, cross_tsv,
+                       "finch crossover")
+        require_launched(launches_x, ["pairlist"], "finch crossover")
+        with open(cross_tsv, "rb") as fh:
+            tsv_cross = fh.read()
+        what_cross = (f"finch {FINCH_MIN_GENOMES} x "
+                      f"{CROSSOVER_LENGTH // 1000} kb")
+        print(f"{what_cross}: wall {wall_x:.2f} s, launches "
+              f"{ {k: v for k, v in launches_x.items() if v} } {tag}")
         prof_out = phase_profiled(root, {
-            f"skani {n_dense}": (skani_small, *small["skani"][:3]),
-            "finch 1024": (["cluster", "-f", *paths, "--precluster-method",
-                            "finch", "--cluster-method", "skani", "--ani",
-                            "95", "--device", "cuda"], tsv4b, launches_f,
-                           wall_f),
+            what_cross: (finch_cross, tsv_cross, launches_x, wall_x),
             f"dashing {n_dense}": (dashing_small, *small["dashing"][:3]),
             f"finch {n_dense} streamed": (finch_small, tsv4c, launches_d,
                                           wall_d)},
@@ -5866,6 +6221,7 @@ def main(argv=None) -> int:
                              for k, v in overlap_out.items()},
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "phase_4v_tiered": tier_out,
+        "phase_4w_dispatch_faults": fault_out,
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}

@@ -74,6 +74,7 @@ THREADED_MODULES = (
     "galah_tpu_torch/io/_cingest.py",
     "galah_tpu_torch/io/pagestore.py",
     "galah_tpu_torch/ops/_ccollision.py",
+    "galah_tpu_torch/resilience/dispatch.py",
     "galah_tpu_torch/resilience/policy.py",
     "galah_tpu_torch/resilience/faults.py",
     "galah_tpu_torch/timing.py",

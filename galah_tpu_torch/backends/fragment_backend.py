@@ -49,6 +49,7 @@ from galah_tpu_torch.ops.fragment_ani import GenomeProfile
 from galah_tpu_torch.ops.pairwise import screen_pairs
 from galah_tpu_torch.ops.u64 import bias, from_biased, to_biased
 from galah_tpu_torch.parallel import distributed
+from galah_tpu_torch.resilience import dispatch as rdispatch
 from galah_tpu_torch.timing import StageClock
 
 logger = logging.getLogger(__name__)
@@ -208,14 +209,21 @@ class ProfileStore:
 def _exact_ani(clock: StageClock,
                pairs: Sequence[Tuple[GenomeProfile, GenomeProfile]],
                min_aligned_fraction: float) -> List[Optional[float]]:
-    """Gated bidirectional ANI of profile pairs, in stage `exact-ani`;
+    """Gated bidirectional ANI of profile pairs, in stage `exact-ani`,
+    a guarded call at the dispatch site ``dispatch.fragment-ani``
+    (``resilience/dispatch.py``);
     counts `directed_queries` and `query-elements`, the sorted-query
     hashes that window_hits tests (about 1/c of them under
     ``--ani-subsample c``)."""
     with clock.stage("exact-ani"):
         clock.count("directed_queries", 2 * len(pairs))
-        anis = fragment_ani.bidirectional_ani_values(pairs,
-                                                     min_aligned_fraction)
+        # the guarded dispatch site of galah_tpu's _guarded_ani_values:
+        # retried, then raised (no per-pair fallback)
+        anis = rdispatch.run(
+            "dispatch.fragment-ani",
+            lambda: fragment_ani.bidirectional_ani_values(
+                pairs, min_aligned_fraction),
+            validate=rdispatch.expect_ani_values(len(pairs)))
     clock.count("query-elements", sum(
         int(q.sorted_query()[0].shape[0]) for pair in pairs for q in pair
         if q.n_windows))

@@ -45,6 +45,9 @@ class HLLStore:
     device, held in memory, over an optional disk cache (`cache`; by
     default the one ``GALAH_TPU_CACHE`` names, if any)."""
 
+    #: the store's guarded dispatch site (``ops/sketch_stream``)
+    DISPATCH_SITE = "dispatch.sketch-hll"
+
     def __init__(self, device="cuda", p: int = DEFAULT_P,
                  k: int = Defaults.MINHASH_KMER,
                  algo: str = Defaults.HASH_ALGO,

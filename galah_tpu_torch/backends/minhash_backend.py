@@ -81,6 +81,9 @@ class SketchStore:
     the resident set is bounded by the store's budget. Either way the
     same sketches come back."""
 
+    #: the store's guarded dispatch site (``ops/sketch_stream``)
+    DISPATCH_SITE = "dispatch.sketch-minhash"
+
     def __init__(self, device="cuda",
                  sketch_size: int = Defaults.MINHASH_SKETCH_SIZE,
                  k: int = Defaults.MINHASH_KMER,

@@ -59,7 +59,9 @@ stage-serial.
 
 In a multi-process job (``parallel/distributed.py``) every rank runs
 the same rounds, and each backend ANI batch is split over the ranks
-(``_backend_ani_batch``) and exchanged.
+(``_backend_ani_batch``) and exchanged. Each batch (a rank's share in a
+job) is a guarded call at the dispatch site ``dispatch.ani``
+(``resilience/dispatch.py``): retried, then raised.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from galah_tpu_torch.obs import metrics as obs_metrics
 from galah_tpu_torch.obs import profile as obs_profile
 from galah_tpu_torch.ops import greedy_select
 from galah_tpu_torch.parallel import distributed
+from galah_tpu_torch.resilience import dispatch as rdispatch
 from galah_tpu_torch.resilience import interrupt
 from galah_tpu_torch.timing import StageClock, Stopwatch
 
@@ -315,16 +318,30 @@ def _backend_ani_batch(clusterer, path_pairs: List[Tuple[str, str]]
     deterministic and its caches agree), and a pair goes to the rank
     that ``zlib.crc32`` of its second path names, so that a genome's
     pairs against the representatives land on one rank; a failing rank
-    makes every rank raise. In one process, a plain call."""
+    makes every rank raise. In one process, one guarded call
+    (``_guarded_ani_batch``); in a job, each rank's local batch is
+    guarded, never the exchange."""
     n_proc = distributed.process_count()
     if n_proc <= 1 or len(path_pairs) < n_proc:
-        return clusterer.calculate_ani_batch(path_pairs)
+        return _guarded_ani_batch(clusterer, path_pairs)
     owners = [zlib.crc32(b.encode()) for _a, b in path_pairs]
     return distributed.sharded_optional_floats(
         len(path_pairs),
-        lambda idxs: clusterer.calculate_ani_batch(
-            [path_pairs[k] for k in idxs]),
+        lambda idxs: _guarded_ani_batch(
+            clusterer, [path_pairs[k] for k in idxs]),
         owner=lambda k: owners[k])
+
+
+def _guarded_ani_batch(clusterer, path_pairs: List[Tuple[str, str]]
+                       ) -> List[Optional[float]]:
+    """The backend's batched ANI call at the dispatch site
+    ``dispatch.ani`` (``resilience/dispatch.py``): retried on a
+    transient failure or a result out of [0, 1], then raised; there is
+    no per-pair fallback (``galah_tpu``'s ``_guarded_ani_batch``)."""
+    return rdispatch.run(
+        "dispatch.ani",
+        lambda: clusterer.calculate_ani_batch(path_pairs),
+        validate=rdispatch.expect_ani_values(len(path_pairs)))
 
 
 def _warm_all_hit_pairs(clusterer, pre_cache: PairDistanceCache,

@@ -86,12 +86,15 @@ class Flag:
 
 
 def _retry_family(prefix: str, section_help: str) -> Tuple[Flag, ...]:
-    """The knobs ``RetryPolicy.from_env`` reads under `prefix`_*."""
+    """The seven knobs ``RetryPolicy.from_env`` reads under
+    `prefix`_*."""
     spec = (
         ("MAX_ATTEMPTS", "int", "attempts before giving up"),
         ("BASE_DELAY", "float", "first backoff delay, seconds"),
         ("MAX_DELAY", "float", "backoff cap, seconds"),
         ("JITTER", "float", "+- fraction of each delay, in [0, 1]"),
+        ("ATTEMPT_DEADLINE", "float",
+         "seconds per attempt; an attempt past it is abandoned"),
         ("TOTAL_BUDGET", "float",
          "overall retry wall-clock budget, seconds"),
         ("SEED", "int", "makes the backoff jitter bit-reproducible"),
@@ -127,6 +130,11 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "scan, whose speculative width is cluster "
               "--rep-scan-window (decisions are bit-identical; a "
               "failure raises under either)"),
+    Flag("GALAH_TPU_INGEST_DEPTH", kind="int", section="kernel",
+         help="FASTA reads in flight ahead of the consumer (the sketch "
+              "stream's and the profile store's read-ahead); unset uses "
+              "max(2, threads). A pin bounds the parsed genomes held at "
+              "once"),
     Flag("GALAH_TPU_OVERLAP", section="kernel", default="auto",
          choices=("auto", "0", "1"),
          help="Overlapped end-to-end dataflow: the finch sketch stream, "
@@ -206,11 +214,18 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "C collision counter (csrc/collision.c, built with $CC "
               "at first use; a failed build raises)"),
     Flag("GALAH_FI", kind="grammar", section="resilience",
-         help="Deterministic fault injection at the durable-write "
-              "sites, e.g. 'site=io.atomic.append[ckpt.greedy];kind=kill;"
-              "prob=0.5;seed=3;max=1'. Kinds: enospc, eio, torn-write, "
-              "slow-io, and kill, which os._exit()s the process with 137 "
-              "mid-operation"),
+         help="Deterministic fault injection, e.g. "
+              "'site=dispatch.ani;kind=raise;prob=0.3;seed=7;max=2'. "
+              "Dispatch kinds (at the dispatch.* and collective.<tag> "
+              "sites of resilience/dispatch.py): raise, device-lost, "
+              "hang (sleeps hang= seconds; GALAH_RETRY_ATTEMPT_DEADLINE "
+              "catches it), garbage (a truncated result the site's "
+              "validation rejects). Filesystem kinds (at the io.atomic.* "
+              "durable-write sites and the io.ingest[<path>] reads): "
+              "enospc, eio, torn-write, slow-io. kill fires at any site "
+              "and os._exit()s the process with 137 mid-operation (the "
+              "chaos harness, python -m "
+              "galah_tpu_torch.resilience.chaos)"),
     Flag("GALAH_TPU_FLEET_WORKERS", kind="int", default="2",
          section="resilience",
          help="Fleet supervisor (galah_tpu_torch fleet run): maximum "
@@ -319,6 +334,9 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "sanitizer_report.json in the working directory when it "
               "is unset"),
 ) + _retry_family(
+    "GALAH_RETRY", "Device-dispatch retry policy (a guarded site retries "
+    "a transient failure, then raises; nothing falls back)"
+) + _retry_family(
     "GALAH_IO_RETRY", "FASTA/IO retry policy (defaults: 3 attempts, "
     "0.1 s base delay)"
 ) + _retry_family(
@@ -329,7 +347,8 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
 FLAGS: Dict[str, Flag] = {f.name: f for f in _FLAG_DEFS}
 
 #: The prefixes of the ``RetryPolicy.from_env`` families above.
-FLAG_FAMILIES: Tuple[str, ...] = ("GALAH_IO_RETRY", "GALAH_TPU_FLEET_RETRY")
+FLAG_FAMILIES: Tuple[str, ...] = ("GALAH_RETRY", "GALAH_IO_RETRY",
+                                  "GALAH_TPU_FLEET_RETRY")
 
 
 def env_value(name: str) -> Optional[str]:

@@ -22,6 +22,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
                     Tuple, TypeVar)
 
+from galah_tpu_torch.config import env_value
 from galah_tpu_torch.obs import flow as obs_flow
 
 T = TypeVar("T")
@@ -36,9 +37,13 @@ LOCK_ORDER = []
 
 
 def ingest_depth(threads: int) -> int:
-    """FASTA reads in flight ahead of the consumer: ``max(2, threads)``
-    (deep enough to keep `threads` parsers busy, shallow enough to bound
-    the parsed genomes held at once)."""
+    """FASTA reads in flight ahead of the consumer: the
+    ``GALAH_TPU_INGEST_DEPTH`` pin (at least 1), else ``max(2,
+    threads)`` (deep enough to keep `threads` parsers busy, shallow
+    enough to bound the parsed genomes held at once)."""
+    pin = env_value("GALAH_TPU_INGEST_DEPTH")
+    if pin:
+        return max(1, int(pin))
     return max(2, threads)
 
 

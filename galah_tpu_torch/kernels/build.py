@@ -143,11 +143,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+class KernelLaunchError(RuntimeError):
+    """A launch function returned a nonzero ``cudaError_t``, kept as
+    `cuda_error`: the dispatch supervisor retries only 2
+    (``cudaErrorMemoryAllocation``; ``resilience/policy.is_retryable``)."""
+
+    def __init__(self, name: str, cuda_error: int) -> None:
+        super().__init__(
+            f"{name} kernel launch failed: cudaError_t {cuda_error}")
+        self.kernel = name
+        self.cuda_error = int(cuda_error)
+
+
 def check(name: str, err: int) -> None:
-    """Raise on a nonzero cudaError_t from a launch function."""
+    """Raise ``KernelLaunchError`` on a nonzero cudaError_t from a launch
+    function."""
     if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: cudaError_t {err}")
+        raise KernelLaunchError(name, err)
 
 
 def ptxas(name: str) -> str:

@@ -49,11 +49,12 @@ logger = logging.getLogger(__name__)
 
 def reset_run() -> None:
     """Fresh metrics, events, kernel costs, flow recorder, heartbeat,
-    OpenMetrics provider, index and fleet snapshots for a new run (the
-    trace recorder's lifetime is the CLI invocation, managed by
-    start/stop)."""
+    OpenMetrics provider, index and fleet snapshots and dispatch retry
+    counts for a new run (the trace recorder's lifetime is the CLI
+    invocation, managed by start/stop)."""
     from galah_tpu_torch import fleet as fleet_pkg
     from galah_tpu_torch import index as index_pkg
+    from galah_tpu_torch.resilience import dispatch as rdispatch
 
     metrics.reset()
     events.reset()
@@ -63,6 +64,7 @@ def reset_run() -> None:
     openmetrics.reset()
     index_pkg.reset()
     fleet_pkg.reset()
+    rdispatch.reset_counts()
 
 
 def _shard_context(report_path: Optional[str]) -> Optional[int]:

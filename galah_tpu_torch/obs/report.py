@@ -40,6 +40,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from galah_tpu_torch.obs.heartbeat import OCC_RE as _OCC_RE
+from galah_tpu_torch.resilience import dispatch as rdispatch
 
 logger = logging.getLogger(__name__)
 
@@ -131,6 +132,10 @@ def assemble(subcommand: str, clock=None,
 
     counters = clock.counters() if clock is not None else {}
     disp, sync = _split_dispatch_counters(counters)
+    # the guarded dispatch sites' retries in this run, among the
+    # counters as galah_tpu's report has them
+    retries = rdispatch.retry_counts()
+    counters.update({f"retries[{site}]": n for site, n in retries.items()})
     elapsed = clock.elapsed() if clock is not None else 0.0
 
     metrics = obs_metrics.snapshot()
@@ -179,9 +184,10 @@ def assemble(subcommand: str, clock=None,
             },
         },
         "resilience": {
-            # the port retries only genome reads (`retry` events) and
-            # never demotes a kernel or the device
-            "retries": {},
+            # the guarded dispatch sites' retries (genome reads retry
+            # too, as `retry` events only); the port never demotes a
+            # site to the CPU or a plain version, it raises
+            "retries": retries,
             "demotions": [],
             "quarantined_genomes": counters.get(
                 "quarantined-genomes", 0),
@@ -677,6 +683,14 @@ def diff(a: dict, b: dict, label_a: str = "A",
         delta = ("" if va is None or vb is None
                  else f" ({vb - va:+.6g})")
         lines.append(f"  {name}: {va} -> {vb}{delta}")
+
+    ya = a.get("resilience", {}).get("retries", {}) or {}
+    yb = b.get("resilience", {}).get("retries", {}) or {}
+    if ya or yb:
+        lines += ["", "retries:"]
+        for site in sorted(set(ya) | set(yb)):
+            va, vb = ya.get(site, 0), yb.get(site, 0)
+            lines.append(f"  {site}: {va} -> {vb} ({vb - va:+d})")
 
     ra = {d["site"] for d in a.get("resilience", {}).get("demotions", [])}
     rb = {d["site"] for d in b.get("resilience", {}).get("demotions", [])}

@@ -31,7 +31,11 @@ consumer thread. The store
 decides what a sketch is: the finch ``SketchStore`` makes MinHash
 sketches, the dashing ``HLLStore`` HLL registers.
 ``iter_sketch_row_blocks`` turns the finch stream into blocks of
-sketch rows on the device for the streamed pair pass.
+sketch rows on the device for the streamed pair pass. Each group's
+sketch is a guarded call at the store's dispatch site
+(``dispatch.sketch-minhash`` or ``dispatch.sketch-hll``,
+``resilience/dispatch.py``), and each read first consults the fault
+injector at ``io.ingest[<path>]``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ from galah_tpu_torch.ops.minhash import (sketch_genome_device,
                                          sketch_matrix)
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.u64 import from_biased
+from galah_tpu_torch.resilience import dispatch as rdispatch
+from galah_tpu_torch.resilience import faults
 from galah_tpu_torch.timing import StageClock, Stopwatch
 
 # Concurrency contract (GL8xx lint and the GALAH_SAN sanitizer): the
@@ -173,6 +179,29 @@ def sketch_genomes_fused(genomes: Sequence[Genome],
     return out  # type: ignore[return-value]
 
 
+def _ingest_read(path: str) -> Genome:
+    """The FASTA read of the stream, with the fault injector consulted
+    first at the site ``io.ingest[<path>]``, so that slow disks and
+    backpressure are testable (``GALAH_FI`` kind ``slow-io``;
+    ``galah_tpu/ops/sketch_stream._ingest_read``)."""
+    injector = faults.get_injector()
+    if injector is not None:
+        injector.filesystem(f"io.ingest[{path}]")
+    return read_genome(path)
+
+
+def _guarded_sketch_group(store, genomes: List[Genome]) -> list:
+    """``store.sketch_group(genomes)`` at the store's dispatch site
+    (``dispatch.sketch-minhash`` for the finch ``SketchStore``,
+    ``dispatch.sketch-hll`` for the dashing ``HLLStore``;
+    ``resilience/dispatch.py``): retried on a transient failure or a
+    result of the wrong length, then raised. The group is loaded and
+    launched again whole on a retry; no per-genome fallback."""
+    return rdispatch.run(store.DISPATCH_SITE,
+                         lambda: store.sketch_group(genomes),
+                         validate=rdispatch.expect_len(len(genomes)))
+
+
 def _iter_computed(paths: Sequence[str], store, threads: int,
                    waits: obs_flow.WaitTotal, pre=None
                    ) -> Iterator[Tuple[str, object]]:
@@ -193,9 +222,9 @@ def _iter_computed(paths: Sequence[str], store, threads: int,
 
     read_s = store.clock.work_seconds["read"]
     if pre is None:
-        read, bases = read_genome, (lambda g: g.codes.shape[0])
+        read, bases = _ingest_read, (lambda g: g.codes.shape[0])
     else:
-        read = prefilter.screening(read_genome, store.k)
+        read = prefilter.screening(_ingest_read, store.k)
         bases = (lambda r: r.genome.codes.shape[0])
     reads = iter_prefetched(paths, store.clock.timed(read, "read"),
                             depth=ingest_depth(threads))
@@ -211,7 +240,8 @@ def _iter_computed(paths: Sequence[str], store, threads: int,
         with obs_flow.span("sketch"), store.clock.stage("sketch"):
             if pre is not None:
                 batch = pre.screen(batch)
-            sketches = (store.sketch_group([g for _, g in batch])
+            sketches = (_guarded_sketch_group(store,
+                                              [g for _, g in batch])
                         if batch else [])
         yield from ((p, s) for (p, _), s in zip(batch, sketches))
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from galah_tpu_torch.obs import metrics as obs_metrics
+from galah_tpu_torch.resilience import dispatch as rdispatch
 from galah_tpu_torch.timing import Stopwatch
 
 logger = logging.getLogger(__name__)
@@ -126,12 +127,22 @@ def exchange(tag: str, value: np.ndarray, fill=0) -> np.ndarray:
     *shape) with rank p's value at [p]. Values of different shapes are
     padded with `fill` to the largest shape on every axis first.
 
-    Every collective of the port goes through here, under the site name
-    ``collective.<tag>``; its seconds and count go to the metrics
-    ``distributed.exchange_seconds`` and ``distributed.exchanges``. A
-    failure raises on this rank; the peers' collectives fail with it
-    (or at their timeout). In one process the value comes back with a
-    leading axis of 1."""
+    Every collective of the port goes through here, a guarded call at
+    the dispatch site ``collective.<tag>`` (``resilience/dispatch.py``),
+    with no fallback; its seconds and count go to the metrics
+    ``distributed.exchange_seconds`` and ``distributed.exchanges``. An
+    injected fault fires before this rank enters the collective, so it
+    is retried; a failure of the collective itself is not (the peers
+    may have left it): it raises on this rank, and the peers'
+    collectives fail with it (or at their timeout). In one process the
+    value comes back with a leading axis of 1."""
+    return rdispatch.run(f"collective.{tag}",
+                         lambda: _all_gather(tag, value, fill))
+
+
+def _all_gather(tag: str, value: np.ndarray, fill) -> np.ndarray:
+    """``exchange``'s collective, unguarded; any failure a
+    ``RuntimeError`` naming the tag and this rank."""
     value = np.ascontiguousarray(value)
     if process_count() == 1:
         return value[None].copy()

@@ -1,28 +1,40 @@
-"""Seeded fault injection at the durable-write sites: the port's copy of
-``galah_tpu/resilience/faults.py``'s filesystem and kill kinds.
+"""Seeded fault injection at the device-dispatch and durable-write
+sites: the port's copy of ``galah_tpu/resilience/faults.py``.
 
-``io/atomic.py`` consults the injector at its named ``io.atomic.*``
+Dispatch kinds, consulted by the dispatch supervisor
+(``resilience/dispatch.py``) at its ``dispatch.*`` and
+``collective.<tag>`` sites:
+
+* ``raise``: ``TransientDispatchError`` before the dispatch runs;
+* ``device-lost``: ``DeviceLostError``, likewise;
+* ``hang``: sleep ``hang`` seconds before the dispatch (the attempt
+  deadline, ``GALAH_RETRY_ATTEMPT_DEADLINE``, is what must catch it);
+* ``garbage``: let the dispatch run, then drop its result's last
+  element, so that the site's validation rejects it.
+
+Filesystem kinds, consulted by ``io/atomic.py`` at its ``io.atomic.*``
 sites (``io.atomic.write[ckpt.distances]``,
-``io.atomic.append[ckpt.greedy]``, ...):
+``io.atomic.append[ckpt.greedy]``, ...) and by the finch sketch stream
+before each FASTA read (``io.ingest[<path>]``):
 
 * ``enospc``, ``eio``: ``OSError`` before the write starts;
 * ``torn-write``: half the payload reaches the disk, then the write
   fails (readers must treat the debris as absent);
-* ``slow-io``: sleep ``hang`` seconds before the write;
-* ``kill``: ``os._exit(KILL_EXIT_CODE)``, the process dies on the spot
-  with no cleanup, as a preemption or ``kill -9`` would.
+* ``slow-io``: sleep ``hang`` seconds before the write or read.
+
+And ``kill``, at any site of either family: ``os._exit(KILL_EXIT_CODE)``,
+the process dies on the spot with no cleanup, as a preemption or
+``kill -9`` would (the chaos harness, ``resilience/chaos.py``).
 
 Configured programmatically (``install``) or from the environment::
 
-    GALAH_FI="site=io.atomic.append[ckpt.greedy];kind=kill;prob=0.5;seed=3;max=1"
+    GALAH_FI="site=dispatch.ani;kind=raise;prob=0.3;seed=7;max=2"
 
 Specs are separated by ``|``; ``site`` prefix-matches the site name
 (empty matches all); ``max`` caps the faults a spec fires; ``seed``
-makes its coin flips reproducible: whether the n-th matching call
-faults depends only on the spec's seed and site and on n, as in
-``galah_tpu``. The dispatch kinds of ``galah_tpu`` (``raise``,
-``device-lost``, ``hang``, ``garbage``) belong to its dispatch
-wrapper, which the port does not have: a spec naming one is refused.
+makes its coin flips reproducible. A spec draws only at the sites where
+its kind can fire, so whether its n-th eligible call faults depends
+only on its seed and site and on n, as in ``galah_tpu``.
 """
 
 from __future__ import annotations
@@ -37,18 +49,24 @@ import time
 from typing import List, Optional, Sequence
 
 from galah_tpu_torch.config import env_value
+from galah_tpu_torch.resilience.policy import (DeviceLostError,
+                                               TransientDispatchError)
 
 logger = logging.getLogger(__name__)
 
 FS_FAULT_KINDS = ("enospc", "eio", "torn-write", "slow-io")
-FAULT_KINDS = FS_FAULT_KINDS + ("kill",)
-
-#: ``galah_tpu``'s kinds that fire at device dispatch sites
-DISPATCH_KINDS = ("raise", "device-lost", "hang", "garbage")
+FAULT_KINDS = (("raise", "device-lost", "hang", "garbage", "kill")
+               + FS_FAULT_KINDS)
 
 #: the exit status of ``kill``: SIGKILL's, so a harness treats an
 #: injected kill as a real one
 KILL_EXIT_CODE = 137
+
+#: kinds eligible at dispatch sites (``before_dispatch``; ``garbage``
+#: draws in ``corrupt``)
+_DISPATCH_KINDS = frozenset({"raise", "device-lost", "hang", "kill"})
+#: kinds eligible at filesystem sites (``filesystem``)
+_FS_KINDS = frozenset(FS_FAULT_KINDS) | {"kill"}
 
 
 @dataclasses.dataclass
@@ -56,18 +74,13 @@ class FaultSpec:
     """One fault source: where, how often, what, for how long."""
 
     site: str = ""
-    kind: str = "raise"  # galah_tpu's default, refused here
+    kind: str = "raise"
     prob: float = 1.0
     seed: int = 0
     max_faults: Optional[int] = None
     hang_seconds: float = 30.0
 
     def __post_init__(self) -> None:
-        if self.kind in DISPATCH_KINDS:
-            raise ValueError(
-                f"fault kind {self.kind!r} fires at device dispatch "
-                f"sites, which galah_tpu_torch does not have; choices: "
-                f"{FAULT_KINDS}")
         if self.kind not in FAULT_KINDS:
             raise ValueError(f"unknown fault kind {self.kind!r}; "
                              f"choices: {FAULT_KINDS}")
@@ -107,9 +120,10 @@ def parse_spec(text: str) -> List[FaultSpec]:
 
 
 class FaultInjector:
-    """Seeded fault source consulted by ``io/atomic.py``; thread-safe
-    (the read-ahead threads may write too). Each spec draws from its
-    own RNG, seeded as ``galah_tpu``'s is."""
+    """Seeded fault source consulted by the dispatch supervisor and
+    ``io/atomic.py``; thread-safe (the read-ahead threads read and may
+    write too). Each spec draws from its own RNG, seeded as
+    ``galah_tpu``'s is."""
 
     def __init__(self, specs: Sequence[FaultSpec], sleep=time.sleep) -> None:
         self._specs = list(specs)
@@ -124,9 +138,15 @@ class FaultInjector:
         with self._lock:
             return sum(self._fired)
 
-    def _draw(self, site: str) -> Optional[FaultSpec]:
+    def _draw(self, site: str, kinds) -> Optional[FaultSpec]:
+        """One seeded coin flip per matching spec of a kind in `kinds`.
+        Specs of other kinds are skipped without advancing their RNG, so
+        a spec's schedule depends only on the sites where it was
+        eligible."""
         with self._lock:
             for n, spec in enumerate(self._specs):
+                if spec.kind not in kinds:
+                    continue
                 if not site.startswith(spec.site):
                     continue
                 if (spec.max_faults is not None
@@ -137,19 +157,40 @@ class FaultInjector:
                     return spec
         return None
 
+    @staticmethod
+    def _kill(site: str) -> None:
+        logger.error("fault injector: KILL at %s (exit %d)", site,
+                     KILL_EXIT_CODE)
+        # no atexit, no finally, no flush: die as a preemption does
+        os._exit(KILL_EXIT_CODE)
+
+    def before_dispatch(self, site: str) -> None:
+        """Called before a guarded dispatch at `site`: may raise, sleep
+        or end the process."""
+        spec = self._draw(site, _DISPATCH_KINDS)
+        if spec is None:
+            return
+        logger.warning("fault injector: %s at %s", spec.kind, site)
+        if spec.kind == "kill":
+            self._kill(site)
+        if spec.kind == "raise":
+            raise TransientDispatchError(
+                f"injected transient fault at {site}")
+        if spec.kind == "device-lost":
+            raise DeviceLostError(f"injected device loss at {site}")
+        if spec.kind == "hang":
+            self._sleep(spec.hang_seconds)
+
     def filesystem(self, site: str) -> Optional[str]:
-        """Called before a durable write at `site`: may raise
-        ``OSError``, sleep, end the process, or return ``"torn-write"``
-        for the writer to half-write and fail."""
-        spec = self._draw(site)
+        """Called before a durable write (or an ingest read) at `site`:
+        may raise ``OSError``, sleep, end the process, or return
+        ``"torn-write"`` for the writer to half-write and fail."""
+        spec = self._draw(site, _FS_KINDS)
         if spec is None:
             return None
         logger.warning("fault injector: %s at %s", spec.kind, site)
         if spec.kind == "kill":
-            logger.error("fault injector: KILL at %s (exit %d)", site,
-                         KILL_EXIT_CODE)
-            # no atexit, no finally, no flush: die as a preemption does
-            os._exit(KILL_EXIT_CODE)
+            self._kill(site)
         if spec.kind == "enospc":
             raise OSError(errno.ENOSPC, f"injected ENOSPC at {site}")
         if spec.kind == "eio":
@@ -158,6 +199,20 @@ class FaultInjector:
             self._sleep(spec.hang_seconds)
             return None
         return "torn-write"
+
+    def corrupt(self, site: str, result):
+        """Called on a guarded dispatch's result: a ``garbage`` spec
+        that fires drops its last element (None for a result that cannot
+        be sliced). Only ``garbage`` specs draw here, so a spec that
+        raised before the dispatch never also corrupts."""
+        spec = self._draw(site, ("garbage",))
+        if spec is None:
+            return result
+        logger.warning("fault injector: garbage at %s", site)
+        try:
+            return result[:-1]  # wrong length
+        except TypeError:
+            return None
 
 
 _INSTALLED: Optional[FaultInjector] = None

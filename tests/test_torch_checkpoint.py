@@ -110,9 +110,15 @@ def test_parse_spec_matches_galah_tpu():
 
 @pytest.mark.parametrize("kind", ["raise", "device-lost", "hang",
                                   "garbage"])
-def test_dispatch_kinds_are_refused_by_name(kind):
-    with pytest.raises(ValueError, match=kind):
-        tfaults.parse_spec(f"site=dispatch.ani;kind={kind}")
+def test_dispatch_kinds_parse_as_galah_tpus(kind):
+    """The dispatch kinds fire at the dispatch supervisor's sites
+    (resilience/dispatch.py): each is accepted and parses to
+    galah_tpu's spec."""
+    text = f"site=dispatch.ani;kind={kind};prob=0.5;seed=4;max=2;hang=0.5"
+    got = tfaults.parse_spec(text)
+    assert [vars(s) for s in got] == \
+        [vars(s) for s in jfaults.parse_spec(text)]
+    assert got[0].kind == kind and kind in tfaults.FAULT_KINDS
 
 
 @pytest.mark.parametrize("spec", ["kind=nope", "site=x;kind=eio;prob=2",

@@ -382,10 +382,10 @@ def _port_source(rel):
 
 
 def test_registries_name_the_ports_modules():
-    # galah_tpu's 15 less resilience/dispatch.py (not ported), and the
-    # port's C parser, C collision counter and page store
+    # galah_tpu's 15, and the port's C parser, C collision counter and
+    # page store
     assert len(jconc.THREADED_MODULES) == 15
-    assert len(conc.THREADED_MODULES) == 17
+    assert len(conc.THREADED_MODULES) == 18
     # the eight strategy families (bucketing's among them), and
     # ops/megakernel.py and ops/device_queue.py
     assert len(det.STRATEGY_MODULES) == 10
