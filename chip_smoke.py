@@ -41,7 +41,11 @@ Phases, each of which exits nonzero when it fails:
    65,536, 131,072 and 262,144 (clusters of 2, 4 and 8) with edges near
    the diagonal and edges reaching across blocks, each with a chain
    spread over every block at its bound and one iteration short, and
-   width 524,288 (global memory);
+   width 524,288 (global memory); tile_stats' gathered entry (the
+   survivor strategy gather) at K = 1000 on a near-clique list (every
+   cell of 2 segments), a ragged list crossing row blocks and column
+   pieces and a list of 4 segments at fill ~0.3, against its plain
+   version and pairlist's;
 4. end to end, skani: a MAG-like corpus made from the seed (512 genomes
    of ~2 Mbp in 128 planted families of 4 at ~99% ANI to the family
    base) through the ``cluster`` entry point on cuda; the clusters must
@@ -243,7 +247,7 @@ Phases, each of which exits nonzero when it fails:
    in this one process must run on ``cuda:0``; (d) ``python -m
    galah_tpu_torch lint --json --ir-cache-dir`` on this tree, cold on a
    fresh directory and then warm on it, must exit 0 with no
-   unsuppressed finding, run ten checker families, hold the 10 bound C
+   unsuppressed finding, run ten checker families, hold the 11 bound C
    functions against their prototypes and give equal findings; the
    cold run must leave one ``ir-*.json`` a Python file scanned, and the
    warm run must add and rewrite none; the files, C functions, each
@@ -304,6 +308,19 @@ Phases, each of which exits nonzero when it fails:
    galah_tpu_torch.resilience.chaos --iterations 2 --device cuda`` with
    a kill at a dispatch site and a torn write, a process started before
    (a) and waited for after 4n. The phase prints its walls;
+4x. the device-policy flags, in process, after 4r's crossover run: (a)
+   its 1024 x 20 kb genomes under GALAH_TPU_PAIRLIST_STRATEGY=gather
+   (no pairlist launch, at least one of tile_stats.cu's gathered
+   entry), =blocked (pairlist) and GALAH_TPU_DENSE_PAIRS=1 (no
+   pairlist, full-form tile_stats), each TSV the AUTO run's (which
+   launched pairlist and no gathered tile); the gathered entry is then
+   timed at the list the gather run gave it; (b) finch 256 under
+   GALAH_TPU_SPARSE_MIN_N=128 (pairlist, 4c's TSV); (c) skani 256 under
+   GALAH_TPU_FRAGMENT_PAIRS=2 (its TSV, more window_hits launches than
+   without); (d) finch 256 under GALAH_TPU_SKETCH_STRATEGY=xla (no
+   fused_sketch, murmur3_k21, 4c's TSV); (e) each pin the card refuses
+   (pairlist xla and cpu, fragment xla and c, sketch c) exits 1 naming
+   its flag, with no launch and no TSV;
 (phases 4-4f build profiles, so each requires positional_hashes
 launches; they run with --threads 8: reads go 8 ahead on 8 threads; each
 prints the consumer's wait for reads, stage `read`, and the reading
@@ -1653,7 +1670,7 @@ def phase_lint(root, tag):
         active = [f for f in rep["findings"] if not f["suppressed"]]
         scanned = rep["scanned"]
         families = scanned.get("families_s") or {}
-        if active or scanned["c_entries"] != 10 or len(families) != 10 \
+        if active or scanned["c_entries"] != 11 or len(families) != 10 \
                 or "effects" not in families:
             raise PhaseError(f"lint ({run}): {len(active)} unsuppressed "
                              f"finding(s), {scanned}")
@@ -2451,7 +2468,8 @@ def index_pair_pass(torch, device, seed, tag):
     # pi: the inserted row g, pj: every u < g, as insert lists them
     pi, pj = incremental.pairs_below(np.arange(n_rows, dtype=np.int64),
                                      CATALOGUE_ROWS, n_rows)
-    common, total = pair_stats_for_pairs(mat, pi, pj, k)
+    common, total = pair_stats_for_pairs(mat, pi, pj, k,
+                                         strategy="blocked")
     # the plain version on a seeded sample of the list, on the card
     sample = np.sort(rng.choice(pi.shape[0], size=PASS_SAMPLE,
                                 replace=False))
@@ -2490,8 +2508,8 @@ def index_pair_pass(torch, device, seed, tag):
             torch.empty(pi.shape[0], dtype=torch.int32, device=device))
     kernel_ms = time_ms(torch, lambda: run_launch(mat, lens, tpi, tpj, k,
                                                   *outs), 5)
-    pass_ms = host_ms(torch, lambda: pair_stats_for_pairs(mat, pi, pj, k),
-                      3)
+    pass_ms = host_ms(torch, lambda: pair_stats_for_pairs(
+        mat, pi, pj, k, strategy="blocked"), 3)
     j_thr = ani_to_jaccard(0.90, 21)
     kept_ms = host_ms(torch, lambda: incremental.kept_pairs(
         mat, pi, pj, k, 21, j_thr, StageClock(device)), 3)
@@ -3196,7 +3214,7 @@ def phase_profiled(root, runs, threads, tag, control="finch 1024"):
     files, and the `control` run again with GALAH_OBS_PROFILE=0 and
     GALAH_OBS_FLOW=0. Every kernel must launch in some run. Returns the
     record's entries."""
-    from galah_tpu_torch.kernels import KERNELS
+    from galah_tpu_torch.kernels import ENTRIES, KERNELS
     from galah_tpu_torch.obs import heartbeat as obs_heartbeat
     from galah_tpu_torch.obs import report as report_mod
 
@@ -3236,7 +3254,7 @@ def phase_profiled(root, runs, threads, tag, control="finch 1024"):
             raise PhaseError(f"profiled {what}: device_costs calls {calls}"
                              f" are not the dispatches {disp}")
         trace_bytes, in_trace, span_s, busy_s = profiler_trace(
-            os.path.join(d, "trace"), KERNELS)
+            os.path.join(d, "trace"), KERNELS + ENTRIES)
         in_trace = {k: v for k, v in in_trace.items() if v}
         if in_trace != disp:
             raise PhaseError(f"profiled {what}: the profiler trace's "
@@ -4225,6 +4243,7 @@ def counting_plain_versions(counts):
     for mod, name in ((window_hits, "window_element_hits_plain"),
                       (tile_stats, "tile_stats_plain"),
                       (tile_stats, "tile_intersect_plain"),
+                      (tile_stats, "gather_stats_plain"),
                       (fused_sketch, "fused_candidates_plain"),
                       (pairlist, "pair_stats_pairs_plain"),
                       (hll_union, "hll_union_stats_plain"),
@@ -4473,6 +4492,238 @@ def finish_dispatch_chaos(out, tag):
           f"waiting for (d) after 4n {tag}")
 
 
+# ---------------------------------------------------------------------------
+# the device-policy flags (phase 3's gathered-tile parity, phase 4x)
+# ---------------------------------------------------------------------------
+
+# phase 4x (b): the crossover moved under finch 256, and (c): the
+# directed queries a window_hits launch may take
+POLICY_MIN_N = 128
+POLICY_FRAGMENT_PAIRS = 2
+# (e): the pins the card refuses
+REFUSED_PINS = (("GALAH_TPU_PAIRLIST_STRATEGY", "xla"),
+                ("GALAH_TPU_PAIRLIST_STRATEGY", "cpu"),
+                ("GALAH_TPU_FRAGMENT_STRATEGY", "xla"),
+                ("GALAH_TPU_FRAGMENT_STRATEGY", "c"),
+                ("GALAH_TPU_SKETCH_STRATEGY", "c"))
+
+
+def gather_lists(rng, n_rows=512):
+    """Phase 3's lists for tile_stats.cu's gathered entry at K = 1000:
+    (what, rows, pi, pj). A near-clique list (2 segments, every cell
+    listed), a ragged one crossing row blocks and column pieces (random
+    pairs over 300 rows, j up to 200 past i), and one of 4 segments at
+    fill ~0.3 (``kernels/rehearse_gather.fill_list``)."""
+    from galah_tpu_torch.kernels.rehearse_gather import (family_matrix,
+                                                         fill_list)
+
+    mat = family_matrix(rng, n_rows)
+    pi = rng.integers(0, 299, size=3000).astype(np.int64)
+    pj = np.minimum(pi + 1 + rng.integers(0, 200, size=3000), 299)
+    return mat, [("near-clique", *fill_list(rng, 2, 1.0, n_rows)),
+                 ("ragged", pi, pj),
+                 ("4 segments", *fill_list(rng, 4, 0.3, n_rows))]
+
+
+def gather_parity(torch, device, rng, tag):
+    """The gathered entry against its plain version (the planner, the
+    segments' rows gathered, tile_stats' plain version, the cells
+    picked) on phase 3's lists at sketch sizes 1000 and 333, and
+    against pairlist's plain version. Returns the max abs error (0)."""
+    from galah_tpu_torch.ops.pairlist import pair_stats_pairs_plain
+    from galah_tpu_torch.ops.sparse_device import (gather_pair_stats,
+                                                   plan_gather_segments)
+
+    mat, lists = gather_lists(rng)
+    on_card = torch.from_numpy(mat).to(device)
+    on_cpu = torch.from_numpy(mat)
+    for what, pi, pj in lists:
+        pi32, pj32 = pi.astype(np.int32), pj.astype(np.int32)
+        order = np.lexsort((pj32, pi32))
+        segs, cells = plan_gather_segments(pi32[order], pj32[order])
+        for size in (1000, 333):
+            c, t = gather_pair_stats(on_card, pi32, pj32, size)
+            pc, pt = gather_pair_stats(on_cpu, pi32, pj32, size)
+            lc, lt = pair_stats_pairs_plain(
+                on_card, torch.from_numpy(pi).to(device),
+                torch.from_numpy(pj).to(device), size)
+            if not (np.array_equal(c, pc) and np.array_equal(t, pt)
+                    and np.array_equal(c, lc.cpu().numpy())
+                    and np.array_equal(t, lt.cpu().numpy())):
+                raise PhaseError(f"tile_stats' gathered entry disagrees "
+                                 f"with its plain version on the {what} "
+                                 f"list at S={size}")
+        torch.cuda.synchronize()
+        print(f"parity tile_stats gathered: {what}, {pi.shape[0]} pairs in "
+              f"{len(segs)} segments (fill {pi.shape[0] / cells:.3f}), "
+              f"K=1000 S=1000,333, one launch each, exact against the "
+              f"plain version and pairlist's {tag}")
+    return 0
+
+
+@contextlib.contextmanager
+def recording_gather(out):
+    """Append the (matrix, pi32, pj32, sketch size) of each gather route
+    call made inside the block to `out`; the calls go on unchanged."""
+    from galah_tpu_torch.ops import sparse_device
+
+    real = sparse_device.gather_pair_stats
+
+    def gather(mat, pi32, pj32, sketch_size, clock=None):
+        out.append((mat, pi32.copy(), pj32.copy(), sketch_size))
+        return real(mat, pi32, pj32, sketch_size, clock)
+
+    with patched(sparse_device, "gather_pair_stats", gather):
+        yield
+
+
+def time_gather(torch, mat, pi32, pj32, sketch_size):
+    """The gathered entry at one list: whole call
+    (``tile_stats.gather_stats``: plan, upload, launch, readback), the
+    launch alone over a prepared plan, the plain version on the card's
+    tensors, and its bound. ms."""
+    from galah_tpu_torch.kernels import costs
+    from galah_tpu_torch.ops import tile_stats as ts
+    from galah_tpu_torch.ops.pairlist import valid_lengths
+    from galah_tpu_torch.ops.sparse_device import (plan_gather_segments,
+                                                   segment_tables)
+
+    order = np.lexsort((pj32, pi32))
+    segs, cells = plan_gather_segments(pi32[order], pj32[order])
+    ua, ub, seg, ra, rb, _ = segment_tables(segs)
+    plan = ts.plan_gather(mat.device, ua, ub, seg, ra, rb)
+    lens = valid_lengths(mat)
+    out = torch.empty((2, seg.shape[0]), dtype=torch.int32,
+                      device=mat.device)
+    whole = host_ms(torch, lambda: ts.gather_stats(mat, ua, ub, seg, ra, rb,
+                                                   sketch_size), 5)
+    # a launch's host side takes about as long as a small list's kernel:
+    # device_ms keeps the host from pacing the launches
+    alone = device_ms(torch, lambda: ts.run_gather_launch(
+        mat, lens, plan, sketch_size, out[0], out[1]), 20)
+    plain = host_ms(torch, lambda: ts.gather_stats_plain(
+        mat, ua, ub, seg, ra, rb, sketch_size), 3)
+    b_ms, b_by = bound(*costs.tile_stats_gather(
+        plan.n_rows, len(segs), seg.shape[0], mat.shape[1]))
+    return {"pairs": int(seg.shape[0]), "segments": len(segs),
+            "cells": int(cells), "rows": plan.n_rows,
+            "k": int(mat.shape[1]), "ms": whole,
+            "kernel_only_ms": alone, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase_policy(torch, cli, reset_launches, launches_now, kernels, root,
+                 cross, finch_small, skani_small, tag):
+    """Phase 4x: the device-policy flags on the card. (a) 4r's finch
+    1024 x 20 kb (the crossover route) under GALAH_TPU_PAIRLIST_STRATEGY
+    gather and blocked and GALAH_TPU_DENSE_PAIRS=1: each TSV the AUTO
+    run's, gather with no pairlist and a gathered tile_stats launch,
+    blocked with pairlist, dense with no pairlist and full-form
+    tile_stats; (b) finch 256 with the crossover moved to POLICY_MIN_N
+    (pairlist, 4c's TSV); (c) skani 256 at GALAH_TPU_FRAGMENT_PAIRS=2
+    (its TSV, more window_hits launches); (d) finch 256 under
+    GALAH_TPU_SKETCH_STRATEGY=xla (no fused_sketch, murmur3_k21, 4c's
+    TSV); (e) each refused pin exits 1 naming its flag, before any
+    read. `cross`, `finch_small` and `skani_small` are (argv, TSV bytes,
+    launches) of the unpinned runs. Returns the record's entries."""
+    names = [*kernels, "tile_stats_gather"]
+    out = {"runs": {}}
+    t_phase = time.perf_counter()
+    tsv = os.path.join(root, "policy.tsv")
+
+    def run(what, argv, flags, want_tsv):
+        with env_set(flags):
+            res, wall, launches = run_path(
+                torch, cli, reset_launches, launches_now,
+                [*argv, "--output-cluster-definition", tsv])
+        with open(tsv, "rb") as fh:
+            if fh.read() != want_tsv:
+                raise PhaseError(f"policy {what}: the TSV differs from the "
+                                 "unpinned run's")
+        shown = {k: launches[k] for k in names if launches[k]}
+        counts = {k: v for k, v in res.clock.counts.items()
+                  if k.startswith(("pairlist-", "fragment-strategy",
+                                   "sketch-strategy", "pairs-streamed"))}
+        out["runs"][what] = {"wall_s": wall, "launches": shown,
+                             "counts": counts}
+        print(f"policy {what}: TSV equal to the unpinned run's; wall "
+              f"{wall:.2f} s; launches {shown}; counts {counts} {tag}")
+        return launches
+
+    argv, tsv_cross, launches_auto = cross
+    if launches_auto["pairlist"] < 1 or launches_auto["tile_stats_gather"]:
+        raise PhaseError(f"policy auto: launches {launches_auto}")
+    gathered = []
+    with recording_gather(gathered):
+        g = run("crossover gather", argv,
+                {"GALAH_TPU_PAIRLIST_STRATEGY": "gather"}, tsv_cross)
+    if g["pairlist"] or g["tile_stats_gather"] < 1 or not gathered:
+        raise PhaseError(f"policy gather: launches {g}")
+    b = run("crossover blocked", argv,
+            {"GALAH_TPU_PAIRLIST_STRATEGY": "blocked"}, tsv_cross)
+    if b["pairlist"] < 1 or b["tile_stats_gather"]:
+        raise PhaseError(f"policy blocked: launches {b}")
+    d = run("crossover dense", argv, {"GALAH_TPU_DENSE_PAIRS": "1"},
+            tsv_cross)
+    if d["pairlist"] or d["tile_stats"] < 1 or d["tile_stats_gather"]:
+        raise PhaseError(f"policy dense: launches {d}")
+    out["launches_auto"] = {k: launches_auto[k] for k in names
+                            if launches_auto[k]}
+    # the gathered entry at the list the main path gave it
+    mat, pi32, pj32, size = gathered[0]
+    out["gather_timing"] = time_gather(torch, mat, pi32, pj32, size)
+    del gathered, mat
+    print(f"policy gathered entry at the crossover run's list: "
+          f"{json.dumps(out['gather_timing'])} {tag}")
+
+    argv, tsv_small, launches_small = finch_small
+    m = run("finch 256 crossover 128", argv,
+            {"GALAH_TPU_SPARSE_MIN_N": str(POLICY_MIN_N)}, tsv_small)
+    if m["pairlist"] < 1:
+        raise PhaseError(f"policy sparse min n: launches {m}")
+    x = run("finch 256 sketch xla", argv,
+            {"GALAH_TPU_SKETCH_STRATEGY": "xla"}, tsv_small)
+    if x["fused_sketch"] or x["murmur3_k21"] < 1:
+        raise PhaseError(f"policy sketch xla: launches {x}")
+    argv, tsv_skani, launches_skani = skani_small
+    f = run("skani 256 fragment pairs 2", argv,
+            {"GALAH_TPU_FRAGMENT_PAIRS": str(POLICY_FRAGMENT_PAIRS)},
+            tsv_skani)
+    if f["window_hits"] <= launches_skani["window_hits"]:
+        raise PhaseError(f"policy fragment pairs: {f['window_hits']} "
+                         f"window_hits launches, the unpinned run "
+                         f"{launches_skani['window_hits']}")
+
+    refused = {}
+    for flag, value in REFUSED_PINS:
+        records = LogRecords()
+        named = logging.getLogger("galah_tpu_torch")
+        named.addHandler(records)
+        t0 = time.perf_counter()
+        try:
+            with env_set({flag: value}):
+                _, launches = run_main(
+                    torch, cli, reset_launches, launches_now,
+                    [*skani_small[0], "-q", "--output-cluster-definition",
+                     tsv + ".refused"], want_rc=1)
+        finally:
+            named.removeHandler(records)
+        said = [r.getMessage() for r in records.records
+                if f"{flag}={value}" in r.getMessage()]
+        if not said or any(launches.values()) or os.path.exists(
+                tsv + ".refused"):
+            raise PhaseError(f"policy refusal {flag}={value}: message "
+                             f"{said}, launches {launches}")
+        refused[f"{flag}={value}"] = time.perf_counter() - t0
+        print(f"policy refusal: {flag}={value} exited 1 in "
+              f"{refused[f'{flag}={value}']:.3f} s with {said[0]!r}, "
+              f"launched nothing, wrote no TSV {tag}")
+    out["refused_s"] = refused
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4x: {out['wall_s']:.1f} s {tag}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4698,7 +4949,8 @@ def main(argv=None) -> int:
     dn_ti = torch.from_numpy(dn_pi).to(device)
     dn_tj = torch.from_numpy(dn_pj).to(device)
     for sketch_size in (1000, 333):
-        c, t = pair_stats_for_pairs(dn_mat, dn_pi, dn_pj, sketch_size)
+        c, t = pair_stats_for_pairs(dn_mat, dn_pi, dn_pj, sketch_size,
+                                    strategy="blocked")
         c, t = torch.from_numpy(c).to(device), torch.from_numpy(t).to(device)
         for s0 in range(0, dn_pi.shape[0], 1 << 16):
             pc, pt = pair_stats_pairs_plain(dn_mat, dn_ti[s0:s0 + (1 << 16)],
@@ -4713,6 +4965,8 @@ def main(argv=None) -> int:
         print(f"parity pairlist dense: {dn_np.shape[0]} rows, "
               f"{dn_pi.shape[0]} pairs, K=1000 S={sketch_size}, "
               f"{int((c > 0).sum())} pairs sharing values, exact {tag}")
+    # tile_stats' gathered entry (the survivor strategy gather)
+    gt_err = gather_parity(torch, device, rng, tag)
     # the pair pass's tail launch (64 x 256), a ragged register axis cut
     # into slices (m = 1040: 17 slices of 4 words, the last of 1), and
     # registers up to 255, beside the first cases
@@ -5323,6 +5577,18 @@ def main(argv=None) -> int:
                       f"{CROSSOVER_LENGTH // 1000} kb")
         print(f"{what_cross}: wall {wall_x:.2f} s, launches "
               f"{ {k: v for k, v in launches_x.items() if v} } {tag}")
+        r = None
+
+        # -- phase 4x: the device-policy flags ------------------------------
+        print(f"phase 4x starts {time.perf_counter() - t_script:.1f} s "
+              f"after the device check {tag}")
+        policy_out = phase_policy(
+            torch, cli, reset_launches, LAUNCHES, KERNELS, root,
+            ([*finch_cross, *threads], tsv_cross, launches_x),
+            ([*finch_small, *threads], tsv4c, launches_d),
+            ([*skani_small, *threads], *small["skani"][:2]), tag)
+        gc.collect()
+        torch.cuda.empty_cache()
         prof_out = phase_profiled(root, {
             what_cross: (finch_cross, tsv_cross, launches_x, wall_x),
             f"dashing {n_dense}": (dashing_small, *small["dashing"][:3]),
@@ -5785,7 +6051,7 @@ def main(argv=None) -> int:
         pl_kernel = time_ms(torch, lambda: run_pairlist(
             fmat, flens, tpi, tpj, 1000, *pl_out), 50)
         pl_pass = host_ms(torch, lambda: pair_stats_for_pairs(
-            fmat, pi, pj, 1000), 20)
+            fmat, pi, pj, 1000, strategy="blocked"), 20)
         pl_plain = time_ms(torch, lambda: pair_stats_pairs_plain(
             fmat, tpi, tpj, 1000), 3)
         c_k, t_k = pair_stats_pairs(fmat, tpi, tpj, 1000)
@@ -5809,7 +6075,7 @@ def main(argv=None) -> int:
         dn_kernel = time_ms(torch, lambda: run_pairlist(
             dn_mat, dn_lens, dn_ti, dn_tj, 1000, *dn_out), 5)
         dn_pass = host_ms(torch, lambda: pair_stats_for_pairs(
-            dn_mat, dn_pi, dn_pj, 1000), 3)
+            dn_mat, dn_pi, dn_pj, 1000, strategy="blocked"), 3)
         dn_bound, dn_by = bound(*pl_work(
             dn_pi, dn_pj, 1000, *(t.cpu().numpy() for t in dn_out)))
         print(f"timing pairlist dense: {dn_pi.shape[0]} pairs of "
@@ -6094,6 +6360,26 @@ def main(argv=None) -> int:
          "intersect_wide_k": ts_wide,
          "launches_4q": scale_launches("tile_stats", mesh_out,
                                        ranks_out)},
+        {"name": "tile_stats_gather", "route": "cuda",
+         "source": "galah_tpu_torch/kernels/tile_stats.cu",
+         "replaces": "galah_tpu/ops/pallas_pairwise.py:308",
+         "replaces_note": "tile_stats.cu's gathered-tile entry "
+                          "(tile_stats_gather_launch): galah_tpu's gather "
+                          "strategy runs tile_stats_pallas over gathered "
+                          "rows (ops/sparse_device.py:227-307)",
+         "launches": policy_out["runs"]["crossover gather"]["launches"].get(
+             "tile_stats_gather", 0),
+         "max_abs_err": gt_err,
+         "ms": policy_out["gather_timing"]["ms"],
+         "plain_ms": policy_out["gather_timing"]["plain_ms"],
+         "bound_ms": policy_out["gather_timing"]["bound_ms"],
+         "bound_by": policy_out["gather_timing"]["bound_by"],
+         "library_ms": None,
+         "kernel_only_ms": policy_out["gather_timing"]["kernel_only_ms"],
+         "shape": {k: policy_out["gather_timing"][k]
+                   for k in ("pairs", "segments", "cells", "rows", "k")},
+         "launches_4x": {w: v["launches"].get("tile_stats_gather", 0)
+                         for w, v in policy_out["runs"].items()}},
         {"name": "fused_sketch", "route": "cuda",
          "source": "galah_tpu_torch/kernels/fused_sketch.cu",
          "replaces": "galah_tpu/ops/pallas_sketch.py:400",
@@ -6222,6 +6508,7 @@ def main(argv=None) -> int:
         "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
         "phase_4v_tiered": tier_out,
         "phase_4w_dispatch_faults": fault_out,
+        "phase_4x_policy": policy_out,
         "walls_phase_4l": index_out["walls"],
         "phase_4m_api": {w: {"wall": v["wall"], "cli_wall": v["cli_wall"],
                              "launches": v["launches"]}
@@ -6246,11 +6533,11 @@ def main(argv=None) -> int:
             if k["name"] in run.get("kernels", {})
             and run["kernels"][k["name"]]["calls"]}
         isolated = k.get("kernel_only_ms", k["ms"])
-        print(f"in-run vs isolated {k['name']}: " + ", ".join(
+        print(f"in-run vs isolated {k['name']}: " + (", ".join(
             f"{what} {v['trace']:.4f} (events {v['events']:.4f})"
-            for what, v in k["in_run_ms_4r"].items())
+            for what, v in k["in_run_ms_4r"].items()) or "not launched")
             + f" ms a launch (4r trace spans) against {isolated:.4f} ms "
-            f"(phase 5) {tag}")
+            f"(isolated) {tag}")
     record["phase_4r_profiled"] = prof_out
     print(f"script: {time.perf_counter() - t_script:.1f} s after the "
           f"device check {tag}")

@@ -21,7 +21,10 @@ family reads ``build.py`` by AST, the ``.cu`` sources as text and the
          in ``ops/`` that does not do all three of: run inside a
          ``with PROFILE.launch(...)`` block (the ``obs/profile.py``
          bracket), pass its return to ``build.check(<library>, err)``,
-         and count ``LAUNCHES["<library>"]`` in its function. Together
+         and count ``LAUNCHES["<library>"]`` in its function (or, for
+         a launch function ``<name>_launch`` whose ``<name>`` is one
+         of the further entries counted apart, ``ENTRIES`` in
+         ``kernels/__init__.py``, ``LAUNCHES["<name>"]``). Together
          they are the invariant chip_smoke phase 4r checks on the card:
          calls = dispatches = trace kernel events
   GL114  an ``assert`` in an ``ops/`` function that calls a bound C
@@ -41,7 +44,7 @@ import ast
 import dataclasses
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, FrozenSet, List, Optional
 
 from galah_tpu_torch.analysis.core import (KERNEL_DIR, CudaFile, Finding,
                                            Severity, SourceFile,
@@ -49,6 +52,7 @@ from galah_tpu_torch.analysis.core import (KERNEL_DIR, CudaFile, Finding,
                                            enclosing_functions)
 
 BUILD = f"{KERNEL_DIR}/build.py"
+REGISTRY = f"{KERNEL_DIR}/__init__.py"
 OPS_PREFIX = "galah_tpu_torch/ops/"
 PACKAGE_PREFIX = "galah_tpu_torch/"
 
@@ -308,8 +312,25 @@ def _counts_launches(fn: ast.AST, library: str) -> bool:
     return False
 
 
-def check_wrappers(src: SourceFile, entries: List[Entry]) -> List[Finding]:
-    """GL113 and GL114 over one ``ops/`` module."""
+def counted_apart(sources: Dict[str, SourceFile]) -> FrozenSet[str]:
+    """The names of ``ENTRIES = (...)`` in ``kernels/__init__.py``: the
+    further entries whose launches count under their own names."""
+    src = sources.get(REGISTRY)
+    if src is None or isinstance(src, CudaFile):
+        return frozenset()
+    for node in src.tree.body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)) and any(
+                isinstance(t, ast.Name) and t.id == "ENTRIES"
+                for t in (node.targets if isinstance(node, ast.Assign)
+                          else [node.target])):
+            return frozenset(ast.literal_eval(node.value))
+    return frozenset()
+
+
+def check_wrappers(src: SourceFile, entries: List[Entry],
+                   apart: FrozenSet[str] = frozenset()) -> List[Finding]:
+    """GL113 and GL114 over one ``ops/`` module; a launch of an entry
+    named in `apart` (``counted_apart``) counts under that name."""
     if not src.path.startswith(OPS_PREFIX):
         return []
     bound = {e.function: e for e in entries}
@@ -335,9 +356,12 @@ def check_wrappers(src: SourceFile, entries: List[Entry]) -> List[Finding]:
         if fn is None or not _checked(node, fn, parents, e.library):
             missing.append(f"its return never reaches "
                            f"build.check({e.library!r}, err)")
-        if fn is None or not _counts_launches(fn, e.library):
+        counter = e.function[:-len("_launch")]
+        if counter not in apart:
+            counter = e.library
+        if fn is None or not _counts_launches(fn, counter):
             missing.append(f"its function never counts "
-                           f"LAUNCHES[{e.library!r}]")
+                           f"LAUNCHES[{counter!r}]")
         for what in missing:
             findings.append(Finding(
                 "GL113", Severity.ERROR, src.path, node.lineno,
@@ -390,10 +414,11 @@ def check_kernels(sources: Dict[str, SourceFile]) -> List[Finding]:
     if build_src is not None and not isinstance(build_src, CudaFile):
         entries = bound_entries(build_src)
         findings.extend(check_signatures(build_src, cuda))
+    apart = counted_apart(sources)
     for path, src in sorted(sources.items()):
         if isinstance(src, CudaFile):
             continue
-        findings.extend(check_wrappers(src, entries))
+        findings.extend(check_wrappers(src, entries, apart))
         findings.extend(check_u64(src))
     return findings
 

@@ -217,6 +217,10 @@ def _exact_ani(clock: StageClock,
     ``--ani-subsample c``)."""
     with clock.stage("exact-ani"):
         clock.count("directed_queries", 2 * len(pairs))
+        if pairs:
+            # galah_tpu's count, once a batch of directed queries
+            clock.count("fragment-strategy-" + fragment_ani
+                        .resolve_fragment_strategy(clock.device.type), 1)
         # the guarded dispatch site of galah_tpu's _guarded_ani_values:
         # retried, then raised (no per-pair fallback)
         anis = rdispatch.run(

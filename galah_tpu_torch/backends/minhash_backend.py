@@ -51,7 +51,8 @@ from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.ops import bucketing, collision, sketch_stream
 from galah_tpu_torch.ops.constants import SENTINEL_U64
 from galah_tpu_torch.ops.hll import DEFAULT_P, hll_cardinality
-from galah_tpu_torch.ops.minhash import sketch_matrix, sketch_rows
+from galah_tpu_torch.ops.minhash import (sketch_genomes_device_batch,
+                                         sketch_matrix, sketch_rows)
 from galah_tpu_torch.ops.minhash_np import MinHashSketch
 from galah_tpu_torch.ops.pairwise import (iter_threshold_pairs_streamed,
                                           threshold_pairs)
@@ -156,11 +157,21 @@ class SketchStore:
         ``insert``'s; the prefilter's counters count it."""
         return self.insert(path, s)
 
+    def sketch_strategy(self) -> str:
+        """The store's sketch route (``GALAH_TPU_SKETCH_STRATEGY``, read
+        at each call; ``sketch_stream.resolve_sketch_strategy``)."""
+        return sketch_stream.resolve_sketch_strategy(self.device.type)
+
     def sketch_group(self, genomes: Sequence[Genome]
                      ) -> List[MinHashSketch]:
-        """Fused-kernel sketches of a launch group's genomes."""
-        return sketch_genomes_fused(genomes, self.sketch_size, self.k,
-                                    self.algo, self.device, self.clock)
+        """Sketches of a launch group's genomes: one fused launch (the
+        route ``fused``), or each genome on the exact route (``xla``, and
+        on the CPU ``c``); the sketches are equal."""
+        if self.sketch_strategy() == "fused":
+            return sketch_genomes_fused(genomes, self.sketch_size, self.k,
+                                        self.algo, self.device, self.clock)
+        return sketch_genomes_device_batch(genomes, self.sketch_size,
+                                           self.k, self.algo, self.device)
 
 
 class MinHashPreclusterer(PreclusterBackend):
@@ -201,13 +212,15 @@ class MinHashPreclusterer(PreclusterBackend):
         where the staged pass streams, and so gives the same pairs: one
         process, unique paths, below the sparse crossover, and the
         bucketed pass not engaged (it needs every cardinality before
-        its first band); None otherwise. The stripes go over
-        ``parallel/mesh.auto_mesh`` of the store's device, as the
+        its first band), and not the sketch route ``c``, which
+        ``galah_tpu``'s stream declines too; None otherwise. The stripes
+        go over ``parallel/mesh.auto_mesh`` of the store's device, as the
         staged pass's do."""
         store = self.store
         n = len(genome_paths)
         if (distributed.process_count() > 1
-                or n >= collision.SPARSE_SCREEN_MIN_N
+                or store.sketch_strategy() == "c"
+                or n >= collision.sparse_screen_min_n()
                 or len(dict.fromkeys(genome_paths)) != n
                 or bucketing.bucketing_engaged(n)):
             return None

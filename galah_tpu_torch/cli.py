@@ -236,10 +236,10 @@ def _add_index_parser(sub) -> argparse.ArgumentParser:
                      help="Directory for the persistent sketch cache "
                           "(also via GALAH_TPU_CACHE)")
     ixi.add_argument("--threads", "-t", type=int, default=1)
-    ixi.add_argument("--batch", type=int, default=Defaults.INDEX_BATCH,
+    ixi.add_argument("--batch", type=int, default=None,
                      help="Genomes per durable append batch — the "
                           "preemption safe-boundary granularity "
-                          f"(default: {Defaults.INDEX_BATCH})")
+                          "(default: GALAH_TPU_INDEX_BATCH)")
     ixi.add_argument("--resume", action="store_true",
                      help="Continue an interrupted insert: uncommitted "
                           "appends past the last committed generation "

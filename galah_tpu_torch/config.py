@@ -32,9 +32,6 @@ class Defaults:
     CLUSTER_METHOD = "skani"         # choices: skani, fastani
     QUALITY_FORMULA = "Parks2020_reduced"
     ANI_SUBSAMPLE = 1                # --ani-subsample: FracMinHash c
-    # genomes per durable `index insert` batch, the preemption boundary
-    # (galah_tpu's GALAH_TPU_INDEX_BATCH default)
-    INDEX_BATCH = 32
 
 
 PRECLUSTER_METHODS = ("skani", "finch", "dashing")
@@ -123,6 +120,57 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
     Flag("GALAH_TPU_INDEX_DIR", section="runtime",
          help="Index directory of `index`; the --index-dir flag's env "
               "twin and loses to it"),
+    Flag("GALAH_TPU_INDEX_BATCH", kind="int", default="32",
+         section="resilience",
+         help="Genomes per durable append batch of `index insert` when "
+              "--batch is not given (the preemption safe-boundary "
+              "granularity: a kill loses at most one batch of "
+              "uncommitted appends)"),
+    Flag("GALAH_TPU_DENSE_PAIRS", kind="bool", section="kernel",
+         help="Any value forces the dense pair passes at every size: "
+              "the marker screen's row blocks and finch's stripes "
+              "through tile_stats.cu instead of the collision screen "
+              "and pairlist.cu. Bucketing and the streamed pass's "
+              "decline still follow the crossover"),
+    Flag("GALAH_TPU_SPARSE_MIN_N", kind="int", default="1024",
+         section="kernel",
+         help="Genome count at which the collision screen and the "
+              "pairlist pass replace the dense all-pairs passes (and "
+              "the bucketed finch pass engages under auto); read at "
+              "each call, a malformed value is logged and ignored"),
+    Flag("GALAH_TPU_PAIR_BATCH", kind="int", section="kernel",
+         help="Candidate pairs per pairlist.cu launch of the blocked "
+              "survivor route; unset takes the whole list in one "
+              "launch on the card (and 65,536 pairs a call of the "
+              "plain version on the CPU)"),
+    Flag("GALAH_TPU_PAIRLIST_STRATEGY", section="kernel",
+         choices=("blocked", "gather", "xla", "cpu"),
+         help="Pin the survivor-evaluation route of the screened pair "
+              "pass: blocked (pairlist.cu) or gather (the survivors' "
+              "rows in 64 x 128 tiles through tile_stats.cu's gathered "
+              "entry). Unset: blocked on the card (at its measured "
+              "rates galah_tpu's duplication and fill test never picks "
+              "gather), the plain version on the CPU. xla and cpu run the plain version on the "
+              "CPU and are refused on cuda"),
+    Flag("GALAH_TPU_FRAGMENT_STRATEGY", section="kernel",
+         choices=("pallas", "xla", "c"),
+         help="Pin the exact fragment-ANI membership route: pallas is "
+              "window_hits.cu on the card (the default there); on the "
+              "CPU all three run the plain version. xla and c are "
+              "refused on cuda"),
+    Flag("GALAH_TPU_FRAGMENT_PAIRS", kind="int", section="kernel",
+         help="Cap on the directed genome pairs in one window_hits.cu "
+              "launch; unset lets the element cap alone decide "
+              "(results are the same at any value)"),
+    Flag("GALAH_TPU_SKETCH_STRATEGY", section="kernel",
+         choices=("fused", "xla", "c"),
+         help="Pin the finch sketch route: fused (fused_sketch.cu, the "
+              "default) or xla (every genome on the exact route, "
+              "murmur3_k21.cu or positional_hashes.cu then a sort). c "
+              "runs the plain version on the CPU and declines the "
+              "streamed pair pass and the overlapped engine; it is "
+              "refused on cuda (sketches are bit-identical on every "
+              "route)"),
     Flag("GALAH_TPU_GREEDY_STRATEGY", section="kernel",
          choices=("device", "host"),
          help="Pin the greedy representative scan to the round-based "

@@ -43,6 +43,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from galah_tpu_torch import config
 from galah_tpu_torch import index as index_pkg
 from galah_tpu_torch.backends.minhash_backend import (MinHashPreclusterer,
                                                       SketchStore)
@@ -152,6 +153,12 @@ def pair_ani(a: np.ndarray, b: np.ndarray, sketch_size: int, k: int,
                                   np.asarray([total]), k)[0])
 
 
+def default_batch() -> int:
+    """Genomes per insert batch when the caller gives none:
+    ``GALAH_TPU_INDEX_BATCH`` (default 32), as in ``galah_tpu``."""
+    return max(1, int(config.env_value("GALAH_TPU_INDEX_BATCH")))
+
+
 # -- the device pair pass ----------------------------------------------
 
 
@@ -166,7 +173,8 @@ def kept_pairs(mat: torch.Tensor, pi: np.ndarray, pj: np.ndarray,
     for s in range(0, pi.shape[0], PAIR_CHUNK):
         ci, cj = pi[s:s + PAIR_CHUNK], pj[s:s + PAIR_CHUNK]
         with clock.stage("pair-stats"):
-            common, total = pair_stats_for_pairs(mat, ci, cj, sketch_size)
+            common, total = pair_stats_for_pairs(mat, ci, cj, sketch_size,
+                                                 clock)
         common = common.astype(np.int64)
         total = total.astype(np.int64)
         # pair_ani's rule, element for element in IEEE float64
@@ -380,7 +388,7 @@ def build(path: str, ordered_paths: Sequence[str], ani: float,
 
 def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
            cache_dir: Optional[str] = None, threads: int = 1,
-           batch: int = Defaults.INDEX_BATCH,
+           batch: Optional[int] = None,
            clock: Optional[StageClock] = None) -> Dict[str, Any]:
     """Insert the quality-ordered `new_paths`, committing one new
     generation. Only the new genomes are sketched, `batch` at a time
@@ -393,7 +401,7 @@ def insert(idx: IndexStore, new_paths: Sequence[str], device="cuda",
     uninterrupted one writes."""
     device = resolve_device(device)
     clock = clock or StageClock(device)
-    batch = max(1, int(batch))
+    batch = max(1, int(default_batch() if batch is None else batch))
     state = idx.begin_mutation()
     if state.generation == 0:
         raise ValueError(

@@ -63,6 +63,9 @@ SIGNATURES = {
 # the further C functions of a library, bound beside its launch
 # function: name -> [(function, argtypes)]
 MORE_SIGNATURES = {
+    "tile_stats": [
+        ("tile_stats_gather_launch", [_P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                      _P, _P, _P])],
     "positional_hashes": [
         ("positional_hashes_group_launch", [_P, _P, _L, _P, _L, _L, _I, _L,
                                             _P]),

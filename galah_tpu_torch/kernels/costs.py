@@ -8,7 +8,9 @@ the kernels' source notes (``chip_smoke.py`` holds the same numbers for
 its bounds). Where the work depends on the data, the shape's count is
 taken: every window of a hash launch as valid (ambiguous bases and
 contig starts drop a few), every sketch row of a ``tile_stats`` launch
-as full. ``pairlist`` and ``slab_fold`` are the exceptions: ``pairlist``'s items
+as full; the gathered ``tile_stats`` entry's rows are the distinct rows
+its listed pairs name (``named_rows``), once each, not its segments'
+tables. ``pairlist`` and ``slab_fold`` are the exceptions: ``pairlist``'s items
 are the sums of its own outputs, so its operations are device scalars
 that ``obs/profile.py`` reads once the run has synchronized
 (``rehearse_pairlist.work``'s formula; no host wait at the launch);
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import math
 from typing import Sequence, Tuple
+
+import numpy as np
 
 # 32-bit operations of one window or item of each kernel (the kernels'
 # source notes)
@@ -76,6 +80,26 @@ def tile_stats(br: int, bc: int, k: int) -> Cost:
     compare an item."""
     return (float(8 * k * (br + bc) + 2 * 4 * br * bc),
             float(2 * br * bc * 2 * k))
+
+
+def tile_stats_gather(n_rows: int, n_seg: int, n_pairs: int,
+                      k: int) -> Cost:
+    """The gathered-tile entry over `n_seg` segments of 64 + 128 rows:
+    the `n_rows` distinct int64 rows that the listed pairs name and
+    their int32 valid lengths, and the int32 plan (the segments' row
+    indices, the tiles' pair offsets, a cell a pair), read once; two
+    int32 outputs a listed pair written. Each listed pair walks both
+    (full) rows once, an int64 compare an item, as ``tile_stats``
+    reckons a cell."""
+    plan = 192 * n_seg + 256 * n_seg + 1 + n_pairs
+    nbytes = (8 * k + 4) * n_rows + 4 * plan + 2 * 4 * n_pairs
+    return float(nbytes), float(2 * n_pairs * 2 * k)
+
+
+def named_rows(ua, ub, seg, ra, rb) -> int:
+    """The distinct rows that the listed cells name: the union of
+    ``ua[seg, ra]`` and ``ub[seg, rb]`` (numpy arrays)."""
+    return int(np.union1d(ua[seg, ra], ub[seg, rb]).size)
 
 
 def pairlist_bytes(rows, n_pairs: int, k: int):

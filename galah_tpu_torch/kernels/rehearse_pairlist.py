@@ -383,14 +383,16 @@ def main(argv=None) -> int:
                    "rows": m_np.shape[0], "k": K, "exact": exact,
                    "ms": [_time_ms(torch, run, reps) for _ in range(2)]}
             print(json.dumps(rec), flush=True)
-        c_np, t_np = pair_stats_for_pairs(mat, pi_np, pj_np, K)
+        c_np, t_np = pair_stats_for_pairs(mat, pi_np, pj_np, K,
+                                          strategy="blocked")
         good = bool(np.array_equal(c_np, wants[K][0].cpu().numpy())
                     and np.array_equal(t_np, wants[K][1].cpu().numpy()))
         ok &= good
         print(json.dumps({
             "pass": "committed", "shape": shape, "pairs": b, "exact": good,
             "ms": pass_ms(torch, lambda: pair_stats_for_pairs(
-                mat, pi_np, pj_np, K), max(reps // 5, 3))}), flush=True)
+                mat, pi_np, pj_np, K, strategy="blocked"),
+                max(reps // 5, 3))}), flush=True)
         if args.earlier:
             ms, ec, et = earlier_pass(args.earlier, work_dir, shape, m_np,
                                       pi_np, pj_np, K, max(reps // 5, 3))

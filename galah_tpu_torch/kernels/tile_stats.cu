@@ -55,6 +55,29 @@
 // an SM with (12 x 2178 x 8 =) 209,088 bytes of dynamic shared memory
 // at K = 2176; 43 registers, no spills, for the in-place one.
 //
+// The gathered-tile entry (tile_stats_gather_launch) serves the
+// survivor strategy `gather` of ops/sparse_device.py
+// (galah_tpu/ops/sparse_device._gather_dense_pair_stats, which gathers
+// the survivors' rows into 64 x 128 tiles and runs the TPU kernel over
+// every cell of each). Its rows are named by index: a segment s of the
+// planner has 64 a rows (ua[s]) and 128 b rows (ub[s]), and each
+// listed pair is one cell (ra, rb) of one segment. The grid covers
+// every segment's 16 x 16 tiles of 4 x 8 cells in one launch; the
+// pairs come sorted by tile, so tile t owns pairs
+// [tile_off[t], tile_off[t + 1]), each named by its cell ra * 128 + rb.
+// A tile with no pair returns at once. A tile with pairs stages only
+// the rows its pairs name, each straight from the matrix by index
+// (its valid prefix and the sentinel, cp.async), and warp w walks
+// pairs w, w + 32, ... of the tile through the same merge_walk.cuh
+// merge path as the full form and pairlist.cu, so the integers are
+// theirs. Cells no pair names are neither walked nor written. Where 12
+// staged rows do not fit in shared memory the rows are read in place.
+// At K = 1000 over 128 segments (kernels/rehearse_gather.py on an H100)
+// it takes 3.80 ms at fill 1.0 (1,048,576 pairs), where pairlist.cu
+// takes 3.91 ms on the same list, and 1.31 against 1.09 at fill 0.12:
+// a sparse tile stages up to 12 rows for a few pairs. nvcc -Xptxas -v
+// (sm_90a): 32 registers, staged; 50 in place; no spills.
+//
 // Hashes are biased int64 (u64 ^ 2^63); INT64_MAX is the sentinel.
 
 #include <cstdint>
@@ -195,12 +218,107 @@ tile_stats_kernel(const long long* __restrict__ rows,
   }
 }
 
+// the gathered-tile entry's segment (galah_tpu's GATHER_ROWS x
+// GATHER_COLS) and its tiles of kGatherTr x kGatherTc cells
+constexpr int kGatherRows = 64;
+constexpr int kGatherCols = 128;
+constexpr int kGatherTr = 4;
+constexpr int kGatherTc = 8;
+constexpr int kGatherTileCols = kGatherCols / kGatherTc;
+constexpr int kGatherTiles = (kGatherRows / kGatherTr) * kGatherTileCols;
+
+template <bool kStaged>
+__global__ void __launch_bounds__(1024)
+tile_stats_gather_kernel(const long long* __restrict__ mat, int k,
+                         const int* __restrict__ lens,
+                         const int* __restrict__ ua,
+                         const int* __restrict__ ub,
+                         const int* __restrict__ tile_off,
+                         const int* __restrict__ cells, int sketch_size,
+                         int* __restrict__ common, int* __restrict__ total) {
+  extern __shared__ __align__(16) long long smem[];
+  __shared__ unsigned used;
+  const long long tile = blockIdx.x;
+  const int p0 = tile_off[tile], p1 = tile_off[tile + 1];
+  if (p0 == p1) return;
+  const long long seg = tile / kGatherTiles;
+  const int t = static_cast<int>(tile % kGatherTiles);
+  const int* rows = ua + seg * kGatherRows + (t / kGatherTileCols) * kGatherTr;
+  const int* cols = ub + seg * kGatherCols + (t % kGatherTileCols) * kGatherTc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = (k + 2) & ~1;
+  if (kStaged) {
+    // slots 0-3: the tile's a rows, 4-11: its b rows; only those a
+    // listed pair names are staged
+    if (threadIdx.x == 0) used = 0;
+    __syncthreads();
+    for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+      const int c = cells[p];
+      atomicOr(&used, (1u << ((c / kGatherCols) % kGatherTr)) |
+                          (1u << (kGatherTr + (c % kGatherCols) % kGatherTc)));
+    }
+    __syncthreads();
+    const unsigned mask = used;
+    for (int s = 0; s < kGatherTr + kGatherTc; ++s) {
+      if (((mask >> s) & 1u) == 0) continue;
+      const long long r = s < kGatherTr ? rows[s] : cols[s - kGatherTr];
+      long long* dst = smem + static_cast<size_t>(s) * stride;
+      const int len = lens[r];
+      stage_async(dst, mat + r * k, len);
+      if (threadIdx.x == 0) dst[len] = kSentinel;
+    }
+    stage_wait();
+    __syncthreads();
+  }
+  for (int p = p0 + warp; p < p1; p += 32) {
+    const int c = cells[p];
+    const int pr = (c / kGatherCols) % kGatherTr;
+    const int pc = (c % kGatherCols) % kGatherTc;
+    const long long ia = rows[pr], ib = cols[pc];
+    const int na = lens[ia], nb = lens[ib];
+    int2 r;
+    if constexpr (kStaged) {
+      r = merge_walk::merge_stats(
+          merge_walk::SharedRow(smem + static_cast<size_t>(pr) * stride), na,
+          merge_walk::SharedRow(smem +
+                                static_cast<size_t>(kGatherTr + pc) * stride),
+          nb, sketch_size, false, lane);
+    } else {
+      r = merge_walk::merge_stats(merge_walk::DeviceRow(mat + ia * k), na,
+                                  merge_walk::DeviceRow(mat + ib * k), nb,
+                                  sketch_size, false, lane);
+    }
+    if (lane == 0) {
+      common[p] = r.x;
+      total[p] = r.y;
+    }
+  }
+}
+
 // each device's opt-in dynamic shared memory a block, set with the
 // kernel's attribute at the first launch on that device (the attribute
 // is a function's on one device)
 constexpr int kMaxDevices = 64;
 int g_max_smem[kMaxDevices] = {};
 bool g_smem_set[kMaxDevices] = {};
+int g_gather_smem[kMaxDevices] = {};
+bool g_gather_set[kMaxDevices] = {};
+
+// the opt-in limit of dynamic shared memory for `kernel` on `dev`, set
+// as its attribute
+template <class Kernel>
+cudaError_t optin_smem(Kernel kernel, int dev, int* limit) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  // dynamic and static shared memory together stay within opt-in
+  *limit = optin - static_cast<int>(attr.sharedSizeBytes);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+}
 
 }  // namespace
 
@@ -265,6 +383,58 @@ extern "C" int tile_stats_launch(const void* rows, const void* cols,
     tile_stats_kernel<false><<<grid, block, 0, s>>>(
         r, c, br, bc, k, sketch_size, intersect, tr, tc,
         static_cast<int*>(common), static_cast<int*>(total));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gathered-tile entry: (common, total) of every listed pair, in the
+// tile order of `cells` (see the note at the top). `ua` is (n_seg, 64)
+// and `ub` (n_seg, 128) int32 row indices, `tile_off` the n_seg * 256 + 1
+// int32 pair offsets of the tiles, `cells` each pair's ra * 128 + rb,
+// `lens` each matrix row's valid length.
+extern "C" int tile_stats_gather_launch(const void* mat, int k,
+                                        const void* lens, const void* ua,
+                                        const void* ub, const void* tile_off,
+                                        const void* cells, int n_seg,
+                                        int sketch_size, void* common,
+                                        void* total, void* stream) {
+  if (n_seg <= 0) return 0;
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (!g_gather_set[dev]) {
+    int limit = 0;
+    const cudaError_t err =
+        optin_smem(tile_stats_gather_kernel<true>, dev, &limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_gather_smem[dev] = limit;
+    g_gather_set[dev] = true;
+  }
+  const long long stride = (static_cast<long long>(k) + 2) & ~1LL;
+  const long long smem = (kGatherTr + kGatherTc) * stride * 8;
+  const long long blocks = static_cast<long long>(n_seg) * kGatherTiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(blocks));
+  const dim3 block(32 * kGatherTr * kGatherTc);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const long long*>(mat);
+  const auto* l = static_cast<const int*>(lens);
+  const auto* a = static_cast<const int*>(ua);
+  const auto* b = static_cast<const int*>(ub);
+  const auto* off = static_cast<const int*>(tile_off);
+  const auto* c = static_cast<const int*>(cells);
+  if (smem <= g_gather_smem[dev]) {
+    tile_stats_gather_kernel<true><<<grid, block, smem, s>>>(
+        m, k, l, a, b, off, c, sketch_size, static_cast<int*>(common),
+        static_cast<int*>(total));
+  } else {
+    tile_stats_gather_kernel<false><<<grid, block, 0, s>>>(
+        m, k, l, a, b, off, c, sketch_size, static_cast<int*>(common),
+        static_cast<int*>(total));
   }
   return static_cast<int>(cudaGetLastError());
 }

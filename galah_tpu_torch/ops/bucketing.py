@@ -83,14 +83,14 @@ def resolve_hll_buckets() -> str:
 def bucketing_engaged(n: int) -> bool:
     """Whether the bucketed precluster pass runs for `n` genomes:
     forced on ('1', from two genomes), forced off ('0'), or AUTO: from
-    the sparse-screen crossover up (``collision.SPARSE_SCREEN_MIN_N``,
-    read at call time)."""
+    the sparse-screen crossover up (``collision.sparse_screen_min_n()``,
+    read at call time; ``GALAH_TPU_DENSE_PAIRS`` does not move it)."""
     raw = resolve_hll_buckets()
     if raw == "0":
         return False
     if raw == "1":
         return n >= 2
-    return n >= collision.SPARSE_SCREEN_MIN_N
+    return n >= collision.sparse_screen_min_n()
 
 
 def band_width(min_ani: float, k: int, p: int, sketch_size: int) -> float:

@@ -23,18 +23,45 @@ occurrences as the weight, so the work stays O(K m + output pairs).
 
 from __future__ import annotations
 
+import logging
+import os
+
 import numpy as np
 
 from galah_tpu_torch import config
 from galah_tpu_torch.ops.constants import SENTINEL_U64
 
+logger = logging.getLogger(__name__)
+
 _BIG_RUN = 64
 
 # genome count from which the sparse collision screens replace the
 # dense passes (below it the dense pass is cheaper than sorting the
-# whole hash multiset); callers read it at call time, so a test can
-# move it
+# whole hash multiset); callers read it through sparse_screen_min_n()
+# at call time, so a test can move it
 SPARSE_SCREEN_MIN_N = 1024
+
+
+def sparse_screen_min_n() -> int:
+    """The sparse-screen crossover: ``GALAH_TPU_SPARSE_MIN_N`` when set
+    to an integer (read at each call; a malformed value is logged and
+    ignored, never fatal), else the module's ``SPARSE_SCREEN_MIN_N`` at
+    call time (``galah_tpu/ops/collision.sparse_screen_min_n``)."""
+    v = os.environ.get("GALAH_TPU_SPARSE_MIN_N")
+    if v:
+        try:
+            return int(v)
+        except ValueError:
+            logger.warning("ignoring malformed GALAH_TPU_SPARSE_MIN_N=%r",
+                           v)
+    return SPARSE_SCREEN_MIN_N
+
+
+def dense_pairs_pinned() -> bool:
+    """``GALAH_TPU_DENSE_PAIRS`` set to any value: the marker screen
+    and the finch pass take their dense passes at every size. Read at
+    each call, by those two passes only, as ``galah_tpu`` reads it."""
+    return bool(config.env_value("GALAH_TPU_DENSE_PAIRS"))
 
 # buffered (key, weight) entries before a compaction: peak transient
 # memory is O(this + distinct pairs)

@@ -25,12 +25,13 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from galah_tpu_torch import config
 from galah_tpu_torch.io.fasta import Genome
 from galah_tpu_torch.io.group import iter_groups, load_group
 from galah_tpu_torch.ops import hashing
 from galah_tpu_torch.ops.constants import MARKER_C, SENTINEL_BIASED
 from galah_tpu_torch.ops.u64 import biased_scalar
-from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.device import pinned, resolve_device
 from galah_tpu_torch.ops import positional_hashes as k15
 from galah_tpu_torch.ops.window_hits import window_element_hits
 
@@ -52,6 +53,12 @@ MARKER_CUT_BIASED = biased_scalar((1 << 64) // MARKER_C)
 # query elements (= int32 flags out) per window_hits launch: bounds the
 # launch's flags plus the fold's window-id temporaries to ~2 GB
 LAUNCH_ELEM_CAP = 1 << 27
+
+#: the membership routes GALAH_TPU_FRAGMENT_STRATEGY may pin
+#: (``galah_tpu``'s; the card refuses xla and c:
+#: ``device.CUDA_REFUSED_PINS``). On the card ``pallas`` is
+#: window_hits.cu; on the CPU all three run its plain version.
+FRAGMENT_STRATEGIES = ("pallas", "xla", "c")
 
 DEFAULT_MIN_WINDOW_VALID_FRAC = 0.5
 
@@ -332,19 +339,40 @@ HitsFn = Callable[[Sequence[Tuple[torch.Tensor, torch.Tensor]],
                    torch.device], torch.Tensor]
 
 
+def resolve_fragment_strategy(device_type: str) -> str:
+    """The exact-ANI membership route: a ``GALAH_TPU_FRAGMENT_STRATEGY``
+    pin, else ``pallas``, the port's one route (``galah_tpu``'s AUTO
+    takes its C merge or XLA on a CPU backend; the port runs
+    window_hits' plain version there). On `device_type` ``cuda`` a pin
+    of ``xla`` or ``c`` raises: the card runs window_hits.cu only."""
+    env = pinned("GALAH_TPU_FRAGMENT_STRATEGY",
+                 config.env_value("GALAH_TPU_FRAGMENT_STRATEGY"),
+                 device_type)
+    return env if env in FRAGMENT_STRATEGIES else "pallas"
+
+
+def fragment_pairs_per_launch() -> Optional[int]:
+    """``GALAH_TPU_FRAGMENT_PAIRS``: a cap on the directed queries in
+    one window_hits launch, or None (the element cap alone decides)."""
+    raw = config.env_value("GALAH_TPU_FRAGMENT_PAIRS")
+    return max(1, int(raw)) if raw else None
+
+
 def iter_launches(queries: Sequence[Tuple[GenomeProfile, GenomeProfile]]):
     """Index lists of the directed queries one window_hits launch
     covers: consecutive queries whose query elements fit under
-    LAUNCH_ELEM_CAP (one oversized query still launches alone). Queries
-    without windows are left out; their result is all zero."""
+    LAUNCH_ELEM_CAP (one oversized query still launches alone), and no
+    more of them than ``GALAH_TPU_FRAGMENT_PAIRS`` when it is set.
+    Queries without windows are left out; their result is all zero."""
     cap = LAUNCH_ELEM_CAP
+    pair_cap = fragment_pairs_per_launch()
     chunk: List[int] = []
     vol = 0
     for n, (q, _r) in enumerate(queries):
         if q.n_windows == 0:
             continue
         m = int(q.sorted_query()[0].shape[0])
-        if chunk and vol + m > cap:
+        if chunk and (vol + m > cap or len(chunk) == pair_cap):
             yield chunk
             chunk, vol = [], 0
         chunk.append(n)
@@ -377,6 +405,7 @@ def directed_ani_arrays(
                          f"subsample_c) cannot be compared: {shapes}")
     (k, fraglen, subsample_c), = shapes
     device = queries[0][0].flat_hashes.device
+    resolve_fragment_strategy(device.type)
 
     for chunk in iter_launches(queries):
         pairs = [queries[i] for i in chunk]

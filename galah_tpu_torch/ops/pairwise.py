@@ -8,7 +8,9 @@ skani-equivalent candidate screen, reference: src/skani.rs:54-70).
 Mash ANI reaches the threshold, with that ANI (reference:
 src/finch.rs:69-71).
 
-Below ``collision.SPARSE_SCREEN_MIN_N`` genomes the screen runs the
+Below the sparse crossover (``collision.sparse_screen_min_n()``, 1024
+genomes unless ``GALAH_TPU_SPARSE_MIN_N`` moves it), and at any size
+under ``GALAH_TPU_DENSE_PAIRS``, the screen runs the
 dense row-block pass: per block of rows, the stripe against every
 column at or right of the block's diagonal tile comes from
 ``tile_stats``' intersect form (the CUDA kernel on the card), a
@@ -144,7 +146,8 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
     n = marker_mat.shape[0]
     counts64 = np.asarray(counts, dtype=np.int64)
     clock.count("screen-possible-pairs", n * (n - 1) // 2)
-    if mesh is None and n >= collision.SPARSE_SCREEN_MIN_N:
+    if (mesh is None and n >= collision.sparse_screen_min_n()
+            and not collision.dense_pairs_pinned()):
         # the collision counts ARE the containment numerators (marker
         # sets are distinct), so the exact check needs no second pass
         pi, pj, inter = collision.collision_pair_counts(
@@ -209,7 +212,8 @@ def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
     n = sketch_mat.shape[0]
     if mesh is None:
         mesh = pmesh.auto_mesh(sketch_mat.device)
-    if n >= collision.SPARSE_SCREEN_MIN_N:
+    if (n >= collision.sparse_screen_min_n()
+            and not collision.dense_pairs_pinned()):
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
         return threshold_pairs_sparse(sketch_mat, k, min_ani, sketch_size,

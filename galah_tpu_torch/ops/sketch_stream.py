@@ -45,8 +45,9 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from galah_tpu_torch import config
 from galah_tpu_torch.config import Defaults
-from galah_tpu_torch.device import resolve_device
+from galah_tpu_torch.device import pinned, resolve_device
 from galah_tpu_torch.io.fasta import Genome, read_genome
 from galah_tpu_torch.io.group import host_layout, iter_groups, load_group
 from galah_tpu_torch.io.prefetch import (ingest_depth,
@@ -105,6 +106,24 @@ CANDIDATES = REGS * CLASSES
 #: pass's column block); tests may lower it
 ROW_BLOCK = 256
 
+#: the sketch routes GALAH_TPU_SKETCH_STRATEGY may pin (``galah_tpu``'s)
+SKETCH_STRATEGIES = ("fused", "xla", "c")
+
+
+def resolve_sketch_strategy(device_type: str) -> str:
+    """The finch sketch route: a ``GALAH_TPU_SKETCH_STRATEGY`` pin, else
+    ``fused``, the port's route on either device (``galah_tpu``'s AUTO
+    takes its C sketcher or XLA on a CPU backend; ``sketch_genomes_
+    fused`` itself takes the exact route at a sketch size its candidate
+    file cannot certify). ``xla`` sketches every genome on the exact route
+    (``ops/minhash.sketch_genome_device``: murmur3_k21.cu, or
+    positional_hashes.cu at k = 15, then a sort); ``c`` runs that
+    route's plain version on the CPU and is refused on `device_type`
+    ``cuda``, where it would put the host on a card run."""
+    env = pinned("GALAH_TPU_SKETCH_STRATEGY",
+                 config.env_value("GALAH_TPU_SKETCH_STRATEGY"),
+                 device_type)
+    return env if env in SKETCH_STRATEGIES else "fused"
 
 
 def _concat(genomes: Sequence[Genome], k: int):
@@ -273,7 +292,9 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
     gate engages (``ops/prefilter.maybe_prefilter``): a path it skipped
     takes the sketch it resolves to (``store.insert_prefiltered``).
     The computed sketches then arrive ahead of the walk, so the next one
-    waits in a one-slot pushback until its path comes up.
+    waits in a one-slot pushback until its path comes up. A MinHash
+    store's stream counts its route, ``sketch-strategy-<route>``
+    (``store.sketch_strategy()``), once.
 
     When any genome is read, the ``workload.pipeline_occupancy`` gauges
     of stages ``sketch`` and ``ingest`` are set every 64 computed
@@ -284,6 +305,10 @@ def iter_path_sketches(paths: Sequence[str], store, threads: int = 1
     watch = Stopwatch()
     waits = obs_flow.WaitTotal()
     work0 = store.clock.work_seconds["read"]
+    strategy = getattr(store, "sketch_strategy", None)
+    if strategy is not None:
+        # galah_tpu's count, once a MinHash stream
+        store.clock.count(f"sketch-strategy-{strategy()}", 1)
     unique = list(dict.fromkeys(paths))
     with (store.clock.stage("cache-read") if store.cache.enabled
           else contextlib.nullcontext()):

@@ -115,13 +115,14 @@ def test_flag_fixture_matches_galah_tpu():
         if f.path == "bad_flags.py"]
     assert sorted(f.code for f in want) == ["GL401", "GL402"]
     assert _key(got) == _key(want, mapped=True)
-    # under the port's own registry every GALAH_TPU_* read of the
-    # fixture is unregistered
+    # under the port's own registry the typo and GALAH_TPU_PAIRLIST_BLOCK
+    # (no counterpart in the port) are unregistered; GALAH_TPU_SPARSE_MIN_N
+    # is registered with galah_tpu's default, so its read is clean
     own = [f for f in check_flag_references(
         [_load(SourceFile, "bad_flags.py", "bad_flags.py")])
         if f.path == "bad_flags.py"]
     assert sorted((f.code, f.line) for f in own) == [
-        ("GL401", 6), ("GL401", 9), ("GL401", 12)]
+        ("GL401", 6), ("GL401", 9)]
 
 
 def test_clean_fixture_is_clean_in_both():
@@ -310,7 +311,7 @@ def _lint_process(*argv):
 
 def test_lint_cli_json_contract():
     """galah_tpu's JSON schema (test_analysis.py), with the port's
-    `scanned` block: the kernel family reads the ten C functions."""
+    `scanned` block: the kernel family reads the eleven C functions."""
     proc = _lint_process("--json", "--check", "kernels", "--check",
                          "markers", "--check", "flags")
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -319,7 +320,7 @@ def test_lint_cli_json_contract():
     assert set(report["summary"]) == {"errors", "warnings", "notes",
                                       "suppressed", "by_family"}
     assert report["summary"]["errors"] == 0
-    assert report["scanned"]["c_entries"] == 10
+    assert report["scanned"]["c_entries"] == 11
 
 
 def test_lint_run_report_carries_summary(tmp_path):
@@ -501,6 +502,20 @@ def test_kernel_fixture_tree_is_clean(tmp_path):
 
 
 OPS_FILE = "galah_tpu_torch/ops/alpha.py"
+# a second launch function of alpha's library whose wrapper counts
+# LAUNCHES["alpha_wide"]: right only where kernels/__init__.py names
+# alpha_wide in ENTRIES
+_COUNTED_APART = [
+    (f"{KDIR}/build.py", '    "beta": [("beta_tile", [])],\n',
+     '    "beta": [("beta_tile", [])],\n'
+     '    "alpha": [("alpha_wide_launch", [_P, _I, _L, _P])],\n'),
+    (f"{KDIR}/alpha.cu", 'extern "C" int alpha_launch(',
+     'extern "C" int alpha_wide_launch(const void* in, int n, '
+     'long long total, void* stream) {\n  return 0;\n}\n\n'
+     'extern "C" int alpha_launch('),
+    (OPS_FILE, "err = lib.alpha_launch(", "err = lib.alpha_wide_launch("),
+    (OPS_FILE, 'LAUNCHES["alpha"]', 'LAUNCHES["alpha_wide"]'),
+]
 KERNEL_CASES = {
     "prototype one argument short": (
         [(f"{KDIR}/alpha.cu", "long long total,\n", "\n")],
@@ -537,6 +552,13 @@ KERNEL_CASES = {
     "launch without LAUNCHES": (
         [(OPS_FILE, "    LAUNCHES[\"alpha\"] += 1\n", "")],
         [("GL113", OPS_FILE, 14)]),
+    "launch counted under its own name, not an entry apart": (
+        _COUNTED_APART,
+        [("GL113", OPS_FILE, 14)]),
+    "entry apart counted under its own name": (
+        _COUNTED_APART + [(f"{KDIR}/__init__.py", None,
+                           'ENTRIES = ("alpha_wide",)\n')],
+        []),
     "assert beside a launch": (
         [(OPS_FILE, "    lib = build.load(\"alpha\")\n",
           "    lib = build.load(\"alpha\")\n    assert n > 0\n")],
@@ -592,7 +614,7 @@ def test_lint_subcommand_exits_0_on_the_repo():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "0 error(s), 0 warning(s)" in proc.stdout
-    assert "checked 10 bound C functions" in proc.stdout
+    assert "checked 11 bound C functions" in proc.stdout
 
 
 def test_kernel_family_reads_the_nine_c_functions():
@@ -603,8 +625,9 @@ def test_kernel_family_reads_the_nine_c_functions():
         "window_hits_launch", "tile_stats_launch", "fused_sketch_launch",
         "pairlist_launch", "hll_union_launch", "murmur3_k21_launch",
         "positional_hashes_launch", "positional_hashes_group_launch",
-        "positional_hashes_tile", "slab_fold_launch"])
-    assert kernels_check.entry_count(sources) == 10
+        "positional_hashes_tile", "slab_fold_launch",
+        "tile_stats_gather_launch"])
+    assert kernels_check.entry_count(sources) == 11
     from galah_tpu_torch.kernels import KERNELS
 
     assert {e.library for e in entries} == set(KERNELS)
