@@ -222,20 +222,28 @@ Phases, each of which exits nonzero when it fails:
    supervise and merge walls, the within- and cross-shard pair counts,
    each worker's process wall and the run inside it, and the cache's
    use are printed beside phase 4's wall;
-4q. scale-out on the one card: (a) phase 4's skani 512, 4b's finch 1024
-   and 4d's dashing 1024 through ``cluster`` in this process with the
-   pair passes given a mesh of two slots on cuda:0 and then four, and
-   4c's finch 256 on the four through the streamed stripes: each TSV
-   must equal its phase's, and tile_stats, pairlist or hll_union (the
-   kernel the mesh shards) must launch more often than in its phase;
-   each run's wall and those three kernels' launches are printed; (b)
-   phase 4's skani 512 and 4b's finch 1024 as two ``python -m
-   galah_tpu_torch cluster``
-   processes, ranks 0 and 1 of one gloo group, both with LOCAL_RANK 0:
-   rank 0's TSV must equal the phase's and rank 1 must write none, each
-   rank's report must say its process index and count; each rank's
-   process wall, stage walls, exchange seconds and launches are printed.
-   A speed-up cannot show on one card and none is claimed;
+4q. scale-out: (a) phase 4's skani 512, 4b's finch 1024 and 4d's
+   dashing 1024 through ``cluster`` in this process with the local-card
+   enumeration (``parallel/mesh.local_devices``) stood in by two cards
+   and then four, all cuda:0, so that ``auto_mesh``'s one-process
+   branch builds the mesh (two slots: the row, with a ``mesh-demoted``
+   event; four: the 2 x 2 grid), and 4c's finch 256 on the four through
+   the streamed stripes: each TSV must equal its phase's, every pair
+   pass must have taken that layout, and tile_stats, pairlist or
+   hll_union (the kernel the mesh shards) must launch more often than
+   in its phase; each run's wall and those three kernels' launches are
+   printed; (c) on a machine with two or more cards, 4, 4b and 4d over
+   every card (the enumeration left alone): each TSV must equal its
+   phase's, the passes must take a mesh of every card and each card's
+   allocator must show allocations; each card's context start, each
+   run's wall, layout, allocations and copy gauge are printed; with one
+   card (c) prints that it needs two and did not run; (b) phase 4's
+   skani 512 and 4b's finch 1024 as two ``python -m galah_tpu_torch
+   cluster`` processes, ranks 0 and 1 of one gloo group, both with
+   LOCAL_RANK 0: rank 0's TSV must equal the phase's and rank 1 must
+   write none, each rank's report must say its process index and count;
+   each rank's process wall, stage walls, exchange seconds and launches
+   are printed. A speed-up cannot show on one card and none is claimed;
 4s. ``--platform`` and the lint: (a) phase 4's genomes through ``main``
    with ``--platform gpu`` and no ``--device``: the TSV must equal phase
    4's byte for byte and each kernel's launches phase 4's, the wall
@@ -485,10 +493,12 @@ FLEET_SHARDS = 4
 FLEET_THREADS = 4
 FLEET_WAIT_S = 300
 
-# phase 4q: the slot counts of (a)'s meshes, each slot on cuda:0; the
-# kernels whose launches it prints; the ranks of (b) and the longest they
-# may run
+# phase 4q: the slot counts of (a)'s meshes, each slot on cuda:0, and the
+# layout GALAH_TPU_MESH_SHAPE=auto gives each (None: the row, demoted);
+# the kernels whose launches it prints; the ranks of (b) and the longest
+# they may run
 MESH_SLOTS = (2, 4)
+MESH_SHAPES = {2: None, 4: (2, 2)}
 MESH_KERNELS = ("tile_stats", "pairlist", "hll_union")
 RANKS = 2
 RANK_WAIT_S = 300
@@ -3408,32 +3418,39 @@ def phase_profiled(root, runs, threads, tag, control="finch 1024"):
 def phase_mesh(torch, cli, reset_launches, launches_now, runs, root, tag):
     """Phase 4q (a): each of `runs`, {what: (argv, phase TSV bytes, phase
     wall, phase launches, slot counts, the kernel the mesh shards)},
-    through ``cli.run_cluster`` in this process with ``auto_mesh``
-    giving the pair passes a mesh of that many slots, all on cuda:0 (in
-    a job it gives one slot a rank). Each TSV must equal its phase's,
-    the run's pair passes must have taken the mesh, and the kernel must
-    have launched more often than in its phase (one launch a tile or
-    chunk). Returns the record's entry."""
+    through ``cli.run_cluster`` in this process with the local-card
+    enumeration (``parallel/mesh.local_devices``) stood in by that many
+    cards, all cuda:0, so that ``auto_mesh``'s own one-process branch
+    and ``resolve_mesh_shape`` build the mesh: 2 slots take the row with
+    a ``mesh-demoted`` event, 4 the 2 x 2 grid (MESH_SHAPES). Each TSV
+    must equal its phase's, every pair pass must have taken that shape,
+    and the kernel must have launched more often than in its phase (one
+    launch a tile or chunk). Returns the record's entry."""
+    from galah_tpu_torch.obs import events as obs_events
     from galah_tpu_torch.parallel import mesh as pmesh
 
     card0 = torch.device("cuda", 0)
-    orig_auto = pmesh.auto_mesh
-    taken = []
+    orig_local, orig_resolve = pmesh.local_devices, pmesh.resolve_mesh_shape
+    shapes = []
+
+    def resolve(n):
+        shape = orig_resolve(n)
+        shapes.append((n, shape))
+        return shape
+
     out = {}
     try:
+        pmesh.resolve_mesh_shape = resolve
         for slots in MESH_SLOTS:
-            def auto_mesh(device, _n=slots):
-                taken.append(_n)
-                return pmesh.make_mesh([card0] * _n)
-
-            pmesh.auto_mesh = auto_mesh
+            pmesh.local_devices = lambda device, _n=slots: [card0] * _n
+            want_shape = MESH_SHAPES[slots]
             for what, (argv, tsv_want, wall, launches, counts, kernel) \
                     in runs.items():
                 if slots not in counts:
                     continue
                 tsv = os.path.join(root, f"mesh_{slots}_{what}.tsv"
                                    .replace(" ", "_"))
-                taken.clear()
+                shapes.clear()
                 _res, wall_m, launches_m = run_path(
                     torch, cli, reset_launches, launches_now,
                     [*argv, "--output-cluster-definition", tsv])
@@ -3441,9 +3458,17 @@ def phase_mesh(torch, cli, reset_launches, launches_now, runs, root, tag):
                     if fh.read() != tsv_want:
                         raise PhaseError(f"mesh {slots} {what}: the TSV "
                                          "differs from the phase's")
-                if not taken:
-                    raise PhaseError(f"mesh {slots} {what}: the pair pass "
-                                     "took no mesh")
+                if not shapes or set(shapes) != {(slots, want_shape)}:
+                    raise PhaseError(
+                        f"mesh {slots} {what}: the pair passes resolved "
+                        f"{sorted(set(shapes), key=str)}, not {slots} "
+                        f"slots on {want_shape}")
+                demoted = [e for e in obs_events.snapshot()
+                           if e["kind"] == "mesh-demoted"]
+                if bool(demoted) != (want_shape is None):
+                    raise PhaseError(
+                        f"mesh {slots} {what}: {len(demoted)} mesh-demoted "
+                        f"events for the shape {want_shape}")
                 if launches_m[kernel] <= launches[kernel]:
                     raise PhaseError(
                         f"mesh {slots} {what}: {kernel} launched "
@@ -3451,17 +3476,205 @@ def phase_mesh(torch, cli, reset_launches, launches_now, runs, root, tag):
                         f"phase's {launches[kernel]}: the mesh did not "
                         "shard it")
                 shown = {k: launches_m[k] for k in MESH_KERNELS}
-                print(f"mesh of {slots} slots on cuda:0 {what}: TSV "
-                      f"byte-identical to the phase's; wall {wall_m:.2f} s "
-                      f"against the phase's {wall:.2f} s; launches "
+                layout = ("the row, demoted with an event" if want_shape
+                          is None else "the grid %dx%d" % want_shape)
+                print(f"mesh of {slots} slots on cuda:0 ({layout}) {what}: "
+                      f"TSV byte-identical to the phase's; wall "
+                      f"{wall_m:.2f} s against the phase's {wall:.2f} s; "
+                      "launches "
                       + ", ".join(f"{k} {v} (phase {launches[k]})"
                                   for k, v in shown.items()) + f" {tag}")
-                out[f"{slots} slots {what}"] = {"wall_s": wall_m,
-                                                "phase_wall_s": wall,
-                                                "launches": launches_m}
+                out[f"{slots} slots {what}"] = {
+                    "wall_s": wall_m, "phase_wall_s": wall,
+                    "shape": list(want_shape or (slots,)),
+                    "demoted_events": len(demoted), "launches": launches_m}
     finally:
-        pmesh.auto_mesh = orig_auto
+        pmesh.local_devices = orig_local
+        pmesh.resolve_mesh_shape = orig_resolve
     return out
+
+
+def phase_cards(torch, cli, reset_launches, launches_now, runs, root, tag):
+    """Phase 4q (c): each of `runs`, {what: (argv, phase TSV bytes, phase
+    wall, phase launches, the kernel the mesh shards)}, through
+    ``cli.run_cluster`` in this process over every card of the machine,
+    the local-card enumeration left alone: each TSV must equal its
+    phase's, the pair passes must have taken a mesh of every card, two
+    or more cards must have been given work (an operand placed for a
+    tile or a chunk; on a grid the slots wholly below the diagonal get
+    none, as in ``galah_tpu``) and each of them must show allocations
+    in its allocator. Each card's context start (its first tensor and
+    synchronize), the cards given work and the bytes copied between
+    cards are printed. With one card it prints that it needs two and
+    did not run. Returns the record's entry."""
+    from galah_tpu_torch.obs import metrics as obs_metrics
+    from galah_tpu_torch.parallel import mesh as pmesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 4q (c) needs two or more cards; this machine has "
+              f"{n}: not run {tag}")
+        return {"cards": n, "ran": False}
+    starts = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        torch.zeros(1, device=torch.device("cuda", i))
+        torch.cuda.synchronize(i)
+        starts.append(time.perf_counter() - t0)
+        print(f"card {i} ({torch.cuda.get_device_name(i)}): context start "
+              f"{starts[-1] * 1000:.1f} ms {tag}")
+    orig_resolve, orig_place = pmesh.resolve_mesh_shape, pmesh._place
+    sizes = []
+    worked, moved = set(), [0]
+
+    def place(t, device):
+        worked.add(torch.device(device).index)
+        if t.device != torch.device(device):
+            moved[0] += t.numel() * t.element_size()
+        return orig_place(t, device)
+
+    def resolve(count):
+        shape = orig_resolve(count)
+        sizes.append((count, shape))
+        return shape
+
+    out = {"cards": n, "ran": True, "context_start_s": starts, "runs": {}}
+    try:
+        pmesh.resolve_mesh_shape = resolve
+        pmesh._place = place
+        for what, (argv, tsv_want, wall, launches, kernel) in runs.items():
+            tsv = os.path.join(root, f"cards_{what}.tsv".replace(" ", "_"))
+            sizes.clear()
+            worked.clear()
+            moved[0] = 0
+            before = [torch.cuda.memory_stats(i).get(
+                "allocation.all.allocated", 0) for i in range(n)]
+            _res, wall_c, launches_c = run_path(
+                torch, cli, reset_launches, launches_now,
+                [*argv, "--output-cluster-definition", tsv])
+            for i in range(n):
+                torch.cuda.synchronize(i)
+            allocs = [torch.cuda.memory_stats(i).get(
+                "allocation.all.allocated", 0) - before[i] for i in range(n)]
+            with open(tsv, "rb") as fh:
+                if fh.read() != tsv_want:
+                    raise PhaseError(f"cards {what}: the TSV differs from "
+                                     "the phase's")
+            if not sizes or {c for c, _ in sizes} != {n}:
+                raise PhaseError(f"cards {what}: the pair passes took meshes "
+                                 f"of {sorted({c for c, _ in sizes})} "
+                                 f"slots, not {n}")
+            busy = sorted(worked)
+            if len(busy) < 2:
+                raise PhaseError(f"cards {what}: only cards {busy} were "
+                                 "given work")
+            idle = [i for i in busy if allocs[i] <= 0]
+            if idle:
+                raise PhaseError(f"cards {what}: cards {idle} were given "
+                                 "work and allocated nothing")
+            gauge = obs_metrics.snapshot().get(
+                "mesh.dcn_bytes_per_row", {}).get("value")
+            layout = sizes[0][1] or "the row"
+            print(f"cards {what}: {n} cards on {layout}; TSV byte-identical to the phase's; wall {wall_c:.2f} s "
+                  f"against the phase's {wall:.2f} s; {kernel} "
+                  f"{launches_c[kernel]} launches (phase {launches[kernel]})"
+                  f"; cards given work {busy}, allocations a card {allocs}"
+                  f", {moved[0]} bytes copied between cards; "
+                  f"mesh.dcn_bytes_per_row {gauge} {tag}")
+            out["runs"][what] = {"wall_s": wall_c, "phase_wall_s": wall,
+                                 "shape": list(sizes[0][1] or (n,)),
+                                 "allocations": allocs,
+                                 "cards_given_work": busy,
+                                 "bytes_copied": moved[0],
+                                 "dcn_bytes_per_row": gauge,
+                                 "launches": launches_c}
+    finally:
+        pmesh.resolve_mesh_shape = orig_resolve
+        pmesh._place = orig_place
+    return out
+
+
+def cards_only(torch, cli, reset_launches, launches_now, args, family,
+               tag) -> int:
+    """``--cards-only``: phase 4q (c) with the runs it compares against,
+    for a machine with two or more cards. Phase 4's skani, 4b's finch
+    and 4d's dashing (with its quality report) run on the first card
+    alone (the local-card enumeration stood in by cuda:0), then over
+    every card twice (``phase_cards``), then on the first card again:
+    each wall beside the others in one call. Prints every card's
+    ``nvidia-smi`` name and power limit and the record as JSON."""
+    from galah_tpu_torch.parallel import mesh as pmesh
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    for i, line in enumerate(smi):
+        print(f"card {i}: {line}")
+    threads = ["--threads", str(THREADS)]
+    record = {"cards": smi, "one_card": {}, "every_card": []}
+    with tempfile.TemporaryDirectory(prefix="galah_cards_") as root:
+        all_dir = os.path.join(root, "all")
+        skani_dir = os.path.join(root, "skani")
+        os.makedirs(all_dir)
+        os.makedirs(skani_dir)
+        t0 = time.perf_counter()
+        paths, labels, _stats = make_corpus(
+            all_dir, args.finch_genomes, args.genome_length, family,
+            args.seed)
+        for p in paths[:args.genomes]:
+            os.symlink(p, os.path.join(skani_dir, os.path.basename(p)))
+        report = os.path.join(root, "quality_report.tsv")
+        write_quality_report(report, paths, labels, args.seed)
+        print(f"corpus: {args.finch_genomes} genomes x {args.genome_length} "
+              f"bp in {time.perf_counter() - t0:.1f} s {tag}")
+        argvs = {
+            f"skani {args.genomes}": (
+                ["cluster", "-d", skani_dir, "--ani", "95", "--device",
+                 "cuda", *threads], "tile_stats"),
+            f"finch {args.finch_genomes}": (
+                ["cluster", "-f", *paths, "--precluster-method", "finch",
+                 "--cluster-method", "skani", "--ani", "95", "--device",
+                 "cuda", *threads], "pairlist"),
+            f"dashing {args.finch_genomes}": (
+                ["cluster", "-f", *paths, "--precluster-method", "dashing",
+                 "--cluster-method", "skani", "--ani", "95",
+                 "--checkm2-quality-report", report, "--device", "cuda",
+                 *threads], "hll_union")}
+        card0 = torch.device("cuda", 0)
+
+        def one_card(turn):
+            orig = pmesh.local_devices
+            pmesh.local_devices = lambda device: [card0]
+            runs = {}
+            try:
+                for what, (argv, kernel) in argvs.items():
+                    tsv = os.path.join(root, f"one_{turn}_{what}.tsv"
+                                       .replace(" ", "_"))
+                    _res, wall, launches = run_path(
+                        torch, cli, reset_launches, launches_now,
+                        [*argv, "--output-cluster-definition", tsv])
+                    with open(tsv, "rb") as fh:
+                        runs[what] = (argv, fh.read(), wall, launches,
+                                      kernel)
+                    print(f"one card ({turn}) {what}: wall {wall:.2f} s, "
+                          f"{kernel} {launches[kernel]} launches {tag}")
+                    record["one_card"].setdefault(what, []).append(wall)
+            finally:
+                pmesh.local_devices = orig
+            return runs
+
+        runs = one_card("first")
+        for _turn in range(2):
+            record["every_card"].append(phase_cards(
+                torch, cli, reset_launches, launches_now, runs, root, tag))
+        again = one_card("last")
+        for what, entry in again.items():
+            if entry[1] != runs[what][1]:
+                raise PhaseError(f"one card {what}: the TSV differs between "
+                                 "the first and the last run")
+    print(json.dumps({"cards_only": record}))
+    return 0
 
 
 def scale_launches(kernel, mesh_out, ranks_out):
@@ -4733,6 +4946,11 @@ def main(argv=None) -> int:
                     help="finch corpus size, a multiple of 4, at least "
                          "--genomes (default 1024)")
     ap.add_argument("--genome-length", type=int, default=2_000_000)
+    ap.add_argument("--cards-only", action="store_true",
+                    help="phase 4q (c) alone, for a machine with two or "
+                         "more cards: the build, the corpus, then 4, 4b "
+                         "and 4d on the first card, over every card twice, "
+                         "and on the first card again")
     args = ap.parse_args(argv)
     family = 4
     if args.genomes % family or args.genomes < 16:
@@ -4775,6 +4993,9 @@ def main(argv=None) -> int:
     _cingest.load()
     print(f"build: {time.perf_counter() - t0:.2f} s for the C FASTA "
           f"parser (gcc) {tag}")
+    if args.cards_only:
+        return cards_only(torch, cli, reset_launches, LAUNCHES, args, family,
+                          tag)
 
     # -- phase 3: kernel parity ------------------------------------------
     from galah_tpu_torch.io.fasta import (read_genome, read_genome_plain,
@@ -5603,7 +5824,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         fleet_out = phase_fleet(root, skani_dir, tsv4, wall, "cuda", tag)
 
-        # -- phase 4q: scale-out, a mesh and ranks on the one card -------
+        # -- phase 4q: scale-out: meshes on the card, every card, ranks --
         print(f"phase 4q starts {time.perf_counter() - t_script:.1f} s "
               f"after the device check {tag}")
         gc.collect()
@@ -5614,21 +5835,30 @@ def main(argv=None) -> int:
                       "finch", "--cluster-method", "skani", "--ani", "95",
                       "--device", "cuda", *threads]
         both = MESH_SLOTS
+        dashing_argv = ["cluster", "-f", *paths, "--precluster-method",
+                        "dashing", "--cluster-method", "skani", "--ani", "95",
+                        "--checkm2-quality-report", report, "--device",
+                        "cuda", *threads]
         mesh_out = phase_mesh(torch, cli, reset_launches, LAUNCHES, {
             "skani 512": (skani_argv, tsv4, wall, launches, both,
                           "tile_stats"),
             "finch 1024": (finch_argv, tsv4b, wall_f, launches_f, both,
                            "pairlist"),
-            "dashing 1024": (
-                ["cluster", "-f", *paths, "--precluster-method", "dashing",
-                 "--cluster-method", "skani", "--ani", "95",
-                 "--checkm2-quality-report", report, "--device", "cuda",
-                 *threads], tsv4d, wall_h, launches_h, both, "hll_union"),
+            "dashing 1024": (dashing_argv, tsv4d, wall_h, launches_h, both,
+                             "hll_union"),
             "finch 256 streamed": (
                 ["cluster", "-f", *paths[:n_dense], "--precluster-method",
                  "finch", "--cluster-method", "skani", "--ani", "95",
                  "--device", "cuda", *threads], tsv4c, wall_d, launches_d,
                 (4,), "tile_stats")}, root, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cards_out = phase_cards(torch, cli, reset_launches, LAUNCHES, {
+            "skani 512": (skani_argv, tsv4, wall, launches, "tile_stats"),
+            "finch 1024": (finch_argv, tsv4b, wall_f, launches_f,
+                           "pairlist"),
+            "dashing 1024": (dashing_argv, tsv4d, wall_h, launches_h,
+                             "hll_union")}, root, tag)
         gc.collect()
         torch.cuda.empty_cache()
         ranks_out = phase_ranks(root, {
@@ -6505,7 +6735,8 @@ def main(argv=None) -> int:
         "phase_4u_overlap": {k: {kk: vv for kk, vv in v.items()
                                  if kk != "slab"}
                              for k, v in overlap_out.items()},
-        "phase_4q_scale_out": {"mesh": mesh_out, "ranks": ranks_out},
+        "phase_4q_scale_out": {"mesh": mesh_out, "cards": cards_out,
+                               "ranks": ranks_out},
         "phase_4v_tiered": tier_out,
         "phase_4w_dispatch_faults": fault_out,
         "phase_4x_policy": policy_out,

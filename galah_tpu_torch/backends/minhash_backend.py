@@ -27,7 +27,8 @@ pairlist kernel from the crossover up). In a
 multi-process job (``parallel/distributed.py``) each rank sketches its
 strided shard of the genomes and the rows are exchanged; the stream is
 not taken there, as in ``galah_tpu``, and the pair pass is split over
-the ranks (``parallel/mesh.py``).
+the ranks (``parallel/mesh.py``). In one process over several cards the
+stream is taken and each stripe is split over the cards' grid.
 """
 
 from __future__ import annotations
@@ -214,8 +215,10 @@ class MinHashPreclusterer(PreclusterBackend):
         bucketed pass not engaged (it needs every cardinality before
         its first band), and not the sketch route ``c``, which
         ``galah_tpu``'s stream declines too; None otherwise. The stripes
-        go over ``parallel/mesh.auto_mesh`` of the store's device, as the
-        staged pass's do."""
+        go over ``parallel/mesh.auto_mesh`` of the store's device (every
+        card of the process, on ``GALAH_TPU_MESH_SHAPE``'s grid), as the
+        staged pass's do, and so do the overlapped engine's, which
+        consumes this stream."""
         store = self.store
         n = len(genome_paths)
         if (distributed.process_count() > 1

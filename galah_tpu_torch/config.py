@@ -138,6 +138,15 @@ _FLAG_DEFS: Tuple[Flag, ...] = (
               "pairlist pass replace the dense all-pairs passes (and "
               "the bucketed finch pass engages under auto); read at "
               "each call, a malformed value is logged and ignored"),
+    Flag("GALAH_TPU_MESH_SHAPE", section="kernel", default="auto",
+         help="Layout of the mesh the all-pairs passes shard over "
+              "(every card of one process, or one slot a rank of a "
+              "job): 'auto' takes the squarest RxC grid of the slot "
+              "count (each sketch row held along one mesh row and one "
+              "mesh column instead of on every card), '1d' the single "
+              "row, 'RxC' (e.g. '2x4') that grid. A count with no "
+              "non-trivial factorization, or a shape that does not "
+              "cover it, takes the row with a mesh-demoted event"),
     Flag("GALAH_TPU_PAIR_BATCH", kind="int", section="kernel",
          help="Candidate pairs per pairlist.cu launch of the blocked "
               "survivor route; unset takes the whole list in one "

@@ -158,7 +158,8 @@ def bucketed_threshold_pairs(
     `device` (the view has none of its own). `pair_pass` maps a band's
     (m, K) biased submatrix on the device to its local pair dict; by
     default ``ops/pairwise.threshold_pairs`` on the same device, its
-    mesh ``parallel/mesh.auto_mesh``'s."""
+    mesh ``parallel/mesh.auto_mesh``'s: each band's pass goes over the
+    run's mesh (every card of the process, on its grid)."""
     n = sketch_mat.shape[0]
     eff_size = (sketch_size if sketch_size is not None
                 else sketch_mat.shape[1])

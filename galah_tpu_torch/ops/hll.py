@@ -25,9 +25,10 @@ The dashing-equivalent precluster (reference: src/dashing.rs:33-100):
 Hashes are biased int64 (``ops/u64.py``); the register index and
 ``clz`` read the unbiased bits. Torch has no ``clz``, and ``log2`` in
 float64 rounds wrongly above 2^53, so ``clz64`` is a binary search
-over logical shifts. Over the ranks of a multi-process job (one slot
-a rank) the pair pass is sharded
-(``parallel/mesh.sharded_hll_threshold_pairs``) with the same values.
+over logical shifts. Over every card of one process, or the ranks of
+a multi-process job (one slot a rank), the pair pass is sharded
+(``parallel/mesh.sharded_hll_threshold_pairs``, on the mesh's grid)
+with the same values.
 """
 
 from __future__ import annotations
@@ -218,7 +219,8 @@ def hll_threshold_pairs(regs: torch.Tensor, k: int, min_ani: float,
     in f32, as ``galah_tpu`` does). `union_stats` is
     ``hll_union_stats`` (the kernel on cuda) or its plain version. Over
     more than one slot (`mesh`, by default ``parallel/mesh.auto_mesh``
-    of the device) the pass is ``sharded_hll_threshold_pairs``."""
+    of the device: every card of the process on its grid, or the ranks
+    of a job) the pass is ``sharded_hll_threshold_pairs``."""
     from galah_tpu_torch.parallel import mesh as pmesh
 
     n, m = regs.shape

@@ -26,9 +26,10 @@ From the crossover up, both take the host collision screen
 (``ops/collision.py``) instead: the screen's counts are its exact
 containment numerators, and finch evaluates the collision survivors
 with the pairlist kernel (``ops/sparse_device.py``). Either way the
-result is the same. Over the ranks of a multi-process job (one slot a
-rank) each pass is sharded over a mesh (``parallel/mesh.py``), again
-with the same result.
+result is the same. Over every card of one process, or the ranks of a
+multi-process job (one slot a rank), each pass is sharded over a mesh
+(``parallel/mesh.py``, on ``GALAH_TPU_MESH_SHAPE``'s grid), again with
+the same result.
 """
 
 from __future__ import annotations
@@ -135,10 +136,10 @@ def screen_pairs(marker_mat: torch.Tensor, counts: np.ndarray,
     order. `marker_mat` is (N, M) biased int64 on the device, sorted
     and sentinel-padded; `counts` the per-genome marker counts.
     Below the crossover, over more than one slot (`mesh`, by default
-    ``parallel/mesh.auto_mesh`` of the device: the ranks of a
-    multi-process job) the dense pass is sharded
-    (``sharded_screen_pairs``); an explicit `mesh` pins the dense pass
-    at any size, as in ``galah_tpu``.
+    ``parallel/mesh.auto_mesh`` of the device: every card of the
+    process, or the ranks of a multi-process job, on its grid) the
+    dense pass is sharded (``sharded_screen_pairs``); an explicit
+    `mesh` pins the dense pass at any size, as in ``galah_tpu``.
     `clock` gets the count ``screen-possible-pairs``, and on the
     collision route ``screen-candidates`` and ``screen-kept-pairs``
     (``galah_tpu`` counts the three on that route only)."""
@@ -201,8 +202,10 @@ def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
     crossover, the collision screen and pairlist pass
     (``sparse_device``) from it up. Over more than one slot (`mesh`, by
     default ``parallel/mesh.auto_mesh`` of the device) the pass below
-    the crossover is ``sharded_threshold_pairs`` and the pair list from
-    it up is split over the slots. `clock` gets the stages
+    the crossover is ``sharded_threshold_pairs`` on the mesh's grid,
+    and the pair list from it up is split over the same slots in a
+    row, as ``galah_tpu`` splits it over a 1-D mesh of every device
+    under any shape. `clock` gets the stages
     (`pair-stats`, and `collision-screen` when sparse)."""
     from galah_tpu_torch.parallel import mesh as pmesh
 
@@ -216,8 +219,9 @@ def threshold_pairs(sketch_mat: torch.Tensor, k: int, min_ani: float,
             and not collision.dense_pairs_pinned()):
         from galah_tpu_torch.ops.sparse_device import threshold_pairs_sparse
 
-        return threshold_pairs_sparse(sketch_mat, k, min_ani, sketch_size,
-                                      clock, mesh=mesh)
+        return threshold_pairs_sparse(
+            sketch_mat, k, min_ani, sketch_size, clock,
+            mesh=mesh.flat() if mesh is not None else None)
     if mesh is not None and mesh.size > 1:
         clock.count("screen-possible-pairs", n * (n - 1) // 2)
         with clock.stage("pair-stats"):
@@ -280,9 +284,9 @@ def iter_threshold_pairs_streamed(
     integers. ``common > 0`` drops the sentinel padding (a sentinel row
     shares nothing). Over a `mesh` whose slot count is a power of two
     each stripe is sharded (``parallel/mesh.sharded_stripe_stats``: the
-    rows over the slots), the padding starting at slots x ``ROW_TILE``
-    rows; any other mesh leaves the stripe on one device, as in
-    ``galah_tpu``.
+    rows over the mesh rows, the block over the mesh columns of a
+    grid), the padding starting at slots x ``ROW_TILE`` rows; any other
+    mesh leaves the stripe on one device, as in ``galah_tpu``.
     `clock` gets the `pair-stats` stage and the
     `pairs-streamed-stripes` and `screen-possible-pairs` counts. Flow
     (``obs/flow.py``): each wait for a block is the ``pairs`` stage's

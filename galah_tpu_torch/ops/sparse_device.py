@@ -16,7 +16,8 @@ STRATEGY`` pins one; unpinned, ``resolve_pairlist_strategy`` takes
 - ``blocked``: the list uploaded once, launches of the pairlist kernel
   (``ops/pairlist``; one launch, or ``GALAH_TPU_PAIR_BATCH`` pairs a
   launch), the results downloaded once. Over a device mesh
-  (``parallel/mesh.py``) the list is split into one chunk a slot.
+  (``parallel/mesh.py``: every card of the process, or the ranks of a
+  job) the list is split into one chunk a slot, a chunk a card.
 - ``gather``: the pairs, sorted by (i, j), are planned into segments of
   at most 64 distinct a rows by 128 distinct b rows
   (``plan_gather_segments``, ``galah_tpu``'s ``_plan_gather_segments``)

@@ -6,8 +6,9 @@ stripe, the pair list and HLL) runs on a mesh of CPU slots and must
 equal both the port's single-device pass and galah_tpu's sharded pass
 over as many of conftest's CPU devices: galah_tpu's 1-D meshes of 2
 and 4, and its 2D meshes (1, 8), (2, 2), (2, 4) and (4, 2) against the
-port's 1-D mesh of 8, 4, 8 and 8 slots (the port has only the 1-D
-mesh; every geometry gives the same pairs).
+port's 1-D mesh of 8, 4, 8 and 8 slots (every geometry gives the same
+pairs). The port's own grids, and its mesh over every local card, are
+tests/test_torch_mesh2d.py's.
 
 Tolerances: pair lists, pair dicts (keys and float64 values) and
 integer statistics are equal. HLL values equal the port's
@@ -97,9 +98,10 @@ def _hll_registers(seed=5, n=70, p=10):
 
 
 def test_auto_mesh_is_one_slot_a_rank():
-    """One process drives one device and takes the single-device
+    """One process on its one CPU device takes the single-device
     passes; a mesh is what a multi-process job gives each rank
-    (tests/test_torch_distributed.py)."""
+    (tests/test_torch_distributed.py), or one process with several
+    cards (tests/test_torch_mesh2d.py)."""
     assert tmesh.auto_mesh("cpu") is None
     m = tmesh.make_mesh(["cpu", torch.device("cpu")], owners=[0, 1])
     assert m.shape == (2,) and m.owners == [0, 1]

@@ -371,13 +371,15 @@ def test_flag_snapshot_shares_galah_tpu_flags(monkeypatch):
         assert snap == want[name], name
     assert got["GALAH_OBS_HEARTBEAT_S"]["value"] == "0.25"
     assert got["GALAH_OBS_HEARTBEAT_S"]["set"] is True
-    # a flag of galah_tpu's that the port does not read (its 2D mesh's;
-    # GALAH_TPU_PLATFORM, GALAH_TPU_IR_CACHE and the paged sketch
-    # tier's GALAH_TPU_PAGESTORE, once this example, are read now)
-    assert {"GALAH_TPU_IR_CACHE", "GALAH_TPU_PAGESTORE"} <= set(got)
+    # a flag of galah_tpu's that the port does not read (its Mosaic
+    # pairlist block; GALAH_TPU_PLATFORM, GALAH_TPU_IR_CACHE, the paged
+    # sketch tier's GALAH_TPU_PAGESTORE and the 2D mesh's
+    # GALAH_TPU_MESH_SHAPE, once this example, are read now)
+    assert {"GALAH_TPU_IR_CACHE", "GALAH_TPU_PAGESTORE",
+            "GALAH_TPU_MESH_SHAPE"} <= set(got)
     with pytest.raises(KeyError):
         # galah-lint: ignore[GL401] the read must raise: not registered
-        tconfig.env_value("GALAH_TPU_MESH_SHAPE")
+        tconfig.env_value("GALAH_TPU_PAIRLIST_BLOCK")
 
 
 def test_schema_is_galah_tpus():
